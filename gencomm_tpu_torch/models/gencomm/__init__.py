@@ -1,0 +1,1 @@
+"""Part of the PyTorch port; mirrors the gencomm_tpu subpackage of the same name."""

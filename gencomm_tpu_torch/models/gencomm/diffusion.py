@@ -1,0 +1,83 @@
+"""GenComm conditional DDPM: generate each agent's BEV feature at the
+receiver from the ego feature and the agent's 2-channel message.
+
+Counterpart of ``gencomm_tpu/models/gencomm/diffusion.py``: linear-in-sqrt
+beta schedule, x0 parameterization, chain x_{T-1} = q_sample(ego) -> T-1
+reverse steps with posterior noise -> the last step returns the model
+output. The noise is an input: ``noises`` lists the q_sample draw and then
+one draw per reverse step, t = T-1 .. 1 (the order of the JAX draws);
+without it, the draws come from ``generator``.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from gencomm_tpu_torch.models.gencomm.unet import DiffusionUNet
+
+
+def make_schedule(num_timesteps: int, linear_start: float = 5e-3,
+                  linear_end: float = 5e-2) -> dict:
+    betas = np.linspace(np.sqrt(linear_start), np.sqrt(linear_end),
+                        num_timesteps) ** 2
+    alphas = 1.0 - betas
+    ac = np.cumprod(alphas)
+    ac_prev = np.append(1.0, ac[:-1])
+    posterior_variance = betas * (1.0 - ac_prev) / (1.0 - ac)
+    return {
+        "betas": betas,
+        "sqrt_alphas_cumprod": np.sqrt(ac),
+        "sqrt_one_minus_alphas_cumprod": np.sqrt(1.0 - ac),
+        "posterior_mean_coef1": betas * np.sqrt(ac_prev) / (1.0 - ac),
+        "posterior_mean_coef2": (1.0 - ac_prev) * np.sqrt(alphas) / (1.0 - ac),
+        "posterior_log_variance_clipped": np.log(
+            np.maximum(posterior_variance, 1e-20)),
+    }
+
+
+class GenCommDiffusion(nn.Module):
+    def __init__(self, feat_ch: int = 128, msg_ch: int = 2,
+                 num_timesteps: int = 3, unet_ch: int = 8,
+                 unet_ch_mult: Sequence[int] = (1, 1),
+                 unet_num_res_blocks: int = 2,
+                 unet_attn_resolutions: Sequence[int] = (16,)):
+        super().__init__()
+        self.num_timesteps = num_timesteps
+        self.denoiser = DiffusionUNet(
+            in_ch=feat_ch + msg_ch, out_ch=feat_ch, ch=unet_ch,
+            ch_mult=unet_ch_mult, num_res_blocks=unet_num_res_blocks,
+            attn_resolutions=unet_attn_resolutions)
+        self._sched = make_schedule(num_timesteps)
+
+    def forward(self, ego_feature, conditions, noises=None, generator=None):
+        """ego_feature (N, H, W, C): each slot's ego feature; conditions
+        (N, H, W, msg_ch): each slot's message -> generated (N, H, W, C)."""
+        s = self._sched
+        t_max = self.num_timesteps - 1
+        n = ego_feature.shape[0]
+        if noises is None:
+            noises = [torch.randn(ego_feature.shape, generator=generator,
+                                  dtype=torch.float32,
+                                  device=ego_feature.device)
+                      for _ in range(self.num_timesteps)]
+        if len(noises) != self.num_timesteps:
+            raise ValueError(f"expected {self.num_timesteps} noise tensors, "
+                             f"got {len(noises)}")
+        x = (float(s["sqrt_alphas_cumprod"][t_max]) * ego_feature
+             + float(s["sqrt_one_minus_alphas_cumprod"][t_max]) * noises[0])
+        for step, t in enumerate(range(t_max, -1, -1)):
+            t_vec = torch.full((n,), t, dtype=torch.int32,
+                               device=ego_feature.device)
+            model_out = self.denoiser(torch.cat([conditions, x], dim=-1), t_vec)
+            if t == 0:
+                x = model_out
+            else:
+                mean = (float(s["posterior_mean_coef1"][t]) * model_out
+                        + float(s["posterior_mean_coef2"][t]) * x)
+                x = mean + float(np.exp(
+                    0.5 * s["posterior_log_variance_clipped"][t])) * noises[step + 1]
+        return x
