@@ -22,7 +22,18 @@ Phases, each of which raises on failure:
      detections, finite outputs, and each kernel's launch count in this
      phase (it must be > 0);
   5. the same frame, weights and noise through the port on the CPU (plain
-     versions): cls/reg/dir must agree with the card's.
+     versions): cls/reg/dir must agree with the card's;
+  6. training, the flagship's fp32 train step with the settings of
+     configs/opv2v/gencomm/stage1/m1_att.yaml (batch 2 x 2 agents, AdamW,
+     multistep LR, point_pillar_gencomm_loss) through
+     gencomm_tpu_torch.train.trainer: the backward kernels (K1b deformable
+     conv, K2b pillar canvas, K3b affine warp) on the arguments the train
+     step gives them, held against their plain versions (K2b bit-exact) and
+     timed; 1 warm-up + 10 timed steps (CUDA events) with every kernel's
+     launch count (each must be > 0) and the loss terms of every step; 4
+     steps on one repeated batch, whose loss must fall; one step on the card
+     and on the port's CPU, whose losses must agree and whose gradients
+     must differ no more than the CPU's own under a 1e-7 input jitter.
 The last line is {"ok": true, "device": {...}}; before it come the
 card's nvidia-smi line and one JSON line with every kernel's numbers.
 Exits non-zero, printing no result, without a CUDA device.
@@ -31,6 +42,7 @@ Exits non-zero, printing no result, without a CUDA device.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -57,6 +69,7 @@ FLAGSHIP = dict(
     }},
     fusion_method="att", lidar_range=LIDAR_RANGE, anchor_number=2,
     use_gencomm=True, use_enhancer=True, half=False)
+FEATURE_SHAPE = (64, 128, 128)  # the fused map, H x W x C
 POSTPROCESS = {"gt_range": list(LIDAR_RANGE),
                "target_args": {"score_threshold": 0.2}, "nms_thresh": 0.15,
                "dir_args": {"dir_offset": 0.7853, "num_bins": 2},
@@ -66,6 +79,43 @@ TIMED_FRAMES = 10
 # over ~30 layers, and a bf16 canvas whose rounding can flip by one ulp
 # where the two PFN matmuls differ in the last bit
 CPU_TOL = 1e-3
+
+# training: configs/opv2v/gencomm/stage1/m1_att.yaml:108-141 (optimizer,
+# lr_scheduler, loss), with train_params.batch_size 2 (:7)
+TRAIN_HYPES = {
+    "optimizer": {"core_method": "Adam", "lr": 0.002,
+                  "args": {"eps": 1e-10, "weight_decay": 1e-4}},
+    "lr_scheduler": {"core_method": "multistep", "gamma": 0.1,
+                     "step_size": [10, 15]},
+    "loss": {"core_method": "point_pillar_gencomm_loss", "args": {
+        "pos_cls_weight": 2.0,
+        "cls": {"type": "SigmoidFocalLoss", "alpha": 0.25, "gamma": 2.0,
+                "weight": 2.0},
+        "reg": {"type": "WeightedSmoothL1Loss", "sigma": 3.0,
+                "codewise": True, "weight": 2.0},
+        "dir": {"type": "WeightedSoftmaxClassificationLoss", "weight": 0.2,
+                "args": {"dir_offset": 0.7853, "num_bins": 2,
+                         "anchor_yaw": [0, 90]}},
+        "generate_weight": 1}},
+}
+TRAIN_BATCH = 2
+TRAIN_SEED = 0  # tools/train.py batches(): sample(seed * 10000 + step, 2)
+TIMED_STEPS = 10
+# K1b vs its plain version: fp32 sums of up to 32,768 random-sign terms
+# (dW over the pixels, dx by atomics in a run-dependent order) taken in
+# other orders; each term rounds at ~6e-8 relative, and the cancellation
+# between terms is bounded well inside 1e-3 of the output's largest value
+K1B_TOL = 1e-3
+# card vs CPU gradients. At the random-weight flagship point they move with
+# the last bits of the inputs: a 1e-7 relative jitter of the CPU step's
+# input points moves them by up to ~4e-2 (L2, the deep backbone levels),
+# and two card runs differ by ~1e-4 (atomics). So the card's gradients are
+# held to GRAD_FACTOR x the CPU's own jitter sensitivity, measured in the
+# same run, per worst parameter (L2 norm of the difference over the norm)
+JITTER = 1e-7
+GRAD_FACTOR = 3.0
+GRAD_FLOOR = 1e-4
+LOSS_TOL = 1e-3  # relative, the losses of the same step
 
 
 def log(*a):
@@ -101,6 +151,47 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def bound(flops, moved):
+    """(ms, what bounds it): the least time for ``flops`` fp32 operations
+    and ``moved`` bytes on the card."""
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, moved / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
+                                       else "bytes")
+
+
+def log_rows(rows):
+    for row in rows:
+        log(f"  {row['name']}: kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, library {row['library_ms']} ms, "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+
+
+def record_calls(targets, run):
+    """Calls ``run()`` with each wrapper ``(module, name)`` of ``targets``
+    replaced by one that records the arguments of its last call (tensors
+    detached and cloned); returns {name: arguments}."""
+    import torch
+
+    seen = {}
+
+    def recorder(name, fn):
+        def wrapped(*args):
+            seen[name] = tuple(a.detach().clone() if torch.is_tensor(a) else a
+                               for a in args)
+            return fn(*args)
+        return wrapped
+
+    saved = [getattr(mod, attr) for mod, attr in targets]
+    try:
+        for (mod, attr), fn in zip(targets, saved):
+            setattr(mod, attr, recorder(attr, fn))
+        run()
+    finally:
+        for (mod, attr), fn in zip(targets, saved):
+            setattr(mod, attr, fn)
+    return seen
+
+
 def capture_kernel_inputs(model, batch, noises):
     """One forward pass that records the arguments the main path gives
     each kernel wrapper."""
@@ -109,54 +200,43 @@ def capture_kernel_inputs(model, batch, noises):
     from gencomm_tpu_torch.models.fuse import fusion
     from gencomm_tpu_torch.ops import deform_conv
 
-    seen = {}
-    originals = [(point_pillar, "pillar_canvas"), (deform_conv, "deform_conv3x3"),
-                 (fusion, "warp_affine")]
-
-    def recorder(name, fn):
-        def wrapped(*args):
-            seen[name] = tuple(a.clone() if torch.is_tensor(a) else a
-                               for a in args)
-            return fn(*args)
-        return wrapped
-
-    saved = [getattr(mod, attr) for mod, attr in originals]
-    try:
-        for (mod, attr), fn in zip(originals, saved):
-            setattr(mod, attr, recorder(attr, fn))
+    def run():
         with torch.inference_mode():
             model(batch, noises=noises)
-    finally:
-        for (mod, attr), fn in zip(originals, saved):
-            setattr(mod, attr, fn)
-    return seen
+
+    return record_calls([(point_pillar, "pillar_canvas"),
+                         (deform_conv, "deform_conv3x3"),
+                         (fusion, "warp_affine")], run)
 
 
-def profile_frames(pipe, batch, frame_ms, n=3):
-    """Device busy time per frame and the kernels that take it, from
-    torch.profiler over ``n`` frames; the idle share is against the
-    CUDA-event frame time of phase 4."""
+def profile_device(run, period_ms, n, unit):
+    """Device busy time per ``unit`` and the kernels that take it, from
+    torch.profiler over ``n`` calls of ``run(i)``; the idle share is against
+    the CUDA-event time ``period_ms`` per unit."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for i in range(n):
-            pipe.run(batch, seed=100 + i)
+            run(i)
         torch.cuda.synchronize()
-    # kernel-level events only: the aten ops above them carry the same
-    # device time again
+    # kernel-level events only: the aten ops above them, and annotations
+    # such as the optimizer's step range, carry the same device time again
     rows = [(ev.self_device_time_total / n / 1e3, ev.count / n, ev.key)
             for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0]
+            if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
+            and not getattr(ev, "is_user_annotation", False)
+            and not ev.key.startswith("Optimizer.")]
     busy = sum(r[0] for r in rows)
     launches = sum(r[1] for r in rows)
     if busy <= 0:
         log("profile: the profiler saw no device time")
         return
-    log(f"profile: device busy {busy:.3f} ms/frame of {frame_ms:.3f} ms "
-        f"(idle share {1 - busy / frame_ms:.3f}), {launches:.0f} kernels "
-        f"and copies per frame; top by device time (ms/frame, calls/frame):")
+    log(f"profile: device busy {busy:.3f} ms/{unit} of {period_ms:.3f} ms "
+        f"(idle share {1 - busy / period_ms:.3f}), {launches:.0f} kernels "
+        f"and copies per {unit}; top by device time (ms/{unit}, "
+        f"calls/{unit}):")
     for dev_ms, calls, key in sorted(rows, reverse=True)[:15]:
         log(f"  {dev_ms:8.4f} {calls:6.0f}  {key[:90]}")
 
@@ -190,9 +270,8 @@ def check_kernels(inputs):
         f"{9 * cin} products in another order)")
     if not err <= tol:
         raise AssertionError(f"K1 disagrees with its plain version: {err}")
-    flops = 2.0 * b * h * w * 9 * cin * cout
-    k1_bytes = nbytes(x, off, wt, got)
-    bound = max(flops / PEAK_FP32_FLOPS, k1_bytes / PEAK_BYTES) * 1e3
+    bound_ms, bound_by = bound(2.0 * b * h * w * 9 * cin * cout,
+                               nbytes(x, off, wt, got))
     rows.append(dict(
         name="deform_conv3x3", route="cuda",
         source="gencomm_tpu_torch/csrc/deform_conv.cu",
@@ -200,10 +279,7 @@ def check_kernels(inputs):
         max_abs_err=err,
         ms=time_ms(lambda: deform_conv3x3(x, off, wt)),
         plain_ms=time_ms(lambda: deform_conv3x3_plain(x, off, wt), iters=5),
-        bound_ms=bound,
-        bound_by="operations" if flops / PEAK_FP32_FLOPS > k1_bytes / PEAK_BYTES
-        else "bytes",
-        library_ms=None))
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
 
     # K2: pillar segment-max canvas
     r, g, n_agents, ncell = inputs["pillar_canvas"]
@@ -257,11 +333,296 @@ def check_kernels(inputs):
         library_ms=time_ms(lambda: F.grid_sample(
             src_nchw, grid, mode="bilinear", padding_mode="zeros",
             align_corners=False))))
-    for row in rows:
-        log(f"  {row['name']}: kernel {row['ms']:.4f} ms, plain "
-            f"{row['plain_ms']:.4f} ms, library {row['library_ms']} ms, "
-            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    log_rows(rows)
     return rows
+
+
+def capture_backward_inputs(model, criterion, batch, noises):
+    """One forward and backward of the train step (no update) that records
+    the arguments the training path gives each backward kernel wrapper."""
+    from gencomm_tpu_torch.ops import deform_conv, pillar_canvas, warp
+
+    def run():
+        criterion(model(batch, noises=noises), batch)["total_loss"].backward()
+
+    seen = record_calls([(deform_conv, "deform_conv3x3_bwd"),
+                         (pillar_canvas, "pillar_canvas_bwd"),
+                         (warp, "warp_affine_bwd")], run)
+    model.zero_grad(set_to_none=True)
+    return seen
+
+
+def check_backward_kernels(inputs):
+    """Phase 6: each backward kernel against its plain version on the
+    train step's arguments; returns the rows of the kernels JSON line
+    (launches filled in later)."""
+    import torch
+    import torch.nn.functional as F
+    from gencomm_tpu_torch.ops.deform_conv import (
+        deform_conv3x3_bwd, deform_conv3x3_bwd_plain,
+    )
+    from gencomm_tpu_torch.ops.pillar_canvas import (
+        pillar_canvas_bwd, pillar_canvas_bwd_plain,
+    )
+    from gencomm_tpu_torch.ops.warp import (
+        warp_affine_bwd, warp_affine_bwd_plain,
+    )
+
+    rows = []
+
+    # K1b: deformable conv backward
+    x, off, wt, g = inputs["deform_conv3x3_bwd"]
+    b, h, w, cin = x.shape
+    cout = wt.shape[-1]
+    got = deform_conv3x3_bwd(x, off, wt, g)
+    want = deform_conv3x3_bwd_plain(x, off, wt, g)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, gv, wv in zip(("dx", "doffsets", "dweight"), got, want):
+        e = float((gv - wv).abs().max())
+        scale = float(wv.abs().max())
+        log(f"K1b {name}{tuple(gv.shape)}: max|kernel-plain| {e:.3e}, "
+            f"max|plain| {scale:.3e} (tol {K1B_TOL:.0e} x max|plain|: fp32 "
+            f"sums of up to {b * h * w} terms in other orders)")
+        if not e <= K1B_TOL * scale:
+            raise AssertionError(f"K1b {name} disagrees with its plain "
+                                 f"version: {e} vs scale {scale}")
+        err = max(err, e)
+    npix = b * h * w
+    bound_ms, bound_by = bound(
+        4.0 * npix * 9 * cin * cout + 24.0 * npix * 9 * cin,
+        nbytes(x, off, wt, g, *got))
+    rows.append(dict(
+        name="deform_conv3x3_bwd", route="cuda",
+        source="gencomm_tpu_torch/csrc/deform_conv_bwd.cu",
+        replaces="gencomm_tpu/ops/deform_pallas.py:93",
+        max_abs_err=err,
+        ms=time_ms(lambda: deform_conv3x3_bwd(x, off, wt, g)),
+        plain_ms=time_ms(lambda: deform_conv3x3_bwd_plain(x, off, wt, g),
+                         iters=5),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+
+    # K2b: pillar canvas backward
+    r, gids, canvas, gout, n_agents, ncell = inputs["pillar_canvas_bwd"]
+    got = pillar_canvas_bwd(r, gids, canvas, gout, n_agents, ncell)
+    want = pillar_canvas_bwd_plain(r, gids, canvas, gout, n_agents, ncell)
+    torch.cuda.synchronize()
+    same = torch.equal(got.view(torch.int16), want.view(torch.int16))
+    err = float((got.float() - want.float()).abs().max())
+    m, c = r.shape
+    cells = (torch.arange(m, device=r.device) // (m // n_agents) * ncell
+             + gids.long().clamp(0, ncell - 1))
+    n_cells = int(torch.unique(cells).numel())
+    log(f"K2b pillar_canvas_bwd rows{tuple(r.shape)}: bit-exact {same}, "
+        f"{n_cells} cells hold rows, {int((got != 0).any(-1).sum())} rows "
+        f"get a gradient")
+    if not same:
+        raise AssertionError(f"K2b is not bit-exact (max abs diff {err})")
+    # the library's yardstick: autograd of one scatter_reduce amax
+    r_req = r.detach().clone().requires_grad_()
+    lib_out = torch.zeros(n_agents * ncell, c, dtype=r.dtype,
+                          device=r.device).scatter_reduce(
+        0, cells[:, None].expand(m, c), r_req, "amax", include_self=True)
+    gflat = gout.reshape(-1, c)
+    k2b_bytes = nbytes(r, gids, got) + 2 * n_cells * c * r.element_size()
+    rows.append(dict(
+        name="pillar_canvas_bwd", route="cuda",
+        source="gencomm_tpu_torch/csrc/pillar_canvas_bwd.cu",
+        replaces="gencomm_tpu/models/encoders/point_pillar.py:189",
+        max_abs_err=err,
+        ms=time_ms(lambda: pillar_canvas_bwd(r, gids, canvas, gout,
+                                             n_agents, ncell)),
+        plain_ms=time_ms(lambda: pillar_canvas_bwd_plain(
+            r, gids, canvas, gout, n_agents, ncell)),
+        bound_ms=k2b_bytes / PEAK_BYTES * 1e3, bound_by="bytes",
+        library_ms=time_ms(lambda: torch.autograd.grad(
+            lib_out, r_req, gflat, retain_graph=True))))
+
+    # K3b: affine warp backward
+    g3, theta = inputs["warp_affine_bwd"]
+    got = warp_affine_bwd(g3, theta)
+    want = warp_affine_bwd_plain(g3, theta)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    h3, w3 = g3.shape[1], g3.shape[2]
+    tol = 16.0 * max(h3, w3) * 2.0 ** -23 * float(g3.abs().max())
+    log(f"K3b warp_affine_bwd g{tuple(g3.shape)}: max|kernel-plain| "
+        f"{err:.3e} (tol {tol:.3e}: a one-ulp difference of the sampling "
+        f"coordinate times the cotangent, over up to 16 contributions)")
+    if not err <= tol:
+        raise AssertionError(f"K3b disagrees with its plain version: {err}")
+    src_req = torch.zeros(g3.shape, device=g3.device).permute(
+        0, 3, 1, 2).contiguous().requires_grad_()
+    grid = F.affine_grid(theta, list(src_req.shape), align_corners=False)
+    lib_out = F.grid_sample(src_req, grid, mode="bilinear",
+                            padding_mode="zeros", align_corners=False)
+    g_nchw = g3.permute(0, 3, 1, 2).contiguous()
+    rows.append(dict(
+        name="warp_affine_bwd", route="cuda",
+        source="gencomm_tpu_torch/csrc/warp_affine_bwd.cu",
+        replaces="gencomm_tpu/ops/warp_pallas.py:122",
+        max_abs_err=err,
+        ms=time_ms(lambda: warp_affine_bwd(g3, theta)),
+        plain_ms=time_ms(lambda: warp_affine_bwd_plain(g3, theta)),
+        bound_ms=nbytes(g3, theta, got) / PEAK_BYTES * 1e3, bound_by="bytes",
+        library_ms=time_ms(lambda: torch.autograd.grad(
+            lib_out, src_req, g_nchw, retain_graph=True))))
+    log_rows(rows)
+    return rows
+
+
+def log_grad_errors(label, model, ref_model):
+    """Per parameter, max|g - g_ref| / max|g_ref| and |g - g_ref| / |g_ref|
+    (L2) of the gradients; logs the worst five and returns the worst L2."""
+    ref = dict(ref_model.named_parameters())
+    errs = []
+    for name, p in model.named_parameters():
+        want = ref[name].grad.double()
+        diff = p.grad.detach().cpu().double() - want
+        errs.append((float(diff.norm() / want.norm()),
+                     float(diff.abs().max() / want.abs().max()), name))
+    errs.sort()
+    log(f"{label}, gradients of {len(errs)} parameters, worst five by L2: "
+        + ", ".join(f"{n} {l2:.2e} (max {mx:.2e})" for l2, mx, n in errs[-5:]))
+    return errs[-1][0]
+
+
+def train_phase(smi, cfg, dev):
+    """Phase 6; returns the backward kernels' rows of the JSON line."""
+    import torch
+    from gencomm_tpu_torch.data.bucketing import trim_agent_slots
+    from gencomm_tpu_torch.data.decorate import decorate_modality
+    from gencomm_tpu_torch.data.synthetic import SyntheticScenes
+    from gencomm_tpu_torch.loss import build_loss
+    from gencomm_tpu_torch.models.heter_baseline import HeterModel
+    from gencomm_tpu_torch.native import PillarVoxelizer
+    from gencomm_tpu_torch.ops import _cuda
+    from gencomm_tpu_torch.pipeline import batch_to_device
+    from gencomm_tpu_torch.train.trainer import make_optimizer, make_train_step
+    from gencomm_tpu_torch.weights import random_state_dict
+
+    scenes = SyntheticScenes(cfg)
+    voxelizer = PillarVoxelizer(LIDAR_RANGE, VOXEL)
+    t0 = time.perf_counter()
+    hosts = [decorate_modality(trim_agent_slots(
+        scenes.sample(TRAIN_SEED * 10000 + i, TRAIN_BATCH), buckets=(2, 3, 5)),
+        voxelizer) for i in range(1 + TIMED_STEPS)]
+    batches = [batch_to_device(h, dev) for h in hosts]
+    log(f"train batches: {len(hosts)} x {TRAIN_BATCH} samples, "
+        f"{hosts[0]['agent_mask'].shape[1]} agent slots each, sampled, "
+        f"labelled and decorated on the host in "
+        f"{time.perf_counter() - t0:.3f} s; "
+        f"{int(hosts[0]['pos_equal_one'].sum())} positive anchors in the first")
+
+    def fresh(device):
+        model = HeterModel(**FLAGSHIP, device=device)
+        model.load_state_dict(state)
+        model.train()
+        opt, sched = make_optimizer(TRAIN_HYPES, model.parameters())
+        return model, make_train_step(model, criterion, opt, sched)
+
+    criterion = build_loss(TRAIN_HYPES["loss"])
+    state = random_state_dict(HeterModel(**FLAGSHIP, device=dev), seed=0)
+    n_slots = hosts[0]["agent_mask"].size
+    gen = torch.Generator().manual_seed(2)
+    noises = [torch.randn((n_slots,) + FEATURE_SHAPE, generator=gen)
+              for _ in range(3)]
+    noises_dev = [t.to(dev) for t in noises]
+
+    # the backward kernels on the train step's arguments
+    model, step = fresh(dev)
+    inputs = capture_backward_inputs(model, criterion, batches[0], noises_dev)
+    rows = check_backward_kernels(inputs)
+
+    # the training main path, counted and timed
+    for k in _cuda.LAUNCHES:
+        _cuda.LAUNCHES[k] = 0
+    dgen = torch.Generator(device=dev).manual_seed(3)
+    step_losses = [step(batches[0], generator=dgen)]  # warm-up
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(1, 1 + TIMED_STEPS):
+        step_losses.append(step(batches[i], generator=dgen))
+    end.record()
+    end.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    ms = start.elapsed_time(end) / TIMED_STEPS
+    for i, losses in enumerate(step_losses):
+        vals = {k: float(v) for k, v in losses.items()}
+        log(f"  step {i}{' (warm-up)' if i == 0 else ''}: "
+            + ", ".join(f"{k} {v:.6f}" for k, v in sorted(vals.items())))
+        if not all(math.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"step {i}: non-finite loss {vals}")
+    log(f"train path: {1 + TIMED_STEPS} steps, {ms:.3f} ms/step, "
+        f"{1000.0 / ms:.3f} steps/s, {TRAIN_BATCH * 1000.0 / ms:.2f} training "
+        f"frames/s (fp32, TF32 off, batch {TRAIN_BATCH} x {n_slots // TRAIN_BATCH}"
+        f" agents) on {smi}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+        f"launches {launches}")
+    for k, v in launches.items():
+        if v <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the "
+                                 "training path")
+    for row in rows:
+        row["launches"] = launches[row["name"]]
+    profile_device(lambda i: step(batches[i], generator=dgen), ms, 2, "step")
+
+    # the loss falls over 4 steps on one repeated batch
+    model, step = fresh(dev)
+    totals = [float(step(batches[0], noises=noises_dev)["total_loss"])
+              for _ in range(4)]
+    log(f"4 steps on one batch: total_loss {totals}")
+    if not totals[-1] < totals[0]:
+        raise AssertionError(f"the loss did not fall: {totals}")
+
+    # one step on the card and on the port's CPU; the CPU step once more
+    # with its input points jittered by JITTER (relative), which measures
+    # how far the gradients move with the last bits of the inputs
+    model, step = fresh(dev)
+    card = step(batches[0], noises=noises_dev)
+    cpu_batch = batch_to_device(hosts[0], "cpu")
+    cpu_model, cpu_step = fresh("cpu")
+    t0 = time.perf_counter()
+    cpu = cpu_step(cpu_batch, noises=noises)
+    cpu_s = time.perf_counter() - t0
+    for k, v in cpu.items():
+        a, b = float(card[k]), float(v)
+        log(f"card vs CPU {k}: {a:.7f} vs {b:.7f}")
+        if not abs(a - b) <= LOSS_TOL * max(abs(b), 1e-6):
+            raise AssertionError(f"{k}: card and CPU disagree ({a} vs {b})")
+    jit_model, jit_step = fresh("cpu")
+    jgen = torch.Generator().manual_seed(4)
+    pts = cpu_batch["decorated_m1"]
+    jit_step(dict(cpu_batch, decorated_m1=pts * (
+        1.0 + JITTER * torch.randn(pts.shape, generator=jgen))), noises=noises)
+    log(f"CPU step took {cpu_s:.1f} s")
+    sensitivity = log_grad_errors(f"CPU vs CPU with a {JITTER:.0e} input jitter",
+                                  jit_model, cpu_model)
+    worst = log_grad_errors("card vs CPU", model, cpu_model)
+    tol = GRAD_FACTOR * sensitivity + GRAD_FLOOR
+    log(f"card vs CPU gradients: worst |card-cpu|/|cpu| (L2) {worst:.3e}, "
+        f"tol {GRAD_FACTOR} x {sensitivity:.3e} + {GRAD_FLOOR:.0e}")
+    if not worst <= tol:
+        raise AssertionError(f"gradients disagree: {worst} > {tol}")
+    return rows
+
+
+def log_k4_bound():
+    """The bound of the LSS top-K splat (K4, not ported yet) at the shapes
+    of configs/opv2v/gencomm/stage1/m2_att.yaml, per camera agent: 4
+    cameras of 384 x 512 at img_downsample 8 (48 x 64 feature pixels each),
+    depth_topk 8, 128 image features, a 256 x 256 x 1 grid (0.4 m over
+    +-51.2 m); fp32 canvas, int32 ids."""
+    p, k, c, cells = 4 * (384 // 8) * (512 // 8), 8, 128, 256 * 256
+    flops = 2.0 * p * k * c
+    moved = p * k * (4 + 4) + p * c * 4 + cells * c * 4
+    bound_ms, bound_by = bound(flops, moved)
+    log(f"K4 splat_topk (not ported): {p} pixel rows x {k} depths x {c} "
+        f"features into {cells} cells: {flops / 1e6:.1f} MFLOP, "
+        f"{moved / 1e6:.1f} MB, bound {bound_ms:.4f} ms ({bound_by}) per "
+        f"camera agent")
 
 
 def main() -> int:
@@ -322,12 +683,14 @@ def main() -> int:
     pipe = InferencePipeline(model, scenes.anchors, POSTPROCESS, device=dev)
     gen = torch.Generator().manual_seed(1)
     n = host["agent_mask"].size
-    noises = [torch.randn(n, 64, 128, 128, generator=gen) for _ in range(3)]
+    noises = [torch.randn((n,) + FEATURE_SHAPE, generator=gen)
+              for _ in range(3)]
     noises_dev = [t.to(dev) for t in noises]
 
     # phase 3: kernels on the main path's inputs
     inputs = capture_kernel_inputs(model, batch, noises_dev)
     kernel_rows = check_kernels(inputs)
+    log_k4_bound()
 
     # phase 4: the main path, counted and timed
     for k in _cuda.LAUNCHES:
@@ -352,13 +715,13 @@ def main() -> int:
     if not (torch.isfinite(dets.corners3d[dets.valid]).all()
             and torch.isfinite(dets.scores).all()):
         raise AssertionError("non-finite detections")
-    for k, v in launches.items():
-        if v <= 0:
-            raise AssertionError(f"kernel {k} was not launched on the main path")
-    for row in kernel_rows:
+    for row in kernel_rows:  # the eval path runs the forward kernels
+        if launches[row["name"]] <= 0:
+            raise AssertionError(f"kernel {row['name']} was not launched on "
+                                 "the main path")
         row["launches"] = launches[row["name"]]
 
-    profile_frames(pipe, batch, ms)
+    profile_device(lambda i: pipe.run(batch, seed=100 + i), ms, 3, "frame")
 
     # phase 5: the same frame, weights and noise on the CPU
     with torch.inference_mode():
@@ -379,6 +742,9 @@ def main() -> int:
         if not err <= CPU_TOL * scale:
             raise AssertionError(f"{key}: card and CPU disagree ({err})")
     log(f"CPU forward took {cpu_s:.1f} s")
+
+    # phase 6: training
+    kernel_rows += train_phase(smi, cfg, dev)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": kernel_rows}), flush=True)

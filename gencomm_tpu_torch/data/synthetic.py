@@ -1,10 +1,12 @@
-"""Synthetic multi-agent V2X scenes: the eval fields.
+"""Synthetic multi-agent V2X scenes: eval fields and anchor labels.
 
 Counterpart of ``gencomm_tpu/data/synthetic.py`` (``SyntheticScenes.sample``)
 for lidar modalities: points, masks, pairwise transforms and GT boxes, drawn
-from the same numpy RNG stream, so the same seed gives the same arrays.
-Anchor labels, camera rendering and the robustness knobs (pose noise,
-delay, spawn radius) belong to later slices.
+from the same numpy RNG stream, so the same seed gives the same arrays, and
+the ego-frame anchor labels ``pos_equal_one``, ``neg_equal_one`` and
+``targets`` (``generate_label``, which draws no random numbers). Per-agent
+labels, camera rendering and the robustness knobs (pose noise, delay, spawn
+radius) belong to later slices.
 """
 
 from __future__ import annotations
@@ -13,7 +15,10 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from gencomm_tpu_torch.data.postprocessor import generate_anchor_box
+from gencomm_tpu_torch.data.postprocessor import (
+    generate_anchor_box,
+    generate_label,
+)
 from gencomm_tpu_torch.utils import box_utils
 from gencomm_tpu_torch.utils.transformation_utils import (
     get_pairwise_transformation,
@@ -37,6 +42,10 @@ class SyntheticConfig:
     anchor_w: float = 1.6
     anchor_h: float = 1.56
     anchor_yaw_deg: tuple = (0.0, 90.0)
+    pos_threshold: float = 0.6
+    neg_threshold: float = 0.45
+    # per-agent labels (supervise_single) are not ported: True raises
+    per_agent_labels: bool = False
     modalities: dict = field(
         default_factory=lambda: {"m1": {"sensor": "lidar"}}
     )
@@ -51,6 +60,9 @@ class SyntheticScenes:
         if cams:
             raise NotImplementedError(
                 f"camera modalities {cams} are not ported yet")
+        if c.per_agent_labels:
+            raise NotImplementedError(
+                "per-agent labels (supervise_single) are not ported yet")
         W = int(round((c.lidar_range[3] - c.lidar_range[0]) / c.voxel_size[0]))
         H = int(round((c.lidar_range[4] - c.lidar_range[1]) / c.voxel_size[1]))
         self.anchor_args = {
@@ -80,7 +92,7 @@ class SyntheticScenes:
                         axis=1)
 
     def sample(self, seed: int, batch_size: int = 1) -> dict:
-        """A batch dict of numpy arrays: model inputs and eval GT."""
+        """A batch dict of numpy arrays: model inputs, labels and eval GT."""
         rng = np.random.RandomState(seed % (2 ** 32))
         c = self.cfg
         B, L, P = batch_size, c.max_cav, c.points_per_agent
@@ -90,6 +102,10 @@ class SyntheticScenes:
         modality_mask = {m: np.zeros((B, L), bool) for m in mod_names}
         agent_mask = np.zeros((B, L), bool)
         pairwise = np.tile(np.eye(4, dtype=np.float32), (B, L, L, 1, 1))
+        pos = np.zeros((B,) + self.anchors.shape[:3], np.float32)
+        neg = np.zeros_like(pos)
+        targets = np.zeros((B,) + self.anchors.shape[:2]
+                           + (self.anchors.shape[2] * 7,), np.float32)
         gt_boxes = np.zeros((B, c.max_gt, 7), np.float32)
         gt_mask = np.zeros((B, c.max_gt), np.float32)
 
@@ -135,9 +151,18 @@ class SyntheticScenes:
                 points_mod[mk][b, i, :, 3] = rng.uniform(0, 1, P)
                 point_mask_mod[mk][b, i] = True
 
+            label = generate_label(gt_boxes[b], gt_mask[b], self.anchors,
+                                   c.pos_threshold, c.neg_threshold)
+            pos[b] = label["pos_equal_one"]
+            neg[b] = label["neg_equal_one"]
+            targets[b] = label["targets"]
+
         batch = {
             "agent_mask": agent_mask,
             "pairwise_t_matrix": pairwise,
+            "pos_equal_one": pos,
+            "neg_equal_one": neg,
+            "targets": targets,
             "gt_boxes": gt_boxes,
             "gt_mask": gt_mask,
         }

@@ -1,10 +1,11 @@
 """PointPillars BEV encoder, host-decorated path.
 
 Counterpart of ``gencomm_tpu/models/encoders/point_pillar.py``
-(``PFNLayer``, ``MaskedBatchNorm`` at eval, ``_from_decorated``): the 10-dim
-decorated points go through the PFN (Linear without bias, batch norm from
-running statistics, ReLU), are masked and cast to bf16, and kernel K2 builds
-the per-agent canvas. The raw-point and voxel-list paths are not ported.
+(``PFNLayer``, ``MaskedBatchNorm``, ``_from_decorated``): the 10-dim
+decorated points go through the PFN (Linear without bias, masked batch
+norm, ReLU), are masked and cast to bf16, and kernel K2 builds the
+per-agent canvas (K2b its gradient in training). The raw-point and
+voxel-list paths are not ported.
 """
 
 from __future__ import annotations
@@ -14,13 +15,17 @@ from typing import Sequence, Tuple
 import torch
 from torch import nn
 
-from gencomm_tpu_torch.models.layers import Dense
+from gencomm_tpu_torch.models.layers import Dense, update_running_stats
 from gencomm_tpu_torch.ops.pillar_canvas import pillar_canvas
 
 
 class MaskedBatchNorm(nn.Module):
-    """Batch norm over points; at eval it reads the running statistics
-    (eps 1e-3): y = (x - mean) * rsqrt(var + eps) * scale + bias."""
+    """Batch norm over points (eps 1e-3, momentum 0.99): y = (x - mean) *
+    rsqrt(var + eps) * scale + bias. At eval it reads the running
+    statistics. In training the statistics are taken over the valid rows
+    only, the variance in two passes, ((x - mean)^2 * valid).sum() / n with
+    n = max(#valid, 1), and update the running statistics. Built in eval
+    mode, like ``BatchNorm``."""
 
     def __init__(self, num_features: int, eps: float = 1e-3):
         super().__init__()
@@ -29,9 +34,18 @@ class MaskedBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+        self.eval()
 
-    def forward(self, x):
-        y = (x - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
+    def forward(self, x, valid):
+        if self.training:
+            vf = valid.to(x.dtype)[:, None]
+            n = vf.sum().clamp_min(1.0)
+            mean = (x * vf).sum(dim=0) / n
+            var = ((x - mean) ** 2 * vf).sum(dim=0) / n
+            update_running_stats(self, mean, var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (x - mean) * torch.rsqrt(var + self.eps)
         return y * self.weight + self.bias
 
 
@@ -41,10 +55,10 @@ class PFNLayer(nn.Module):
         self.Dense_0 = Dense(in_ch, features, bias=not use_norm)
         self.MaskedBatchNorm_0 = MaskedBatchNorm(features) if use_norm else None
 
-    def forward(self, x):
+    def forward(self, x, valid):
         x = self.Dense_0(x)
         if self.MaskedBatchNorm_0 is not None:
-            x = self.MaskedBatchNorm_0(x)
+            x = self.MaskedBatchNorm_0(x, valid)
         return torch.relu(x)
 
 
@@ -68,10 +82,11 @@ class PointPillarEncoder(nn.Module):
         b, l, p, d = decorated.shape
         ncell = self.nx * self.ny
         x = decorated.reshape(b * l * p, d)
+        valid = dvalid.reshape(b * l * p)
         for layer in self.children():
-            x = layer(x)
-        valid = dvalid.reshape(b * l * p, 1)
-        rows = torch.where(valid, x, torch.zeros_like(x)).to(torch.bfloat16)
+            x = layer(x, valid)
+        rows = torch.where(valid[:, None], x, torch.zeros_like(x)).to(
+            torch.bfloat16)
         flat_gids = gids.reshape(-1).clamp_max(ncell - 1).to(torch.int32)
         canvas = pillar_canvas(rows.contiguous(), flat_gids.contiguous(),
                                b * l, ncell)

@@ -2,8 +2,9 @@
 
 Counterpart of ``gencomm_tpu/models/fuse/fusion.py`` (``warp_to_ego``,
 ``AttFusion``): every agent's feature is warped into the ego frame by kernel
-K3, then a per-pixel scaled-dot attention with the ego as the only query,
-masked at -1e9 for empty slots. The other fusions are not ported.
+K3 (its gradient by K3b), then a per-pixel scaled-dot attention with the
+ego as the only query, masked at -1e9 for empty slots. The other fusions
+are not ported.
 """
 
 from __future__ import annotations

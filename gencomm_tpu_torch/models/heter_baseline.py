@@ -1,10 +1,13 @@
-"""Heterogeneous collaboration model, GenComm stage-1 eval path.
+"""Heterogeneous collaboration model, GenComm stage 1, eval and training.
 
 Counterpart of ``gencomm_tpu/models/heter_baseline.py`` (``ModalityBranch``,
 ``HeterModel.__call__``) restricted to: host-decorated point_pillar
 modalities, ``use_gencomm`` (message extractor + conditional DDPM),
-``use_enhancer`` and ``att`` fusion, fp32 activations. Every other branch
-raises ``NotImplementedError``. Inputs are padded ``(B, L, ...)`` tensors with
+``use_enhancer`` and ``att`` fusion, fp32 activations. The model is built
+in ``eval()``; under ``train()`` only the batch norms change (batch
+statistics, running averages updated), as in stage 1 of the JAX model,
+whose other train-time branches are off there. Every other branch raises
+``NotImplementedError``. Inputs are padded ``(B, L, ...)`` tensors with
 masks, agent slot 0 the ego; submodule names follow the flax auto-names so
 ``weights.py`` can carry JAX parameters across.
 """
@@ -123,7 +126,9 @@ class HeterModel(nn.Module):
         """batch: tensors on the model's device (``agent_mask``,
         ``pairwise_t_matrix``, ``modality_mask_<m>`` and the decorated
         fields ``decorated_<m>``, ``gids_<m>``, ``dvalid_<m>``). ``noises``
-        or ``generator`` feed the diffusion (see GenCommDiffusion)."""
+        or ``generator`` feed the diffusion (see GenCommDiffusion). The
+        output keeps ``gt_feature``, ``pred_feature`` and ``feature_mask``
+        for the generation loss."""
         out: Dict[str, Any] = {}
         agent_mask = batch["agent_mask"].bool()
         b, l = agent_mask.shape

@@ -6,7 +6,7 @@ keep PyTorch's parameter layouts; ``weights.py`` carries flax parameters
 into them. Convolutions run as ``F.conv2d`` on a channels-last view, so the
 NHWC <-> NCHW permutes move no data. Normalization statistics follow flax:
 Var = E[x^2] - E[x]^2, clipped at 0, and y = (x - mean) * (rsqrt(var + eps)
-* scale) + bias.
+* scale) + bias. ``BatchNorm`` takes batch statistics under ``train()``.
 """
 
 from __future__ import annotations
@@ -81,8 +81,29 @@ class Dense(nn.Linear):
     """flax ``nn.Dense``: a Linear over the last axis."""
 
 
+def _fast_stats(x, dims, keepdim=True):
+    mean = x.mean(dim=dims, keepdim=keepdim)
+    var = ((x * x).mean(dim=dims, keepdim=keepdim) - mean * mean).clamp_min(0.0)
+    return mean, var
+
+
+def update_running_stats(norm: nn.Module, mean, var,
+                         momentum: float = 0.99) -> None:
+    """flax's running averages: running = momentum * running + (1 -
+    momentum) * batch, with the biased batch variance. Outside autograd."""
+    with torch.no_grad():
+        norm.running_mean.mul_(momentum).add_((1.0 - momentum) * mean)
+        norm.running_var.mul_(momentum).add_((1.0 - momentum) * var)
+
+
 class BatchNorm(nn.Module):
-    """Inference batch norm over the last axis, from running statistics."""
+    """flax ``nn.BatchNorm`` over the last axis (momentum 0.99, eps 1e-3).
+    At eval it reads the running statistics. In training it normalizes by
+    the batch's: the mean and the biased fast variance E[x^2] - E[x]^2,
+    clipped at 0 (flax ``use_fast_variance``), which also update the
+    running statistics (``update_running_stats``). Built in eval mode, as
+    flax modules default to ``train=False``; a parent's ``train()`` switches
+    it."""
 
     def __init__(self, num_features: int, eps: float = 1e-3):
         super().__init__()
@@ -91,16 +112,17 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+        self.eval()
 
     def forward(self, x):
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x - self.running_mean) * mul + self.bias
-
-
-def _fast_stats(x, dims):
-    mean = x.mean(dim=dims, keepdim=True)
-    var = ((x * x).mean(dim=dims, keepdim=True) - mean * mean).clamp_min(0.0)
-    return mean, var
+        if self.training:
+            mean, var = _fast_stats(x, tuple(range(x.dim() - 1)),
+                                    keepdim=False)
+            update_running_stats(self, mean, var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean) * mul + self.bias
 
 
 class GroupNorm(nn.Module):

@@ -1,11 +1,16 @@
-"""Deformable 3x3 convolution: kernel K1 and its plain version.
+"""Deformable 3x3 convolution: kernels K1 (forward) and K1b (backward) and
+their plain versions.
 
 Counterpart of ``gencomm_tpu/ops/deform.py`` (the gather formulation) and
-``gencomm_tpu/ops/deform_pallas.py`` (``deform_conv3x3_mxu``, the TPU
-kernel). Stride 1, padding 1, bilinear sampling with zero padding,
-torchvision (dy, dx)-per-tap offset layout. Offsets are clamped to
-±``MAX_OFFSET`` by the caller (``deform_conv3x3_clamped``), as on the TPU.
-Forward only: the backward (K1b) comes with training.
+``gencomm_tpu/ops/deform_pallas.py`` (``deform_conv3x3_mxu`` and its
+``custom_vjp``, the TPU kernels). Stride 1, padding 1, bilinear sampling with
+zero padding, torchvision (dy, dx)-per-tap offset layout. Offsets are clamped
+to ±``MAX_OFFSET`` by the caller (``deform_conv3x3_clamped``), as on the TPU.
+
+The backward follows the TPU kernel's conventions: the offset gradient is
+the two-corner floor difference (-1 at floor(y), +1 at floor(y) + 1, the
+latter counted wherever that corner lies inside the map, even at weight 0),
+one-sided at exact integers; the offsets are not clipped again inside it.
 """
 
 from __future__ import annotations
@@ -15,6 +20,41 @@ import torch
 from gencomm_tpu_torch.ops import _cuda
 
 MAX_OFFSET = 4  # px, the clamp of gencomm_tpu/ops/deform_pallas.py
+# dweight: pixels each block of the K1b weight pass reduces before the
+# partial sums are added in a fixed order
+_DW_PIXELS_PER_SPLIT = 2048
+
+
+def _geometry(offsets: torch.Tensor, b: int, h: int, w: int):
+    """Per (pixel, tap) sampling position: floor corners and the bilinear
+    factors, (B, H, W, 9) each, in the forward's rounding order."""
+    dev, dt = offsets.device, offsets.dtype
+    off = offsets.reshape(b, h, w, 9, 2)
+    base_y = torch.arange(h, dtype=dt, device=dev)[None, :, None, None]
+    base_x = torch.arange(w, dtype=dt, device=dev)[None, None, :, None]
+    k = torch.arange(9, device=dev)
+    tap_y = (k // 3 - 1).to(dt)
+    tap_x = (k % 3 - 1).to(dt)
+    y = base_y + tap_y + off[..., 0]
+    xx = base_x + tap_x + off[..., 1]
+    y0, x0 = torch.floor(y), torch.floor(xx)
+    wy1, wx1 = y - y0, xx - x0
+    return y0, x0, 1.0 - wy1, wy1, 1.0 - wx1, wx1
+
+
+def _corners(x: torch.Tensor, y0, x0):
+    """For each corner (y0,x0), (y0,x1), (y1,x0), (y1,x1): (flat index into
+    ``x`` viewed as (B*H*W, Cin), clamped; in-map mask)."""
+    b, h, w, _ = x.shape
+    bidx = torch.arange(b, device=x.device)[:, None, None, None] * (h * w)
+    out = []
+    for qy in (0, 1):
+        for qx in (0, 1):
+            iy, ix = y0 + qy, x0 + qx
+            inb = (iy >= 0) & (iy <= h - 1) & (ix >= 0) & (ix <= w - 1)
+            idx = bidx + (iy.clamp(0, h - 1) * w + ix.clamp(0, w - 1)).long()
+            out.append((idx, inb))
+    return out
 
 
 def deform_conv3x3_plain(x: torch.Tensor, offsets: torch.Tensor,
@@ -23,45 +63,62 @@ def deform_conv3x3_plain(x: torch.Tensor, offsets: torch.Tensor,
     (B, H, W, Cout): bilinear gathers of the 9 taps, then one matmul."""
     b, h, w, cin = x.shape
     cout = weight.shape[-1]
-    dev, dt = x.device, x.dtype
-    off = offsets.reshape(b, h, w, 9, 2)
-    base_y = torch.arange(h, dtype=dt, device=dev)[None, :, None, None]
-    base_x = torch.arange(w, dtype=dt, device=dev)[None, None, :, None]
-    k = torch.arange(9, device=dev)
-    tap_y = (k // 3 - 1).to(dt)
-    tap_x = (k % 3 - 1).to(dt)
-    y = base_y + tap_y + off[..., 0]  # (B, H, W, 9)
-    xx = base_x + tap_x + off[..., 1]
-    y0, x0 = torch.floor(y), torch.floor(xx)
-    wy1, wx1 = y - y0, xx - x0
-    wy0, wx0 = 1.0 - wy1, 1.0 - wx1
-    flat = x.reshape(b, h * w, cin)
-    bidx = torch.arange(b, device=dev)[:, None, None, None]
-
-    def corner(iy, ix, wgt):
-        inb = (iy >= 0) & (iy <= h - 1) & (ix >= 0) & (ix <= w - 1)
-        idx = (iy.clamp(0, h - 1) * w + ix.clamp(0, w - 1)).long()
-        return flat[bidx, idx] * (wgt * inb)[..., None]
-
-    samples = (corner(y0, x0, wy0 * wx0) + corner(y0, x0 + 1, wy0 * wx1)
-               + corner(y0 + 1, x0, wy1 * wx0)
-               + corner(y0 + 1, x0 + 1, wy1 * wx1))  # (B, H, W, 9, Cin)
+    y0, x0, wy0, wy1, wx0, wx1 = _geometry(offsets, b, h, w)
+    flat = x.reshape(b * h * w, cin)
+    wts = (wy0 * wx0, wy0 * wx1, wy1 * wx0, wy1 * wx1)
+    samples = sum(flat[idx] * (wt * inb)[..., None]
+                  for (idx, inb), wt in zip(_corners(x, y0, x0), wts))
     return samples.reshape(b, h, w, 9 * cin) @ weight.reshape(9 * cin, cout)
 
 
-def deform_conv3x3(x: torch.Tensor, offsets: torch.Tensor,
-                   weight: torch.Tensor) -> torch.Tensor:
-    """Deformable 3x3 conv without bias. x (B, H, W, Cin) fp32, offsets
-    (B, H, W, 18) fp32, weight (3, 3, Cin, Cout) fp32 -> (B, H, W, Cout).
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel."""
-    if not x.is_cuda:
-        return deform_conv3x3_plain(x, offsets, weight)
+def deform_conv3x3_bwd_plain(x: torch.Tensor, offsets: torch.Tensor,
+                             weight: torch.Tensor, g: torch.Tensor):
+    """Gradients of ``deform_conv3x3_plain`` for the cotangent g (B, H, W,
+    Cout): (dx (B, H, W, Cin), doffsets (B, H, W, 18), dweight (3, 3, Cin,
+    Cout)). u = g W_k^T per tap is scattered into dx with the corner
+    weights; the offset gradient is the two-corner floor difference."""
+    b, h, w, cin = x.shape
+    cout = weight.shape[-1]
+    y0, x0, wy0, wy1, wx0, wx1 = _geometry(offsets, b, h, w)
+    flat = x.reshape(b * h * w, cin)
+    u = torch.einsum("bhwo,kco->bhwkc", g, weight.reshape(9, cin, cout))
+    dflat = torch.zeros_like(flat)
+    samples = torch.zeros_like(u)
+    doff_y = torch.zeros_like(y0)
+    doff_x = torch.zeros_like(x0)
+    for q, (idx, inb) in enumerate(_corners(x, y0, x0)):
+        qy, qx = q >> 1, q & 1
+        wy, wx = (wy1 if qy else wy0), (wx1 if qx else wx0)
+        wt = (wy * wx) * inb
+        v = flat[idx] * inb[..., None]
+        samples = samples + v * wt[..., None]
+        dflat.index_add_(0, idx.reshape(-1),
+                         (u * wt[..., None]).reshape(-1, cin))
+        dot = (u * v).sum(-1)
+        doff_y = doff_y + (1.0 if qy else -1.0) * wx * dot
+        doff_x = doff_x + (1.0 if qx else -1.0) * wy * dot
+    dweight = torch.einsum("bhwkc,bhwo->kco", samples, g)
+    doff = torch.stack([doff_y, doff_x], dim=-1).reshape(b, h, w, 18)
+    return (dflat.reshape(b, h, w, cin), doff,
+            dweight.reshape(3, 3, cin, cout))
+
+
+def _check_args(x, offsets, weight):
     b, h, w, cin = x.shape
     cout = weight.shape[-1]
     _cuda.check_cuda_tensor(x, "x", torch.float32)
     _cuda.check_cuda_tensor(offsets, "offsets", torch.float32, (b, h, w, 18))
     _cuda.check_cuda_tensor(weight, "weight", torch.float32, (3, 3, cin, cout))
+    return b, h, w, cin, cout
+
+
+def deform_conv3x3_fwd(x: torch.Tensor, offsets: torch.Tensor,
+                       weight: torch.Tensor) -> torch.Tensor:
+    """The forward of ``deform_conv3x3`` without autograd: the plain version
+    for a CPU tensor, kernel K1 for a CUDA tensor."""
+    if not x.is_cuda:
+        return deform_conv3x3_plain(x, offsets, weight)
+    b, h, w, cin, cout = _check_args(x, offsets, weight)
     out = torch.empty(b, h, w, cout, dtype=torch.float32, device=x.device)
     _cuda.launch("deform_conv", x.data_ptr(), offsets.data_ptr(),
                  weight.data_ptr(), out.data_ptr(), b, h, w, cin, cout)
@@ -69,9 +126,60 @@ def deform_conv3x3(x: torch.Tensor, offsets: torch.Tensor,
     return out
 
 
+def deform_conv3x3_bwd(x: torch.Tensor, offsets: torch.Tensor,
+                       weight: torch.Tensor, g: torch.Tensor):
+    """(dx, doffsets, dweight) for the cotangent g (B, H, W, Cout): the
+    plain version for a CPU tensor, kernel K1b for a CUDA tensor."""
+    if not x.is_cuda:
+        return deform_conv3x3_bwd_plain(x, offsets, weight, g)
+    b, h, w, cin, cout = _check_args(x, offsets, weight)
+    _cuda.check_cuda_tensor(g, "g", torch.float32, (b, h, w, cout))
+    npix = b * h * w
+    nsplit = max(1, min(64, -(-npix // _DW_PIXELS_PER_SPLIT)))
+    dx = torch.empty_like(x)
+    doff = torch.empty_like(offsets)
+    dweight = torch.empty_like(weight)
+    scratch = torch.empty(nsplit * 9 * cin * cout, dtype=torch.float32,
+                          device=x.device)
+    _cuda.launch("deform_conv_bwd", x.data_ptr(), offsets.data_ptr(),
+                 weight.data_ptr(), g.data_ptr(), dx.data_ptr(),
+                 doff.data_ptr(), dweight.data_ptr(), scratch.data_ptr(),
+                 b, h, w, cin, cout, nsplit)
+    _cuda.LAUNCHES["deform_conv3x3_bwd"] += 1
+    return dx, doff, dweight
+
+
+class _DeformConv3x3(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, offsets, weight):
+        ctx.save_for_backward(x, offsets, weight)
+        return deform_conv3x3_fwd(x, offsets, weight)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, offsets, weight = ctx.saved_tensors
+        return deform_conv3x3_bwd(x, offsets, weight, g.contiguous())
+
+
+def deform_conv3x3(x: torch.Tensor, offsets: torch.Tensor,
+                   weight: torch.Tensor) -> torch.Tensor:
+    """Deformable 3x3 conv without bias. x (B, H, W, Cin) fp32, offsets
+    (B, H, W, 18) fp32, weight (3, 3, Cin, Cout) fp32 -> (B, H, W, Cout).
+    A CPU tensor takes the plain versions; a CUDA tensor launches K1 and,
+    in the backward, K1b."""
+    return _DeformConv3x3.apply(x, offsets, weight)
+
+
+def clamp_offsets(offsets: torch.Tensor) -> torch.Tensor:
+    """Clamp to ±MAX_OFFSET as ``jnp.clip`` does, gradient included: an
+    offset exactly at a bound passes half its gradient (the min/max tie
+    rule), where ``torch.clamp`` would pass all of it."""
+    lim = offsets.new_tensor(float(MAX_OFFSET))
+    return torch.minimum(torch.maximum(offsets, -lim), lim)
+
+
 def deform_conv3x3_clamped(x, offsets, weight, bias=None):
     """The message extractor's call: clamp offsets to ±MAX_OFFSET, run the
     deformable conv, add the bias (gencomm_tpu deform_conv3x3_auto)."""
-    out = deform_conv3x3(x, offsets.clamp(-MAX_OFFSET, MAX_OFFSET).contiguous(),
-                         weight)
+    out = deform_conv3x3(x, clamp_offsets(offsets).contiguous(), weight)
     return out + bias if bias is not None else out

@@ -1,9 +1,19 @@
-"""Pillar segment-max canvas: kernel K2 and its plain version.
+"""Pillar segment-max canvas: kernels K2 (forward) and K2b (backward) and
+their plain versions.
 
-Counterpart of ``gencomm_tpu/ops/pillar_pallas.py``. The port does not use
-the stripe-padded row layout of the TPU kernel: rows arrive sorted by gid
+Counterpart of ``gencomm_tpu/ops/pillar_pallas.py`` (forward) and of the
+VJP that JAX derives for the training canvas, ``.at[].max`` on a zero bf16
+canvas (``gencomm_tpu/models/encoders/point_pillar.py:188-189``, through
+``jax._src.lax.slicing._scatter_extremal_jvp``). The port does not use the
+stripe-padded row layout of the TPU kernel: rows arrive sorted by gid
 within each agent (the host decorator's order), so a segmented max over
 runs writes each canvas cell once (``csrc/pillar_canvas.cu``).
+
+The backward gives each row that ties with its cell's max an equal share
+of the cell's cotangent, rounded as JAX rounds it in bf16: the share is
+bf16(1 / n), with n the number of tied rows, plus one when the max equals
+the zero canvas init; n is counted in bf16, where it stops at 256. The
+product g * share is rounded to bf16. Rows below the max get 0.
 """
 
 from __future__ import annotations
@@ -12,19 +22,110 @@ import torch
 
 from gencomm_tpu_torch.ops import _cuda
 
+_CHUNK = 32  # rows per warp in csrc/pillar_canvas_bwd.cu
+_BF16_COUNT_LIMIT = 256.0  # 256 + 1 rounds back to 256 in bf16
+
+
+def _flat_cells(m: int, gids: torch.Tensor, n_agents: int, ncell: int):
+    agent = torch.arange(m, device=gids.device) // (m // n_agents)
+    return agent * ncell + gids.long().clamp(0, ncell - 1)
+
 
 def pillar_canvas_plain(rows: torch.Tensor, gids: torch.Tensor,
                         n_agents: int, ncell: int) -> torch.Tensor:
     """rows (A*P, C) >= 0, gids (A*P,) within-agent cell ids (clamped to
     [0, ncell-1]) -> canvas (A, ncell, C) of rows' dtype; empty cells 0."""
     m, c = rows.shape
-    agent = torch.arange(m, device=rows.device) // (m // n_agents)
-    flat = agent * ncell + gids.long().clamp(0, ncell - 1)
+    flat = _flat_cells(m, gids, n_agents, ncell)
     canvas = torch.zeros(n_agents * ncell, c, dtype=rows.dtype,
                          device=rows.device)
     canvas.scatter_reduce_(0, flat[:, None].expand(m, c), rows, "amax",
                            include_self=True)
     return canvas.view(n_agents, ncell, c)
+
+
+def pillar_canvas_bwd_plain(rows: torch.Tensor, gids: torch.Tensor,
+                            canvas: torch.Tensor, gout: torch.Tensor,
+                            n_agents: int, ncell: int) -> torch.Tensor:
+    """Row cotangents (A*P, C) of rows' dtype from the forward's canvas and
+    its cotangent gout (A, ncell, C)."""
+    m, c = rows.shape
+    flat = _flat_cells(m, gids, n_agents, ncell)
+    target = canvas.reshape(-1, c)[flat]
+    tied = rows == target
+    counts = torch.zeros(n_agents * ncell, c, dtype=torch.float32,
+                         device=rows.device)
+    counts.index_add_(0, flat, tied.to(torch.float32))
+    den = (counts[flat] + (target == 0).to(torch.float32)).clamp_max(
+        _BF16_COUNT_LIMIT)
+    share = (1.0 / den).to(rows.dtype).to(torch.float32)
+    coef = torch.where(tied, share, torch.zeros_like(share))
+    # g * 0 keeps g's sign, as JAX's product does for rows below the max
+    return (gout.reshape(-1, c)[flat].to(torch.float32) * coef).to(rows.dtype)
+
+
+def _check_rows(rows, gids, n_agents):
+    m, c = rows.shape
+    _cuda.check_cuda_tensor(rows, "rows", torch.bfloat16)
+    _cuda.check_cuda_tensor(gids, "gids", torch.int32, (m,))
+    if c % 2:
+        raise ValueError(f"the canvas kernels need an even channel count, "
+                         f"got {c}")
+    return m, c
+
+
+def pillar_canvas_fwd(rows: torch.Tensor, gids: torch.Tensor, n_agents: int,
+                      ncell: int) -> torch.Tensor:
+    """The forward of ``pillar_canvas`` without autograd: the plain version
+    for a CPU tensor, kernel K2 for a CUDA tensor."""
+    if not rows.is_cuda:
+        return pillar_canvas_plain(rows, gids, n_agents, ncell)
+    m, c = _check_rows(rows, gids, n_agents)
+    out = torch.empty(n_agents, ncell, c, dtype=torch.bfloat16,
+                      device=rows.device)
+    _cuda.launch("pillar_canvas", rows.data_ptr(), gids.data_ptr(),
+                 out.data_ptr(), m, m // n_agents, n_agents, ncell, c)
+    _cuda.LAUNCHES["pillar_canvas"] += 1
+    return out
+
+
+def pillar_canvas_bwd(rows: torch.Tensor, gids: torch.Tensor,
+                      canvas: torch.Tensor, gout: torch.Tensor,
+                      n_agents: int, ncell: int) -> torch.Tensor:
+    """Row cotangents: the plain version for a CPU tensor, kernel K2b for a
+    CUDA tensor."""
+    if not rows.is_cuda:
+        return pillar_canvas_bwd_plain(rows, gids, canvas, gout, n_agents,
+                                       ncell)
+    m, c = _check_rows(rows, gids, n_agents)
+    _cuda.check_cuda_tensor(canvas, "canvas", torch.bfloat16,
+                            (n_agents, ncell, c))
+    _cuda.check_cuda_tensor(gout, "gout", torch.bfloat16,
+                            (n_agents, ncell, c))
+    drows = torch.empty_like(rows)
+    counts = torch.empty(-(-m // _CHUNK) * c, dtype=torch.int32,
+                         device=rows.device)
+    _cuda.launch("pillar_canvas_bwd", rows.data_ptr(), gids.data_ptr(),
+                 canvas.data_ptr(), gout.data_ptr(), drows.data_ptr(),
+                 counts.data_ptr(), m, m // n_agents, ncell, c)
+    _cuda.LAUNCHES["pillar_canvas_bwd"] += 1
+    return drows
+
+
+class _PillarCanvas(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, rows, gids, n_agents, ncell):
+        canvas = pillar_canvas_fwd(rows, gids, n_agents, ncell)
+        ctx.save_for_backward(rows, gids, canvas)
+        ctx.n_agents, ctx.ncell = n_agents, ncell
+        return canvas
+
+    @staticmethod
+    def backward(ctx, gout):
+        rows, gids, canvas = ctx.saved_tensors
+        drows = pillar_canvas_bwd(rows, gids, canvas, gout.contiguous(),
+                                  ctx.n_agents, ctx.ncell)
+        return drows, None, None, None
 
 
 def pillar_canvas(rows: torch.Tensor, gids: torch.Tensor, n_agents: int,
@@ -35,21 +136,9 @@ def pillar_canvas(rows: torch.Tensor, gids: torch.Tensor, n_agents: int,
     rows: (A*P, C) bf16, values >= 0 (post-ReLU, invalid rows zeroed);
     gids: (A*P,) int32, sorted within each agent (ids >= ncell are clamped
     to ncell-1, which keeps them sorted). A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel.
+    versions; a CUDA tensor launches K2 and, in the backward, K2b.
     """
-    m, c = rows.shape
+    m = rows.shape[0]
     if m % n_agents:
         raise ValueError(f"{m} rows do not split over {n_agents} agents")
-    if not rows.is_cuda:
-        return pillar_canvas_plain(rows, gids, n_agents, ncell)
-    _cuda.check_cuda_tensor(rows, "rows", torch.bfloat16)
-    _cuda.check_cuda_tensor(gids, "gids", torch.int32, (m,))
-    if c % 2:
-        raise ValueError(f"the canvas kernel needs an even channel count, got {c}")
-    out = torch.empty(n_agents, ncell, c, dtype=torch.bfloat16,
-                      device=rows.device)
-    _cuda.launch("pillar_canvas", rows.data_ptr(), gids.data_ptr(),
-                 out.data_ptr(), m, m // n_agents, n_agents, ncell, c)
-    _cuda.LAUNCHES["pillar_canvas"] += 1
-    return out
-
+    return _PillarCanvas.apply(rows, gids, n_agents, ncell)

@@ -1,7 +1,9 @@
 """3D bounding-box geometry.
 
-Counterpart of ``gencomm_tpu/utils/box_utils.py``: each function takes a
-numpy array (host) or a torch tensor (device) and answers in kind. Boxes
+Counterpart of ``gencomm_tpu/utils/box_utils.py``. The corner functions
+take a numpy array (host) or a torch tensor (device) and answer in kind;
+``corners_to_standup_2d`` and ``aligned_iou_2d`` serve the host labels
+(numpy), ``limit_period`` and the box filters the device (torch). Boxes
 are ``(x, y, z, h, w, l, yaw)`` for order 'hwl' and ``(x, y, z, l, w, h,
 yaw)`` for 'lwh'; the bottom face is corners 0..3, counter-clockwise.
 """
@@ -54,7 +56,30 @@ def project_box3d(corners3d: torch.Tensor, transformation_matrix: torch.Tensor):
     return torch.einsum("nkj,ij->nki", hom, tfm)[..., :3]
 
 
-def limit_period(val, offset: float = 0.5, period: float = 2 * np.pi):
+def corners_to_standup_2d(corners: np.ndarray) -> np.ndarray:
+    """(N, K, >=2) corners -> (N, 4) [xmin, ymin, xmax, ymax] (numpy)."""
+    return np.stack([corners[..., 0].min(axis=1), corners[..., 1].min(axis=1),
+                     corners[..., 0].max(axis=1), corners[..., 1].max(axis=1)],
+                    axis=-1)
+
+
+def aligned_iou_2d(boxes_a: np.ndarray, boxes_b: np.ndarray) -> np.ndarray:
+    """Axis-aligned IoU of standup boxes (N, 4) x (M, 4) -> (N, M) (numpy),
+    in the float32 operation order of the JAX package, so that label
+    thresholds and argmax ties fall the same way."""
+    boxes_a, boxes_b = np.asarray(boxes_a), np.asarray(boxes_b)
+    lt = np.maximum(boxes_a[:, None, :2], boxes_b[None, :, :2])
+    rb = np.minimum(boxes_a[:, None, 2:], boxes_b[None, :, 2:])
+    wh = np.clip(rb - lt, 0, None)
+    inter = wh[..., 0] * wh[..., 1]
+    area_a = (boxes_a[:, 2] - boxes_a[:, 0]) * (boxes_a[:, 3] - boxes_a[:, 1])
+    area_b = (boxes_b[:, 2] - boxes_b[:, 0]) * (boxes_b[:, 3] - boxes_b[:, 1])
+    union = area_a[:, None] + area_b[None, :] - inter
+    return np.where(union > 0, inter / np.where(union > 0, union, 1.0), 0.0)
+
+
+def limit_period(val: torch.Tensor, offset: float = 0.5,
+                 period: float = 2 * np.pi) -> torch.Tensor:
     """Wrap ``val`` into [-offset*period, (1-offset)*period)."""
     return val - torch.floor(val / period + offset) * period
 

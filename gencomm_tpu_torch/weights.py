@@ -1,7 +1,8 @@
 """Parameters for the port's models.
 
 ``flax_to_state_dict`` carries the JAX package's ``variables`` (``params``
-and ``batch_stats``, as numpy arrays) into a ``state_dict``; the module
+and ``batch_stats``, as numpy arrays) into a ``state_dict``, and
+``flax_grads_to_torch`` a flax gradient tree onto the parameters; the module
 names follow flax's auto-names, so the flax path ``a/b/Conv_0/kernel`` is
 the torch key ``a.b.Conv_0.weight``. Layouts:
 
@@ -67,14 +68,14 @@ def _convert(mod: nn.Module, col: str, leaf: str, v: np.ndarray):
                    f"{type(mod).__name__}")
 
 
-def flax_to_state_dict(model: nn.Module, variables: Dict[str, Any]
-                       ) -> Dict[str, torch.Tensor]:
-    """The port's state_dict from JAX ``variables``. Raises on a flax
-    variable with no counterpart, a missing key or a shape mismatch."""
+def _carry(model: nn.Module, variables: Dict[str, Any], cols, expected
+           ) -> Dict[str, torch.Tensor]:
+    """Map the flax collections ``cols`` of ``variables`` onto the torch
+    keys of ``expected`` (name -> tensor of the port's shape). Raises on a
+    flax variable with no counterpart, a missing key or a shape mismatch."""
     modules = dict(model.named_modules())
-    expected = model.state_dict()
     sd: Dict[str, torch.Tensor] = {}
-    for col in ("params", "batch_stats"):
+    for col in cols:
         for path, value in _flatten(variables.get(col, {})):
             mod_path = ".".join(path[:-1])
             mod = modules.get(mod_path)
@@ -96,6 +97,24 @@ def flax_to_state_dict(model: nn.Module, variables: Dict[str, Any]
     if missing:
         raise KeyError(f"no flax variable for {missing}")
     return sd
+
+
+def flax_to_state_dict(model: nn.Module, variables: Dict[str, Any]
+                       ) -> Dict[str, torch.Tensor]:
+    """The port's state_dict from JAX ``variables``. Raises on a flax
+    variable with no counterpart, a missing key or a shape mismatch."""
+    return _carry(model, variables, ("params", "batch_stats"),
+                  model.state_dict())
+
+
+def flax_grads_to_torch(model: nn.Module, grads: Dict[str, Any]
+                        ) -> Dict[str, torch.Tensor]:
+    """A flax gradient tree (the ``params`` tree's structure, no
+    ``batch_stats``) as the port's parameter names and layouts, e.g. to
+    compare with ``p.grad`` after a backward. Raises like
+    ``flax_to_state_dict``."""
+    return _carry(model, {"params": grads}, ("params",),
+                  dict(model.named_parameters()))
 
 
 def load_flax_variables(model: nn.Module, variables: Dict[str, Any]) -> nn.Module:

@@ -39,7 +39,9 @@ def test_synthetic_eval_fields_equal(kw, seed):
     want = JScenes(JConfig(**kw)).sample(seed, batch_size=2)
     for k in EVAL_KEYS:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
-    assert set(got) == set(EVAL_KEYS)
+    # the eval fields and the anchor labels (tests/test_torch_train.py)
+    assert set(got) == set(EVAL_KEYS) | {"pos_equal_one", "neg_equal_one",
+                                         "targets"}
 
 
 def test_anchors_equal():

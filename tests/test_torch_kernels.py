@@ -1,11 +1,14 @@
-"""The port's three kernels against the JAX package, on the CPU.
+"""The port's forward kernels against the JAX package, on the CPU, and
+every kernel against its plain version on the card.
 
 For each of K1 (deformable conv), K2 (pillar canvas) and K3 (affine warp)
 the plain PyTorch version, which the wrapper takes for a CPU tensor, is held
 against the JAX Pallas kernel (interpret mode, as the JAX package's own
 tests run it) and against the JAX gather/scatter formulation, on inputs
 made with numpy from a seed. The CUDA halves (kernel vs plain version on
-the card) carry the ``cuda`` marker and skip without a card.
+the card), those of the backward kernels K1b, K2b and K3b included, carry
+the ``cuda`` marker and skip without a card; their inputs come from
+``deform_case`` and ``canvas_case``, which ``test_torch_train.py`` shares.
 """
 
 from types import SimpleNamespace
@@ -16,10 +19,16 @@ import torch
 
 from gencomm_tpu_torch.ops._cuda import LAUNCHES
 from gencomm_tpu_torch.ops.deform_conv import (
-    MAX_OFFSET, deform_conv3x3, deform_conv3x3_clamped, deform_conv3x3_plain,
+    MAX_OFFSET, deform_conv3x3, deform_conv3x3_bwd, deform_conv3x3_bwd_plain,
+    deform_conv3x3_clamped, deform_conv3x3_plain,
 )
-from gencomm_tpu_torch.ops.pillar_canvas import pillar_canvas, pillar_canvas_plain
-from gencomm_tpu_torch.ops.warp import warp_affine, warp_affine_plain
+from gencomm_tpu_torch.ops.pillar_canvas import (
+    pillar_canvas, pillar_canvas_bwd, pillar_canvas_bwd_plain,
+    pillar_canvas_plain,
+)
+from gencomm_tpu_torch.ops.warp import (
+    warp_affine, warp_affine_bwd, warp_affine_bwd_plain, warp_affine_plain,
+)
 
 # rotations, a shear, a scale, translations pushing part of the map out of
 # range, and a translation beyond the map (all samples out of range)
@@ -154,7 +163,7 @@ def _canvas_rows(seed, a=3, p=2000, c=64, ncell=64 * 64):
 
 
 def _bits(t):
-    return t.view(torch.int16).numpy()
+    return t.contiguous().view(torch.int16).numpy()
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -241,4 +250,116 @@ def test_warp_kernel_matches_plain_on_card(cuda, c):
     tol = 4.0 * 48 * 2.0 ** -23 * float(src.abs().max())
     np.testing.assert_allclose(got.cpu().numpy(),
                                warp_affine_plain(src, th).cpu().numpy(),
+                               rtol=0, atol=tol)
+
+
+# ---------------------------------------------------------------- backward
+def deform_case(kind, seed=0, b=2, h=12, w=16, cin=8, cout=4):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(b, h, w, cin).astype(np.float32)
+    wt = (rng.randn(3, 3, cin, cout) * 0.1).astype(np.float32)
+    g = rng.randn(b, h, w, cout).astype(np.float32)
+    if kind == "integer":
+        # saturated and integer offsets: every sample sits on a pixel, where
+        # the floor convention is one-sided
+        off = rng.choice([-4.0, -2.0, -1.0, 0.0, 1.0, 3.0, 4.0],
+                         size=(b, h, w, 18)).astype(np.float32)
+    else:
+        off = np.clip(rng.randn(b, h, w, 18) * 2.0, -MAX_OFFSET, MAX_OFFSET)
+        off = off.astype(np.float32)
+        off.reshape(-1)[::7] = MAX_OFFSET  # some exactly on the bound
+        off.reshape(-1)[3::11] = -MAX_OFFSET
+    return x, off, wt, g
+
+
+def canvas_case(seed, a=3, p=700, c=8, ncell=64):
+    """Sorted rows per agent with constructed ties: runs of 1..5 rows where
+    channels 0-3 tie at the run's max (2 and 3 rows among them), all-zero
+    runs, one run of 300 tied rows (its count stops at 256 in bf16), and
+    the zeroed invalid tail clamped into the last cell (long in agent 0,
+    where that cell is otherwise empty; agent 1 holds a positive row
+    there)."""
+    rng = np.random.default_rng(seed)
+    feats = np.zeros((a, p, c), np.float32)
+    gids = np.full((a, p), ncell, np.int32)
+    for ai in range(a):
+        r, cell = 0, 0
+        tail = 350 if ai == 0 else 60
+        while r < p - tail and cell < ncell - 1:
+            n = 300 if (ai == 2 and cell == 5) else int(rng.integers(1, 6))
+            n = min(n, p - tail - r)
+            vals = np.abs(rng.normal(size=(n, c))).astype(np.float32)
+            kind = rng.integers(0, 4)
+            if kind == 0:
+                vals[:] = 0.0                       # an all-zero cell
+            elif kind >= 2:
+                vals[:, :4] = vals[0, :4]           # ties on channels 0-3
+            feats[ai, r:r + n] = vals
+            gids[ai, r:r + n] = cell
+            r += n
+            cell += int(rng.integers(1, 3))
+        if ai == 1:
+            gids[ai, r] = ncell - 1
+            feats[ai, r] = 1.5
+    rows = torch.from_numpy(feats.reshape(-1, c)).to(torch.bfloat16)
+    flat = np.minimum(gids.reshape(-1), ncell - 1).astype(np.int32)
+    gout = torch.from_numpy(rng.normal(size=(a, ncell, c)).astype(
+        np.float32)).to(torch.bfloat16)
+    return rows, torch.from_numpy(flat), gout
+
+
+def _close(got, want, tol, what=""):
+    """|got - want| <= tol * max(1, max|want|) elementwise."""
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape, what
+    scale = max(1.0, float(np.abs(want).max()) if want.size else 1.0)
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol * scale,
+                               err_msg=what)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 20, 36, 40, 70), (1, 9, 11, 6, 5)])
+def test_deform_bwd_kernel_matches_plain_on_card(cuda, shape):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, h, w, cin, cout = shape
+    x, off, wt, g = (_t(a).to(cuda) for a in deform_case(
+        "fractional", 5, b, h, w, cin, cout))
+    got = deform_conv3x3_bwd(x, off, wt, g)
+    torch.cuda.synchronize()
+    want = deform_conv3x3_bwd_plain(x, off, wt, g)
+    for name, gv, wv in zip(("dx", "doff", "dweight"), got, want):
+        _close(gv.cpu().numpy(), wv.cpu().numpy(), 1e-4, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+def test_canvas_bwd_kernel_bit_exact_on_card(cuda, seed):
+    a, ncell = 3, 64
+    rows, gids, gout = (t.to(cuda) for t in canvas_case(seed, a=a,
+                                                         ncell=ncell))
+    canvas = pillar_canvas_plain(rows, gids, a, ncell)
+    got = pillar_canvas_bwd(rows, gids, canvas, gout, a, ncell)
+    torch.cuda.synchronize()
+    want = pillar_canvas_bwd_plain(rows, gids, canvas, gout, a, ncell)
+    np.testing.assert_array_equal(_bits(got.cpu()), _bits(want.cpu()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [128, 6])
+def test_warp_bwd_kernel_matches_plain_on_card(cuda, c):
+    rng = np.random.RandomState(c)
+    g = _t(rng.randn(len(THETAS), 32, 48, c).astype(np.float32)).to(cuda)
+    th = _t(THETAS).to(cuda)
+    got = warp_affine_bwd(g, th)
+    torch.cuda.synchronize()
+    # the plain version's coordinate may differ in its last bit on the card
+    # (see the forward's test); each source pixel gathers a few weights
+    tol = 16.0 * 48 * 2.0 ** -23 * float(g.abs().max())
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               warp_affine_bwd_plain(g, th).cpu().numpy(),
                                rtol=0, atol=tol)
