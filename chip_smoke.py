@@ -3,12 +3,16 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``gencomm_tpu_torch/csrc`` with nvcc
-(sm_90a) into ``build/``, then drives the flagship eval path of the port --
+Builds the port's eight CUDA kernels from ``gencomm_tpu_torch/csrc`` with
+nvcc (sm_90a) into ``build/``, then drives the port's paths through its entry
+points (SyntheticScenes, trim_agent_slots, host decoration for lidar,
+HeterModel, InferencePipeline.run, train.trainer.make_train_step), fp32
+activations with TF32 off, random weights from a seed: the lidar flagship --
 GenComm stage 1, PointPillars on a 512 x 256 pillar grid, 2 agents, attentive
-fusion, 3-step diffusion, Enhancer, heads, decode and rotated NMS, fp32
-activations, random weights from a seed -- through its entry points
-(SyntheticScenes, host decoration, HeterModel, InferencePipeline.run).
+fusion, 3-step diffusion, Enhancer, heads, decode and rotated NMS -- and the
+camera model of configs/opv2v/gencomm/stage1/m2_att.yaml at full width --
+Lift-Splat-Shoot, 4 cameras of 384 x 512 per agent, 48 depth bins, top-8, a
+256 x 256 BEV grid, the same neck, diffusion, fusion and heads.
 
 Phases, each of which raises on failure:
   1. the card, its power limit, torch / CUDA versions, fp32 settings;
@@ -33,9 +37,26 @@ Phases, each of which raises on failure:
      launch count (each must be > 0) and the loss terms of every step; 4
      steps on one repeated batch, whose loss must fall; one step on the card
      and on the port's CPU, whose losses must agree and whose gradients
-     must differ no more than the CPU's own under a 1e-7 input jitter.
-The last line is {"ok": true, "device": {...}}; before it come the
-card's nvidia-smi line and one JSON line with every kernel's numbers.
+     must differ no more than the CPU's own under a 1e-7 input jitter;
+  7. the camera eval path: K4 (top-K depth splat) on the arguments the path
+     gives it, held against its plain version (fp32 sum-order tolerance; K4
+     itself gives the same bits on every run), once more with bf16 rows, and
+     timed; K1 and K3 held and timed again on this path's arguments (maps of
+     64 x 64, not 64 x 128); 1 warm-up + 10 timed frames with the launch counts of K1, K3 and
+     K4 (each must be > 0), the device profile, and the same frame on the
+     CPU;
+  8. the camera train step with the optimizer, schedule and
+     point_pillar_depth_loss of m2_att.yaml (batch 2 x 2 agents): K1, K3 and
+     K4 at the step's shapes, K1b, K3b and K4b (K4's backward) on the step's
+     arguments, against their plain versions and timed; 1 warm-up + 10 timed steps with the launch counts of K1, K1b,
+     K3, K3b, K4 and K4b (each must be > 0) and finite loss terms,
+     depth_loss included; 4 steps on one batch, whose loss must fall; one
+     step on the card and on the CPU, held as in phase 6.
+Each phase prints its wall time, and each profile the convolution operators
+by the shapes of their arguments. The last line is {"ok": true, "device":
+{...}}; before it come the card's nvidia-smi line and one JSON line with
+every kernel's numbers on the path that ran it first and, under
+"other_paths", on the camera paths' arguments where those differ.
 Exits non-zero, printing no result, without a CUDA device.
 """
 
@@ -70,10 +91,28 @@ FLAGSHIP = dict(
     fusion_method="att", lidar_range=LIDAR_RANGE, anchor_number=2,
     use_gencomm=True, use_enhancer=True, half=False)
 FEATURE_SHAPE = (64, 128, 128)  # the fused map, H x W x C
-POSTPROCESS = {"gt_range": list(LIDAR_RANGE),
-               "target_args": {"score_threshold": 0.2}, "nms_thresh": 0.15,
-               "dir_args": {"dir_offset": 0.7853, "num_bins": 2},
-               "nms_topk": 512}
+NMS_TOPK = 512
+
+# the camera model: configs/opv2v/gencomm/stage1/m2_att.yaml:167-270
+CAMERA_RANGE = (-51.2, -51.2, -3.0, 51.2, 51.2, 1.0)
+CAMERA_DIM, CAMERA_NCAM = (384, 512), 4
+CAMERA_GRID = {"xbound": [-51.2, 51.2, 0.4], "ybound": [-51.2, 51.2, 0.4],
+               "zbound": [-10, 10, 20.0], "ddiscr": [2, 50, 48], "mode": "LID"}
+CAMERA = dict(
+    modality_args={"m1": {
+        "core_method": "lift_splat_shoot", "sensor_type": "camera",
+        "encoder_args": {"grid_conf": CAMERA_GRID,
+                         "data_aug_conf": {"final_dim": list(CAMERA_DIM),
+                                           "Ncams": CAMERA_NCAM},
+                         "img_downsample": 8, "img_features": 128,
+                         "trunk_blocks": 2, "depth_topk": 8,
+                         "lidar_range": list(CAMERA_RANGE)},
+        "backbone_args": FLAGSHIP["modality_args"]["m1"]["backbone_args"],
+        "shrink_header": FLAGSHIP["modality_args"]["m1"]["shrink_header"],
+    }},
+    fusion_method="att", lidar_range=CAMERA_RANGE, anchor_number=2,
+    use_gencomm=True, use_enhancer=True, half=False)
+CAMERA_FEATURE_SHAPE = (64, 64, 128)
 TIMED_FRAMES = 10
 # card vs CPU on the whole model, fp32 with TF32 off: sums in other orders
 # over ~30 layers, and a bf16 canvas whose rounding can flip by one ulp
@@ -98,6 +137,11 @@ TRAIN_HYPES = {
                          "anchor_yaw": [0, 90]}},
         "generate_weight": 1}},
 }
+# the camera model's: m2_att.yaml:131-166 (generate_weight is read by nothing
+# in point_pillar_depth_loss, as in the JAX package)
+CAMERA_TRAIN_HYPES = dict(TRAIN_HYPES, loss={
+    "core_method": "point_pillar_depth_loss",
+    "args": dict(TRAIN_HYPES["loss"]["args"], depth={"weight": 1.0})})
 TRAIN_BATCH = 2
 TRAIN_SEED = 0  # tools/train.py batches(): sample(seed * 10000 + step, 2)
 TIMED_STEPS = 10
@@ -116,6 +160,9 @@ JITTER = 1e-7
 GRAD_FACTOR = 3.0
 GRAD_FLOOR = 1e-4
 LOSS_TOL = 1e-3  # relative, the losses of the same step
+# K4 / K4b vs their plain versions: fp32 sums (a cell's rows; 128 products
+# and K rows) taken in another order, relative to the output's largest value
+SPLAT_TOL = 1e-5
 
 
 def log(*a):
@@ -192,21 +239,31 @@ def record_calls(targets, run):
     return seen
 
 
-def capture_kernel_inputs(model, batch, noises):
-    """One forward pass that records the arguments the main path gives
-    each kernel wrapper."""
-    import torch
-    from gencomm_tpu_torch.models.encoders import point_pillar
-    from gencomm_tpu_torch.models.fuse import fusion
-    from gencomm_tpu_torch.ops import deform_conv
+def add_rows(kernel_rows, path, rows):
+    """Adds a later path's rows to the kernels JSON line: a kernel that has
+    no row yet gets this one; for a kernel that has one (from the path that
+    ran it first), the numbers taken on ``path``'s arguments go under
+    ``other_paths`` of that row."""
+    by_name = {row["name"]: row for row in kernel_rows}
+    for row in rows:
+        first = by_name.get(row["name"])
+        if first is None:
+            kernel_rows.append(row)
+        else:
+            first.setdefault("other_paths", {})[path] = {
+                k: row[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms")}
 
-    def run():
-        with torch.inference_mode():
-            model(batch, noises=noises)
 
-    return record_calls([(point_pillar, "pillar_canvas"),
-                         (deform_conv, "deform_conv3x3"),
-                         (fusion, "warp_affine")], run)
+def postprocess_cfg(gt_range):
+    return {"gt_range": list(gt_range),
+            "target_args": {"score_threshold": 0.2}, "nms_thresh": 0.15,
+            "dir_args": {"dir_offset": 0.7853, "num_bins": 2},
+            "nms_topk": NMS_TOPK}
+
+
+def phase_done(label, t0):
+    log(f"phase wall time, {label}: {time.perf_counter() - t0:.1f} s")
 
 
 def profile_device(run, period_ms, n, unit):
@@ -217,7 +274,8 @@ def profile_device(run, period_ms, n, unit):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         for i in range(n):
             run(i)
         torch.cuda.synchronize()
@@ -239,25 +297,28 @@ def profile_device(run, period_ms, n, unit):
         f"calls/{unit}):")
     for dev_ms, calls, key in sorted(rows, reverse=True)[:15]:
         log(f"  {dev_ms:8.4f} {calls:6.0f}  {key[:90]}")
+    # which layers the convolution kernels belong to: the operators that
+    # launch them, by the shapes of their arguments
+    convs = [(ev.self_device_time_total / n / 1e3, ev.count / n, ev.key,
+              [s for s in (getattr(ev, "input_shapes", None) or []) if s])
+             for ev in prof.key_averages(group_by_input_shape=True)
+             if ev.device_type == DeviceType.CPU and "conv" in ev.key
+             and ev.self_device_time_total > 0]
+    log(f"profile: convolution operators by argument shapes (device "
+        f"ms/{unit}, calls/{unit}):")
+    for dev_ms, calls, key, shapes in sorted(convs, reverse=True)[:8]:
+        log(f"  {dev_ms:8.4f} {calls:6.0f}  {key} {shapes}")
 
 
-def check_kernels(inputs):
-    """Phase 3: each kernel against its plain version on the main path's
-    inputs; returns the rows of the kernels JSON line (launches filled in
-    later)."""
+def check_deform(inputs, where):
+    """K1 (deformable 3x3 conv) against its plain version on the arguments
+    the path ``where`` gives it; returns its row of the kernels JSON line
+    (launches filled in later)."""
     import torch
-    import torch.nn.functional as F
     from gencomm_tpu_torch.ops.deform_conv import (
         deform_conv3x3, deform_conv3x3_plain,
     )
-    from gencomm_tpu_torch.ops.pillar_canvas import (
-        pillar_canvas, pillar_canvas_plain,
-    )
-    from gencomm_tpu_torch.ops.warp import warp_affine, warp_affine_plain
 
-    rows = []
-
-    # K1: deformable 3x3 conv
     x, off, wt = inputs["deform_conv3x3"]
     b, h, w, cin = x.shape
     cout = wt.shape[-1]
@@ -265,30 +326,41 @@ def check_kernels(inputs):
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     tol = 1e-4 * max(1.0, float(want.abs().max()))
-    log(f"K1 deform_conv3x3 x{tuple(x.shape)} w{tuple(wt.shape)}: "
+    log(f"K1 deform_conv3x3 ({where}) x{tuple(x.shape)} w{tuple(wt.shape)}: "
         f"max|kernel-plain| {err:.3e} (tol {tol:.3e}: fp32 sums of "
         f"{9 * cin} products in another order)")
     if not err <= tol:
         raise AssertionError(f"K1 disagrees with its plain version: {err}")
     bound_ms, bound_by = bound(2.0 * b * h * w * 9 * cin * cout,
                                nbytes(x, off, wt, got))
-    rows.append(dict(
+    row = dict(
         name="deform_conv3x3", route="cuda",
         source="gencomm_tpu_torch/csrc/deform_conv.cu",
         replaces="gencomm_tpu/ops/deform_pallas.py:34",
         max_abs_err=err,
         ms=time_ms(lambda: deform_conv3x3(x, off, wt)),
         plain_ms=time_ms(lambda: deform_conv3x3_plain(x, off, wt), iters=5),
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    log_rows([row])
+    return row
 
-    # K2: pillar segment-max canvas
+
+def check_pillar(inputs, where):
+    """K2 (pillar segment-max canvas) against its plain version, bit for
+    bit, on the arguments the path ``where`` gives it; returns its row."""
+    import torch
+    from gencomm_tpu_torch.ops.pillar_canvas import (
+        pillar_canvas, pillar_canvas_plain,
+    )
+
     r, g, n_agents, ncell = inputs["pillar_canvas"]
     got, want = pillar_canvas(r, g, n_agents, ncell), pillar_canvas_plain(
         r, g, n_agents, ncell)
     torch.cuda.synchronize()
     same = torch.equal(got.view(torch.int16), want.view(torch.int16))
     err = float((got.float() - want.float()).abs().max())
-    log(f"K2 pillar_canvas rows{tuple(r.shape)} -> {tuple(got.shape)}: "
+    log(f"K2 pillar_canvas ({where}) rows{tuple(r.shape)} -> "
+        f"{tuple(got.shape)}: "
         f"bit-exact {same}, occupied cells {int((want > 0).any(-1).sum())}")
     if not same:
         raise AssertionError(f"K2 is not bit-exact (max abs diff {err})")
@@ -297,7 +369,7 @@ def check_kernels(inputs):
            + g.long().clamp(0, ncell - 1))[:, None].expand(m, c)
     zeros = torch.zeros(n_agents * ncell, c, dtype=r.dtype, device=r.device)
     k2_bytes = nbytes(r, g, got)
-    rows.append(dict(
+    row = dict(
         name="pillar_canvas", route="cuda",
         source="gencomm_tpu_torch/csrc/pillar_canvas.cu",
         replaces="gencomm_tpu/ops/pillar_pallas.py:58",
@@ -306,15 +378,25 @@ def check_kernels(inputs):
         plain_ms=time_ms(lambda: pillar_canvas_plain(r, g, n_agents, ncell)),
         bound_ms=k2_bytes / PEAK_BYTES * 1e3, bound_by="bytes",
         library_ms=time_ms(lambda: torch.scatter_reduce(
-            zeros, 0, idx, r, "amax", include_self=True))))
+            zeros, 0, idx, r, "amax", include_self=True)))
+    log_rows([row])
+    return row
 
-    # K3: affine warp
+
+def check_warp(inputs, where):
+    """K3 (affine bilinear warp) against its plain version on the arguments
+    the path ``where`` gives it; returns its row."""
+    import torch
+    import torch.nn.functional as F
+    from gencomm_tpu_torch.ops.warp import warp_affine, warp_affine_plain
+
     src, theta = inputs["warp_affine"]
     got, want = warp_affine(src, theta), warp_affine_plain(src, theta)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     tol = warp_tolerance(src)
-    log(f"K3 warp_affine src{tuple(src.shape)}: max|kernel-plain| {err:.3e} "
+    log(f"K3 warp_affine ({where}) src{tuple(src.shape)}: "
+        f"max|kernel-plain| {err:.3e} "
         f"(tol {tol:.3e}: a one-ulp difference of the sampling coordinate "
         f"times the largest neighbour step)")
     if not err <= tol:
@@ -322,7 +404,7 @@ def check_kernels(inputs):
     src_nchw = src.permute(0, 3, 1, 2).contiguous()
     grid = F.affine_grid(theta, list(src_nchw.shape), align_corners=False)
     k3_bytes = nbytes(src, theta, got)
-    rows.append(dict(
+    row = dict(
         name="warp_affine", route="cuda",
         source="gencomm_tpu_torch/csrc/warp_affine.cu",
         replaces="gencomm_tpu/ops/warp_pallas.py:43",
@@ -332,45 +414,20 @@ def check_kernels(inputs):
         bound_ms=k3_bytes / PEAK_BYTES * 1e3, bound_by="bytes",
         library_ms=time_ms(lambda: F.grid_sample(
             src_nchw, grid, mode="bilinear", padding_mode="zeros",
-            align_corners=False))))
-    log_rows(rows)
-    return rows
+            align_corners=False)))
+    log_rows([row])
+    return row
 
 
-def capture_backward_inputs(model, criterion, batch, noises):
-    """One forward and backward of the train step (no update) that records
-    the arguments the training path gives each backward kernel wrapper."""
-    from gencomm_tpu_torch.ops import deform_conv, pillar_canvas, warp
-
-    def run():
-        criterion(model(batch, noises=noises), batch)["total_loss"].backward()
-
-    seen = record_calls([(deform_conv, "deform_conv3x3_bwd"),
-                         (pillar_canvas, "pillar_canvas_bwd"),
-                         (warp, "warp_affine_bwd")], run)
-    model.zero_grad(set_to_none=True)
-    return seen
-
-
-def check_backward_kernels(inputs):
-    """Phase 6: each backward kernel against its plain version on the
-    train step's arguments; returns the rows of the kernels JSON line
-    (launches filled in later)."""
+def check_deform_bwd(inputs, where):
+    """K1b (deformable conv backward) against its plain version on the
+    arguments the train step ``where`` gives it; returns its row of the
+    kernels JSON line (launches filled in later)."""
     import torch
-    import torch.nn.functional as F
     from gencomm_tpu_torch.ops.deform_conv import (
         deform_conv3x3_bwd, deform_conv3x3_bwd_plain,
     )
-    from gencomm_tpu_torch.ops.pillar_canvas import (
-        pillar_canvas_bwd, pillar_canvas_bwd_plain,
-    )
-    from gencomm_tpu_torch.ops.warp import (
-        warp_affine_bwd, warp_affine_bwd_plain,
-    )
 
-    rows = []
-
-    # K1b: deformable conv backward
     x, off, wt, g = inputs["deform_conv3x3_bwd"]
     b, h, w, cin = x.shape
     cout = wt.shape[-1]
@@ -381,7 +438,8 @@ def check_backward_kernels(inputs):
     for name, gv, wv in zip(("dx", "doffsets", "dweight"), got, want):
         e = float((gv - wv).abs().max())
         scale = float(wv.abs().max())
-        log(f"K1b {name}{tuple(gv.shape)}: max|kernel-plain| {e:.3e}, "
+        log(f"K1b {name}{tuple(gv.shape)} ({where}): max|kernel-plain| "
+            f"{e:.3e}, "
             f"max|plain| {scale:.3e} (tol {K1B_TOL:.0e} x max|plain|: fp32 "
             f"sums of up to {b * h * w} terms in other orders)")
         if not e <= K1B_TOL * scale:
@@ -392,7 +450,7 @@ def check_backward_kernels(inputs):
     bound_ms, bound_by = bound(
         4.0 * npix * 9 * cin * cout + 24.0 * npix * 9 * cin,
         nbytes(x, off, wt, g, *got))
-    rows.append(dict(
+    row = dict(
         name="deform_conv3x3_bwd", route="cuda",
         source="gencomm_tpu_torch/csrc/deform_conv_bwd.cu",
         replaces="gencomm_tpu/ops/deform_pallas.py:93",
@@ -400,9 +458,19 @@ def check_backward_kernels(inputs):
         ms=time_ms(lambda: deform_conv3x3_bwd(x, off, wt, g)),
         plain_ms=time_ms(lambda: deform_conv3x3_bwd_plain(x, off, wt, g),
                          iters=5),
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    log_rows([row])
+    return row
 
-    # K2b: pillar canvas backward
+
+def check_pillar_bwd(inputs, where):
+    """K2b (pillar canvas backward) against its plain version, bit for bit,
+    on the arguments the train step ``where`` gives it; returns its row."""
+    import torch
+    from gencomm_tpu_torch.ops.pillar_canvas import (
+        pillar_canvas_bwd, pillar_canvas_bwd_plain,
+    )
+
     r, gids, canvas, gout, n_agents, ncell = inputs["pillar_canvas_bwd"]
     got = pillar_canvas_bwd(r, gids, canvas, gout, n_agents, ncell)
     want = pillar_canvas_bwd_plain(r, gids, canvas, gout, n_agents, ncell)
@@ -413,7 +481,8 @@ def check_backward_kernels(inputs):
     cells = (torch.arange(m, device=r.device) // (m // n_agents) * ncell
              + gids.long().clamp(0, ncell - 1))
     n_cells = int(torch.unique(cells).numel())
-    log(f"K2b pillar_canvas_bwd rows{tuple(r.shape)}: bit-exact {same}, "
+    log(f"K2b pillar_canvas_bwd ({where}) rows{tuple(r.shape)}: bit-exact "
+        f"{same}, "
         f"{n_cells} cells hold rows, {int((got != 0).any(-1).sum())} rows "
         f"get a gradient")
     if not same:
@@ -425,7 +494,7 @@ def check_backward_kernels(inputs):
         0, cells[:, None].expand(m, c), r_req, "amax", include_self=True)
     gflat = gout.reshape(-1, c)
     k2b_bytes = nbytes(r, gids, got) + 2 * n_cells * c * r.element_size()
-    rows.append(dict(
+    row = dict(
         name="pillar_canvas_bwd", route="cuda",
         source="gencomm_tpu_torch/csrc/pillar_canvas_bwd.cu",
         replaces="gencomm_tpu/models/encoders/point_pillar.py:189",
@@ -436,9 +505,20 @@ def check_backward_kernels(inputs):
             r, gids, canvas, gout, n_agents, ncell)),
         bound_ms=k2b_bytes / PEAK_BYTES * 1e3, bound_by="bytes",
         library_ms=time_ms(lambda: torch.autograd.grad(
-            lib_out, r_req, gflat, retain_graph=True))))
+            lib_out, r_req, gflat, retain_graph=True)))
+    log_rows([row])
+    return row
 
-    # K3b: affine warp backward
+
+def check_warp_bwd(inputs, where):
+    """K3b (affine warp backward) against its plain version on the
+    arguments the train step ``where`` gives it; returns its row."""
+    import torch
+    import torch.nn.functional as F
+    from gencomm_tpu_torch.ops.warp import (
+        warp_affine_bwd, warp_affine_bwd_plain,
+    )
+
     g3, theta = inputs["warp_affine_bwd"]
     got = warp_affine_bwd(g3, theta)
     want = warp_affine_bwd_plain(g3, theta)
@@ -446,7 +526,8 @@ def check_backward_kernels(inputs):
     err = float((got - want).abs().max())
     h3, w3 = g3.shape[1], g3.shape[2]
     tol = 16.0 * max(h3, w3) * 2.0 ** -23 * float(g3.abs().max())
-    log(f"K3b warp_affine_bwd g{tuple(g3.shape)}: max|kernel-plain| "
+    log(f"K3b warp_affine_bwd ({where}) g{tuple(g3.shape)}: "
+        f"max|kernel-plain| "
         f"{err:.3e} (tol {tol:.3e}: a one-ulp difference of the sampling "
         f"coordinate times the cotangent, over up to 16 contributions)")
     if not err <= tol:
@@ -457,7 +538,7 @@ def check_backward_kernels(inputs):
     lib_out = F.grid_sample(src_req, grid, mode="bilinear",
                             padding_mode="zeros", align_corners=False)
     g_nchw = g3.permute(0, 3, 1, 2).contiguous()
-    rows.append(dict(
+    row = dict(
         name="warp_affine_bwd", route="cuda",
         source="gencomm_tpu_torch/csrc/warp_affine_bwd.cu",
         replaces="gencomm_tpu/ops/warp_pallas.py:122",
@@ -466,9 +547,9 @@ def check_backward_kernels(inputs):
         plain_ms=time_ms(lambda: warp_affine_bwd_plain(g3, theta)),
         bound_ms=nbytes(g3, theta, got) / PEAK_BYTES * 1e3, bound_by="bytes",
         library_ms=time_ms(lambda: torch.autograd.grad(
-            lib_out, src_req, g_nchw, retain_graph=True))))
-    log_rows(rows)
-    return rows
+            lib_out, src_req, g_nchw, retain_graph=True)))
+    log_rows([row])
+    return row
 
 
 def log_grad_errors(label, model, ref_model):
@@ -487,56 +568,258 @@ def log_grad_errors(label, model, ref_model):
     return errs[-1][0]
 
 
-def train_phase(smi, cfg, dev):
-    """Phase 6; returns the backward kernels' rows of the JSON line."""
+def check_splat(inputs, where):
+    """K4 against its plain version on the arguments ``where`` (the camera
+    eval path or train step) gives it; returns its row of the kernels JSON
+    line (launches filled in later)."""
     import torch
-    from gencomm_tpu_torch.data.bucketing import trim_agent_slots
-    from gencomm_tpu_torch.data.decorate import decorate_modality
-    from gencomm_tpu_torch.data.synthetic import SyntheticScenes
+    from gencomm_tpu_torch.ops.splat import (
+        sort_ids, splat_sorted, splat_topk_fwd, splat_topk_plain,
+    )
+
+    dvals, feats, ids, num_cells, bf16_rows = inputs["splat_topk"]
+    (p, k), c = dvals.shape, feats.shape[-1]
+    err = 0.0
+    for bf16 in (bf16_rows, True):
+        got = splat_topk_fwd(dvals, feats, ids, num_cells, bf16)
+        again = splat_topk_fwd(dvals, feats, ids, num_cells, bf16)
+        want = splat_topk_plain(dvals, feats, ids, num_cells, bf16)
+        torch.cuda.synchronize()
+        e, scale = float((got - want).abs().max()), float(want.abs().max())
+        tol = SPLAT_TOL * max(1.0, scale)
+        log(f"K4 splat_topk ({where}, bf16_rows={bf16}) dvals{(p, k)} "
+            f"feats{(p, c)} -> {tuple(got.shape)}: max|kernel-plain| {e:.3e}, "
+            f"max|plain| {scale:.3e} (tol {tol:.3e}: fp32 sums of a cell's "
+            f"rows in another order; the plain index_add_ uses atomics), "
+            f"two launches bit-equal {torch.equal(got, again)}")
+        if not e <= tol:
+            raise AssertionError(f"K4 disagrees with its plain version: {e}")
+        if not torch.equal(got, again):
+            raise AssertionError("K4 gave different bits on a second launch")
+        if not bool((got[(want == 0).all(-1)] == 0).all()):
+            raise AssertionError("K4 left a cell that receives nothing non-zero")
+        err = max(err, e)
+    valid = (ids >= 0) & (ids < num_cells)
+    cells, counts = torch.unique(ids[valid], return_counts=True)
+    log(f"  {int(valid.sum())} of {p * k} rows land in {cells.numel()} of "
+        f"{num_cells} cells, the longest run {int(counts.max())} rows; "
+        f"{p * k - int(valid.sum())} rows are dropped")
+    flat = torch.where(valid, ids, torch.full_like(ids, num_cells)).reshape(-1)
+    rows = (dvals[..., None] * feats[:, None, :]).reshape(-1, c)
+    zeros = torch.zeros(num_cells + 1, c, device=dvals.device)
+    flat_long = flat.long()
+    bound_ms, bound_by = bound(2.0 * p * k * c,
+                               nbytes(dvals, feats, ids) + num_cells * c * 4)
+    row = dict(
+        name="splat_topk", route="cuda",
+        source="gencomm_tpu_torch/csrc/splat_topk.cu",
+        replaces="gencomm_tpu/ops/splat_pallas.py:61",
+        max_abs_err=err,
+        ms=time_ms(lambda: splat_topk_fwd(dvals, feats, ids, num_cells,
+                                          bf16_rows)),
+        plain_ms=time_ms(lambda: splat_topk_plain(dvals, feats, ids,
+                                                  num_cells, bf16_rows)),
+        bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=time_ms(lambda: torch.index_add(zeros, 0, flat_long, rows)))
+    sids, order = sort_ids(ids, num_cells)
+    log(f"  of the wrapper's {row['ms']:.4f} ms, its index preparation "
+        f"(torch.where and a stable torch.sort of {p * k} int32 ids, about "
+        f"ten small launches) takes "
+        f"{time_ms(lambda: sort_ids(ids, num_cells)):.4f} ms, and the memset "
+        f"and the two kernels on the sorted ids "
+        f"{time_ms(lambda: splat_sorted(dvals, feats, sids, order, num_cells, bf16_rows)):.4f} ms")
+    log_rows([row])
+    return row
+
+
+def check_splat_bwd(inputs):
+    """K4b against its plain version on the camera train step's arguments;
+    returns its row."""
+    import torch
+    from gencomm_tpu_torch.ops.splat import (
+        splat_topk_bwd, splat_topk_bwd_plain,
+    )
+
+    dvals, feats, ids, gout, num_cells = inputs["splat_topk_bwd"]
+    (p, k), c = dvals.shape, feats.shape[-1]
+    got = splat_topk_bwd(dvals, feats, ids, gout, num_cells)
+    want = splat_topk_bwd_plain(dvals, feats, ids, gout, num_cells)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, gv, wv in zip(("d_dvals", "d_feats"), got, want):
+        e, scale = float((gv - wv).abs().max()), float(wv.abs().max())
+        tol = SPLAT_TOL * max(1.0, scale)
+        log(f"K4b {name}{tuple(gv.shape)}: max|kernel-plain| {e:.3e}, "
+            f"max|plain| {scale:.3e} (tol {tol:.3e}: fp32 sums of {c} "
+            f"products / {k} rows in another order)")
+        if not e <= tol:
+            raise AssertionError(f"K4b {name} disagrees with its plain "
+                                 f"version: {e}")
+        err = max(err, e)
+    valid = (ids >= 0) & (ids < num_cells)
+    touched = int(torch.unique(ids[valid]).numel())
+    # the library's yardstick: autograd of one index_add on materialised rows
+    flat = torch.where(valid, ids, torch.full_like(ids, num_cells)
+                       ).reshape(-1).long()
+    rows_req = (dvals[..., None] * feats[:, None, :]).reshape(
+        -1, c).requires_grad_()
+    lib_out = torch.index_add(
+        torch.zeros(num_cells + 1, c, device=dvals.device), 0, flat, rows_req)
+    g_pad = torch.cat([gout, torch.zeros(1, c, device=gout.device)])
+    bound_ms, bound_by = bound(
+        4.0 * p * k * c,
+        2 * nbytes(dvals, feats) + nbytes(ids) + touched * c * 4)
+    row = dict(
+        name="splat_topk_bwd", route="cuda",
+        source="gencomm_tpu_torch/csrc/splat_topk_bwd.cu",
+        replaces="gencomm_tpu/ops/splat_pallas.py:188",
+        max_abs_err=err,
+        ms=time_ms(lambda: splat_topk_bwd(dvals, feats, ids, gout, num_cells)),
+        plain_ms=time_ms(lambda: splat_topk_bwd_plain(dvals, feats, ids, gout,
+                                                      num_cells)),
+        bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=time_ms(lambda: torch.autograd.grad(
+            lib_out, rows_req, g_pad, retain_graph=True)))
+    log(f"  the cotangent rows of {touched} touched cells are read")
+    log_rows([row])
+    return row
+
+
+def eval_phase(smi, dev, label, model_kw, feature_shape, scenes, host,
+               targets, check, expected):
+    """An eval path: the kernels named by ``targets`` on the arguments the
+    path gives them (``check``), the path counted and timed, the device
+    profile, and the same frame on the CPU. Returns the kernels' rows."""
+    import torch
+    from gencomm_tpu_torch.models.heter_baseline import HeterModel
+    from gencomm_tpu_torch.ops import _cuda
+    from gencomm_tpu_torch.pipeline import InferencePipeline, batch_to_device
+    from gencomm_tpu_torch.weights import random_state_dict
+
+    t_phase = time.perf_counter()
+    model = HeterModel(**model_kw, device=dev)
+    state = random_state_dict(model, seed=0)
+    model.load_state_dict(state)
+    batch = batch_to_device(host, dev)
+    pipe = InferencePipeline(model, scenes.anchors,
+                             postprocess_cfg(model_kw["lidar_range"]),
+                             device=dev)
+    gen = torch.Generator().manual_seed(1)
+    n = host["agent_mask"].size
+    noises = [torch.randn((n,) + feature_shape, generator=gen)
+              for _ in range(3)]
+    noises_dev = [t.to(dev) for t in noises]
+
+    # the kernels on the path's inputs
+    def forward():
+        with torch.inference_mode():
+            model(batch, noises=noises_dev)
+
+    rows = check(record_calls(targets, forward))
+
+    # the path, counted and timed
+    for k in _cuda.LAUNCHES:
+        _cuda.LAUNCHES[k] = 0
+    dets = pipe.run(batch, seed=0)  # warm-up
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(TIMED_FRAMES):
+        dets = pipe.run(batch, seed=i + 1)
+    end.record()
+    end.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    ms = start.elapsed_time(end) / TIMED_FRAMES
+    n_det = int(dets.valid.sum())
+    log(f"{label} eval path: {1 + TIMED_FRAMES} frames, {ms:.3f} ms/frame, "
+        f"{1000.0 / ms:.2f} frames/s (fp32, batch 1, {n} agents) on {smi}; "
+        f"{n_det} detections kept in the last frame; launches {launches}")
+    if dets.corners3d.shape != (1, NMS_TOPK, 8, 3):
+        raise AssertionError(f"detections shape {tuple(dets.corners3d.shape)}")
+    if not (torch.isfinite(dets.corners3d[dets.valid]).all()
+            and torch.isfinite(dets.scores).all()):
+        raise AssertionError("non-finite detections")
+    for name in expected:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"{label} eval path")
+    for row in rows:
+        row["launches"] = launches[row["name"]]
+
+    profile_device(lambda i: pipe.run(batch, seed=100 + i), ms, 3, "frame")
+
+    # the same frame, weights and noise on the CPU
+    with torch.inference_mode():
+        out_dev = model(batch, noises=noises_dev)
+        cpu_model = HeterModel(**model_kw, device="cpu")
+        cpu_model.load_state_dict(state)
+        t0 = time.perf_counter()
+        out_cpu = cpu_model(batch_to_device(host, "cpu"), noises=noises)
+        cpu_s = time.perf_counter() - t0
+    for key in ("cls_preds", "reg_preds", "dir_preds"):
+        a, b = out_dev[key].float().cpu(), out_cpu[key]
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{key} on the card is not finite")
+        err = float((a - b).abs().max())
+        scale = max(1.0, float(b.abs().max()))
+        log(f"card vs CPU {key} {tuple(a.shape)}: max abs diff {err:.3e}, "
+            f"max |cpu| {scale:.3e}, tol {CPU_TOL:.0e} x max(1, max|cpu|)")
+        if not err <= CPU_TOL * scale:
+            raise AssertionError(f"{key}: card and CPU disagree ({err})")
+    log(f"CPU forward took {cpu_s:.1f} s")
+    phase_done(f"{label} eval", t_phase)
+    return rows
+
+
+def train_phase(smi, dev, label, model_kw, hypes, feature_shape, hosts,
+                targets, check, expected, jitter_key):
+    """A training path: the kernels named by ``targets`` on the arguments
+    the train step gives them (``check``), the steps counted and timed, the
+    loss falling on one batch, and one step on the card against the CPU.
+    Returns the kernels' rows."""
+    import torch
     from gencomm_tpu_torch.loss import build_loss
     from gencomm_tpu_torch.models.heter_baseline import HeterModel
-    from gencomm_tpu_torch.native import PillarVoxelizer
     from gencomm_tpu_torch.ops import _cuda
     from gencomm_tpu_torch.pipeline import batch_to_device
     from gencomm_tpu_torch.train.trainer import make_optimizer, make_train_step
     from gencomm_tpu_torch.weights import random_state_dict
 
-    scenes = SyntheticScenes(cfg)
-    voxelizer = PillarVoxelizer(LIDAR_RANGE, VOXEL)
-    t0 = time.perf_counter()
-    hosts = [decorate_modality(trim_agent_slots(
-        scenes.sample(TRAIN_SEED * 10000 + i, TRAIN_BATCH), buckets=(2, 3, 5)),
-        voxelizer) for i in range(1 + TIMED_STEPS)]
+    t_phase = time.perf_counter()
     batches = [batch_to_device(h, dev) for h in hosts]
-    log(f"train batches: {len(hosts)} x {TRAIN_BATCH} samples, "
-        f"{hosts[0]['agent_mask'].shape[1]} agent slots each, sampled, "
-        f"labelled and decorated on the host in "
-        f"{time.perf_counter() - t0:.3f} s; "
-        f"{int(hosts[0]['pos_equal_one'].sum())} positive anchors in the first")
 
     def fresh(device):
-        model = HeterModel(**FLAGSHIP, device=device)
+        model = HeterModel(**model_kw, device=device)
         model.load_state_dict(state)
         model.train()
-        opt, sched = make_optimizer(TRAIN_HYPES, model.parameters())
+        opt, sched = make_optimizer(hypes, model.parameters())
         return model, make_train_step(model, criterion, opt, sched)
 
-    criterion = build_loss(TRAIN_HYPES["loss"])
-    state = random_state_dict(HeterModel(**FLAGSHIP, device=dev), seed=0)
+    criterion = build_loss(hypes["loss"])
+    state = random_state_dict(HeterModel(**model_kw, device=dev), seed=0)
     n_slots = hosts[0]["agent_mask"].size
     gen = torch.Generator().manual_seed(2)
-    noises = [torch.randn((n_slots,) + FEATURE_SHAPE, generator=gen)
+    noises = [torch.randn((n_slots,) + feature_shape, generator=gen)
               for _ in range(3)]
     noises_dev = [t.to(dev) for t in noises]
 
-    # the backward kernels on the train step's arguments
+    # the kernels on the train step's arguments: one forward and backward,
+    # no update
     model, step = fresh(dev)
-    inputs = capture_backward_inputs(model, criterion, batches[0], noises_dev)
-    rows = check_backward_kernels(inputs)
 
-    # the training main path, counted and timed
+    def forward_backward():
+        criterion(model(batches[0], noises=noises_dev),
+                  batches[0])["total_loss"].backward()
+
+    inputs = record_calls(targets, forward_backward)
+    model.zero_grad(set_to_none=True)
+    rows = check(inputs)
+
+    # the training path, counted and timed
     for k in _cuda.LAUNCHES:
         _cuda.LAUNCHES[k] = 0
+    torch.cuda.reset_peak_memory_stats()
     dgen = torch.Generator(device=dev).manual_seed(3)
     step_losses = [step(batches[0], generator=dgen)]  # warm-up
     torch.cuda.synchronize()
@@ -555,16 +838,18 @@ def train_phase(smi, cfg, dev):
             + ", ".join(f"{k} {v:.6f}" for k, v in sorted(vals.items())))
         if not all(math.isfinite(v) for v in vals.values()):
             raise AssertionError(f"step {i}: non-finite loss {vals}")
-    log(f"train path: {1 + TIMED_STEPS} steps, {ms:.3f} ms/step, "
+        if set(vals) != set(step_losses[0]):
+            raise AssertionError(f"step {i}: loss terms {sorted(vals)}")
+    log(f"{label} train path: {1 + TIMED_STEPS} steps, {ms:.3f} ms/step, "
         f"{1000.0 / ms:.3f} steps/s, {TRAIN_BATCH * 1000.0 / ms:.2f} training "
         f"frames/s (fp32, TF32 off, batch {TRAIN_BATCH} x {n_slots // TRAIN_BATCH}"
         f" agents) on {smi}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
         f"launches {launches}")
-    for k, v in launches.items():
-        if v <= 0:
-            raise AssertionError(f"kernel {k} was not launched on the "
-                                 "training path")
+    for name in expected:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"{label} training path")
     for row in rows:
         row["launches"] = launches[row["name"]]
     profile_device(lambda i: step(batches[i], generator=dgen), ms, 2, "step")
@@ -578,8 +863,8 @@ def train_phase(smi, cfg, dev):
         raise AssertionError(f"the loss did not fall: {totals}")
 
     # one step on the card and on the port's CPU; the CPU step once more
-    # with its input points jittered by JITTER (relative), which measures
-    # how far the gradients move with the last bits of the inputs
+    # with its input (``jitter_key``) jittered by JITTER (relative), which
+    # measures how far the gradients move with the last bits of the inputs
     model, step = fresh(dev)
     card = step(batches[0], noises=noises_dev)
     cpu_batch = batch_to_device(hosts[0], "cpu")
@@ -594,9 +879,9 @@ def train_phase(smi, cfg, dev):
             raise AssertionError(f"{k}: card and CPU disagree ({a} vs {b})")
     jit_model, jit_step = fresh("cpu")
     jgen = torch.Generator().manual_seed(4)
-    pts = cpu_batch["decorated_m1"]
-    jit_step(dict(cpu_batch, decorated_m1=pts * (
-        1.0 + JITTER * torch.randn(pts.shape, generator=jgen))), noises=noises)
+    pts = cpu_batch[jitter_key]
+    jit_step({**cpu_batch, jitter_key: pts * (
+        1.0 + JITTER * torch.randn(pts.shape, generator=jgen))}, noises=noises)
     log(f"CPU step took {cpu_s:.1f} s")
     sensitivity = log_grad_errors(f"CPU vs CPU with a {JITTER:.0e} input jitter",
                                   jit_model, cpu_model)
@@ -606,23 +891,8 @@ def train_phase(smi, cfg, dev):
         f"tol {GRAD_FACTOR} x {sensitivity:.3e} + {GRAD_FLOOR:.0e}")
     if not worst <= tol:
         raise AssertionError(f"gradients disagree: {worst} > {tol}")
+    phase_done(f"{label} training", t_phase)
     return rows
-
-
-def log_k4_bound():
-    """The bound of the LSS top-K splat (K4, not ported yet) at the shapes
-    of configs/opv2v/gencomm/stage1/m2_att.yaml, per camera agent: 4
-    cameras of 384 x 512 at img_downsample 8 (48 x 64 feature pixels each),
-    depth_topk 8, 128 image features, a 256 x 256 x 1 grid (0.4 m over
-    +-51.2 m); fp32 canvas, int32 ids."""
-    p, k, c, cells = 4 * (384 // 8) * (512 // 8), 8, 128, 256 * 256
-    flops = 2.0 * p * k * c
-    moved = p * k * (4 + 4) + p * c * 4 + cells * c * 4
-    bound_ms, bound_by = bound(flops, moved)
-    log(f"K4 splat_topk (not ported): {p} pixel rows x {k} depths x {c} "
-        f"features into {cells} cells: {flops / 1e6:.1f} MFLOP, "
-        f"{moved / 1e6:.1f} MB, bound {bound_ms:.4f} ms ({bound_by}) per "
-        f"camera agent")
 
 
 def main() -> int:
@@ -635,13 +905,13 @@ def main() -> int:
     from gencomm_tpu_torch.data.bucketing import trim_agent_slots
     from gencomm_tpu_torch.data.decorate import decorate_modality
     from gencomm_tpu_torch.data.synthetic import SyntheticConfig, SyntheticScenes
-    from gencomm_tpu_torch.models.heter_baseline import HeterModel
+    from gencomm_tpu_torch.models.encoders import lss, point_pillar
+    from gencomm_tpu_torch.models.fuse import fusion
     from gencomm_tpu_torch.native import PillarVoxelizer
-    from gencomm_tpu_torch.ops import _cuda
-    from gencomm_tpu_torch.pipeline import InferencePipeline, batch_to_device
-    from gencomm_tpu_torch.weights import random_state_dict
+    from gencomm_tpu_torch.ops import _cuda, deform_conv, pillar_canvas, splat, warp
 
     # phase 1: the card
+    t_all = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
@@ -665,87 +935,107 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
-    # the flagship, a frame, random weights from a seed
+    # phases 3-5: the lidar flagship's eval path
     cfg = SyntheticConfig(lidar_range=LIDAR_RANGE, max_cav=5, num_agents=2,
                           points_per_agent=30000, num_vehicles=12,
                           points_per_vehicle=300)
     scenes = SyntheticScenes(cfg)
+    voxelizer = PillarVoxelizer(LIDAR_RANGE, VOXEL)
     t0 = time.perf_counter()
-    host = trim_agent_slots(scenes.sample(seed=0, batch_size=1),
-                            buckets=(2, 3, 5))
-    host = decorate_modality(host, PillarVoxelizer(LIDAR_RANGE, VOXEL))
-    log(f"frame: sampled, trimmed to {host['agent_mask'].shape[1]} agents and "
-        f"decorated on the host in {time.perf_counter() - t0:.3f} s")
-    model = HeterModel(**FLAGSHIP, device=dev)
-    state = random_state_dict(model, seed=0)
-    model.load_state_dict(state)
-    batch = batch_to_device(host, dev)
-    pipe = InferencePipeline(model, scenes.anchors, POSTPROCESS, device=dev)
-    gen = torch.Generator().manual_seed(1)
-    n = host["agent_mask"].size
-    noises = [torch.randn((n,) + FEATURE_SHAPE, generator=gen)
-              for _ in range(3)]
-    noises_dev = [t.to(dev) for t in noises]
+    host = decorate_modality(trim_agent_slots(
+        scenes.sample(seed=0, batch_size=1), buckets=(2, 3, 5)), voxelizer)
+    log(f"lidar frame: sampled, trimmed to {host['agent_mask'].shape[1]} "
+        f"agents and decorated on the host in {time.perf_counter() - t0:.3f} s")
+    kernel_rows = eval_phase(
+        smi, dev, "lidar", FLAGSHIP, FEATURE_SHAPE, scenes, host,
+        [(point_pillar, "pillar_canvas"), (deform_conv, "deform_conv3x3"),
+         (fusion, "warp_affine")],
+        lambda inputs: [check_deform(inputs, "lidar eval"),
+                        check_pillar(inputs, "lidar eval"),
+                        check_warp(inputs, "lidar eval")],
+        ("deform_conv3x3", "pillar_canvas", "warp_affine"))
 
-    # phase 3: kernels on the main path's inputs
-    inputs = capture_kernel_inputs(model, batch, noises_dev)
-    kernel_rows = check_kernels(inputs)
-    log_k4_bound()
+    # phase 6: the lidar flagship's training path
+    t0 = time.perf_counter()
+    hosts = [decorate_modality(trim_agent_slots(
+        scenes.sample(TRAIN_SEED * 10000 + i, TRAIN_BATCH), buckets=(2, 3, 5)),
+        voxelizer) for i in range(1 + TIMED_STEPS)]
+    log(f"lidar train batches: {len(hosts)} x {TRAIN_BATCH} samples, "
+        f"{hosts[0]['agent_mask'].shape[1]} agent slots each, sampled, "
+        f"labelled and decorated on the host in "
+        f"{time.perf_counter() - t0:.3f} s; "
+        f"{int(hosts[0]['pos_equal_one'].sum())} positive anchors in the first")
+    kernel_rows += train_phase(
+        smi, dev, "lidar", FLAGSHIP, TRAIN_HYPES, FEATURE_SHAPE, hosts,
+        [(deform_conv, "deform_conv3x3_bwd"),
+         (pillar_canvas, "pillar_canvas_bwd"), (warp, "warp_affine_bwd")],
+        lambda inputs: [check_deform_bwd(inputs, "lidar train step"),
+                        check_pillar_bwd(inputs, "lidar train step"),
+                        check_warp_bwd(inputs, "lidar train step")],
+        ("deform_conv3x3", "pillar_canvas", "warp_affine",
+         "deform_conv3x3_bwd", "pillar_canvas_bwd", "warp_affine_bwd"),
+        "decorated_m1")
+    del hosts
 
-    # phase 4: the main path, counted and timed
-    for k in _cuda.LAUNCHES:
-        _cuda.LAUNCHES[k] = 0
-    dets = pipe.run(batch, seed=0)  # warm-up
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(TIMED_FRAMES):
-        dets = pipe.run(batch, seed=i + 1)
-    end.record()
-    end.synchronize()
-    launches = dict(_cuda.LAUNCHES)
-    ms = start.elapsed_time(end) / TIMED_FRAMES
-    n_det = int(dets.valid.sum())
-    log(f"main path: {1 + TIMED_FRAMES} frames, {ms:.3f} ms/frame, "
-        f"{1000.0 / ms:.2f} frames/s (fp32, batch 1, 2 agents) on {smi}; "
-        f"{n_det} detections kept in the last frame; launches {launches}")
-    if dets.corners3d.shape != (1, POSTPROCESS["nms_topk"], 8, 3):
-        raise AssertionError(f"detections shape {tuple(dets.corners3d.shape)}")
-    if not (torch.isfinite(dets.corners3d[dets.valid]).all()
-            and torch.isfinite(dets.scores).all()):
-        raise AssertionError("non-finite detections")
-    for row in kernel_rows:  # the eval path runs the forward kernels
-        if launches[row["name"]] <= 0:
-            raise AssertionError(f"kernel {row['name']} was not launched on "
-                                 "the main path")
-        row["launches"] = launches[row["name"]]
+    # phase 7: the camera eval path. The sampler is configured as
+    # tools/train.py configures it for a camera-labelled model: the
+    # vehicles spawn within d_max - 2 of the ego
+    cam_cfg = SyntheticConfig(
+        lidar_range=CAMERA_RANGE, max_cav=5, num_agents=2, num_vehicles=12,
+        points_per_vehicle=300,
+        modalities={"m1": {"sensor": "camera", "final_dim": CAMERA_DIM,
+                           "ncam": CAMERA_NCAM}},
+        max_spawn_radius=CAMERA_GRID["ddiscr"][1] - 2.0)
+    cam_scenes = SyntheticScenes(cam_cfg)
+    t0 = time.perf_counter()
+    cam_host = trim_agent_slots(cam_scenes.sample(seed=0, batch_size=1),
+                                buckets=(2, 3, 5))
+    log(f"camera frame: sampled (images {cam_host['imgs_m1'].shape}) and "
+        f"trimmed to {cam_host['agent_mask'].shape[1]} agents on the host in "
+        f"{time.perf_counter() - t0:.3f} s")
+    # K1 and K3 get (A, 64, 64, 128) maps here, not the lidar path's
+    # (A, 64, 128, 128): they are held against their plain versions again
+    add_rows(kernel_rows, "camera eval", eval_phase(
+        smi, dev, "camera", CAMERA, CAMERA_FEATURE_SHAPE, cam_scenes, cam_host,
+        [(deform_conv, "deform_conv3x3"), (fusion, "warp_affine"),
+         (lss, "splat_topk")],
+        lambda inputs: [check_deform(inputs, "camera eval"),
+                        check_warp(inputs, "camera eval"),
+                        check_splat(inputs, "camera eval")],
+        ("deform_conv3x3", "warp_affine", "splat_topk")))
 
-    profile_device(lambda i: pipe.run(batch, seed=100 + i), ms, 3, "frame")
+    # phase 8: the camera training path
+    t0 = time.perf_counter()
+    cam_hosts = [trim_agent_slots(
+        cam_scenes.sample(TRAIN_SEED * 10000 + i, TRAIN_BATCH),
+        buckets=(2, 3, 5)) for i in range(1 + TIMED_STEPS)]
+    log(f"camera train batches: {len(cam_hosts)} x {TRAIN_BATCH} samples, "
+        f"{cam_hosts[0]['agent_mask'].shape[1]} agent slots each, sampled and "
+        f"labelled on the host in {time.perf_counter() - t0:.3f} s; "
+        f"{int(cam_hosts[0]['pos_equal_one'].sum())} positive anchors in the "
+        f"first")
 
-    # phase 5: the same frame, weights and noise on the CPU
-    with torch.inference_mode():
-        out_dev = model(batch, noises=noises_dev)
-        cpu_model = HeterModel(**FLAGSHIP, device="cpu")
-        cpu_model.load_state_dict(state)
-        t0 = time.perf_counter()
-        out_cpu = cpu_model(batch_to_device(host, "cpu"), noises=noises)
-        cpu_s = time.perf_counter() - t0
-    for key in ("cls_preds", "reg_preds", "dir_preds"):
-        a, b = out_dev[key].float().cpu(), out_cpu[key]
-        if not torch.isfinite(a).all():
-            raise AssertionError(f"{key} on the card is not finite")
-        err = float((a - b).abs().max())
-        scale = max(1.0, float(b.abs().max()))
-        log(f"card vs CPU {key} {tuple(a.shape)}: max abs diff {err:.3e}, "
-            f"max |cpu| {scale:.3e}, tol {CPU_TOL:.0e} x max(1, max|cpu|)")
-        if not err <= CPU_TOL * scale:
-            raise AssertionError(f"{key}: card and CPU disagree ({err})")
-    log(f"CPU forward took {cpu_s:.1f} s")
+    def check_camera_train(inputs):
+        # the forward kernels once more at the train step's shapes (4 agent
+        # slots; logged, no rows of their own), then the backward kernels
+        where = "camera train step"
+        check_deform(inputs, where)
+        check_warp(inputs, where)
+        check_splat(inputs, where)
+        return [check_deform_bwd(inputs, where), check_warp_bwd(inputs, where),
+                check_splat_bwd(inputs)]
 
-    # phase 6: training
-    kernel_rows += train_phase(smi, cfg, dev)
+    add_rows(kernel_rows, "camera train step", train_phase(
+        smi, dev, "camera", CAMERA, CAMERA_TRAIN_HYPES, CAMERA_FEATURE_SHAPE,
+        cam_hosts,
+        [(deform_conv, "deform_conv3x3"), (fusion, "warp_affine"),
+         (lss, "splat_topk"), (deform_conv, "deform_conv3x3_bwd"),
+         (warp, "warp_affine_bwd"), (splat, "splat_topk_bwd")],
+        check_camera_train,
+        ("deform_conv3x3", "warp_affine", "splat_topk", "deform_conv3x3_bwd",
+         "warp_affine_bwd", "splat_topk_bwd"), "imgs_m1"))
 
+    phase_done("all phases", t_all)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,13 @@
 """Synthetic multi-agent V2X scenes: eval fields and anchor labels.
 
 Counterpart of ``gencomm_tpu/data/synthetic.py`` (``SyntheticScenes.sample``)
-for lidar modalities: points, masks, pairwise transforms and GT boxes, drawn
-from the same numpy RNG stream, so the same seed gives the same arrays, and
-the ego-frame anchor labels ``pos_equal_one``, ``neg_equal_one`` and
-``targets`` (``generate_label``, which draws no random numbers). Per-agent
-labels, camera rendering and the robustness knobs (pose noise, delay, spawn
-radius) belong to later slices.
+for lidar and camera modalities: points or rendered camera images with
+their calibration and GT depth maps, masks, pairwise transforms and GT
+boxes, drawn from the same numpy RNG stream, so the same seed gives the
+same arrays, and the ego-frame anchor labels ``pos_equal_one``,
+``neg_equal_one`` and ``targets`` (``generate_label``, which draws no random
+numbers). Per-agent labels and the robustness knobs (pose noise, delay)
+belong to later slices.
 """
 
 from __future__ import annotations
@@ -46,20 +47,22 @@ class SyntheticConfig:
     neg_threshold: float = 0.45
     # per-agent labels (supervise_single) are not ported: True raises
     per_agent_labels: bool = False
+    # name -> {"sensor": "lidar"} or {"sensor": "camera", "final_dim":
+    # (H, W), "ncam": 4, "focal": f}; agent slots take the listed
+    # modalities round-robin, the ego the first
     modalities: dict = field(
         default_factory=lambda: {"m1": {"sensor": "lidar"}}
     )
+    # cap the vehicles' spawn distance from the ego (0 = anywhere in
+    # lidar_range); camera-labelled configs set it to the depth
+    # discretization's d_max - 2 so that every GT box is visible
+    max_spawn_radius: float = 0.0
 
 
 class SyntheticScenes:
     def __init__(self, cfg: SyntheticConfig | None = None):
         self.cfg = cfg or SyntheticConfig()
         c = self.cfg
-        cams = [m for m, mc in c.modalities.items()
-                if mc.get("sensor", "lidar") == "camera"]
-        if cams:
-            raise NotImplementedError(
-                f"camera modalities {cams} are not ported yet")
         if c.per_agent_labels:
             raise NotImplementedError(
                 "per-agent labels (supervise_single) are not ported yet")
@@ -91,15 +94,89 @@ class SyntheticScenes:
         return np.stack([x + lx * cy - ly * sy, y + lx * sy + ly * cy, z + lz],
                         axis=1)
 
+    def _render_cams(self, rng, veh_world, veh_color, ground_world,
+                     world_to_agent, camcfg):
+        """Project the scene's points into ``ncam`` pinhole cameras ringed
+        around the agent (painter's algorithm, far first): images, camera ->
+        agent rotations and translations, intrinsics and dense GT depth
+        (1000 m where nothing is seen)."""
+        h, w = camcfg.get("final_dim", (384, 512))
+        ncam = int(camcfg.get("ncam", 4))
+        f = float(camcfg.get("focal", 0.5 * w / np.tan(np.radians(50.0))))
+        cam_h = 1.5
+        imgs = rng.uniform(0, 0.08, (ncam, h, w, 3)).astype(np.float32)
+        depths = np.full((ncam, h, w), 1000.0, np.float32)
+        rots = np.zeros((ncam, 3, 3), np.float32)
+        trans = np.tile(np.array([0.0, 0.0, cam_h], np.float32), (ncam, 1))
+        K = np.array([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]], np.float32)
+        intrins = np.tile(K, (ncam, 1, 1))
+
+        def to_agent(pts_world):
+            hom = np.concatenate(
+                [pts_world, np.ones((len(pts_world), 1))], 1)
+            return (hom @ world_to_agent.T)[:, :3].astype(np.float32)
+
+        veh_local = to_agent(veh_world)
+        gnd_local = to_agent(ground_world)
+        for k in range(ncam):
+            yaw = 2 * np.pi * k / ncam
+            cy, sy = np.cos(yaw), np.sin(yaw)
+            # columns: the camera's x (right), y (down), z (forward) axes in
+            # the agent frame
+            R = np.array([[sy, 0, cy],
+                          [-cy, 0, sy],
+                          [0, -1, 0]], np.float32)
+            rots[k] = R
+            for pts, vals in ((gnd_local, None), (veh_local, veh_color)):
+                pc = (pts - trans[k]) @ R
+                z = pc[:, 2]
+                keep = z > 1.0
+                u = (f * pc[:, 0] / np.maximum(z, 1e-3) + w / 2).astype(
+                    np.int32)
+                v = (f * pc[:, 1] / np.maximum(z, 1e-3) + h / 2).astype(
+                    np.int32)
+                keep &= (u >= 0) & (u < w) & (v >= 0) & (v < h)
+                idx = np.nonzero(keep)[0]
+                idx = idx[np.argsort(-z[idx])]
+                depth_val = np.exp(-z[idx] / 40.0).astype(np.float32)
+                if vals is None:
+                    imgs[k, v[idx], u[idx]] = np.stack(
+                        [np.full_like(depth_val, 0.15), depth_val,
+                         np.full_like(depth_val, 0.1)], axis=1)
+                else:
+                    imgs[k, v[idx], u[idx]] = np.stack(
+                        [np.ones_like(depth_val), depth_val,
+                         vals[idx].astype(np.float32)], axis=1)
+                depths[k, v[idx], u[idx]] = z[idx].astype(np.float32)
+        return imgs, rots, trans, intrins, depths
+
     def sample(self, seed: int, batch_size: int = 1) -> dict:
         """A batch dict of numpy arrays: model inputs, labels and eval GT."""
         rng = np.random.RandomState(seed % (2 ** 32))
         c = self.cfg
         B, L, P = batch_size, c.max_cav, c.points_per_agent
         mod_names = list(c.modalities)
-        points_mod = {m: np.zeros((B, L, P, 4), np.float32) for m in mod_names}
-        point_mask_mod = {m: np.zeros((B, L, P), bool) for m in mod_names}
+        cam_mods = {m: mc for m, mc in c.modalities.items()
+                    if mc.get("sensor", "lidar") == "camera"}
+        lidar_mods = [m for m in mod_names if m not in cam_mods]
+        points_mod = {m: np.zeros((B, L, P, 4), np.float32)
+                      for m in lidar_mods}
+        point_mask_mod = {m: np.zeros((B, L, P), bool) for m in lidar_mods}
         modality_mask = {m: np.zeros((B, L), bool) for m in mod_names}
+        cam_arrays = {}
+        for m, mc in cam_mods.items():
+            h, w = mc.get("final_dim", (384, 512))
+            ncam = int(mc.get("ncam", 4))
+            eye = np.tile(np.eye(3, dtype=np.float32), (B, L, ncam, 1, 1))
+            cam_arrays[m] = {
+                "depths": np.zeros((B, L, ncam, h, w), np.float32),
+                "imgs": np.zeros((B, L, ncam, h, w, 3), np.float32),
+                "rots": eye.copy(),
+                "trans": np.zeros((B, L, ncam, 3), np.float32),
+                "intrins": eye.copy(),
+                "post_rots": eye.copy(),
+                "post_trans": np.zeros((B, L, ncam, 3), np.float32),
+            }
         agent_mask = np.zeros((B, L), bool)
         pairwise = np.tile(np.eye(4, dtype=np.float32), (B, L, L, 1, 1))
         pos = np.zeros((B,) + self.anchors.shape[:3], np.float32)
@@ -124,6 +201,19 @@ class SyntheticScenes:
             boxes = np.zeros((nv, 7), np.float32)
             boxes[:, 0] = rng.uniform(c.lidar_range[0] * 0.9, c.lidar_range[3] * 0.9, nv)
             boxes[:, 1] = rng.uniform(c.lidar_range[1] * 0.9, c.lidar_range[4] * 0.9, nv)
+            if c.max_spawn_radius > 0:
+                # resample the vehicles beyond the radius in polar form
+                far = np.hypot(boxes[:, 0], boxes[:, 1]) > c.max_spawn_radius
+                if far.any():
+                    nfar = int(far.sum())
+                    rr = rng.uniform(8.0, c.max_spawn_radius, nfar)
+                    th = rng.uniform(-np.pi, np.pi, nfar)
+                    boxes[far, 0] = np.clip(rr * np.cos(th),
+                                            c.lidar_range[0] * 0.9,
+                                            c.lidar_range[3] * 0.9)
+                    boxes[far, 1] = np.clip(rr * np.sin(th),
+                                            c.lidar_range[1] * 0.9,
+                                            c.lidar_range[4] * 0.9)
             boxes[:, 2] = rng.uniform(-1.2, -0.8, nv)
             boxes[:, 3] = rng.uniform(1.4, 1.8, nv)  # h
             boxes[:, 4] = rng.uniform(1.7, 2.1, nv)  # w
@@ -139,6 +229,25 @@ class SyntheticScenes:
                 veh = np.concatenate([
                     self._sample_vehicle_points(rng, boxes[v])
                     for v in range(nv)], 0)
+                if mk in cam_mods:
+                    veh_color = np.repeat(
+                        0.3 + 0.7 * ((np.arange(nv) * 37) % 100) / 100.0,
+                        c.points_per_vehicle)
+                    ground = np.stack([
+                        rng.uniform(c.lidar_range[0], c.lidar_range[3], 2048),
+                        rng.uniform(c.lidar_range[1], c.lidar_range[4], 2048),
+                        rng.uniform(-2.0, -1.9, 2048),
+                    ], axis=1)
+                    imgs, rots, trans, intrins, dmaps = self._render_cams(
+                        rng, veh, veh_color, ground, world_to_agent,
+                        cam_mods[mk])
+                    ca = cam_arrays[mk]
+                    ca["imgs"][b, i] = imgs
+                    ca["rots"][b, i] = rots
+                    ca["trans"][b, i] = trans
+                    ca["intrins"][b, i] = intrins
+                    ca["depths"][b, i] = dmaps
+                    continue
                 nground = P - len(veh)
                 ground = np.stack([
                     rng.uniform(c.lidar_range[0], c.lidar_range[3], nground),
@@ -166,9 +275,13 @@ class SyntheticScenes:
             "gt_boxes": gt_boxes,
             "gt_mask": gt_mask,
         }
-        for m in mod_names:
+        for m in lidar_mods:
             batch[f"points_{m}"] = points_mod[m]
             batch[f"point_mask_{m}"] = point_mask_mod[m]
+            batch[f"modality_mask_{m}"] = modality_mask[m]
+        for m, ca in cam_arrays.items():
+            for k, v in ca.items():
+                batch[f"{k}_{m}"] = v
             batch[f"modality_mask_{m}"] = modality_mask[m]
         return batch
 

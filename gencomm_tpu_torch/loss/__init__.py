@@ -6,10 +6,12 @@ from gencomm_tpu_torch.loss.point_pillar_loss import (
     PointPillarGenCommLoss,
     PointPillarLoss,
 )
+from gencomm_tpu_torch.loss.pyramid_loss import PointPillarDepthLoss
 
 LOSSES = {
     "point_pillar_loss": PointPillarLoss,
     "point_pillar_gencomm_loss": PointPillarGenCommLoss,
+    "point_pillar_depth_loss": PointPillarDepthLoss,
 }
 
 

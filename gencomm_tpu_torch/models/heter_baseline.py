@@ -1,12 +1,12 @@
 """Heterogeneous collaboration model, GenComm stage 1, eval and training.
 
 Counterpart of ``gencomm_tpu/models/heter_baseline.py`` (``ModalityBranch``,
-``HeterModel.__call__``) restricted to: host-decorated point_pillar
-modalities, ``use_gencomm`` (message extractor + conditional DDPM),
-``use_enhancer`` and ``att`` fusion, fp32 activations. The model is built
-in ``eval()``; under ``train()`` only the batch norms change (batch
-statistics, running averages updated), as in stage 1 of the JAX model,
-whose other train-time branches are off there. Every other branch raises
+``HeterModel.__call__``) restricted to: host-decorated point_pillar and
+lift_splat_shoot camera modalities, ``use_gencomm`` (message extractor +
+conditional DDPM), ``use_enhancer`` and ``att`` fusion, fp32 activations.
+The model is built in ``eval()``; under ``train()`` only the batch norms
+change (batch statistics, running averages updated), as in stage 1 of the
+JAX model, whose other train-time branches are off there. Every other branch raises
 ``NotImplementedError``. Inputs are padded ``(B, L, ...)`` tensors with
 masks, agent slot 0 the ego; submodule names follow the flax auto-names so
 ``weights.py`` can carry JAX parameters across.
@@ -21,6 +21,9 @@ from torch import nn
 
 from gencomm_tpu_torch import resolve_device
 from gencomm_tpu_torch.models.backbones.bev_backbone import BEVBackbone
+from gencomm_tpu_torch.models.encoders.lss import (
+    LSSEncoder, center_crop_or_pad,
+)
 from gencomm_tpu_torch.models.encoders.point_pillar import PointPillarEncoder
 from gencomm_tpu_torch.models.fuse.fusion import build_fusion
 from gencomm_tpu_torch.models.gencomm.diffusion import GenCommDiffusion
@@ -32,20 +35,34 @@ from gencomm_tpu_torch.utils.transformation_utils import normalize_pairwise_tfm
 
 
 class ModalityBranch(nn.Module):
-    """encoder -> backbone -> shrinker for one lidar modality."""
+    """encoder -> backbone -> shrinker for one modality; ``core_method``
+    selects the encoder, ``point_pillar`` or ``lift_splat_shoot``."""
 
     def __init__(self, encoder_args: Dict[str, Any],
                  backbone_args: Dict[str, Any], shrink_args: Dict[str, Any],
                  core_method: str = "point_pillar"):
         super().__init__()
-        if core_method != "point_pillar":
+        self.core_method = core_method
+        if core_method == "lift_splat_shoot":
+            self.encoder = LSSEncoder(
+                grid_conf=encoder_args["grid_conf"],
+                final_dim=tuple(encoder_args["data_aug_conf"]["final_dim"]),
+                downsample=encoder_args.get("img_downsample", 8),
+                feat_ch=encoder_args.get("img_features", 128),
+                trunk_blocks=encoder_args.get("trunk_blocks", 2),
+                trunk=encoder_args.get("img_trunk", "tpu"),
+                depth_topk=encoder_args.get("depth_topk", 0),
+                trunk_bf16=encoder_args.get("trunk_bf16", False),
+                splat_bf16=encoder_args.get("splat_bf16", False))
+        elif core_method == "point_pillar":
+            self.encoder = PointPillarEncoder(
+                voxel_size=tuple(encoder_args["voxel_size"]),
+                lidar_range=tuple(encoder_args["lidar_range"]),
+                num_filters=tuple(encoder_args["pillar_vfe"]["num_filters"]),
+                use_norm=encoder_args["pillar_vfe"].get("use_norm", True))
+        else:
             raise NotImplementedError(
                 f"encoder {core_method!r} is not ported yet")
-        self.encoder = PointPillarEncoder(
-            voxel_size=tuple(encoder_args["voxel_size"]),
-            lidar_range=tuple(encoder_args["lidar_range"]),
-            num_filters=tuple(encoder_args["pillar_vfe"]["num_filters"]),
-            use_norm=encoder_args["pillar_vfe"].get("use_norm", True))
         self.backbone = BEVBackbone(
             self.encoder.out_channels,
             layer_nums=backbone_args["layer_nums"],
@@ -58,13 +75,20 @@ class ModalityBranch(nn.Module):
             kernels=shrink_args["kernal_size"], strides=shrink_args["stride"])
         self.out_channels = shrink_args["dim"][-1]
 
-    def forward(self, decorated, gids, dvalid):
-        canvas = self.encoder(decorated, gids, dvalid)  # (B, L, ny, nx, C) bf16
+    def forward(self, inputs: Dict[str, torch.Tensor]):
+        """The encoder's inputs -> (feature (B, L, H, W, C), depth logits or
+        (logits, gt_idx) of a camera encoder, else None)."""
+        depth_logits = None
+        if self.core_method == "lift_splat_shoot":
+            canvas, depth_logits = self.encoder(inputs)  # fp32
+        else:
+            canvas = self.encoder(inputs["decorated"], inputs["gids"],
+                                  inputs["dvalid"])  # (B, L, ny, nx, C) bf16
         b, l = canvas.shape[:2]
         # the neck runs in fp32 on the bf16 canvas values, as flax promotes
         feat = self.shrinker(self.backbone(
             canvas.reshape((b * l,) + canvas.shape[2:]).float()))
-        return feat.reshape((b, l) + feat.shape[1:])
+        return feat.reshape((b, l) + feat.shape[1:]), depth_logits
 
 
 class HeterModel(nn.Module):
@@ -92,10 +116,14 @@ class HeterModel(nn.Module):
         self.use_gencomm, self.use_enhancer = use_gencomm, use_enhancer
         self.message_ch = message_ch
         self.modalities = list(modality_args)
+        # camera modalities: name -> the (x, y) extent of their BEV grid
+        self.camera_extent = {
+            m: (a["encoder_args"]["grid_conf"]["xbound"][1],
+                a["encoder_args"]["grid_conf"]["ybound"][1])
+            for m, a in modality_args.items()
+            if a.get("sensor_type", "lidar") == "camera"}
         feat_ch = None
         for mname, margs in modality_args.items():
-            if margs.get("sensor_type", "lidar") != "lidar":
-                raise NotImplementedError("camera modalities are not ported yet")
             branch = ModalityBranch(margs["encoder_args"], margs["backbone_args"],
                                     margs["shrink_header"],
                                     margs.get("core_method", "point_pillar"))
@@ -124,11 +152,16 @@ class HeterModel(nn.Module):
     def forward(self, batch: Dict[str, torch.Tensor], noises=None,
                 generator: torch.Generator | None = None) -> Dict[str, Any]:
         """batch: tensors on the model's device (``agent_mask``,
-        ``pairwise_t_matrix``, ``modality_mask_<m>`` and the decorated
-        fields ``decorated_<m>``, ``gids_<m>``, ``dvalid_<m>``). ``noises``
-        or ``generator`` feed the diffusion (see GenCommDiffusion). The
-        output keeps ``gt_feature``, ``pred_feature`` and ``feature_mask``
-        for the generation loss."""
+        ``pairwise_t_matrix``, ``modality_mask_<m>`` and, for a lidar
+        modality, the decorated fields ``decorated_<m>``, ``gids_<m>``,
+        ``dvalid_<m>``; for a camera modality ``imgs_<m>``, ``rots_<m>``,
+        ``trans_<m>``, ``intrins_<m>``, ``post_rots_<m>``,
+        ``post_trans_<m>`` and optionally ``depths_<m>``). ``noises`` or
+        ``generator`` feed the diffusion (see GenCommDiffusion). The output
+        keeps ``gt_feature``, ``pred_feature`` and ``feature_mask`` for the
+        generation loss and, for a camera modality, ``depth_items_<m>`` =
+        (logits, gt_idx, slot weight) for the depth loss (the bare logits
+        without GT depth)."""
         out: Dict[str, Any] = {}
         agent_mask = batch["agent_mask"].bool()
         b, l = agent_mask.shape
@@ -139,13 +172,38 @@ class HeterModel(nn.Module):
 
         feature = message = None
         for mname in self.modalities:
-            if f"decorated_{mname}" not in batch:
+            if mname in self.camera_extent:
+                inputs = {k: batch[f"{k}_{mname}"] for k in (
+                    "imgs", "rots", "trans", "intrins", "post_rots",
+                    "post_trans")}
+                if f"depths_{mname}" in batch:
+                    inputs["depths"] = batch[f"depths_{mname}"]
+            elif f"decorated_{mname}" in batch:
+                inputs = {"decorated": batch[f"decorated_{mname}"],
+                          "gids": batch[f"gids_{mname}"],
+                          "dvalid": batch[f"dvalid_{mname}"].bool()}
+            else:
                 raise NotImplementedError(
                     "raw-point input is not ported; decorate the points on "
                     "the host (gencomm_tpu_torch.data.decorate)")
-            feat = getattr(self, f"branch_{mname}")(
-                batch[f"decorated_{mname}"], batch[f"gids_{mname}"],
-                batch[f"dvalid_{mname}"].bool())
+            feat, depth_logits = getattr(self, f"branch_{mname}")(inputs)
+            if mname in self.camera_extent:
+                # align the camera's BEV extent to the lidar range by a
+                # center crop or pad; rounded, since 100.8 / 51.2 lies just
+                # below 1.96875 in binary and int() would cut a column
+                xmax, ymax = self.camera_extent[mname]
+                th = int(round(feat.shape[2] * (self.lidar_range[4] / ymax)))
+                tw = int(round(feat.shape[3] * (self.lidar_range[3] / xmax)))
+                feat = center_crop_or_pad(feat, (th, tw))
+                if isinstance(depth_logits, tuple):
+                    # the slot weight keeps the depth loss's mean on the
+                    # real camera agents of the padded layout
+                    logits, gt_idx = depth_logits
+                    wt = batch[f"modality_mask_{mname}"].to(logits.dtype)[
+                        :, :, None, None, None]
+                    out[f"depth_items_{mname}"] = (logits, gt_idx, wt)
+                else:
+                    out[f"depth_items_{mname}"] = depth_logits
             mmask = batch[f"modality_mask_{mname}"].to(feat.dtype)[
                 ..., None, None, None]
             contrib = feat * mmask

@@ -35,6 +35,10 @@ SIGNATURES = {
     "pillar_canvas_bwd": ("pillar_canvas_bwd_bf16",
                           [_P, _P, _P, _P, _P, _P, _L, _L, _I, _I, _P]),
     "warp_affine_bwd": ("warp_affine_bwd_f32", [_P, _P, _P, _I, _I, _I, _I, _P]),
+    "splat_topk": ("splat_topk_f32",
+                   [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P]),
+    "splat_topk_bwd": ("splat_topk_bwd_f32",
+                       [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P]),
 }
 
 _loaded: dict = {}
@@ -42,7 +46,7 @@ build_log: dict = {}  # name -> nvcc's output (ptxas register/smem report)
 # kernel launches per wrapper, counted where each wrapper launches its kernel
 LAUNCHES = {"deform_conv3x3": 0, "pillar_canvas": 0, "warp_affine": 0,
             "deform_conv3x3_bwd": 0, "pillar_canvas_bwd": 0,
-            "warp_affine_bwd": 0}
+            "warp_affine_bwd": 0, "splat_topk": 0, "splat_topk_bwd": 0}
 
 
 def _nvcc() -> str:

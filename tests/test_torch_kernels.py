@@ -6,9 +6,11 @@ the plain PyTorch version, which the wrapper takes for a CPU tensor, is held
 against the JAX Pallas kernel (interpret mode, as the JAX package's own
 tests run it) and against the JAX gather/scatter formulation, on inputs
 made with numpy from a seed. The CUDA halves (kernel vs plain version on
-the card), those of the backward kernels K1b, K2b and K3b included, carry
-the ``cuda`` marker and skip without a card; their inputs come from
-``deform_case`` and ``canvas_case``, which ``test_torch_train.py`` shares.
+the card), those of the backward kernels K1b, K2b and K3b and of the
+camera path's K4 and K4b (top-K depth splat) included, carry the ``cuda``
+marker and skip without a card; their inputs come from ``deform_case``,
+``canvas_case`` and ``splat_case``, which ``test_torch_train.py`` and
+``test_torch_camera.py`` share.
 """
 
 from types import SimpleNamespace
@@ -25,6 +27,10 @@ from gencomm_tpu_torch.ops.deform_conv import (
 from gencomm_tpu_torch.ops.pillar_canvas import (
     pillar_canvas, pillar_canvas_bwd, pillar_canvas_bwd_plain,
     pillar_canvas_plain,
+)
+from gencomm_tpu_torch.ops.splat import (
+    splat_topk, splat_topk_bwd, splat_topk_bwd_plain, splat_topk_fwd,
+    splat_topk_plain,
 )
 from gencomm_tpu_torch.ops.warp import (
     warp_affine, warp_affine_bwd, warp_affine_bwd_plain, warp_affine_plain,
@@ -363,3 +369,89 @@ def test_warp_bwd_kernel_matches_plain_on_card(cuda, c):
     np.testing.assert_allclose(got.cpu().numpy(),
                                warp_affine_bwd_plain(g, th).cpu().numpy(),
                                rtol=0, atol=tol)
+
+
+# ---------------------------------------------------------------- K4, K4b
+def splat_case(kind, seed=0, p=300, k=4, c=128, s=900):
+    """dvals (p, k), feats (p, c), ids (p, k) int32, a canvas cotangent
+    (s, c) and s. ``dropped``: collisions and ids >= s, which drop;
+    ``empty_range``: cells 200 .. s - 1 receive nothing; ``long_run``: a
+    third of the rows in one cell; ``all_dropped``: every id >= s."""
+    rng = np.random.default_rng(seed)
+    dvals = rng.random((p, k), dtype=np.float32)
+    feats = rng.standard_normal((p, c), dtype=np.float32)
+    if kind == "dropped":
+        ids = rng.integers(0, s + 300, (p, k))
+    elif kind == "empty_range":
+        ids = rng.integers(0, 200, (p, k))
+    elif kind == "long_run":
+        ids = rng.integers(0, s, (p, k))
+        ids[:p // 3] = 517
+    else:
+        ids = np.full((p, k), s + 5)
+    g = rng.standard_normal((s, c), dtype=np.float32)
+    return dvals, feats, ids.astype(np.int32), g, s
+
+
+SPLAT_CARD_CASES = [("dropped", 300, 4, 128), ("empty_range", 777, 3, 16),
+                    ("long_run", 3000, 4, 128), ("long_run", 50, 8, 256),
+                    ("all_dropped", 300, 4, 128), ("dropped", 33, 1, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16_rows", [False, True])
+@pytest.mark.parametrize("kind,p,k,c", SPLAT_CARD_CASES)
+def test_splat_kernel_matches_plain_on_card(cuda, kind, p, k, c, bf16_rows):
+    dvals, feats, ids, _, s = splat_case(kind, 3, p, k, c)
+    ids[-5:] = -2  # negative ids drop like ids >= s
+    dvals, feats, ids = (_t(a).to(cuda) for a in (dvals, feats, ids))
+    before = LAUNCHES["splat_topk"]
+    got = splat_topk_fwd(dvals, feats, ids, s, bf16_rows)
+    torch.cuda.synchronize()
+    assert LAUNCHES["splat_topk"] == before + 1
+    want = splat_topk_plain(dvals, feats, ids, s, bf16_rows)
+    # fp32 sums of up to 4000 rows in another order (the plain index_add_
+    # uses atomics on the card): 1e-5 of the largest value
+    _close(got.cpu().numpy(), want.cpu().numpy(), 1e-5, "canvas")
+    # the kernel sums each cell in one fixed order
+    assert torch.equal(got, splat_topk_fwd(dvals, feats, ids, s, bf16_rows))
+    assert bool((got[(want == 0).all(-1)] == 0).all())
+
+
+# K4b holds one float4 of channels per lane: at most 128 channels
+SPLAT_BWD_CARD_CASES = [case if case[3] <= 128 else case[:3] + (64,)
+                        for case in SPLAT_CARD_CASES]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,p,k,c", SPLAT_BWD_CARD_CASES)
+def test_splat_bwd_kernel_matches_plain_on_card(cuda, kind, p, k, c):
+    dvals, feats, ids, g, s = splat_case(kind, 4, p, k, c)
+    ids[-5:] = -2
+    dvals, feats, ids, g = (_t(a).to(cuda) for a in (dvals, feats, ids, g))
+    got = splat_topk_bwd(dvals, feats, ids, g, s)
+    torch.cuda.synchronize()
+    want = splat_topk_bwd_plain(dvals, feats, ids, g, s)
+    # fp32 sums of c products / k rows in another order: 1e-5
+    for name, gv, wv in zip(("d_dvals", "d_feats"), got, want):
+        _close(gv.cpu().numpy(), wv.cpu().numpy(), 1e-5, name)
+    # through autograd the wrapper launches both kernels
+    td, tf = dvals.clone().requires_grad_(), feats.clone().requires_grad_()
+    before = LAUNCHES["splat_topk_bwd"]
+    splat_topk(td, tf, ids, s).backward(g)
+    assert LAUNCHES["splat_topk_bwd"] == before + 1
+    assert torch.equal(td.grad, got[0]) and torch.equal(tf.grad, got[1])
+
+
+@pytest.mark.cuda
+def test_splat_kernel_refuses_what_it_does_not_take(cuda):
+    dvals, feats, ids, _, s = splat_case("dropped", 5, c=6)
+    dvals, feats, ids = (_t(a).to(cuda) for a in (dvals, feats, ids))
+    with pytest.raises(ValueError, match="multiple of 4"):
+        splat_topk_fwd(dvals, feats, ids, s)
+    with pytest.raises(ValueError, match="int32"):
+        splat_topk_fwd(dvals, feats[:, :4].contiguous(), ids.long(), s)
+    dvals, feats, ids, g, s = splat_case("dropped", 5, c=256)
+    dvals, feats, ids, g = (_t(a).to(cuda) for a in (dvals, feats, ids, g))
+    with pytest.raises(ValueError, match="at most 128 channels"):
+        splat_topk_bwd(dvals, feats, ids, g, s)
