@@ -16,12 +16,19 @@ Lift-Splat-Shoot, 4 cameras of 384 x 512 per agent, 48 depth bins, top-8, a
 
 Phases, each of which raises on failure:
   1. the card, its power limit, torch / CUDA versions, fp32 settings;
-  2. the kernel build, timed;
+  2. the kernel build, timed; K1 and K1b once on their general route
+     (channel counts the tensor-core route does not take, a ragged map,
+     offsets to +-9) against their plain versions;
   3. each kernel (K1 deformable conv, K2 pillar canvas, K3 affine warp) on
      the inputs the main path gives it, held against its plain PyTorch
      version (K2 bit-exact, K1 / K3 within the stated fp32 tolerance) and
      timed beside the plain version, a one-call PyTorch yardstick where one
-     exists, and its bound on the card;
+     exists, and its bound on the card. K1 and K1b are timed warm and with
+     the L2 cache evicted before every launch ("cold_ms"), and their rows
+     name the route the wrapper took ("path_route"; "route_launches" counts
+     the main path's launches by route); K3 and F.grid_sample are timed in
+     turns, 200 launches a turn ("turns_ms"), and by the profiler's device
+     time ("device_ms", "library_device_ms");
   4. the main path: 1 warm-up + 10 timed frames (CUDA events), frames/s,
      detections, finite outputs, and each kernel's launch count in this
      phase (it must be > 0);
@@ -163,26 +170,70 @@ LOSS_TOL = 1e-3  # relative, the losses of the same step
 # K4 / K4b vs their plain versions: fp32 sums (a cell's rows; 128 products
 # and K rows) taken in another order, relative to the output's largest value
 SPLAT_TOL = 1e-5
+K3_TURN_LAUNCHES = 200
+# channel counts and a map that only the general route of K1 / K1b takes
+GENERAL_SHAPE = (2, 20, 36, 40, 70)
 
 
 def log(*a):
     print(*a, flush=True)
 
 
-def time_ms(fn, iters=20, warmup=3):
+_L2_FLUSH = []  # one buffer larger than the card's 50 MB L2, made at first use
+
+
+def time_ms(fn, iters=20, warmup=3, cold=False):
+    """Mean ms of ``fn`` over ``iters`` launches after ``warmup``. Warm: the
+    launches follow each other, so what one left in the L2 cache the next
+    finds. ``cold``: a 128 MB buffer is rewritten before every launch, which
+    evicts the L2, and each launch is timed on its own."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
+    if not cold:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+    if not _L2_FLUSH:
+        _L2_FLUSH.append(torch.zeros(32 << 20, device="cuda"))
+    pairs = []
     for _ in range(iters):
+        _L2_FLUSH[0].add_(1.0)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
         fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
+def device_ms(fn, n=50):
+    """Device ms per call of ``fn``: the time of every kernel, copy and
+    memset it launches, from torch.profiler, whatever the host needs
+    between launches (which ``time_ms`` counts where a kernel is shorter
+    than its wrapper's host work). None if the profiler saw nothing."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(ev.self_device_time_total for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA)
+    return total / n / 1e3 if total > 0 else None
 
 
 def warp_tolerance(src):
@@ -208,7 +259,9 @@ def bound(flops, moved):
 
 def log_rows(rows):
     for row in rows:
-        log(f"  {row['name']}: kernel {row['ms']:.4f} ms, plain "
+        cold = (f" (cold L2 {row['cold_ms']:.4f} ms, route "
+                f"{row['path_route']})" if "cold_ms" in row else "")
+        log(f"  {row['name']}: kernel {row['ms']:.4f} ms{cold}, plain "
             f"{row['plain_ms']:.4f} ms, library {row['library_ms']} ms, "
             f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
 
@@ -252,7 +305,39 @@ def add_rows(kernel_rows, path, rows):
         else:
             first.setdefault("other_paths", {})[path] = {
                 k: row[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
-                                    "bound_ms", "bound_by", "library_ms")}
+                                    "bound_ms", "bound_by", "library_ms",
+                                    "cold_ms", "path_route", "route_launches",
+                                    "turns_ms", "device_ms",
+                                    "library_device_ms") if k in row}
+
+
+def reset_launch_counts():
+    """Every wrapper's launch count, and K1 / K1b's by route, to 0."""
+    from gencomm_tpu_torch.ops import _cuda, deform_conv
+
+    for k in _cuda.LAUNCHES:
+        _cuda.LAUNCHES[k] = 0
+    for counts in deform_conv.ROUTE_LAUNCHES.values():
+        for route in counts:
+            counts[route] = 0
+
+
+def fill_launches(rows, launches, path):
+    """The path's launch counts into the kernels' rows; for K1 / K1b also
+    the counts by route, which must show the route the check timed."""
+    from gencomm_tpu_torch.ops import deform_conv
+
+    for row in rows:
+        row["launches"] = launches[row["name"]]
+        by_route = deform_conv.ROUTE_LAUNCHES.get(row["name"])
+        if by_route is not None:
+            row["route_launches"] = dict(by_route)
+            if by_route[row["path_route"]] != row["launches"]:
+                raise AssertionError(
+                    f"{row['name']} on the {path} path: route "
+                    f"{row['path_route']} expected, launches {by_route}")
+    log(f"{path} path, K1 / K1b launches by route: "
+        f"{ {k: dict(v) for k, v in deform_conv.ROUTE_LAUNCHES.items()} }")
 
 
 def postprocess_cfg(gt_range):
@@ -316,7 +401,7 @@ def check_deform(inputs, where):
     (launches filled in later)."""
     import torch
     from gencomm_tpu_torch.ops.deform_conv import (
-        deform_conv3x3, deform_conv3x3_plain,
+        deform_conv3x3, deform_conv3x3_plain, kernel_route,
     )
 
     x, off, wt = inputs["deform_conv3x3"]
@@ -339,10 +424,54 @@ def check_deform(inputs, where):
         replaces="gencomm_tpu/ops/deform_pallas.py:34",
         max_abs_err=err,
         ms=time_ms(lambda: deform_conv3x3(x, off, wt)),
+        cold_ms=time_ms(lambda: deform_conv3x3(x, off, wt), cold=True),
+        path_route=kernel_route(cin, cout),
         plain_ms=time_ms(lambda: deform_conv3x3_plain(x, off, wt), iters=5),
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
     log_rows([row])
     return row
+
+
+def check_deform_general(dev):
+    """K1 and K1b on their general route (channel counts the tensor-core
+    route does not take, a ragged map, offsets up to +-9 so that corners lie
+    anywhere in the map) against the plain versions; returns the two
+    errors for the kernels JSON line."""
+    import torch
+    from gencomm_tpu_torch.ops.deform_conv import (
+        ROUTE_LAUNCHES, deform_conv3x3_bwd, deform_conv3x3_bwd_plain,
+        deform_conv3x3_fwd, deform_conv3x3_plain, kernel_route,
+    )
+
+    b, h, w, cin, cout = GENERAL_SHAPE
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(b, h, w, cin, generator=gen).to(dev)
+    off = (torch.randn(b, h, w, 18, generator=gen) * 3.0).clamp(-9, 9).to(dev)
+    wt = (torch.randn(3, 3, cin, cout, generator=gen) * 0.1).to(dev)
+    g = torch.randn(b, h, w, cout, generator=gen).to(dev)
+    if kernel_route(cin, cout) != "general":
+        raise AssertionError(f"{GENERAL_SHAPE} does not take the general route")
+    before = {k: v["general"] for k, v in ROUTE_LAUNCHES.items()}
+    want = deform_conv3x3_plain(x, off, wt)
+    err = float((deform_conv3x3_fwd(x, off, wt) - want).abs().max())
+    tol = 1e-4 * max(1.0, float(want.abs().max()))
+    if not err <= tol:
+        raise AssertionError(f"K1 general route disagrees: {err} > {tol}")
+    err_b = 0.0
+    for name, gv, wv in zip(("dx", "doffsets", "dweight"),
+                            deform_conv3x3_bwd(x, off, wt, g),
+                            deform_conv3x3_bwd_plain(x, off, wt, g)):
+        e, scale = float((gv - wv).abs().max()), float(wv.abs().max())
+        if not e <= K1B_TOL * scale:
+            raise AssertionError(f"K1b general route, {name}: {e} vs {scale}")
+        err_b = max(err_b, e)
+    torch.cuda.synchronize()
+    if any(ROUTE_LAUNCHES[k]["general"] != before[k] + 1 for k in before):
+        raise AssertionError("the general route was not launched")
+    log(f"K1 / K1b general route x{GENERAL_SHAPE[:4]} -> {cout}, offsets to "
+        f"+-9: max|kernel-plain| {err:.3e} (tol {tol:.3e}) / {err_b:.3e} "
+        f"(tol {K1B_TOL:.0e} x max|plain|)")
+    return {"deform_conv3x3": err, "deform_conv3x3_bwd": err_b}
 
 
 def check_pillar(inputs, where):
@@ -404,17 +533,33 @@ def check_warp(inputs, where):
     src_nchw = src.permute(0, 3, 1, 2).contiguous()
     grid = F.affine_grid(theta, list(src_nchw.shape), align_corners=False)
     k3_bytes = nbytes(src, theta, got)
+
+    def library():
+        return F.grid_sample(src_nchw, grid, mode="bilinear",
+                             padding_mode="zeros", align_corners=False)
+
+    # K3 and the library call in turns in this one process, K3_TURN_LAUNCHES
+    # launches a turn: the spread of the repeats says whether a difference
+    # between the two is one
+    turns = [(time_ms(lambda: warp_affine(src, theta), iters=K3_TURN_LAUNCHES),
+              time_ms(library, iters=K3_TURN_LAUNCHES)) for _ in range(3)]
+    k3_ms, lib_ms = ([t[i] for t in turns] for i in (0, 1))
+    k3_dev, lib_dev = device_ms(lambda: warp_affine(src, theta)), device_ms(library)
+    log(f"  K3 against F.grid_sample in turns, {K3_TURN_LAUNCHES} launches "
+        f"each: K3 {', '.join(f'{t:.4f}' for t in k3_ms)} ms; grid_sample "
+        f"{', '.join(f'{t:.4f}' for t in lib_ms)} ms; device time alone "
+        f"(torch.profiler): K3 {k3_dev} ms, grid_sample {lib_dev} ms")
     row = dict(
         name="warp_affine", route="cuda",
         source="gencomm_tpu_torch/csrc/warp_affine.cu",
         replaces="gencomm_tpu/ops/warp_pallas.py:43",
         max_abs_err=err,
-        ms=time_ms(lambda: warp_affine(src, theta)),
+        ms=sum(k3_ms) / len(k3_ms),
         plain_ms=time_ms(lambda: warp_affine_plain(src, theta)),
         bound_ms=k3_bytes / PEAK_BYTES * 1e3, bound_by="bytes",
-        library_ms=time_ms(lambda: F.grid_sample(
-            src_nchw, grid, mode="bilinear", padding_mode="zeros",
-            align_corners=False)))
+        library_ms=sum(lib_ms) / len(lib_ms),
+        turns_ms={"kernel": k3_ms, "library": lib_ms},
+        device_ms=k3_dev, library_device_ms=lib_dev)
     log_rows([row])
     return row
 
@@ -425,15 +570,19 @@ def check_deform_bwd(inputs, where):
     kernels JSON line (launches filled in later)."""
     import torch
     from gencomm_tpu_torch.ops.deform_conv import (
-        deform_conv3x3_bwd, deform_conv3x3_bwd_plain,
+        deform_conv3x3_bwd, deform_conv3x3_bwd_plain, kernel_route,
     )
 
     x, off, wt, g = inputs["deform_conv3x3_bwd"]
     b, h, w, cin = x.shape
     cout = wt.shape[-1]
     got = deform_conv3x3_bwd(x, off, wt, g)
+    again = deform_conv3x3_bwd(x, off, wt, g)
     want = deform_conv3x3_bwd_plain(x, off, wt, g)
     torch.cuda.synchronize()
+    # dweight and doffsets are summed in a fixed order; dx by atomics
+    if not (torch.equal(got[2], again[2]) and torch.equal(got[1], again[1])):
+        raise AssertionError("K1b dweight / doffsets differ between two runs")
     err = 0.0
     for name, gv, wv in zip(("dx", "doffsets", "dweight"), got, want):
         e = float((gv - wv).abs().max())
@@ -456,6 +605,8 @@ def check_deform_bwd(inputs, where):
         replaces="gencomm_tpu/ops/deform_pallas.py:93",
         max_abs_err=err,
         ms=time_ms(lambda: deform_conv3x3_bwd(x, off, wt, g)),
+        cold_ms=time_ms(lambda: deform_conv3x3_bwd(x, off, wt, g), cold=True),
+        path_route=kernel_route(cin, cout, backward=True),
         plain_ms=time_ms(lambda: deform_conv3x3_bwd_plain(x, off, wt, g),
                          iters=5),
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
@@ -718,8 +869,7 @@ def eval_phase(smi, dev, label, model_kw, feature_shape, scenes, host,
     rows = check(record_calls(targets, forward))
 
     # the path, counted and timed
-    for k in _cuda.LAUNCHES:
-        _cuda.LAUNCHES[k] = 0
+    reset_launch_counts()
     dets = pipe.run(batch, seed=0)  # warm-up
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -744,8 +894,7 @@ def eval_phase(smi, dev, label, model_kw, feature_shape, scenes, host,
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  f"{label} eval path")
-    for row in rows:
-        row["launches"] = launches[row["name"]]
+    fill_launches(rows, launches, f"{label} eval")
 
     profile_device(lambda i: pipe.run(batch, seed=100 + i), ms, 3, "frame")
 
@@ -817,8 +966,7 @@ def train_phase(smi, dev, label, model_kw, hypes, feature_shape, hosts,
     rows = check(inputs)
 
     # the training path, counted and timed
-    for k in _cuda.LAUNCHES:
-        _cuda.LAUNCHES[k] = 0
+    reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     dgen = torch.Generator(device=dev).manual_seed(3)
     step_losses = [step(batches[0], generator=dgen)]  # warm-up
@@ -850,8 +998,7 @@ def train_phase(smi, dev, label, model_kw, hypes, feature_shape, hosts,
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  f"{label} training path")
-    for row in rows:
-        row["launches"] = launches[row["name"]]
+    fill_launches(rows, launches, f"{label} training")
     profile_device(lambda i: step(batches[i], generator=dgen), ms, 2, "step")
 
     # the loss falls over 4 steps on one repeated batch
@@ -934,6 +1081,8 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+
+    general_errs = check_deform_general(dev)
 
     # phases 3-5: the lidar flagship's eval path
     cfg = SyntheticConfig(lidar_range=LIDAR_RANGE, max_cav=5, num_agents=2,
@@ -1035,6 +1184,10 @@ def main() -> int:
         ("deform_conv3x3", "warp_affine", "splat_topk", "deform_conv3x3_bwd",
          "warp_affine_bwd", "splat_topk_bwd"), "imgs_m1"))
 
+    for row in kernel_rows:
+        if row["name"] in general_errs:
+            row["general_route"] = {"shape": list(GENERAL_SHAPE),
+                                    "max_abs_err": general_errs[row["name"]]}
     phase_done("all phases", t_all)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernel_rows}), flush=True)

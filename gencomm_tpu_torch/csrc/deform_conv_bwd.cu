@@ -17,78 +17,74 @@
 //                  floor(y) + 1 corner counts wherever it lies in the map,
 //                  even at weight 0); doff_x likewise with wy_q
 //   dW_k         = sum_p sample_k(p)^T g(p)
-// The offsets are used as given (pre-clamped by the caller, not re-clipped).
+// The offsets are used as given (pre-clamped by the caller, not re-clipped):
+// a corner may lie anywhere in the map, and every in-map corner is added.
 //
 // What bounds it on Hopper: operations. At the flagship training step
 // (4 x 64 x 128 pixels, 128 -> 64 channels) the two products (u and dW) are
 // 2 x 2 x 32768 x 1152 x 64 = 9.7 GFLOP, the sampling and the offset dot
 // products another ~0.8 GFLOP, over ~47 MB: ~220 FLOP per byte, above the
 // fp32 ridge point, so the products are the limit (~0.16 ms at 67 TFLOP/s).
+// The first version (route 0 below) took 9.5x that: 61% in its weight pass
+// (8 accumulators a thread, 3 shared loads per 8 FMAs, one buffer, every
+// corner sampled a second time), 38% in its input pass (u at the
+// shared-memory rate, all nine weight taps restaged by every block, one
+// float4 atomic per lane and corner).
 //
-// Design, three launches after one memset of dx:
-//  1. input pass: a block owns 32 output pixels. It precomputes their 4
-//     corner addresses and bilinear factors for all 9 taps, then per tap
-//     stages W_k transposed in shared memory (rows padded by one float so
-//     both the transposing writes and the reads are conflict-free), forms u
-//     for its 32 pixels (each thread 16 pixels x 1 channel, fp32 FMAs), and
-//     walks its pixels one warp each: lanes hold 4 consecutive channels, read
-//     each in-map corner's row (coalesced), accumulate the two offset dot
-//     products (a warp reduction per pixel and tap, written by a plain
-//     store), and add w_q u into dx with float4 atomics (Hopper's vector
-//     atomics; the order of the sums varies between runs).
-//  2. weight pass: a block owns one tap, 32 input x 64 output channels of
-//     dW and a contiguous range of pixels; it samples 64-pixel tiles of its
-//     channels (as K1 does), stages the matching g tile and accumulates
-//     sample^T g in registers (8 outputs a thread), then writes its partial.
-//  3. the partials are summed per element in a fixed order, so dW is the
-//     same from run to run.
-// Tensor cores are left to a later change: this version keeps full fp32.
+// Design, two routes chosen by the caller from the channel counts:
+//  * route 1, Cin a multiple of 32 and Cout = 64 (every model of the repo):
+//    one fused pass after the memset of dx, then one small reduction.
+//    Both products run on the tensor cores as 3xTF32 (deform_common.cuh;
+//    fp32-level results, fp32 accumulators). A block of 8 warps owns one
+//    32-channel slice of Cin and one row of three taps, whose W_k slices it
+//    keeps in shared memory, and walks 64-pixel tiles in a fixed stride (a
+//    persistent grid, three blocks an SM: 80 registers, 64 KB of shared
+//    memory). Per tile it stages g once, and per tap it forms
+//    u (64 x 32) = g W_k^T with mma.sync into shared memory, and then
+//    reads every corner exactly once: 8 lanes hold a pixel's 32 channels as
+//    float4, so a warp handles four pixels and reads whole 128-byte lines;
+//    from the one read come the two offset dot products (reduced over the 8
+//    lanes by shuffles and stored per channel slice), the dx scatter (one
+//    float4 atomic per lane and in-map corner, onto L2: the order of those
+//    sums varies between runs, as it did), and the bilinear sample, which
+//    goes to shared memory as the 64 x 32 operand of dW_k += sample^T g. The
+//    next tap's offsets are fetched while the corners are read and its
+//    corner records are written behind the barrier, so two barriers a tap
+//    suffice. The dW accumulators of the block's three taps (24 registers a
+//    thread) stay in registers across all its tiles, so one partial per
+//    block is written; the reduction kernel adds the partials, and the
+//    channel slices of doff, in a fixed order: dW and doff are the same
+//    from run to run. Splitting the taps over blocks is what keeps the
+//    accumulators small: one block for all nine taps needed 72 and spilled.
+//    A shared-memory halo tile for dx was weighed and not built: fp32
+//    atomicAdd on shared memory is a compare-and-swap loop on this card, 16
+//    dependent loops per four pixels and tap, and the global atomics cost
+//    about an eighth of the kernel's time. Rows in shared memory are padded,
+//    and the pixel order inside the dW product's depth is permuted, so that
+//    all fragment loads are free of bank conflicts. What holds it now is
+//    instruction dispatch (per mma 1.3 shared loads and 2.7 split
+//    operations at 16 x 16 warp tiles) and the barriers between phases.
+//  * route 0, any other channel counts (scalar loads where Cin % 4 != 0):
+//    the first version, three launches after the memset: an input pass
+//    (32 pixels a block, u by fp32 FMAs, one warp per pixel for the offset
+//    gradients and the dx atomics), a weight pass (a block per tap, 32 x 64
+//    slice of dW and pixel range, sampling as K1's general route does) and
+//    a fixed-order sum of the weight pass's partials.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "deform_common.cuh"
 
 namespace {
 
+using deform::TapGeom;
+using deform::tap_geometry;
+
+// ---- route 0: general, fp32 FMAs ------------------------------------------
 constexpr int THREADS = 256;
 constexpr int TP = 32;      // output pixels per block, input pass
 constexpr int PG = 16;      // pixels per thread in u = g W_k^T
 constexpr int DW_PB = 64;   // pixels per tile, weight pass
 constexpr int DW_CB = 32;   // input channels per block, weight pass
 constexpr int DW_OB = 64;   // output channels per block, weight pass
-
-struct TapGeom {
-    int idx[4];  // flat pixel of corners (y0,x0), (y0,x1), (y1,x0), (y1,x1); -1 outside
-    float wy0, wy1, wx0, wx1;
-};
-
-// the sampling position of tap k at pixel pg, rounded as K1 and the plain
-// version round it
-__device__ __forceinline__ TapGeom tap_geometry(const float* __restrict__ offsets,
-                                                int64_t pg, int k, int h, int w) {
-    TapGeom t;
-    const int64_t hw = (int64_t)h * w;
-    const int bi = (int)(pg / hw);
-    const int rem = (int)(pg % hw);
-    const int hi = rem / w, wi = rem % w;
-    const float dy = offsets[pg * 18 + 2 * k];
-    const float dx = offsets[pg * 18 + 2 * k + 1];
-    const float y = __fadd_rn((float)(hi + k / 3 - 1), dy);
-    const float x = __fadd_rn((float)(wi + k % 3 - 1), dx);
-    const float y0 = floorf(y), x0 = floorf(x);
-    t.wy1 = __fsub_rn(y, y0);
-    t.wx1 = __fsub_rn(x, x0);
-    t.wy0 = __fsub_rn(1.0f, t.wy1);
-    t.wx0 = __fsub_rn(1.0f, t.wx1);
-    const int iy0 = (int)y0, ix0 = (int)x0;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-        const int iy = iy0 + (q >> 1), ix = ix0 + (q & 1);
-        t.idx[q] = (iy >= 0 && iy <= h - 1 && ix >= 0 && ix <= w - 1)
-                       ? (bi * h + iy) * w + ix
-                       : -1;
-    }
-    return t;
-}
 
 template <int VEC>
 struct Vec;
@@ -340,13 +336,280 @@ cudaError_t launch_input_pass(const float* x, const float* off, const float* wt,
     return cudaGetLastError();
 }
 
+// ---- route 1: Cin % 32 == 0, Cout == 64, fused, 3xTF32 --------------------
+constexpr int F_P = 64;         // pixels per tile
+constexpr int F_CC = 32;        // input channels per block
+constexpr int F_N = 64;         // output channels
+constexpr int F_TAPS = 3;       // taps per block: one row of the 3 x 3 window
+constexpr int F_GS = F_N + 4;   // padded row of g [pixel][out] and W_k [channel][out]
+constexpr int F_US = F_CC + 4;  // padded row of u and the samples [pixel][channel]
+constexpr size_t F_SMEM =
+    (size_t)(F_TAPS * F_CC * F_GS + F_P * F_GS + 2 * F_P * F_US + 2 * F_P * 4) *
+    sizeof(float);
+
+// threads 0 .. 63 own one pixel of the tile each: its offset of tap k ...
+__device__ __forceinline__ void load_tap_offset(const float* __restrict__ offsets,
+                                                int64_t p0, int64_t npix, int k, float& dy,
+                                                float& dxo) {
+    const int64_t pg = p0 + threadIdx.x;
+    if (threadIdx.x < F_P && pg < npix) {
+        const float2 o = __ldg(reinterpret_cast<const float2*>(offsets + pg * 18 + 2 * k));
+        dy = o.x;
+        dxo = o.y;
+    }
+}
+
+// ... and its corner record (flat corner pixels, -1 outside; wy0 wy1 wx0 wx1)
+__device__ __forceinline__ void store_tap_geometry(float dy, float dxo, int64_t p0,
+                                                   int64_t npix, int k, int h, int w,
+                                                   int* sIdx, float* sF) {
+    if (threadIdx.x >= F_P) return;
+    const int64_t pg = p0 + threadIdx.x;
+    int4 id = make_int4(-1, -1, -1, -1);
+    float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (pg < npix) {
+        const TapGeom tg = deform::tap_geometry_at(dy, dxo, pg, k, h, w);
+        id = make_int4(tg.idx[0], tg.idx[1], tg.idx[2], tg.idx[3]);
+        f = make_float4(tg.wy0, tg.wy1, tg.wx0, tg.wx1);
+    }
+    *reinterpret_cast<int4*>(sIdx + threadIdx.x * 4) = id;
+    *reinterpret_cast<float4*>(sF + threadIdx.x * 4) = f;
+}
+
+// One step of depth 8 of a 16 x 16 warp tile: the A fragment from rows
+// `a`, `a + a_row8` (8 rows on) and depth slots `a`, `a + a_k4`; the B
+// fragments of the two 8-wide column tiles from `bp`, `bp + b_n8`, depth
+// slots `bp`, `bp + b_k4`.
+__device__ __forceinline__ void warp_step(float (&d)[1][2][4], const float* a, int a_row8,
+                                          int a_k4, const float* bp, int b_n8, int b_k4) {
+    uint32_t ahi[1][4], alo[1][4], bhi[2][2], blo[2][2];
+    deform::split_tf32(a[0], ahi[0][0], alo[0][0]);
+    deform::split_tf32(a[a_row8], ahi[0][1], alo[0][1]);
+    deform::split_tf32(a[a_k4], ahi[0][2], alo[0][2]);
+    deform::split_tf32(a[a_row8 + a_k4], ahi[0][3], alo[0][3]);
+#pragma unroll
+    for (int ni = 0; ni < 2; ++ni) {
+        deform::split_tf32(bp[ni * b_n8], bhi[ni][0], blo[ni][0]);
+        deform::split_tf32(bp[ni * b_n8 + b_k4], bhi[ni][1], blo[ni][1]);
+    }
+    deform::mma_3xtf32(d, ahi, alo, bhi, blo);
+}
+
+__global__ void __launch_bounds__(THREADS, 3)
+deform_bwd_fused_kernel(const float* __restrict__ x, const float* __restrict__ offsets,
+                        const float* __restrict__ weight, const float* __restrict__ g,
+                        float* __restrict__ dx, float* __restrict__ doff_part,
+                        float* __restrict__ dw_part, int b, int h, int w, int cin,
+                        int ngroups) {
+    extern __shared__ __align__(16) float fsm[];
+    float* sW = fsm;                        // [3 taps][32 channels][F_GS]
+    float* sG = sW + F_TAPS * F_CC * F_GS;  // [64 pixels][F_GS]
+    float* sU = sG + F_P * F_GS;            // [64 pixels][F_US]
+    float* sS = sU + F_P * F_US;            // [64 pixels][F_US]
+    int* sIdx = reinterpret_cast<int*>(sS + F_P * F_US);      // [64][4 corners]
+    float* sF = reinterpret_cast<float*>(sIdx + F_P * 4);     // [64][wy0 wy1 wx0 wx1]
+
+    const int tid = threadIdx.x;
+    const int lane = tid & 31, warp = tid >> 5;
+    const int gq = lane >> 2, t = lane & 3;
+    const int cchunks = cin / F_CC;
+    const int chunk = blockIdx.x % cchunks;
+    const int k0 = (blockIdx.x / cchunks) % 3 * F_TAPS;
+    const int group = blockIdx.x / (cchunks * 3);
+    const int cbase = chunk * F_CC;
+    const int64_t npix = (int64_t)b * h * w;
+    const int64_t ntiles = (npix + F_P - 1) / F_P;
+    // u product: warp tile 16 pixels x 16 channels; dW product: 16 channels x 16 outputs
+    const int um = (warp & 3) * 16, un = (warp >> 2) * 16;
+    const int dm = (warp & 1) * 16, dn = (warp >> 1) * 16;
+    const int cp = lane >> 3, cc = (lane & 7) * 4;  // corner phase: pixel of 4, channels
+
+    // W_k[cbase : cbase + 32, :] of the block's three taps, once
+#pragma unroll
+    for (int j = 0; j < 2 * F_TAPS; ++j) {
+        const int piece = tid + j * THREADS;  // 3 x 512 pieces of 16 bytes
+        const int row = piece / 16, c4 = piece % 16;  // row = tap * 32 + channel
+        *reinterpret_cast<float4*>(sW + row * F_GS + c4 * 4) = deform::ldg4(
+            weight + ((int64_t)(k0 + row / F_CC) * cin + cbase + row % F_CC) * F_N + c4 * 4);
+    }
+
+    float acc[F_TAPS][2][4];
+#pragma unroll
+    for (int j = 0; j < F_TAPS; ++j)
+#pragma unroll
+        for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) acc[j][ni][r] = 0.f;
+
+    for (int64_t tile = group; tile < ntiles; tile += ngroups) {
+        const int64_t p0 = tile * F_P;
+        __syncthreads();  // the previous tile's dW product has read sG and sS
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const int piece = tid + j * THREADS;  // 1024 pieces of 16 bytes
+            const int row = piece / 16, c4 = piece % 16;
+            const int64_t pg = p0 + row;
+            *reinterpret_cast<float4*>(sG + row * F_GS + c4 * 4) =
+                pg < npix ? deform::ldg4(g + pg * F_N + c4 * 4)
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+        {
+            float dy = 0.f, dxo = 0.f;
+            load_tap_offset(offsets, p0, npix, k0, dy, dxo);
+            store_tap_geometry(dy, dxo, p0, npix, k0, h, w, sIdx, sF);
+        }
+        __syncthreads();
+#pragma unroll
+        for (int j = 0; j < F_TAPS; ++j) {
+            const int k = k0 + j;
+            // u (64 x 32) = g (64 x 64) W_k^T, even and odd depth steps apart
+            {
+                float u[2][1][2][4];
+#pragma unroll
+                for (int e = 0; e < 2; ++e)
+#pragma unroll
+                    for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+                        for (int r = 0; r < 4; ++r) u[e][0][ni][r] = 0.f;
+#pragma unroll
+                for (int kk = 0; kk < F_N; kk += 8)
+                    warp_step(u[(kk >> 3) & 1], sG + (um + gq) * F_GS + kk + t, 8 * F_GS, 4,
+                              sW + (j * F_CC + un + gq) * F_GS + kk + t, 8 * F_GS, 4);
+#pragma unroll
+                for (int ni = 0; ni < 2; ++ni) {
+                    float* dst = sU + (um + gq) * F_US + un + ni * 8 + 2 * t;
+                    *reinterpret_cast<float2*>(dst) =
+                        make_float2(u[0][0][ni][0] + u[1][0][ni][0],
+                                    u[0][0][ni][1] + u[1][0][ni][1]);
+                    *reinterpret_cast<float2*>(dst + 8 * F_US) =
+                        make_float2(u[0][0][ni][2] + u[1][0][ni][2],
+                                    u[0][0][ni][3] + u[1][0][ni][3]);
+                }
+            }
+            __syncthreads();  // sU is whole
+
+            // the next tap's offsets start their way now
+            float dyn = 0.f, dxn = 0.f;
+            if (j + 1 < F_TAPS) load_tap_offset(offsets, p0, npix, k + 1, dyn, dxn);
+
+            // every corner once: offset gradients, the dx scatter, the sample
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                const int p = r * 32 + warp * 4 + cp;
+                const int64_t pg = p0 + p;
+                const int4 id4 = *reinterpret_cast<const int4*>(sIdx + p * 4);
+                const float4 f = *reinterpret_cast<const float4*>(sF + p * 4);
+                const float4 u4 = *reinterpret_cast<const float4*>(sU + p * F_US + cc);
+                const int ids[4] = {id4.x, id4.y, id4.z, id4.w};
+                const float wy[2] = {f.x, f.y}, wx[2] = {f.z, f.w};
+                float4 v[4];
+#pragma unroll
+                for (int q = 0; q < 4; ++q)
+                    v[q] = ids[q] >= 0
+                               ? deform::ldg4(x + (int64_t)ids[q] * cin + cbase + cc)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+                float py = 0.f, px = 0.f;
+                float4 smp = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+                for (int q = 0; q < 4; ++q) {
+                    if (ids[q] < 0) continue;
+                    const int qy = q >> 1, qx = q & 1;
+                    const float d = u4.x * v[q].x + u4.y * v[q].y + u4.z * v[q].z +
+                                    u4.w * v[q].w;
+                    py += (qy ? wx[qx] : -wx[qx]) * d;
+                    px += (qx ? wy[qy] : -wy[qy]) * d;
+                    const float wt = __fmul_rn(wy[qy], wx[qx]);
+                    smp.x = fmaf(wt, v[q].x, smp.x);
+                    smp.y = fmaf(wt, v[q].y, smp.y);
+                    smp.z = fmaf(wt, v[q].z, smp.z);
+                    smp.w = fmaf(wt, v[q].w, smp.w);
+                    atomicAdd(reinterpret_cast<float4*>(dx + (int64_t)ids[q] * cin + cbase + cc),
+                              make_float4(wt * u4.x, wt * u4.y, wt * u4.z, wt * u4.w));
+                }
+#pragma unroll
+                for (int s = 4; s > 0; s >>= 1) {
+                    py += __shfl_xor_sync(0xffffffffu, py, s);
+                    px += __shfl_xor_sync(0xffffffffu, px, s);
+                }
+                if ((lane & 7) == 0 && pg < npix) {
+                    float* dst = doff_part + ((int64_t)chunk * npix + pg) * 18 + 2 * k;
+                    dst[0] = py;
+                    dst[1] = px;
+                }
+                *reinterpret_cast<float4*>(sS + p * F_US + cc) = smp;
+            }
+            __syncthreads();  // sS is whole; sIdx, sF and sU are free
+            if (j + 1 < F_TAPS)
+                store_tap_geometry(dyn, dxn, p0, npix, k + 1, h, w, sIdx, sF);
+
+            // dW_k (32 x 64) += samples^T (32 x 64 pixels) g (64 pixels x 64);
+            // depth slot t of a step is pixel 2t, slot t + 4 pixel 2t + 1. The
+            // tile's product is summed from zero and added with rounded adds.
+            // The next tap's u product follows with no barrier between.
+            {
+                float part[2][1][2][4];
+#pragma unroll
+                for (int e = 0; e < 2; ++e)
+#pragma unroll
+                    for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+                        for (int r = 0; r < 4; ++r) part[e][0][ni][r] = 0.f;
+#pragma unroll
+                for (int kk = 0; kk < F_P; kk += 8)
+                    warp_step(part[(kk >> 3) & 1], sS + (kk + 2 * t) * F_US + dm + gq, 8, F_US,
+                              sG + (kk + 2 * t) * F_GS + dn + gq, 8, F_GS);
+#pragma unroll
+                for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+                    for (int r = 0; r < 4; ++r)
+                        acc[j][ni][r] += part[0][0][ni][r] + part[1][0][ni][r];
+            }
+        }
+    }
+
+    // this block's partial of dW[k0 : k0 + 3, cbase : cbase + 32, :]
+#pragma unroll
+    for (int j = 0; j < F_TAPS; ++j)
+#pragma unroll
+        for (int ni = 0; ni < 2; ++ni) {
+            float* dst = dw_part + ((int64_t)group * 9 + k0 + j) * cin * F_N +
+                         (int64_t)(cbase + dm + gq) * F_N + dn + ni * 8 + 2 * t;
+            *reinterpret_cast<float2*>(dst) = make_float2(acc[j][ni][0], acc[j][ni][1]);
+            *reinterpret_cast<float2*>(dst + 8 * F_N) =
+                make_float2(acc[j][ni][2], acc[j][ni][3]);
+        }
+}
+
+// dW = the blocks' partials, doff = the channel slices' partials, each added
+// in index order
+__global__ void fused_reduce_kernel(const float* __restrict__ dw_part,
+                                    float* __restrict__ dweight, long long nw, int ngroups,
+                                    const float* __restrict__ doff_part,
+                                    float* __restrict__ doff, long long noff, int cchunks) {
+    const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+    if (i < nw) {
+        float s = 0.f;
+        for (int j = 0; j < ngroups; ++j) s += dw_part[(long long)j * nw + i];
+        dweight[i] = s;
+    } else if (i - nw < noff) {
+        const long long e = i - nw;
+        float s = 0.f;
+        for (int j = 0; j < cchunks; ++j) s += doff_part[(long long)j * noff + e];
+        doff[e] = s;
+    }
+}
+
 }  // namespace
 
+// route 0: `scratch` holds nsplit x 9 Cin Cout floats (the weight pass's
+// partials). route 1 (Cin % 32 == 0, Cout == 64): nsplit is the number of
+// pixel-tile groups (blocks = groups x Cin / 32 x 3 tap rows) and `scratch` holds
+// nsplit x 9 Cin Cout + (Cin / 32) x B H W x 18 floats.
 extern "C" int deform_conv3x3_bwd_f32(const void* x, const void* offsets,
                                       const void* weight, const void* g,
                                       void* dx, void* doff, void* dweight,
                                       void* scratch, int b, int h, int w,
-                                      int cin, int cout, int nsplit,
+                                      int cin, int cout, int nsplit, int route,
                                       void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const long long npix = (long long)b * h * w;
@@ -356,13 +619,38 @@ extern "C" int deform_conv3x3_bwd_f32(const void* x, const void* offsets,
     if (npix == 0 || nw == 0) {
         return (int)cudaMemsetAsync(dweight, 0, (size_t)nw * sizeof(float), s);
     }
-    if (input_pass_smem(cin, cout) > 227 * 1024 || nsplit < 1) {
-        return (int)cudaErrorInvalidValue;
-    }
+    if (nsplit < 1) return (int)cudaErrorInvalidValue;
     const auto* xf = static_cast<const float*>(x);
     const auto* of = static_cast<const float*>(offsets);
     const auto* wf = static_cast<const float*>(weight);
     const auto* gf = static_cast<const float*>(g);
+    if (route == 1) {
+        if (cin % F_CC != 0 || cout != F_N) return (int)cudaErrorInvalidValue;
+        const int cchunks = cin / F_CC;
+        float* dw_part = static_cast<float*>(scratch);
+        float* doff_part = dw_part + (long long)nsplit * nw;
+        static bool configured = false;  // more than 48 KB of shared memory: opt in once
+        if (!configured) {
+            err = cudaFuncSetAttribute(deform_bwd_fused_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)F_SMEM);
+            if (err != cudaSuccess) return (int)err;
+            configured = true;
+        }
+        deform_bwd_fused_kernel<<<(unsigned)(nsplit * cchunks * 3), THREADS, F_SMEM, s>>>(
+            xf, of, wf, gf, static_cast<float*>(dx), doff_part, dw_part, b, h, w, cin,
+            nsplit);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+        const long long noff = npix * 18, n = nw + noff;
+        fused_reduce_kernel<<<(unsigned)((n + THREADS - 1) / THREADS), THREADS, 0, s>>>(
+            dw_part, static_cast<float*>(dweight), nw, nsplit, doff_part,
+            static_cast<float*>(doff), noff, cchunks);
+        return (int)cudaGetLastError();
+    }
+    if (route != 0 || input_pass_smem(cin, cout) > 227 * 1024) {
+        return (int)cudaErrorInvalidValue;
+    }
     err = cin % 4 == 0
               ? launch_input_pass<4>(xf, of, wf, gf, static_cast<float*>(dx),
                                      static_cast<float*>(doff), b, h, w, cin, cout, s)

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface (``build/kernels/lib<name>.so`` beside the
 package) and bound with ctypes. A library is built at first use, or again
-when its source is newer; ``build_all`` starts one ``nvcc`` per source at
-once. Nothing is built while a module is imported.
+when its source or any shared header (``csrc/*.cuh``) is newer;
+``build_all`` starts one ``nvcc`` per source at once. Nothing is built while
+a module is imported.
 """
 
 from __future__ import annotations
@@ -26,12 +27,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # C entry points: name -> (argument types); every entry returns cudaError_t
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
-    "deform_conv": ("deform_conv3x3_f32", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "deform_conv": ("deform_conv3x3_f32",
+                    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "pillar_canvas": ("pillar_canvas_bf16", [_P, _P, _P, _L, _L, _I, _I, _I, _P]),
     "warp_affine": ("warp_affine_f32", [_P, _P, _P, _I, _I, _I, _I, _P]),
     "deform_conv_bwd": ("deform_conv3x3_bwd_f32",
                         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _I, _P]),
+                         _I, _I, _P]),
     "pillar_canvas_bwd": ("pillar_canvas_bwd_bf16",
                           [_P, _P, _P, _P, _P, _P, _L, _L, _I, _I, _P]),
     "warp_affine_bwd": ("warp_affine_bwd_f32", [_P, _P, _P, _I, _I, _I, _I, _P]),
@@ -64,7 +66,12 @@ def _paths(name: str):
 
 def _stale(name: str) -> bool:
     src, so = _paths(name)
-    return not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src)
+    if not os.path.exists(so):
+        return True
+    headers = [os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+               if f.endswith(".cuh")]
+    return os.path.getmtime(so) < max(os.path.getmtime(f)
+                                      for f in [src, *headers])
 
 
 def build_all(names=None) -> float:

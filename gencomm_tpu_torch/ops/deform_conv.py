@@ -11,6 +11,13 @@ The backward follows the TPU kernel's conventions: the offset gradient is
 the two-corner floor difference (-1 at floor(y), +1 at floor(y) + 1, the
 latter counted wherever that corner lies inside the map, even at weight 0),
 one-sided at exact integers; the offsets are not clipped again inside it.
+
+Each kernel has two routes, chosen here from the channel counts
+(``kernel_route``): ``"mma"``, for Cin a multiple of 32 and Cout = 64 (every
+model of the repo), runs the contractions on the tensor cores as 3xTF32 (an
+error-compensated split that keeps fp32-level results); ``"general"`` takes
+any other channel counts with fp32 FMAs. Neither gives way to the plain
+version: a CUDA tensor reaches a kernel or the call raises.
 """
 
 from __future__ import annotations
@@ -20,9 +27,54 @@ import torch
 from gencomm_tpu_torch.ops import _cuda
 
 MAX_OFFSET = 4  # px, the clamp of gencomm_tpu/ops/deform_pallas.py
-# dweight: pixels each block of the K1b weight pass reduces before the
-# partial sums are added in a fixed order
+ROUTES = {"general": 0, "mma": 1}  # the `route` argument of the C entry points
+# launches by route, counted where the wrappers launch: which route a path took
+ROUTE_LAUNCHES = {"deform_conv3x3": {"general": 0, "mma": 0},
+                  "deform_conv3x3_bwd": {"general": 0, "mma": 0}}
+_MMA_CHANNELS, _MMA_COUT, _MMA_TILE = 32, 64, 64
+# K1b's tensor-core route: a block takes one row of taps; blocks an SM
+_MMA_TAP_ROWS, _MMA_BLOCKS_PER_SM = 3, 3
+# general K1b, dweight: pixels each block of the weight pass reduces before
+# the partial sums are added in a fixed order
 _DW_PIXELS_PER_SPLIT = 2048
+# general K1b, input pass: 32 pixels of g and u, W_k transposed with padded
+# rows, and the 9 x 32 corner records, in at most 227 KB of shared memory
+_SMEM_LIMIT = 227 * 1024
+
+
+def kernel_route(cin: int, cout: int, backward: bool = False) -> str:
+    """The route K1 (or, with ``backward``, K1b) takes for these channel
+    counts; raises ``ValueError`` for counts that no route takes."""
+    if cin > 0 and cin % _MMA_CHANNELS == 0 and cout == _MMA_COUT:
+        return "mma"
+    if backward:
+        smem = 4 * (32 * cout + 32 * cin + cout * (cin + 1)) + 9 * 32 * 4 * 8
+        if smem > _SMEM_LIMIT:
+            raise ValueError(
+                f"deform_conv3x3 backward: no kernel route takes Cin {cin}, "
+                f"Cout {cout} (the general route needs {smem} bytes of shared "
+                f"memory, the card gives a block {_SMEM_LIMIT}; the "
+                f"tensor-core route takes Cin % {_MMA_CHANNELS} == 0 and Cout "
+                f"== {_MMA_COUT})")
+    return "general"
+
+
+def backward_scratch(route: str, npix: int, cin: int, cout: int,
+                     sm_count: int):
+    """(nsplit, floats of scratch) of a K1b launch. ``mma``: nsplit groups
+    of 64-pixel tiles, one block per group, 32-channel slice and row of
+    taps, three blocks an SM; scratch holds each block's dweight partial and
+    each slice's doffsets partial. ``general``: nsplit pixel ranges of the
+    weight pass."""
+    nw = 9 * cin * cout
+    if route == "mma":
+        slices = cin // _MMA_CHANNELS
+        tiles = -(-npix // _MMA_TILE)
+        nsplit = max(1, min(tiles, _MMA_BLOCKS_PER_SM * sm_count
+                            // (_MMA_TAP_ROWS * slices)))
+        return nsplit, nsplit * nw + slices * npix * 18
+    nsplit = max(1, min(64, -(-npix // _DW_PIXELS_PER_SPLIT)))
+    return nsplit, nsplit * nw
 
 
 def _geometry(offsets: torch.Tensor, b: int, h: int, w: int):
@@ -119,10 +171,13 @@ def deform_conv3x3_fwd(x: torch.Tensor, offsets: torch.Tensor,
     if not x.is_cuda:
         return deform_conv3x3_plain(x, offsets, weight)
     b, h, w, cin, cout = _check_args(x, offsets, weight)
+    route = kernel_route(cin, cout)
     out = torch.empty(b, h, w, cout, dtype=torch.float32, device=x.device)
     _cuda.launch("deform_conv", x.data_ptr(), offsets.data_ptr(),
-                 weight.data_ptr(), out.data_ptr(), b, h, w, cin, cout)
+                 weight.data_ptr(), out.data_ptr(), b, h, w, cin, cout,
+                 ROUTES[route])
     _cuda.LAUNCHES["deform_conv3x3"] += 1
+    ROUTE_LAUNCHES["deform_conv3x3"][route] += 1
     return out
 
 
@@ -134,18 +189,19 @@ def deform_conv3x3_bwd(x: torch.Tensor, offsets: torch.Tensor,
         return deform_conv3x3_bwd_plain(x, offsets, weight, g)
     b, h, w, cin, cout = _check_args(x, offsets, weight)
     _cuda.check_cuda_tensor(g, "g", torch.float32, (b, h, w, cout))
-    npix = b * h * w
-    nsplit = max(1, min(64, -(-npix // _DW_PIXELS_PER_SPLIT)))
+    route = kernel_route(cin, cout, backward=True)
+    sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
+    nsplit, nscratch = backward_scratch(route, b * h * w, cin, cout, sm_count)
     dx = torch.empty_like(x)
     doff = torch.empty_like(offsets)
     dweight = torch.empty_like(weight)
-    scratch = torch.empty(nsplit * 9 * cin * cout, dtype=torch.float32,
-                          device=x.device)
+    scratch = torch.empty(nscratch, dtype=torch.float32, device=x.device)
     _cuda.launch("deform_conv_bwd", x.data_ptr(), offsets.data_ptr(),
                  weight.data_ptr(), g.data_ptr(), dx.data_ptr(),
                  doff.data_ptr(), dweight.data_ptr(), scratch.data_ptr(),
-                 b, h, w, cin, cout, nsplit)
+                 b, h, w, cin, cout, nsplit, ROUTES[route])
     _cuda.LAUNCHES["deform_conv3x3_bwd"] += 1
+    ROUTE_LAUNCHES["deform_conv3x3_bwd"][route] += 1
     return dx, doff, dweight
 
 

@@ -8,7 +8,10 @@ tests run it) and against the JAX gather/scatter formulation, on inputs
 made with numpy from a seed. The CUDA halves (kernel vs plain version on
 the card), those of the backward kernels K1b, K2b and K3b and of the
 camera path's K4 and K4b (top-K depth splat) included, carry the ``cuda``
-marker and skip without a card; their inputs come from ``deform_case``,
+marker and skip without a card (K1 and K1b at the four shapes of the port's
+paths, on their tensor-core route, and at ragged shapes on the general one);
+what the K1 / K1b wrappers decide in Python (the route, the scratch sizes,
+the refusal) and the 3xTF32 split are held on the CPU; their inputs come from ``deform_case``,
 ``canvas_case`` and ``splat_case``, which ``test_torch_train.py`` and
 ``test_torch_camera.py`` share.
 """
@@ -21,8 +24,9 @@ import torch
 
 from gencomm_tpu_torch.ops._cuda import LAUNCHES
 from gencomm_tpu_torch.ops.deform_conv import (
-    MAX_OFFSET, deform_conv3x3, deform_conv3x3_bwd, deform_conv3x3_bwd_plain,
-    deform_conv3x3_clamped, deform_conv3x3_plain,
+    MAX_OFFSET, ROUTE_LAUNCHES, backward_scratch, deform_conv3x3,
+    deform_conv3x3_bwd, deform_conv3x3_bwd_plain, deform_conv3x3_clamped,
+    deform_conv3x3_plain, kernel_route,
 )
 from gencomm_tpu_torch.ops.pillar_canvas import (
     pillar_canvas, pillar_canvas_bwd, pillar_canvas_bwd_plain,
@@ -148,6 +152,92 @@ def test_deform_kernel_matches_plain_on_card(cuda):
     np.testing.assert_allclose(got.cpu().numpy(),
                                deform_conv3x3_plain(x, off, wt).cpu().numpy(),
                                rtol=1e-4, atol=1e-4)
+
+
+# K1 / K1b pick a kernel route from the channel counts, in Python
+@pytest.mark.parametrize("cin,cout,backward,route", [
+    (128, 64, False, "mma"), (128, 64, True, "mma"), (32, 64, True, "mma"),
+    (256, 64, False, "mma"), (40, 70, False, "general"),
+    (40, 70, True, "general"), (128, 32, True, "general"),
+    (48, 64, False, "general"), (6, 5, True, "general"),
+])
+def test_deform_route_follows_channel_counts(cin, cout, backward, route):
+    assert kernel_route(cin, cout, backward) == route
+
+
+def test_deform_backward_refuses_channel_counts_no_route_takes():
+    # Cout 256 keeps the tensor-core route out, and the general route's
+    # input pass would need 633 KB of shared memory
+    with pytest.raises(ValueError, match="no kernel route takes Cin 512"):
+        kernel_route(512, 256, backward=True)
+    assert kernel_route(512, 256) == "general"  # the forward has no such limit
+    assert kernel_route(512, 64, backward=True) == "mma"
+
+
+@pytest.mark.parametrize("route,npix,cin,cout,sms,nsplit,floats", [
+    # 512 tiles of 64 pixels, 4 channel slices x 3 tap rows, 3 blocks an SM
+    ("mma", 4 * 64 * 128, 128, 64, 132, 33,
+     33 * 9 * 128 * 64 + 4 * 32768 * 18),
+    ("mma", 100, 32, 64, 132, 2, 2 * 9 * 32 * 64 + 100 * 18),
+    ("mma", 4 * 64 * 64, 128, 64, 8, 2, 2 * 9 * 128 * 64 + 4 * 16384 * 18),
+    ("general", 4 * 64 * 128, 40, 70, 132, 16, 16 * 9 * 40 * 70),
+    ("general", 99, 6, 5, 132, 1, 9 * 6 * 5),
+])
+def test_deform_backward_scratch_sizes(route, npix, cin, cout, sms, nsplit,
+                                       floats):
+    assert backward_scratch(route, npix, cin, cout, sms) == (nsplit, floats)
+
+
+def _tf32_cut(a):
+    """fp32 cut to tf32 (sign, exponent, 10 mantissa bits), as the tensor
+    core reads an operand."""
+    return (a.view(torch.int32) & -8192).view(torch.float32)
+
+
+def test_3xtf32_split_holds_k1_tolerance_at_depth_1152():
+    """The split of csrc/deform_common.cuh emulated in PyTorch: hi = a cut
+    to tf32, lo = a - hi cut again; lo*hi + hi*lo + hi*hi with fp32 sums.
+    At K1's depth (9 x 128) it stays inside K1's tolerance, where one TF32
+    product does not come close."""
+    rng = np.random.RandomState(0)
+    a = torch.from_numpy(rng.randn(256, 1152).astype(np.float32))
+    b = torch.from_numpy((rng.randn(1152, 64) * 0.1).astype(np.float32))
+    want = a.double() @ b.double()
+    a_hi, b_hi = _tf32_cut(a), _tf32_cut(b)
+    a_lo, b_lo = _tf32_cut(a - a_hi), _tf32_cut(b - b_hi)
+    assert torch.equal(a_hi + (a - a_hi), a)  # the remainder is exact
+    got = a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+    tol = 1e-4 * max(1.0, float(want.abs().max()))
+    err3 = float((got.double() - want).abs().max())
+    err1 = float(((a_hi @ b_hi).double() - want).abs().max())
+    assert err3 <= 0.1 * tol
+    assert err1 > 20 * err3
+
+
+# the shapes the port's paths give K1 and K1b (the tensor-core route) and
+# one ragged shape (the general route)
+DEFORM_CARD_SHAPES = [(2, 64, 128, 128, 64), (4, 64, 128, 128, 64),
+                      (2, 64, 64, 128, 64), (4, 64, 64, 128, 64),
+                      (1, 13, 21, 24, 10)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", DEFORM_CARD_SHAPES)
+def test_deform_kernel_matches_plain_at_path_shapes_on_card(cuda, shape):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, h, w, cin, cout = shape
+    x, off, wt = (torch.from_numpy(a).to(cuda)
+                  for a in _deform_inputs(6, b, h, w, cin, cout, scale=2.0))
+    off = off.clamp(-MAX_OFFSET, MAX_OFFSET)
+    route = kernel_route(cin, cout)
+    before = ROUTE_LAUNCHES["deform_conv3x3"][route]
+    got = deform_conv3x3(x, off, wt)
+    torch.cuda.synchronize()
+    assert ROUTE_LAUNCHES["deform_conv3x3"][route] == before + 1
+    # fp32 sums of 9 * Cin products in another order (3xTF32 keeps fp32
+    # level): 1e-4 of the largest value
+    _close(got.cpu().numpy(), deform_conv3x3_plain(x, off, wt).cpu().numpy(),
+           1e-4, "out")
 
 
 # ---------------------------------------------------------------- K2
@@ -340,6 +430,38 @@ def test_deform_bwd_kernel_matches_plain_on_card(cuda, shape):
     want = deform_conv3x3_bwd_plain(x, off, wt, g)
     for name, gv, wv in zip(("dx", "doff", "dweight"), got, want):
         _close(gv.cpu().numpy(), wv.cpu().numpy(), 1e-4, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", DEFORM_CARD_SHAPES)
+def test_deform_bwd_kernel_far_offsets_at_path_shapes_on_card(cuda, shape):
+    """Offsets up to +-9 (the kernel does not clip): every in-map corner is
+    added wherever it lies, none is dropped."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, h, w, cin, cout = shape
+    x, _, wt, g = deform_case("fractional", 7, b, h, w, cin, cout)
+    off = np.clip(np.random.RandomState(8).randn(b, h, w, 18) * 3.0, -9, 9)
+    assert (np.abs(off) > MAX_OFFSET).mean() > 0.1
+    x, off, wt, g = (_t(a).to(cuda) for a in (x, off.astype(np.float32), wt, g))
+    route = kernel_route(cin, cout, backward=True)
+    before = ROUTE_LAUNCHES["deform_conv3x3_bwd"][route]
+    got = deform_conv3x3_bwd(x, off, wt, g)
+    torch.cuda.synchronize()
+    assert ROUTE_LAUNCHES["deform_conv3x3_bwd"][route] == before + 1
+    want = deform_conv3x3_bwd_plain(x, off, wt, g)
+    for name, gv, wv in zip(("dx", "doff", "dweight"), got, want):
+        _close(gv.cpu().numpy(), wv.cpu().numpy(), 1e-4, name)
+
+
+@pytest.mark.cuda
+def test_deform_bwd_dweight_and_doffsets_repeat_bit_for_bit_on_card(cuda):
+    x, off, wt, g = (_t(a).to(cuda) for a in deform_case(
+        "fractional", 9, 4, 64, 64, 128, 64))
+    first = deform_conv3x3_bwd(x, off, wt, g)
+    second = deform_conv3x3_bwd(x, off, wt, g)
+    torch.cuda.synchronize()
+    assert torch.equal(first[2], second[2])  # partials added in a fixed order
+    assert torch.equal(first[1], second[1])  # plain stores, then a fixed order
 
 
 @pytest.mark.cuda
