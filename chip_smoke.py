@@ -18,7 +18,8 @@ Phases, each of which raises on failure:
   1. the card, its power limit, torch / CUDA versions, fp32 settings;
   2. the kernel build, timed; K1 and K1b once on their general route
      (channel counts the tensor-core route does not take, a ragged map,
-     offsets to +-9) against their plain versions;
+     offsets to +-9) and K2b once on its (6 channels) against their plain
+     versions;
   3. each kernel (K1 deformable conv, K2 pillar canvas, K3 affine warp) on
      the inputs the main path gives it, held against its plain PyTorch
      version (K2 bit-exact, K1 / K3 within the stated fp32 tolerance) and
@@ -27,8 +28,10 @@ Phases, each of which raises on failure:
      the L2 cache evicted before every launch ("cold_ms"), and their rows
      name the route the wrapper took ("path_route"; "route_launches" counts
      the main path's launches by route); K3 and F.grid_sample are timed in
-     turns, 200 launches a turn ("turns_ms"), and by the profiler's device
-     time ("device_ms", "library_device_ms");
+     turns, 200 launches a turn ("turns_ms"). Every kernel and every library
+     yardstick also has the profiler's device time per call ("device_ms",
+     "library_device_ms"), which leaves out the host work between launches
+     that the event time of a short kernel is made of;
   4. the main path: 1 warm-up + 10 timed frames (CUDA events), frames/s,
      detections, finite outputs, and each kernel's launch count in this
      phase (it must be > 0);
@@ -47,8 +50,10 @@ Phases, each of which raises on failure:
      must differ no more than the CPU's own under a 1e-7 input jitter;
   7. the camera eval path: K4 (top-K depth splat) on the arguments the path
      gives it, held against its plain version (fp32 sum-order tolerance; K4
-     itself gives the same bits on every run), once more with bf16 rows, and
-     timed; K1 and K3 held and timed again on this path's arguments (maps of
+     itself gives the same bits on every run), once more with bf16 rows, the
+     order it summed in held against a stable torch.sort's, and timed, with
+     the device time of each of its launches by name (none may be a
+     library's kernel); K1 and K3 held and timed again on this path's arguments (maps of
      64 x 64, not 64 x 128); 1 warm-up + 10 timed frames with the launch counts of K1, K3 and
      K4 (each must be > 0), the device profile, and the same frame on the
      CPU;
@@ -173,6 +178,8 @@ SPLAT_TOL = 1e-5
 K3_TURN_LAUNCHES = 200
 # channel counts and a map that only the general route of K1 / K1b takes
 GENERAL_SHAPE = (2, 20, 36, 40, 70)
+# agents, rows per agent, channels, cells per agent: K2b's general route
+GENERAL_CANVAS = (3, 1000, 6, 200)
 
 
 def log(*a):
@@ -216,11 +223,9 @@ def time_ms(fn, iters=20, warmup=3, cold=False):
     return sum(a.elapsed_time(b) for a, b in pairs) / iters
 
 
-def device_ms(fn, n=50):
-    """Device ms per call of ``fn``: the time of every kernel, copy and
-    memset it launches, from torch.profiler, whatever the host needs
-    between launches (which ``time_ms`` counts where a kernel is shorter
-    than its wrapper's host work). None if the profiler saw nothing."""
+def device_split(fn, n=20):
+    """Device ms per call of ``fn`` of every kernel, copy and memset it
+    launches, by name, from torch.profiler."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -231,9 +236,19 @@ def device_ms(fn, n=50):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    total = sum(ev.self_device_time_total for ev in prof.key_averages()
-                if ev.device_type == DeviceType.CUDA)
-    return total / n / 1e3 if total > 0 else None
+    return {ev.key: ev.self_device_time_total / n / 1e3
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA
+            and ev.self_device_time_total > 0}
+
+
+def device_ms(fn, n=20):
+    """Device ms per call of ``fn``: the time of every kernel, copy and
+    memset it launches, whatever the host needs between launches (which
+    ``time_ms`` counts where a kernel is shorter than its wrapper's host
+    work). None if the profiler saw nothing."""
+    total = sum(device_split(fn, n).values())
+    return total if total > 0 else None
 
 
 def warp_tolerance(src):
@@ -261,8 +276,10 @@ def log_rows(rows):
     for row in rows:
         cold = (f" (cold L2 {row['cold_ms']:.4f} ms, route "
                 f"{row['path_route']})" if "cold_ms" in row else "")
-        log(f"  {row['name']}: kernel {row['ms']:.4f} ms{cold}, plain "
-            f"{row['plain_ms']:.4f} ms, library {row['library_ms']} ms, "
+        log(f"  {row['name']}: kernel {row['ms']:.4f} ms by events, "
+            f"{row['device_ms']} ms on the device{cold}, plain "
+            f"{row['plain_ms']:.4f} ms, library {row['library_ms']} ms "
+            f"({row['library_device_ms']} on the device), "
             f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
 
 
@@ -311,33 +328,41 @@ def add_rows(kernel_rows, path, rows):
                                     "library_device_ms") if k in row}
 
 
+def route_launches():
+    """{kernel name: {route: launches}} of the kernels that have routes."""
+    from gencomm_tpu_torch.ops import deform_conv, pillar_canvas
+
+    return {**deform_conv.ROUTE_LAUNCHES,
+            "pillar_canvas_bwd": pillar_canvas.ROUTE_LAUNCHES}
+
+
 def reset_launch_counts():
-    """Every wrapper's launch count, and K1 / K1b's by route, to 0."""
-    from gencomm_tpu_torch.ops import _cuda, deform_conv
+    """Every wrapper's launch count, and those by route, to 0."""
+    from gencomm_tpu_torch.ops import _cuda
 
     for k in _cuda.LAUNCHES:
         _cuda.LAUNCHES[k] = 0
-    for counts in deform_conv.ROUTE_LAUNCHES.values():
+    for counts in route_launches().values():
         for route in counts:
             counts[route] = 0
 
 
 def fill_launches(rows, launches, path):
-    """The path's launch counts into the kernels' rows; for K1 / K1b also
-    the counts by route, which must show the route the check timed."""
-    from gencomm_tpu_torch.ops import deform_conv
-
+    """The path's launch counts into the kernels' rows; for a kernel with
+    routes also the counts by route, which must show the route the check
+    timed."""
+    by_kernel = route_launches()
     for row in rows:
         row["launches"] = launches[row["name"]]
-        by_route = deform_conv.ROUTE_LAUNCHES.get(row["name"])
+        by_route = by_kernel.get(row["name"])
         if by_route is not None:
             row["route_launches"] = dict(by_route)
             if by_route[row["path_route"]] != row["launches"]:
                 raise AssertionError(
                     f"{row['name']} on the {path} path: route "
                     f"{row['path_route']} expected, launches {by_route}")
-    log(f"{path} path, K1 / K1b launches by route: "
-        f"{ {k: dict(v) for k, v in deform_conv.ROUTE_LAUNCHES.items()} }")
+    log(f"{path} path, launches by route: "
+        f"{ {k: dict(v) for k, v in by_kernel.items()} }")
 
 
 def postprocess_cfg(gt_range):
@@ -424,10 +449,12 @@ def check_deform(inputs, where):
         replaces="gencomm_tpu/ops/deform_pallas.py:34",
         max_abs_err=err,
         ms=time_ms(lambda: deform_conv3x3(x, off, wt)),
+        device_ms=device_ms(lambda: deform_conv3x3(x, off, wt)),
         cold_ms=time_ms(lambda: deform_conv3x3(x, off, wt), cold=True),
         path_route=kernel_route(cin, cout),
         plain_ms=time_ms(lambda: deform_conv3x3_plain(x, off, wt), iters=5),
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        library_device_ms=None)
     log_rows([row])
     return row
 
@@ -498,16 +525,21 @@ def check_pillar(inputs, where):
            + g.long().clamp(0, ncell - 1))[:, None].expand(m, c)
     zeros = torch.zeros(n_agents * ncell, c, dtype=r.dtype, device=r.device)
     k2_bytes = nbytes(r, g, got)
+
+    def library():
+        return torch.scatter_reduce(zeros, 0, idx, r, "amax",
+                                    include_self=True)
+
     row = dict(
         name="pillar_canvas", route="cuda",
         source="gencomm_tpu_torch/csrc/pillar_canvas.cu",
         replaces="gencomm_tpu/ops/pillar_pallas.py:58",
         max_abs_err=err,
         ms=time_ms(lambda: pillar_canvas(r, g, n_agents, ncell)),
+        device_ms=device_ms(lambda: pillar_canvas(r, g, n_agents, ncell)),
         plain_ms=time_ms(lambda: pillar_canvas_plain(r, g, n_agents, ncell)),
         bound_ms=k2_bytes / PEAK_BYTES * 1e3, bound_by="bytes",
-        library_ms=time_ms(lambda: torch.scatter_reduce(
-            zeros, 0, idx, r, "amax", include_self=True)))
+        library_ms=time_ms(library), library_device_ms=device_ms(library))
     log_rows([row])
     return row
 
@@ -605,11 +637,13 @@ def check_deform_bwd(inputs, where):
         replaces="gencomm_tpu/ops/deform_pallas.py:93",
         max_abs_err=err,
         ms=time_ms(lambda: deform_conv3x3_bwd(x, off, wt, g)),
+        device_ms=device_ms(lambda: deform_conv3x3_bwd(x, off, wt, g)),
         cold_ms=time_ms(lambda: deform_conv3x3_bwd(x, off, wt, g), cold=True),
         path_route=kernel_route(cin, cout, backward=True),
         plain_ms=time_ms(lambda: deform_conv3x3_bwd_plain(x, off, wt, g),
                          iters=5),
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        library_device_ms=None)
     log_rows([row])
     return row
 
@@ -619,7 +653,7 @@ def check_pillar_bwd(inputs, where):
     on the arguments the train step ``where`` gives it; returns its row."""
     import torch
     from gencomm_tpu_torch.ops.pillar_canvas import (
-        pillar_canvas_bwd, pillar_canvas_bwd_plain,
+        backward_route, pillar_canvas_bwd, pillar_canvas_bwd_plain,
     )
 
     r, gids, canvas, gout, n_agents, ncell = inputs["pillar_canvas_bwd"]
@@ -645,20 +679,66 @@ def check_pillar_bwd(inputs, where):
         0, cells[:, None].expand(m, c), r_req, "amax", include_self=True)
     gflat = gout.reshape(-1, c)
     k2b_bytes = nbytes(r, gids, got) + 2 * n_cells * c * r.element_size()
+
+    def kernel():
+        return pillar_canvas_bwd(r, gids, canvas, gout, n_agents, ncell)
+
+    def library():
+        return torch.autograd.grad(lib_out, r_req, gflat, retain_graph=True)
+
     row = dict(
         name="pillar_canvas_bwd", route="cuda",
         source="gencomm_tpu_torch/csrc/pillar_canvas_bwd.cu",
         replaces="gencomm_tpu/models/encoders/point_pillar.py:189",
         max_abs_err=err,
-        ms=time_ms(lambda: pillar_canvas_bwd(r, gids, canvas, gout,
-                                             n_agents, ncell)),
+        ms=time_ms(kernel), device_ms=device_ms(kernel),
+        path_route=backward_route(c, m, n_agents * ncell),
         plain_ms=time_ms(lambda: pillar_canvas_bwd_plain(
             r, gids, canvas, gout, n_agents, ncell)),
         bound_ms=k2b_bytes / PEAK_BYTES * 1e3, bound_by="bytes",
-        library_ms=time_ms(lambda: torch.autograd.grad(
-            lib_out, r_req, gflat, retain_graph=True)))
+        library_ms=time_ms(library), library_device_ms=device_ms(library))
     log_rows([row])
     return row
+
+
+def check_pillar_bwd_general(dev):
+    """K2b on its general route (a channel count the 64-channel route does
+    not take, an odd number of channel pairs) against the plain version, bit
+    for bit: short runs with ties, all-zero rows, an agent boundary inside a
+    chunk and a clamped tail longer than 256 rows. Returns the error for the
+    kernels JSON line."""
+    import torch
+    from gencomm_tpu_torch.ops.pillar_canvas import (
+        ROUTE_LAUNCHES, backward_route, pillar_canvas_bwd,
+        pillar_canvas_bwd_plain, pillar_canvas_plain,
+    )
+
+    n_agents, per_agent, c, ncell = GENERAL_CANVAS
+    if backward_route(c, n_agents * per_agent, n_agents * ncell) != "general":
+        raise AssertionError(f"{GENERAL_CANVAS} does not take the general route")
+    gen = torch.Generator().manual_seed(6)
+    gids = torch.randint(0, 3 * ncell, (n_agents, per_agent), generator=gen,
+                         dtype=torch.int32).sort(dim=1).values.reshape(-1)
+    # a few values only, so rows tie at their cell's max; ids >= ncell are
+    # the zeroed invalid tail
+    rows = torch.randint(0, 4, (n_agents * per_agent, c), generator=gen) * 0.5
+    rows[gids >= ncell] = 0.0
+    rows, gids = rows.to(dev, torch.bfloat16), gids.to(dev)
+    gout = torch.randn(n_agents, ncell, c, generator=gen).to(dev, torch.bfloat16)
+    canvas = pillar_canvas_plain(rows, gids, n_agents, ncell)
+    before = ROUTE_LAUNCHES["general"]
+    got = pillar_canvas_bwd(rows, gids, canvas, gout, n_agents, ncell)
+    want = pillar_canvas_bwd_plain(rows, gids, canvas, gout, n_agents, ncell)
+    torch.cuda.synchronize()
+    if ROUTE_LAUNCHES["general"] != before + 1:
+        raise AssertionError("K2b's general route was not launched")
+    same = torch.equal(got.view(torch.int16), want.view(torch.int16))
+    err = float((got.float() - want.float()).abs().max())
+    log(f"K2b general route rows{tuple(rows.shape)}, {n_agents} agents, "
+        f"{ncell} cells: bit-exact {same}")
+    if not same:
+        raise AssertionError(f"K2b general route is not bit-exact ({err})")
+    return {"pillar_canvas_bwd": err}
 
 
 def check_warp_bwd(inputs, where):
@@ -689,16 +769,20 @@ def check_warp_bwd(inputs, where):
     lib_out = F.grid_sample(src_req, grid, mode="bilinear",
                             padding_mode="zeros", align_corners=False)
     g_nchw = g3.permute(0, 3, 1, 2).contiguous()
+
+    def library():
+        return torch.autograd.grad(lib_out, src_req, g_nchw, retain_graph=True)
+
     row = dict(
         name="warp_affine_bwd", route="cuda",
         source="gencomm_tpu_torch/csrc/warp_affine_bwd.cu",
         replaces="gencomm_tpu/ops/warp_pallas.py:122",
         max_abs_err=err,
         ms=time_ms(lambda: warp_affine_bwd(g3, theta)),
+        device_ms=device_ms(lambda: warp_affine_bwd(g3, theta)),
         plain_ms=time_ms(lambda: warp_affine_bwd_plain(g3, theta)),
         bound_ms=nbytes(g3, theta, got) / PEAK_BYTES * 1e3, bound_by="bytes",
-        library_ms=time_ms(lambda: torch.autograd.grad(
-            lib_out, src_req, g_nchw, retain_graph=True)))
+        library_ms=time_ms(library), library_device_ms=device_ms(library))
     log_rows([row])
     return row
 
@@ -725,7 +809,7 @@ def check_splat(inputs, where):
     line (launches filled in later)."""
     import torch
     from gencomm_tpu_torch.ops.splat import (
-        sort_ids, splat_sorted, splat_topk_fwd, splat_topk_plain,
+        sort_ids, splat_topk_fwd, splat_topk_plain, splat_topk_with_order,
     )
 
     dvals, feats, ids, num_cells, bf16_rows = inputs["splat_topk"]
@@ -751,34 +835,51 @@ def check_splat(inputs, where):
             raise AssertionError("K4 left a cell that receives nothing non-zero")
         err = max(err, e)
     valid = (ids >= 0) & (ids < num_cells)
+    kept = int(valid.sum())
     cells, counts = torch.unique(ids[valid], return_counts=True)
-    log(f"  {int(valid.sum())} of {p * k} rows land in {cells.numel()} of "
+    log(f"  {kept} of {p * k} rows land in {cells.numel()} of "
         f"{num_cells} cells, the longest run {int(counts.max())} rows; "
-        f"{p * k - int(valid.sum())} rows are dropped")
+        f"{p * k - kept} rows are dropped")
+    # the order the kernel summed in is a stable sort's, without its tail of
+    # dropped rows
+    _, sids, order = splat_topk_with_order(dvals, feats, ids, num_cells,
+                                           bf16_rows)
+    want_sids, want_order = sort_ids(ids, num_cells)
+    stable = (sids.numel() == kept and torch.equal(order, want_order[:kept])
+              and torch.equal(sids, want_sids[:kept]))
+    log(f"  the kernel's order of the {kept} kept rows equals "
+        f"torch.sort(stable=True)'s: {stable}")
+    if not stable:
+        raise AssertionError("K4's row order is not the stable sort's")
     flat = torch.where(valid, ids, torch.full_like(ids, num_cells)).reshape(-1)
     rows = (dvals[..., None] * feats[:, None, :]).reshape(-1, c)
     zeros = torch.zeros(num_cells + 1, c, device=dvals.device)
     flat_long = flat.long()
     bound_ms, bound_by = bound(2.0 * p * k * c,
                                nbytes(dvals, feats, ids) + num_cells * c * 4)
+
+    def kernel():
+        return splat_topk_fwd(dvals, feats, ids, num_cells, bf16_rows)
+
+    def library():
+        return torch.index_add(zeros, 0, flat_long, rows)
+
+    split = device_split(kernel)
     row = dict(
         name="splat_topk", route="cuda",
         source="gencomm_tpu_torch/csrc/splat_topk.cu",
         replaces="gencomm_tpu/ops/splat_pallas.py:61",
         max_abs_err=err,
-        ms=time_ms(lambda: splat_topk_fwd(dvals, feats, ids, num_cells,
-                                          bf16_rows)),
+        ms=time_ms(kernel), device_ms=sum(split.values()) or None,
         plain_ms=time_ms(lambda: splat_topk_plain(dvals, feats, ids,
                                                   num_cells, bf16_rows)),
         bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=time_ms(lambda: torch.index_add(zeros, 0, flat_long, rows)))
-    sids, order = sort_ids(ids, num_cells)
-    log(f"  of the wrapper's {row['ms']:.4f} ms, its index preparation "
-        f"(torch.where and a stable torch.sort of {p * k} int32 ids, about "
-        f"ten small launches) takes "
-        f"{time_ms(lambda: sort_ids(ids, num_cells)):.4f} ms, and the memset "
-        f"and the two kernels on the sorted ids "
-        f"{time_ms(lambda: splat_sorted(dvals, feats, sids, order, num_cells, bf16_rows)):.4f} ms")
+        library_ms=time_ms(library), library_device_ms=device_ms(library))
+    log("  one call's launches, device ms each: " + ", ".join(
+        f"{name.replace('void ', '').replace('(anonymous namespace)::', '').split('(')[0].strip()}"
+        f" {ms:.4f}" for name, ms in split.items()))
+    if any("at::" in name or "cub::" in name for name in split):
+        raise AssertionError(f"K4 launched a library kernel: {sorted(split)}")
     log_rows([row])
     return row
 
@@ -820,17 +921,22 @@ def check_splat_bwd(inputs):
     bound_ms, bound_by = bound(
         4.0 * p * k * c,
         2 * nbytes(dvals, feats) + nbytes(ids) + touched * c * 4)
+
+    def library():
+        return torch.autograd.grad(lib_out, rows_req, g_pad, retain_graph=True)
+
     row = dict(
         name="splat_topk_bwd", route="cuda",
         source="gencomm_tpu_torch/csrc/splat_topk_bwd.cu",
         replaces="gencomm_tpu/ops/splat_pallas.py:188",
         max_abs_err=err,
         ms=time_ms(lambda: splat_topk_bwd(dvals, feats, ids, gout, num_cells)),
+        device_ms=device_ms(lambda: splat_topk_bwd(dvals, feats, ids, gout,
+                                                   num_cells)),
         plain_ms=time_ms(lambda: splat_topk_bwd_plain(dvals, feats, ids, gout,
                                                       num_cells)),
         bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=time_ms(lambda: torch.autograd.grad(
-            lib_out, rows_req, g_pad, retain_graph=True)))
+        library_ms=time_ms(library), library_device_ms=device_ms(library))
     log(f"  the cotangent rows of {touched} touched cells are read")
     log_rows([row])
     return row
@@ -1082,7 +1188,8 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
-    general_errs = check_deform_general(dev)
+    general_errs = {**check_deform_general(dev),
+                    **check_pillar_bwd_general(dev)}
 
     # phases 3-5: the lidar flagship's eval path
     cfg = SyntheticConfig(lidar_range=LIDAR_RANGE, max_cav=5, num_agents=2,
@@ -1186,7 +1293,9 @@ def main() -> int:
 
     for row in kernel_rows:
         if row["name"] in general_errs:
-            row["general_route"] = {"shape": list(GENERAL_SHAPE),
+            shape = (GENERAL_CANVAS if row["name"] == "pillar_canvas_bwd"
+                     else GENERAL_SHAPE)
+            row["general_route"] = {"shape": list(shape),
                                     "max_abs_err": general_errs[row["name"]]}
     phase_done("all phases", t_all)
     print(smi, flush=True)

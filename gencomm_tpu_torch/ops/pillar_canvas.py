@@ -9,6 +9,14 @@ stripe-padded row layout of the TPU kernel: rows arrive sorted by gid
 within each agent (the host decorator's order), so a segmented max over
 runs writes each canvas cell once (``csrc/pillar_canvas.cu``).
 
+The backward (``csrc/pillar_canvas_bwd.cu``) is bound by bytes: the rows
+read once, their gradient written once, and each occupied cell's max and
+cotangent. It has two routes, chosen here from the channel count
+(``backward_route``): ``"rows64"`` for 64 channels (every model of the
+repo), where a warp reads its 32 rows once as 16-byte loads, finds the runs
+by warp votes and counts ties with bit masks, and ``"general"`` for any
+other even count, the first version's kernel.
+
 The backward gives each row that ties with its cell's max an equal share
 of the cell's cotangent, rounded as JAX rounds it in bf16: the share is
 bf16(1 / n), with n the number of tied rows, plus one when the max equals
@@ -23,6 +31,9 @@ import torch
 from gencomm_tpu_torch.ops import _cuda
 
 _CHUNK = 32  # rows per warp in csrc/pillar_canvas_bwd.cu
+ROUTES = {"general": 0, "rows64": 1}  # the `route` argument of the C entry
+# K2b's launches by route, counted where the wrapper launches
+ROUTE_LAUNCHES = {"general": 0, "rows64": 0}
 _BF16_COUNT_LIMIT = 256.0  # 256 + 1 rounds back to 256 in bf16
 
 
@@ -74,6 +85,22 @@ def _check_rows(rows, gids, n_agents):
     return m, c
 
 
+def backward_route(channels: int, m: int = 0, cells: int = 0) -> str:
+    """The route K2b takes for this channel count, ``m`` rows and ``cells``
+    canvas cells over all agents: ``rows64`` indexes both by int32."""
+    fits = max(m, cells) < 2 ** 31
+    return "rows64" if channels == 64 and fits else "general"
+
+
+def backward_scratch(route: str, m: int, channels: int) -> int:
+    """Ints of scratch K2b needs for ``m`` rows: ``channels`` tie counters
+    for every chunk of 32 rows (a run longer than its chunks is counted in
+    the slot of the chunk that holds its head) and, on route ``rows64``,
+    two ints a chunk that mark it for the second launch."""
+    chunks = -(-m // _CHUNK)
+    return chunks * (channels + (2 if route == "rows64" else 0))
+
+
 def pillar_canvas_fwd(rows: torch.Tensor, gids: torch.Tensor, n_agents: int,
                       ncell: int) -> torch.Tensor:
     """The forward of ``pillar_canvas`` without autograd: the plain version
@@ -102,13 +129,15 @@ def pillar_canvas_bwd(rows: torch.Tensor, gids: torch.Tensor,
                             (n_agents, ncell, c))
     _cuda.check_cuda_tensor(gout, "gout", torch.bfloat16,
                             (n_agents, ncell, c))
+    route = backward_route(c, m, n_agents * ncell)
     drows = torch.empty_like(rows)
-    counts = torch.empty(-(-m // _CHUNK) * c, dtype=torch.int32,
-                         device=rows.device)
+    scratch = torch.empty(backward_scratch(route, m, c), dtype=torch.int32,
+                          device=rows.device)
     _cuda.launch("pillar_canvas_bwd", rows.data_ptr(), gids.data_ptr(),
                  canvas.data_ptr(), gout.data_ptr(), drows.data_ptr(),
-                 counts.data_ptr(), m, m // n_agents, ncell, c)
+                 scratch.data_ptr(), m, m // n_agents, ncell, c, ROUTES[route])
     _cuda.LAUNCHES["pillar_canvas_bwd"] += 1
+    ROUTE_LAUNCHES[route] += 1
     return drows
 
 

@@ -5,11 +5,14 @@ Counterpart of ``gencomm_tpu/ops/splat_pallas.py`` (``splat_topk`` and its
 VJP ``_splat_bwd``): ``canvas[c] = sum over (p, k) with ids[p, k] == c of
 dvals[p, k] * feats[p]``, fp32; an id outside ``[0, num_cells)`` drops its
 row. The port carries over neither the stripe padding nor the one-hot
-matmul of the TPU kernel: the wrapper sorts the int ids (index preparation,
-as ``jnp.argsort`` is there) and the kernel gathers the feature rows,
-forms the products and sums each run of equal ids
-(``csrc/splat_topk.cu``). The backward is a gather, one warp per pixel
-(``csrc/splat_topk_bwd.cu``).
+matmul of the TPU kernel, nor a library sort: ``csrc/splat_topk.cu`` takes
+the raw ids, sorts the rows by cell itself (a counting sort, since ids are
+bounded by ``num_cells``, with each cell's rows put into ascending flat row,
+the order of a stable sort), stores zeros to the empty cells only, gathers
+the feature rows, forms the products and sums each run of equal ids, so the
+canvas is written once and no PyTorch call prepares indices. What bounds it
+is the bytes of the canvas. The backward is a gather, one warp per pixel
+(``csrc/splat_topk_bwd.cu``); it reads the unsorted ids.
 
 ``bf16_rows`` follows the kernel's contract in the JAX package: each product
 row is rounded to bf16 and the sum stays fp32; the backward ignores the
@@ -17,10 +20,11 @@ rounding (straight-through). (The JAX ``segment_sum`` path with
 ``splat_bf16`` sums *in* bf16 instead, in an order XLA chooses; the port's
 ``splat_bf16`` is held against JAX run with ``splat_impl: pallas``.)
 
-K4 sums every cell in one fixed order (sorted rows, stable sort), so two
-runs give the same bits. The plain version sums with ``index_add_``, whose
-order on a CUDA tensor varies from run to run, so kernel and plain version
-agree to an fp32 sum-order tolerance, not bit for bit.
+K4 sums every cell in one fixed order (ascending flat row ``p * K + k``, in
+chunks of 32 sorted rows), so two runs give the same bits. The plain
+version sums with ``index_add_``, whose order on a CUDA tensor varies from
+run to run, so kernel and plain version agree to an fp32 sum-order
+tolerance, not bit for bit.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import torch
 from gencomm_tpu_torch.ops import _cuda
 
 _CHUNK = 32  # sorted rows per warp in csrc/splat_topk.cu
+_SCAN_TILE = 1024  # counters per block of its scan
 _BWD_MAX_CHANNELS = 128  # csrc/splat_topk_bwd.cu: one float4 per lane
 
 
@@ -85,32 +90,72 @@ def _check(dvals, feats, ids, num_cells, max_channels=None):
 
 
 def sort_ids(ids: torch.Tensor, num_cells: int):
-    """The kernel's index preparation: the flat ids with every dropped id
-    set to ``num_cells``, sorted ascending by a stable sort, and the flat
-    row ``p * K + k`` of each sorted position; both (P * K,) int32."""
+    """The plain reference of the order K4 gives the rows: the flat ids with
+    every dropped id (negative or ``>= num_cells``) set to ``num_cells``,
+    sorted ascending by a stable sort, and the flat row ``p * K + k`` of each
+    sorted position; both (P * K,) int32. The dropped rows are the tail; the
+    kernel orders the kept rows alike and never places the dropped ones."""
     flat = torch.where(_valid(ids, num_cells), ids,
                        torch.full_like(ids, num_cells)).reshape(-1)
     sids, order = torch.sort(flat, stable=True)
-    return sids, order.to(torch.int32)
+    return sids.to(torch.int32), order.to(torch.int32)
 
 
-def splat_sorted(dvals: torch.Tensor, feats: torch.Tensor,
-                 sids: torch.Tensor, order: torch.Tensor, num_cells: int,
-                 bf16_rows: bool = False) -> torch.Tensor:
-    """Kernel K4 on CUDA tensors whose ids ``sort_ids`` has prepared."""
-    (p, k), c = dvals.shape, feats.shape[-1]
-    _cuda.check_cuda_tensor(sids, "sids", torch.int32, (p * k,))
-    _cuda.check_cuda_tensor(order, "order", torch.int32, (p * k,))
+def _int_layout(m: int, num_cells: int) -> dict:
+    """Where each part of K4's int scratch starts, in ints, as
+    ``csrc/splat_topk.cu`` carves it: the cells' counters and the scan's
+    ticket (zeroed by the kernel's entry point), the counters' offsets
+    inside their scan tile, the tiles' offsets with the number of kept rows
+    last, and per flat row its arrival number in its cell, its place, the
+    final order and the sorted ids."""
+    n = num_cells + 1
+    tiles = -(-n // _SCAN_TILE)
+    starts, at = {}, 0
+    for name, size in (("counts", n), ("ticket", 1), ("local", n),
+                       ("tiles", tiles), ("kept", 1), ("arrival", m),
+                       ("placed", m), ("order", m), ("sids", m)):
+        starts[name] = at
+        at += size
+    starts["end"] = at
+    return starts
+
+
+def forward_scratch(m: int, num_cells: int, channels: int):
+    """(ints, floats) of scratch K4 needs for ``m`` flat rows. Floats: the
+    two piece sums of every chunk of sorted rows, for the runs that cross
+    the chunk's ends."""
+    return (_int_layout(m, num_cells)["end"],
+            2 * -(-m // _CHUNK) * channels)
+
+
+def _launch_forward(dvals, feats, ids, num_cells, bf16_rows):
+    """Kernel K4 on checked CUDA tensors; returns the canvas and the int
+    scratch, which holds the kernel's order afterwards."""
+    p, k, c = _check(dvals, feats, ids, num_cells)
+    n_ints, n_floats = forward_scratch(p * k, num_cells, c)
     canvas = torch.empty(num_cells, c, dtype=torch.float32,
                          device=dvals.device)
-    pieces = torch.empty(2, -(-p * k // _CHUNK), c, dtype=torch.float32,
-                         device=dvals.device)
+    ints = torch.empty(n_ints, dtype=torch.int32, device=dvals.device)
+    pieces = torch.empty(n_floats, dtype=torch.float32, device=dvals.device)
     _cuda.launch("splat_topk", dvals.data_ptr(), feats.data_ptr(),
-                 sids.data_ptr(), order.data_ptr(), canvas.data_ptr(),
-                 pieces[0].data_ptr(), pieces[1].data_ptr(), p * k, k, c,
-                 num_cells, int(bool(bf16_rows)))
+                 ids.data_ptr(), canvas.data_ptr(), ints.data_ptr(),
+                 pieces.data_ptr(), p * k, k, c, num_cells,
+                 int(bool(bf16_rows)))
     _cuda.LAUNCHES["splat_topk"] += 1
-    return canvas
+    return canvas, ints
+
+
+def splat_topk_with_order(dvals: torch.Tensor, feats: torch.Tensor,
+                          ids: torch.Tensor, num_cells: int,
+                          bf16_rows: bool = False):
+    """Kernel K4 on CUDA tensors, with the order it summed in: (canvas, the
+    kept rows' cell ids in sorted order, their flat rows ``p * K + k``). For
+    checks: the order must be ``sort_ids``'s without its dropped tail."""
+    canvas, ints = _launch_forward(dvals, feats, ids, num_cells, bf16_rows)
+    at = _int_layout(dvals.numel(), num_cells)
+    kept = int(ints[at["kept"]])
+    return (canvas, ints[at["sids"]:at["sids"] + kept],
+            ints[at["order"]:at["order"] + kept])
 
 
 def splat_topk_fwd(dvals: torch.Tensor, feats: torch.Tensor,
@@ -120,9 +165,7 @@ def splat_topk_fwd(dvals: torch.Tensor, feats: torch.Tensor,
     a CPU tensor, kernel K4 for a CUDA tensor."""
     if not dvals.is_cuda:
         return splat_topk_plain(dvals, feats, ids, num_cells, bf16_rows)
-    _check(dvals, feats, ids, num_cells)
-    return splat_sorted(dvals, feats, *sort_ids(ids, num_cells), num_cells,
-                        bf16_rows)
+    return _launch_forward(dvals, feats, ids, num_cells, bf16_rows)[0]
 
 
 def splat_topk_bwd(dvals: torch.Tensor, feats: torch.Tensor,

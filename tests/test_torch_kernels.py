@@ -10,8 +10,9 @@ the card), those of the backward kernels K1b, K2b and K3b and of the
 camera path's K4 and K4b (top-K depth splat) included, carry the ``cuda``
 marker and skip without a card (K1 and K1b at the four shapes of the port's
 paths, on their tensor-core route, and at ragged shapes on the general one);
-what the K1 / K1b wrappers decide in Python (the route, the scratch sizes,
-the refusal) and the 3xTF32 split are held on the CPU; their inputs come from ``deform_case``,
+what the K1 / K1b, K2b and K4 wrappers decide in Python (the route, the
+scratch sizes, the refusal, the plain reference of K4's row order) and the
+3xTF32 split are held on the CPU; their inputs come from ``deform_case``,
 ``canvas_case`` and ``splat_case``, which ``test_torch_train.py`` and
 ``test_torch_camera.py`` share.
 """
@@ -28,13 +29,15 @@ from gencomm_tpu_torch.ops.deform_conv import (
     deform_conv3x3_bwd, deform_conv3x3_bwd_plain, deform_conv3x3_clamped,
     deform_conv3x3_plain, kernel_route,
 )
+from gencomm_tpu_torch.ops import pillar_canvas as pillar_canvas_ops
 from gencomm_tpu_torch.ops.pillar_canvas import (
-    pillar_canvas, pillar_canvas_bwd, pillar_canvas_bwd_plain,
-    pillar_canvas_plain,
+    backward_route, pillar_canvas, pillar_canvas_bwd,
+    pillar_canvas_bwd_plain, pillar_canvas_plain,
 )
 from gencomm_tpu_torch.ops.splat import (
-    splat_topk, splat_topk_bwd, splat_topk_bwd_plain, splat_topk_fwd,
-    splat_topk_plain,
+    forward_scratch, sort_ids, splat_topk, splat_topk_bwd,
+    splat_topk_bwd_plain, splat_topk_fwd, splat_topk_plain,
+    splat_topk_with_order,
 )
 from gencomm_tpu_torch.ops.warp import (
     warp_affine, warp_affine_bwd, warp_affine_bwd_plain, warp_affine_plain,
@@ -477,6 +480,114 @@ def test_canvas_bwd_kernel_bit_exact_on_card(cuda, seed):
     np.testing.assert_array_equal(_bits(got.cpu()), _bits(want.cpu()))
 
 
+# K2b picks a kernel route from the channel count, in Python
+@pytest.mark.parametrize("channels,m,cells,route", [
+    (64, 120000, 4 * 131072, "rows64"), (64, 0, 0, "rows64"),
+    (8, 2100, 192, "general"), (6, 3000, 600, "general"),
+    (128, 120000, 4 * 131072, "general"),
+    (64, 2 ** 31, 1000, "general"),   # rows64 indexes rows and cells by int32
+    (64, 1000, 2 ** 31, "general"),
+])
+def test_canvas_bwd_route_follows_channels_and_sizes(channels, m, cells, route):
+    assert backward_route(channels, m, cells) == route
+
+
+@pytest.mark.parametrize("route,m,c,ints", [
+    # 3750 chunks of 32 rows: 64 tie counters each, and 2 ints of mark
+    ("rows64", 120000, 64, 3750 * 66),
+    ("rows64", 33, 64, 2 * 66),
+    ("general", 120000, 64, 3750 * 64),
+    ("general", 2100, 6, 66 * 6),
+])
+def test_canvas_bwd_scratch_sizes(route, m, c, ints):
+    assert pillar_canvas_ops.backward_scratch(route, m, c) == ints
+
+
+def _canvas_bwd_bit_exact_on(cuda, rows, gids, gout, a, ncell, route):
+    rows, gids, gout = (t.to(cuda) for t in (rows, gids, gout))
+    canvas = pillar_canvas_plain(rows, gids, a, ncell)
+    before = pillar_canvas_ops.ROUTE_LAUNCHES[route]
+    got = pillar_canvas_bwd(rows, gids, canvas, gout, a, ncell)
+    torch.cuda.synchronize()
+    assert pillar_canvas_ops.ROUTE_LAUNCHES[route] == before + 1
+    want = pillar_canvas_bwd_plain(rows, gids, canvas, gout, a, ncell)
+    np.testing.assert_array_equal(_bits(got.cpu()), _bits(want.cpu()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,c,route", [(0, 64, "rows64"), (1, 64, "rows64"),
+                                          (2, 6, "general")])
+def test_canvas_bwd_routes_bit_exact_on_card(cuda, seed, c, route):
+    """``canvas_case`` at 64 channels (the 300-row tied run fills several
+    chunks, the 350-row zero tail passes the bf16 count limit, agents start
+    at row 700, inside a chunk) and at an odd number of channel pairs."""
+    rows, gids, gout = canvas_case(seed, a=3, c=c, ncell=64)
+    _canvas_bwd_bit_exact_on(cuda, rows, gids, gout, 3, 64, route)
+
+
+def canvas_runs_case(runs_per_agent, c, ncell, seed):
+    """Rows of the given run lengths per agent (cell ids ascend from 7 in
+    every agent, so a run that ends one agent and the run that starts the
+    next share their gid); values from a few levels so that rows tie at the
+    max; every third run is all zero."""
+    rng = np.random.default_rng(seed)
+    feats, gids = [], []
+    for runs in runs_per_agent:
+        for i, n in enumerate(runs):
+            vals = rng.integers(0, 4, (n, c)).astype(np.float32) * 0.75
+            if i % 3 == 2:
+                vals[:] = 0.0
+            feats.append(vals)
+            gids.append(np.full(n, 7 + 2 * i, np.int32))
+    rows = torch.from_numpy(np.concatenate(feats)).to(torch.bfloat16)
+    gout = torch.from_numpy(rng.normal(size=(len(runs_per_agent), ncell, c))
+                            .astype(np.float32)).to(torch.bfloat16)
+    return rows, torch.from_numpy(np.concatenate(gids)), gout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("runs", [
+    [[30, 66, 4], [3, 1, 1, 40, 55], [100]],
+    [[4, 6], [10], [1] * 10, [3, 7], [2, 2, 6], [10], [9, 1]],
+])
+def test_canvas_bwd_runs_across_chunks_and_agents_on_card(cuda, runs):
+    """100 rows an agent, so agents start inside a chunk. Agent 0: a run of
+    66 rows from row 30 (three chunks, the middle one filled: counted
+    through the slots) and a last run whose gid the next agent's first run
+    shares; agent 1: a run of 40 rows over two chunks that fills neither
+    (finished from the neighbour chunk's rows), then a run to the end. And
+    10 rows an agent: several agents in one chunk."""
+    rows, gids, gout = canvas_runs_case(runs, 64, 40, seed=3)
+    assert rows.shape[0] == len(runs) * sum(runs[0])
+    _canvas_bwd_bit_exact_on(cuda, rows, gids, gout, len(runs), 40, "rows64")
+
+
+@pytest.mark.cuda
+def test_canvas_bwd_bit_exact_at_the_train_step_size_on_card(cuda):
+    """4 x 30,000 rows of 64 channels in 4 x 131,072 cells, with run lengths
+    like the sampler's: 1.5 rows a run, and a clamped tail of thousands of
+    zero rows in two of the agents."""
+    rng = np.random.default_rng(11)
+    a, p, c, ncell = 4, 30000, 64, 131072
+    feats = np.zeros((a, p, c), np.float32)
+    gids = np.full((a, p), ncell, np.int32)
+    for ai, tail in enumerate((1, 7437, 0, 10831)):
+        real = p - tail
+        lengths = rng.geometric(1 / 1.5, size=real)
+        lengths = lengths[np.cumsum(lengths) <= real]
+        cells = np.sort(rng.choice(ncell - 1, size=lengths.size + 1,
+                                   replace=False))
+        g = np.repeat(cells[:-1], lengths)
+        g = np.concatenate([g, np.full(real - g.size, cells[-1])])
+        gids[ai, :real] = g
+        feats[ai, :real] = rng.integers(0, 6, (real, c)) * 0.5
+    rows = torch.from_numpy(feats.reshape(-1, c)).to(torch.bfloat16)
+    flat = torch.from_numpy(np.minimum(gids.reshape(-1), ncell - 1))
+    gout = torch.from_numpy(rng.normal(size=(a, ncell, c)).astype(
+        np.float32)).to(torch.bfloat16)
+    _canvas_bwd_bit_exact_on(cuda, rows, flat, gout, a, ncell, "rows64")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("c", [128, 6])
 def test_warp_bwd_kernel_matches_plain_on_card(cuda, c):
@@ -520,24 +631,119 @@ SPLAT_CARD_CASES = [("dropped", 300, 4, 128), ("empty_range", 777, 3, 16),
                     ("all_dropped", 300, 4, 128), ("dropped", 33, 1, 4)]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("bf16_rows", [False, True])
-@pytest.mark.parametrize("kind,p,k,c", SPLAT_CARD_CASES)
-def test_splat_kernel_matches_plain_on_card(cuda, kind, p, k, c, bf16_rows):
-    dvals, feats, ids, _, s = splat_case(kind, 3, p, k, c)
-    ids[-5:] = -2  # negative ids drop like ids >= s
-    dvals, feats, ids = (_t(a).to(cuda) for a in (dvals, feats, ids))
+def _splat_checks_on_card(dvals, feats, ids, s, bf16_rows=False):
+    """K4 against its plain version, against itself on a second launch, and
+    its row order against the stable sort's."""
+    want = splat_topk_plain(dvals, feats, ids, s, bf16_rows)
     before = LAUNCHES["splat_topk"]
-    got = splat_topk_fwd(dvals, feats, ids, s, bf16_rows)
+    got, sids, order = splat_topk_with_order(dvals, feats, ids, s, bf16_rows)
     torch.cuda.synchronize()
     assert LAUNCHES["splat_topk"] == before + 1
-    want = splat_topk_plain(dvals, feats, ids, s, bf16_rows)
     # fp32 sums of up to 4000 rows in another order (the plain index_add_
     # uses atomics on the card): 1e-5 of the largest value
     _close(got.cpu().numpy(), want.cpu().numpy(), 1e-5, "canvas")
     # the kernel sums each cell in one fixed order
     assert torch.equal(got, splat_topk_fwd(dvals, feats, ids, s, bf16_rows))
     assert bool((got[(want == 0).all(-1)] == 0).all())
+    kept = int(((ids >= 0) & (ids < s)).sum())
+    want_sids, want_order = sort_ids(ids, s)
+    assert sids.numel() == kept
+    assert torch.equal(order, want_order[:kept])
+    assert torch.equal(sids, want_sids[:kept])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16_rows", [False, True])
+@pytest.mark.parametrize("kind,p,k,c", SPLAT_CARD_CASES)
+def test_splat_kernel_matches_plain_on_card(cuda, kind, p, k, c, bf16_rows):
+    dvals, feats, ids, _, s = splat_case(kind, 3, p, k, c)
+    ids[-5:] = -2  # negative ids drop like ids >= s
+    _splat_checks_on_card(*(_t(a).to(cuda) for a in (dvals, feats, ids)), s,
+                          bf16_rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,cells", [(24576, 131072), (49152, 262144)])
+def test_splat_kernel_at_the_camera_paths_sizes_on_card(cuda, p, cells):
+    """top-8 of 128 channels at the camera eval frame's and train step's
+    sizes, with ids like the paths': a third dropped, the rest in a few
+    thousand cells, some of which collect hundreds of rows."""
+    rng = np.random.default_rng(p)
+    k, c = 8, 128
+    hot = rng.choice(cells, size=cells // 27, replace=False)
+    weights = rng.lognormal(0.0, 0.9, size=hot.size)
+    ids = rng.choice(hot, size=(p, k), p=weights / weights.sum())
+    ids[rng.random((p, k)) < 0.3] = cells  # out of the grid
+    assert np.bincount(ids[ids < cells]).max() > 200
+    dvals = rng.random((p, k), dtype=np.float32)
+    feats = rng.standard_normal((p, c), dtype=np.float32)
+    _splat_checks_on_card(*(_t(a).to(cuda) for a in
+                            (dvals, feats, ids.astype(np.int32))), cells)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["one_cell", "every_cell_once", "odd_cells",
+                                  "no_rows"])
+def test_splat_kernel_edge_layouts_on_card(cuda, kind):
+    """All rows in one cell (one segment of 4,000 rows); every cell hit
+    exactly once; a cell count that no block or tile size divides; no
+    pixels at all (the canvas is all zeros)."""
+    rng = np.random.default_rng(len(kind))
+    p, k, c = (0 if kind == "no_rows" else 1000), 4, 16
+    if kind == "no_rows":
+        s, ids = 5000, np.zeros((0, k))
+    elif kind == "one_cell":
+        s, ids = 777, np.full((p, k), 123)
+    elif kind == "every_cell_once":
+        s, ids = p * k, rng.permutation(p * k).reshape(p, k)
+    else:
+        s = 100003
+        ids = rng.integers(-3, s + 3, (p, k))
+        ids[:4] = [[0, s - 1, s, -1]] * 4  # both ends, and just outside
+    dvals = rng.random((p, k), dtype=np.float32)
+    feats = rng.standard_normal((p, c), dtype=np.float32)
+    _splat_checks_on_card(*(_t(a).to(cuda) for a in
+                            (dvals, feats, ids.astype(np.int32))), s)
+
+
+# the plain reference of the order K4 sums in
+@pytest.mark.parametrize("ids,num_cells,sids,order", [
+    # equal ids keep their row order (stable)
+    ([[3, 1], [3, 0], [1, 3]], 4, [0, 1, 1, 3, 3, 3], [3, 1, 4, 0, 2, 5]),
+    # ids >= num_cells are dropped: they sort last, in row order
+    ([[5, 2], [9, 2], [0, 4]], 4, [0, 2, 2, 4, 4, 4], [4, 1, 3, 0, 2, 5]),
+    # negative ids are dropped like ids >= num_cells
+    ([[-1, 2], [1, -7], [2, 3]], 3, [1, 2, 2, 3, 3, 3], [2, 1, 4, 0, 3, 5]),
+])
+def test_splat_order_reference(ids, num_cells, sids, order):
+    got_sids, got_order = sort_ids(torch.tensor(ids, dtype=torch.int32),
+                                   num_cells)
+    assert got_sids.dtype == got_order.dtype == torch.int32
+    assert got_sids.tolist() == sids
+    assert got_order.tolist() == order
+
+
+@pytest.mark.parametrize("m,cells,c,ints,floats", [
+    # counters and local offsets (cells + 1 each), ticket, tile offsets
+    # (tiles + 1), four ints a row; two piece sums a chunk of 32 rows
+    (196608, 131072, 128, 2 * 131073 + 1 + 129 + 1 + 4 * 196608,
+     2 * 6144 * 128),
+    (393216, 262144, 128, 2 * 262145 + 1 + 257 + 1 + 4 * 393216,
+     2 * 12288 * 128),
+    (33, 1023, 4, 2 * 1024 + 1 + 1 + 1 + 4 * 33, 2 * 2 * 4),
+    (0, 5, 8, 2 * 6 + 1 + 1 + 1, 0),
+])
+def test_splat_forward_scratch_sizes(m, cells, c, ints, floats):
+    assert forward_scratch(m, cells, c) == (ints, floats)
+
+
+def test_splat_wrapper_takes_plain_version_on_cpu():
+    dvals, feats, ids, _, s = splat_case("dropped", 1, p=40, k=3, c=8)
+    dvals, feats, ids = (_t(a) for a in (dvals, feats, ids))
+    before = LAUNCHES["splat_topk"]
+    assert torch.equal(splat_topk_fwd(dvals, feats, ids, s),
+                       splat_topk_plain(dvals, feats, ids, s))
+    assert LAUNCHES["splat_topk"] == before
 
 
 # K4b holds one float4 of channels per lane: at most 128 channels
