@@ -18,11 +18,13 @@ Phases, each of which raises on failure:
   1. the card, its power limit, torch / CUDA versions, fp32 settings;
   2. the kernel build, timed; K1 and K1b once on their general route
      (channel counts the tensor-core route does not take, a ragged map,
-     offsets to +-9) and K2b once on its (6 channels) against their plain
-     versions;
+     offsets to +-9), K2b once on its (6 channels) and K3b on four thetas
+     no path builds (zero, a 4x zoom, a nearly singular shear, a scaled
+     rotation; 128 and 6 channels) against their plain versions;
   3. each kernel (K1 deformable conv, K2 pillar canvas, K3 affine warp) on
      the inputs the main path gives it, held against its plain PyTorch
-     version (K2 bit-exact, K1 / K3 within the stated fp32 tolerance) and
+     version (K2 bit-exact and the same bits on a second launch, K1 / K3
+     within the stated fp32 tolerance) and
      timed beside the plain version, a one-call PyTorch yardstick where one
      exists, and its bound on the card. K1 and K1b are timed warm and with
      the L2 cache evicted before every launch ("cold_ms"), and their rows
@@ -31,7 +33,8 @@ Phases, each of which raises on failure:
      turns, 200 launches a turn ("turns_ms"). Every kernel and every library
      yardstick also has the profiler's device time per call ("device_ms",
      "library_device_ms"), which leaves out the host work between launches
-     that the event time of a short kernel is made of;
+     that the event time of a short kernel is made of; K2 and K3b log the
+     profiler's split by launch (K3b: one kernel a call, no memset);
   4. the main path: 1 warm-up + 10 timed frames (CUDA events), frames/s,
      detections, finite outputs, and each kernel's launch count in this
      phase (it must be > 0);
@@ -40,10 +43,10 @@ Phases, each of which raises on failure:
   6. training, the flagship's fp32 train step with the settings of
      configs/opv2v/gencomm/stage1/m1_att.yaml (batch 2 x 2 agents, AdamW,
      multistep LR, point_pillar_gencomm_loss) through
-     gencomm_tpu_torch.train.trainer: the backward kernels (K1b deformable
-     conv, K2b pillar canvas, K3b affine warp) on the arguments the train
-     step gives them, held against their plain versions (K2b bit-exact) and
-     timed; 1 warm-up + 10 timed steps (CUDA events) with every kernel's
+     gencomm_tpu_torch.train.trainer: K2 and the backward kernels (K1b
+     deformable conv, K2b pillar canvas, K3b affine warp) on the arguments
+     the train step gives them, held against their plain versions (K2 and
+     K2b bit-exact; K3b also twice for the same bits) and timed; 1 warm-up + 10 timed steps (CUDA events) with every kernel's
      launch count (each must be > 0) and the loss terms of every step; 4
      steps on one repeated batch, whose loss must fall; one step on the card
      and on the port's CPU, whose losses must agree and whose gradients
@@ -180,6 +183,13 @@ K3_TURN_LAUNCHES = 200
 GENERAL_SHAPE = (2, 20, 36, 40, 70)
 # agents, rows per agent, channels, cells per agent: K2b's general route
 GENERAL_CANVAS = (3, 1000, 6, 200)
+# K3b on thetas the system never builds (it builds rigid ones): zero, a 4x
+# zoom, a nearly singular shear, a rotation with scale; on (H, W) maps
+GENERAL_THETAS = [[[0.0, 0.0, 0.0], [0.0, 0.0, 0.0]],
+                  [[0.25, 0.0, 0.1], [0.0, 0.25, -0.05]],
+                  [[1.0, 0.5, 0.1], [2.0, 1.000001, -0.2]],
+                  [[1.2, -0.6, 0.3], [0.5, 0.9, -0.4]]]
+GENERAL_WARP_MAP = (48, 64)
 
 
 def log(*a):
@@ -223,9 +233,9 @@ def time_ms(fn, iters=20, warmup=3, cold=False):
     return sum(a.elapsed_time(b) for a, b in pairs) / iters
 
 
-def device_split(fn, n=20):
-    """Device ms per call of ``fn`` of every kernel, copy and memset it
-    launches, by name, from torch.profiler."""
+def device_launches(fn, n=20):
+    """(device ms, launches) per call of ``fn`` of every kernel, copy and
+    memset it launches, by name, from torch.profiler."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -236,10 +246,37 @@ def device_split(fn, n=20):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    return {ev.key: ev.self_device_time_total / n / 1e3
+    return {ev.key: (ev.self_device_time_total / n / 1e3, ev.count / n)
             for ev in prof.key_averages()
             if ev.device_type == DeviceType.CUDA
             and ev.self_device_time_total > 0}
+
+
+def device_split(fn, n=20):
+    """Device ms per call of ``fn`` of every kernel, copy and memset it
+    launches, by name, from torch.profiler."""
+    return {key: ms for key, (ms, _) in device_launches(fn, n).items()}
+
+
+def split_ms(label, fn, one_launch):
+    """The device ms of one call of ``fn``; logs the profiler's split of it
+    by launch. With ``one_launch`` the call must launch one kernel and
+    nothing else (no memset, no copy); the profiler may drop a launch's
+    record now and then, so a kernel may count under one a call."""
+    split = device_launches(fn)
+    log(f"  {label}, one call's launches (device ms, launches): " + ", ".join(
+        f"{short_name(k)} {ms:.4f} x{count:g}" for k, (ms, count) in split.items()))
+    if one_launch and (len(split) != 1 or any(
+            count > 1 or "Mem" in k for k, (_, count) in split.items())):
+        raise AssertionError(f"{label}: one kernel launch a call expected, "
+                             f"got {split}")
+    return sum(ms for ms, _ in split.values()) or None
+
+
+def short_name(key):
+    """A kernel's profiler name without its namespace and arguments."""
+    return (key.replace("void ", "").replace("(anonymous namespace)::", "")
+            .split("(")[0].strip())
 
 
 def device_ms(fn, n=20):
@@ -512,14 +549,22 @@ def check_pillar(inputs, where):
     r, g, n_agents, ncell = inputs["pillar_canvas"]
     got, want = pillar_canvas(r, g, n_agents, ncell), pillar_canvas_plain(
         r, g, n_agents, ncell)
+    again = pillar_canvas(r, g, n_agents, ncell)
     torch.cuda.synchronize()
     same = torch.equal(got.view(torch.int16), want.view(torch.int16))
+    twice = torch.equal(got.view(torch.int16), again.view(torch.int16))
     err = float((got.float() - want.float()).abs().max())
+    tail = [int((g.view(n_agents, -1)[a] >= ncell - 1).sum())
+            for a in range(n_agents)]
     log(f"K2 pillar_canvas ({where}) rows{tuple(r.shape)} -> "
         f"{tuple(got.shape)}: "
-        f"bit-exact {same}, occupied cells {int((want > 0).any(-1).sum())}")
+        f"bit-exact {same}, two launches bit-equal {twice}, occupied cells "
+        f"{int((want > 0).any(-1).sum())}, rows in each agent's last cell "
+        f"{tail}")
     if not same:
         raise AssertionError(f"K2 is not bit-exact (max abs diff {err})")
+    if not twice:
+        raise AssertionError("K2 gave different bits on a second launch")
     m, c = r.shape
     idx = (torch.arange(m, device=r.device) // (m // n_agents) * ncell
            + g.long().clamp(0, ncell - 1))[:, None].expand(m, c)
@@ -536,7 +581,9 @@ def check_pillar(inputs, where):
         replaces="gencomm_tpu/ops/pillar_pallas.py:58",
         max_abs_err=err,
         ms=time_ms(lambda: pillar_canvas(r, g, n_agents, ncell)),
-        device_ms=device_ms(lambda: pillar_canvas(r, g, n_agents, ncell)),
+        # a memset and one kernel
+        device_ms=split_ms("K2", lambda: pillar_canvas(r, g, n_agents, ncell),
+                           one_launch=False),
         plain_ms=time_ms(lambda: pillar_canvas_plain(r, g, n_agents, ncell)),
         bound_ms=k2_bytes / PEAK_BYTES * 1e3, bound_by="bytes",
         library_ms=time_ms(library), library_device_ms=device_ms(library))
@@ -741,6 +788,53 @@ def check_pillar_bwd_general(dev):
     return {"pillar_canvas_bwd": err}
 
 
+def hold_warp_bwd(g3, theta, where):
+    """K3b against its plain version, and two of its launches against each
+    other bit for bit; returns the error."""
+    import torch
+    from gencomm_tpu_torch.ops.warp import (
+        warp_affine_bwd, warp_affine_bwd_plain,
+    )
+
+    got = warp_affine_bwd(g3, theta)
+    again = warp_affine_bwd(g3, theta)
+    want = warp_affine_bwd_plain(g3, theta)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    twice = torch.equal(got, again)
+    h3, w3 = g3.shape[1], g3.shape[2]
+    tol = 16.0 * max(h3, w3) * 2.0 ** -23 * float(g3.abs().max())
+    log(f"K3b warp_affine_bwd ({where}) g{tuple(g3.shape)}: "
+        f"max|kernel-plain| "
+        f"{err:.3e} (tol {tol:.3e}: a one-ulp difference of the sampling "
+        f"coordinate times the cotangent, over up to 16 contributions), two "
+        f"launches bit-equal {twice}")
+    if not err <= tol:
+        raise AssertionError(f"K3b disagrees with its plain version: {err}")
+    if not twice:
+        raise AssertionError("K3b gave different bits on a second launch")
+    return err
+
+
+def check_warp_bwd_general(dev):
+    """K3b on thetas that no path of the system builds (every one it builds
+    is rigid): a zero theta (a singular map: every source pixel searches the
+    whole map), a 4x zoom, a nearly singular shear and a rotation with
+    scale, at 128 and at 6 channels. Returns the error for the kernels JSON
+    line."""
+    import torch
+
+    thetas = torch.tensor(GENERAL_THETAS, dtype=torch.float32, device=dev)
+    gen = torch.Generator().manual_seed(7)
+    err = 0.0
+    for c in (128, 6):
+        g3 = torch.randn((len(thetas),) + GENERAL_WARP_MAP + (c,),
+                         generator=gen).to(dev)
+        err = max(err, hold_warp_bwd(g3, thetas, f"general thetas, {c} "
+                                                 f"channels"))
+    return {"warp_affine_bwd": err}
+
+
 def check_warp_bwd(inputs, where):
     """K3b (affine warp backward) against its plain version on the
     arguments the train step ``where`` gives it; returns its row."""
@@ -751,18 +845,7 @@ def check_warp_bwd(inputs, where):
     )
 
     g3, theta = inputs["warp_affine_bwd"]
-    got = warp_affine_bwd(g3, theta)
-    want = warp_affine_bwd_plain(g3, theta)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    h3, w3 = g3.shape[1], g3.shape[2]
-    tol = 16.0 * max(h3, w3) * 2.0 ** -23 * float(g3.abs().max())
-    log(f"K3b warp_affine_bwd ({where}) g{tuple(g3.shape)}: "
-        f"max|kernel-plain| "
-        f"{err:.3e} (tol {tol:.3e}: a one-ulp difference of the sampling "
-        f"coordinate times the cotangent, over up to 16 contributions)")
-    if not err <= tol:
-        raise AssertionError(f"K3b disagrees with its plain version: {err}")
+    err = hold_warp_bwd(g3, theta, where)
     src_req = torch.zeros(g3.shape, device=g3.device).permute(
         0, 3, 1, 2).contiguous().requires_grad_()
     grid = F.affine_grid(theta, list(src_req.shape), align_corners=False)
@@ -779,9 +862,10 @@ def check_warp_bwd(inputs, where):
         replaces="gencomm_tpu/ops/warp_pallas.py:122",
         max_abs_err=err,
         ms=time_ms(lambda: warp_affine_bwd(g3, theta)),
-        device_ms=device_ms(lambda: warp_affine_bwd(g3, theta)),
+        device_ms=split_ms("K3b", lambda: warp_affine_bwd(g3, theta),
+                           one_launch=True),
         plain_ms=time_ms(lambda: warp_affine_bwd_plain(g3, theta)),
-        bound_ms=nbytes(g3, theta, got) / PEAK_BYTES * 1e3, bound_by="bytes",
+        bound_ms=nbytes(g3, theta, g3) / PEAK_BYTES * 1e3, bound_by="bytes",
         library_ms=time_ms(library), library_device_ms=device_ms(library))
     log_rows([row])
     return row
@@ -876,8 +960,7 @@ def check_splat(inputs, where):
         bound_ms=bound_ms, bound_by=bound_by,
         library_ms=time_ms(library), library_device_ms=device_ms(library))
     log("  one call's launches, device ms each: " + ", ".join(
-        f"{name.replace('void ', '').replace('(anonymous namespace)::', '').split('(')[0].strip()}"
-        f" {ms:.4f}" for name, ms in split.items()))
+        f"{short_name(name)} {ms:.4f}" for name, ms in split.items()))
     if any("at::" in name or "cub::" in name for name in split):
         raise AssertionError(f"K4 launched a library kernel: {sorted(split)}")
     log_rows([row])
@@ -1189,7 +1272,8 @@ def main() -> int:
                 log(f"  ptxas {name}: {line.strip()}")
 
     general_errs = {**check_deform_general(dev),
-                    **check_pillar_bwd_general(dev)}
+                    **check_pillar_bwd_general(dev),
+                    **check_warp_bwd_general(dev)}
 
     # phases 3-5: the lidar flagship's eval path
     cfg = SyntheticConfig(lidar_range=LIDAR_RANGE, max_cav=5, num_agents=2,
@@ -1221,16 +1305,17 @@ def main() -> int:
         f"labelled and decorated on the host in "
         f"{time.perf_counter() - t0:.3f} s; "
         f"{int(hosts[0]['pos_equal_one'].sum())} positive anchors in the first")
-    kernel_rows += train_phase(
+    add_rows(kernel_rows, "lidar train step", train_phase(
         smi, dev, "lidar", FLAGSHIP, TRAIN_HYPES, FEATURE_SHAPE, hosts,
-        [(deform_conv, "deform_conv3x3_bwd"),
+        [(point_pillar, "pillar_canvas"), (deform_conv, "deform_conv3x3_bwd"),
          (pillar_canvas, "pillar_canvas_bwd"), (warp, "warp_affine_bwd")],
-        lambda inputs: [check_deform_bwd(inputs, "lidar train step"),
+        lambda inputs: [check_pillar(inputs, "lidar train step"),
+                        check_deform_bwd(inputs, "lidar train step"),
                         check_pillar_bwd(inputs, "lidar train step"),
                         check_warp_bwd(inputs, "lidar train step")],
         ("deform_conv3x3", "pillar_canvas", "warp_affine",
          "deform_conv3x3_bwd", "pillar_canvas_bwd", "warp_affine_bwd"),
-        "decorated_m1")
+        "decorated_m1"))
     del hosts
 
     # phase 7: the camera eval path. The sampler is configured as
@@ -1291,12 +1376,15 @@ def main() -> int:
         ("deform_conv3x3", "warp_affine", "splat_topk", "deform_conv3x3_bwd",
          "warp_affine_bwd", "splat_topk_bwd"), "imgs_m1"))
 
+    general_cases = {"pillar_canvas_bwd": ("general_route", GENERAL_CANVAS),
+                     "deform_conv3x3": ("general_route", GENERAL_SHAPE),
+                     "deform_conv3x3_bwd": ("general_route", GENERAL_SHAPE),
+                     "warp_affine_bwd": ("general_thetas", GENERAL_WARP_MAP)}
     for row in kernel_rows:
         if row["name"] in general_errs:
-            shape = (GENERAL_CANVAS if row["name"] == "pillar_canvas_bwd"
-                     else GENERAL_SHAPE)
-            row["general_route"] = {"shape": list(shape),
-                                    "max_abs_err": general_errs[row["name"]]}
+            key, shape = general_cases[row["name"]]
+            row[key] = {"shape": list(shape),
+                        "max_abs_err": general_errs[row["name"]]}
     phase_done("all phases", t_all)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernel_rows}), flush=True)

@@ -14,14 +14,28 @@
 // 64 x 128 x 128, fp32) it reads a 16.8 MB cotangent and writes a 16.8 MB
 // gradient; a few FMAs per value.
 //
-// Design: dsrc is zeroed with one memset. One thread per (output pixel,
-// 4-channel vector) recomputes the coordinate exactly as K3 does (the
-// non-contracting intrinsics, so the corner weights are bit-equal to the
-// forward's and to the plain version's) and adds w * g into the 4 corners
-// with atomics (float4 atomics on sm_90: one per corner and vector).
-// Neighbouring threads hold neighbouring channels of one pixel, so each
-// corner's atomics cover one contiguous row segment. The order of the
-// atomic sums varies from run to run.
+// Design: a gather, not a scatter. Each source pixel (n, iy, ix) collects
+// its own sum, so dsrc is written once with coalesced stores: no memset, no
+// atomics, the same bits on every run. The output pixels that can touch
+// (ix, iy) are those whose sample point (x, y) lies in [ix-1, ix+1) x
+// [iy-1, iy+1). In pixel space (x + 0.5, y + 0.5) = M (xo + 0.5, yo + 0.5)
+// + c with M = [[t0, t1 w/h], [t3 h/w, t4]], so the candidates are the
+// integer points of the box that bounds the square's preimage under M,
+// widened by a margin that covers the rounding of the coordinate chain and
+// clipped to the map (`source_window`; `ops/warp.py:_source_window` is its
+// PyTorch mirror). M^-1 and the margins are worked out once a block per
+// sample, in double (`sample_box`); a singular M takes the whole map, so
+// any theta is right and only a rigid one (every theta the system builds:
+// 6-16 candidates) is fast. One warp owns four neighbouring source
+// pixels: a group of 8 lanes tests 8 of its pixel's candidates at a time by
+// recomputing (x, y) exactly as K3 does (the same non-contracting
+// intrinsics), keeps a candidate only if floor(x) is ix-1 or ix and
+// floor(y) is iy-1 or iy, and takes that corner's weight; an over-wide
+// window costs time, never correctness. Then the whole warp sums each
+// pixel's kept candidates in raster order, every lane holding one 4-channel
+// vector (C % 4 == 0) or one channel of the four pixels' rows, with two
+// loads of each pixel in flight (eight a lane); one or two pixels a warp
+// were slower on an H100.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -35,53 +49,197 @@ struct Vec<4> { using T = float4; };
 template <>
 struct Vec<1> { using T = float; };
 
-__device__ __forceinline__ void add_scaled(float4* dst, float w, float4 v) {
-    atomicAdd(dst, make_float4(w * v.x, w * v.y, w * v.z, w * v.w));
+__device__ __forceinline__ float4 fma_vec(float w, float4 v, float4 acc) {
+    acc.x = fmaf(w, v.x, acc.x); acc.y = fmaf(w, v.y, acc.y);
+    acc.z = fmaf(w, v.z, acc.z); acc.w = fmaf(w, v.w, acc.w);
+    return acc;
 }
-__device__ __forceinline__ void add_scaled(float* dst, float w, float v) {
-    atomicAdd(dst, w * v);
+__device__ __forceinline__ float fma_vec(float w, float v, float acc) {
+    return fmaf(w, v, acc);
 }
+template <typename T> __device__ __forceinline__ T zero();
+template <> __device__ __forceinline__ float4 zero<float4>() {
+    return make_float4(0.f, 0.f, 0.f, 0.f);
+}
+template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
+
+struct Window { int x0, x1, y0, y1; };  // inclusive output-pixel ranges
+
+// What the window of every source pixel of one sample shares: M^-1, the
+// offset c and the half-widths of the preimage box, margins included.
+struct SampleBox { double i00, i01, i10, i11, c0, c1, eu, ev; bool full; };
+
+__device__ SampleBox sample_box(const float* th, int h, int w) {
+    const double t0 = th[0], t1 = th[1], t2 = th[2];
+    const double t3 = th[3], t4 = th[4], t5 = th[5];
+    const double fw = w, fh = h, aspect = fw / fh;
+    const double m00 = t0, m01 = t1 * aspect, m10 = t3 / aspect, m11 = t4;
+    SampleBox box;
+    box.c0 = 0.5 * fw * (t2 + 1.0 - t0 - t1);
+    box.c1 = 0.5 * fh * (t5 + 1.0 - t3 - t4);
+    const double det = m00 * m11 - m01 * m10;
+    box.full = !(fabs(det) > 0.0);
+    const double inv = 1.0 / (box.full ? 1.0 : det);
+    box.i00 = m11 * inv; box.i01 = -m01 * inv;
+    box.i10 = -m10 * inv; box.i11 = m00 * inv;
+    // the rounding of the fp32 coordinate chain, in source pixels (a wide
+    // bound), carried back through M^-1
+    const double delta = 1e-4 * (1.0 + fw * (fabs(t0) + fabs(t1) + fabs(t2) + 1.0)
+                                 + fh * (fabs(t3) + fabs(t4) + fabs(t5) + 1.0));
+    box.eu = (fabs(box.i00) + fabs(box.i01)) * (1.0 + delta) + 1e-3;
+    box.ev = (fabs(box.i10) + fabs(box.i11)) * (1.0 + delta) + 1e-3;
+    return box;
+}
+
+// The output pixels whose sample point can fall in [ix-1, ix+1) x
+// [iy-1, iy+1), as a box in (xo, yo) clipped to the map.
+__device__ Window source_window(const SampleBox& box, int h, int w, int ix,
+                                int iy) {
+    const Window full{0, w - 1, 0, h - 1};
+    if (box.full) return full;
+    const double fw = w, fh = h;
+    const double xc = ix + 0.5 - box.c0, yc = iy + 0.5 - box.c1;
+    const double uc = box.i00 * xc + box.i01 * yc - 0.5;
+    const double vc = box.i10 * xc + box.i11 * yc - 0.5;
+    const double lo_x = ceil(uc - box.eu), hi_x = floor(uc + box.eu);
+    const double lo_y = ceil(vc - box.ev), hi_y = floor(vc + box.ev);
+    if (!(isfinite(lo_x) && isfinite(hi_x) && isfinite(lo_y) && isfinite(hi_y)))
+        return full;
+    // a first index past the map or a last one before it: an empty box
+    Window win;
+    win.x0 = (int)fmin(fmax(lo_x, 0.0), fw);
+    win.x1 = (int)fmax(fmin(hi_x, fw - 1.0), -1.0);
+    win.y0 = (int)fmin(fmax(lo_y, 0.0), fh);
+    win.y1 = (int)fmax(fmin(hi_y, fh - 1.0), -1.0);
+    return win;
+}
+
+constexpr int PER_WARP = 4;                     // source pixels a warp
+constexpr int GROUP = 32 / PER_WARP;            // lanes that test one pixel's candidates
+constexpr int THREADS = 256;
+constexpr int PIXELS = THREADS / 32 * PER_WARP;  // source pixels a block
+constexpr int IN_FLIGHT = 2;                    // loads a pixel per step
 
 template <int VEC>
-__global__ void warp_affine_bwd_kernel(const float* __restrict__ g,
-                                       const float* __restrict__ theta,
-                                       float* __restrict__ dsrc, int n, int h,
-                                       int w, int channels) {
+__global__ void __launch_bounds__(THREADS, 6)  // <= 40 registers
+warp_affine_bwd_kernel(const float* __restrict__ g,
+                       const float* __restrict__ theta,
+                       float* __restrict__ dsrc, int n, int h, int w,
+                       int channels) {
     using T = typename Vec<VEC>::T;
-    const int nvec = channels / VEC;
-    const int64_t total = (int64_t)n * h * w * nvec;
-    const int64_t idx = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-    if (idx >= total) return;
-    const int cv = (int)(idx % nvec);
-    const int64_t pix = idx / nvec;
-    const int xo = (int)(pix % w);
-    const int yo = (int)((pix / w) % h);
-    const int b = (int)(pix / ((int64_t)w * h));
-
-    // the coordinate, rounded step by step exactly as in K3
+    // the samples of this block's pixels (at most PIXELS), once a block
+    __shared__ SampleBox boxes[PIXELS];
+    const int lane = threadIdx.x & 31;
+    const int64_t hw = (int64_t)h * w, total = (int64_t)n * hw;
+    const int64_t first = (int64_t)blockIdx.x * PIXELS;
+    const int b0 = (int)(first / hw);
+    if (threadIdx.x < PIXELS) {
+        const int64_t last = min(first + PIXELS, total) - 1;
+        if (b0 + (int)threadIdx.x <= (int)(last / hw))
+            boxes[threadIdx.x] = sample_box(theta + (b0 + threadIdx.x) * 6, h, w);
+    }
+    __syncthreads();
+    // the warp's PER_WARP pixels; lane group `grp` tests pixel grp's candidates
+    const int64_t wpix = first + (threadIdx.x >> 5) * PER_WARP;
+    if (wpix >= total) return;  // whole warps leave together
+    const int grp = lane / GROUP, gl = lane % GROUP;
+    const int64_t pix = wpix + grp;
+    const bool real = pix < total;
+    const int ix = real ? (int)(pix % w) : 0;
+    const int iy = real ? (int)((pix / w) % h) : 0;
+    const int b = real ? (int)(pix / hw) : b0;
+    Window win{0, -1, 0, -1};
+    if (real) win = source_window(boxes[b - b0], h, w, ix, iy);
+    const int bw = win.x1 - win.x0 + 1;
+    const int ncand = (bw > 0 && win.y1 >= win.y0) ? bw * (win.y1 - win.y0 + 1) : 0;
+    const int most = __reduce_max_sync(0xffffffffu, ncand);
     const float* th = theta + b * 6;
+    const int nvec = channels / VEC;
     const float fw = (float)w, fh = (float)h;
-    const float gx = __fsub_rn(__fdiv_rn(__fadd_rn(2.0f * xo, 1.0f), fw), 1.0f);
-    const float gy = __fsub_rn(__fdiv_rn(__fadd_rn(2.0f * yo, 1.0f), fh), 1.0f);
-    const float sx = __fadd_rn(__fadd_rn(__fmul_rn(th[0], gx), __fmul_rn(th[1], gy)), th[2]);
-    const float sy = __fadd_rn(__fadd_rn(__fmul_rn(th[3], gx), __fmul_rn(th[4], gy)), th[5]);
-    const float x = __fsub_rn(__fdiv_rn(__fmul_rn(__fadd_rn(sx, 1.0f), fw), 2.0f), 0.5f);
-    const float y = __fsub_rn(__fdiv_rn(__fmul_rn(__fadd_rn(sy, 1.0f), fh), 2.0f), 0.5f);
-
-    const float x0 = floorf(x), y0 = floorf(y);
-    const float wx1 = __fsub_rn(x, x0), wy1 = __fsub_rn(y, y0);
-    const float wx0 = __fsub_rn(1.0f, wx1), wy0 = __fsub_rn(1.0f, wy1);
-    const int ix0 = (int)x0, iy0 = (int)y0;
-
-    const T gv = reinterpret_cast<const T*>(g)[idx];
-    T* base = reinterpret_cast<T*>(dsrc) + (int64_t)b * h * w * nvec + cv;
+    const T* gp[PER_WARP];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-        const int ix = ix0 + (k & 1);
-        const int iy = iy0 + (k >> 1);
-        if (ix < 0 || ix > w - 1 || iy < 0 || iy > h - 1) continue;
-        const float wt = __fmul_rn((k & 1) ? wx1 : wx0, (k >> 1) ? wy1 : wy0);
-        add_scaled(base + ((int64_t)iy * w + ix) * nvec, wt, gv);
+    for (int p = 0; p < PER_WARP; ++p)
+        gp[p] = reinterpret_cast<const T*>(g)
+              + (int64_t)__shfl_sync(0xffffffffu, b, p * GROUP) * hw * nvec;
+    const unsigned group_bits = GROUP == 32 ? 0xffffffffu : (1u << GROUP) - 1u;
+
+    for (int cv0 = 0; cv0 < nvec; cv0 += 32) {
+        const int cv = cv0 + lane;
+        T acc[PER_WARP];
+#pragma unroll
+        for (int p = 0; p < PER_WARP; ++p) acc[p] = zero<T>();
+        for (int base = 0; base < most; base += GROUP) {
+            // lane gl of group grp tests candidate base + gl, in raster order
+            const int k = base + gl;
+            bool member = false;
+            float wt = 0.f;
+            int opix = 0;
+            if (k < ncand) {
+                const int xo = win.x0 + k % bw, yo = win.y0 + k / bw;
+                // the coordinate, rounded step by step exactly as in K3
+                const float gx = __fsub_rn(__fdiv_rn(__fadd_rn(2.0f * xo, 1.0f), fw), 1.0f);
+                const float gy = __fsub_rn(__fdiv_rn(__fadd_rn(2.0f * yo, 1.0f), fh), 1.0f);
+                const float sx = __fadd_rn(__fadd_rn(__fmul_rn(th[0], gx), __fmul_rn(th[1], gy)), th[2]);
+                const float sy = __fadd_rn(__fadd_rn(__fmul_rn(th[3], gx), __fmul_rn(th[4], gy)), th[5]);
+                // K3 divides by 2: a multiply by 0.5 gives the same bits
+                const float x = __fsub_rn(__fmul_rn(__fmul_rn(__fadd_rn(sx, 1.0f), fw), 0.5f), 0.5f);
+                const float y = __fsub_rn(__fmul_rn(__fmul_rn(__fadd_rn(sy, 1.0f), fh), 0.5f), 0.5f);
+                const float x0 = floorf(x), y0 = floorf(y);
+                const int kx = ix - (int)x0, ky = iy - (int)y0;
+                if ((kx == 0 || kx == 1) && (ky == 0 || ky == 1)) {
+                    const float wx1 = __fsub_rn(x, x0), wy1 = __fsub_rn(y, y0);
+                    const float wx0 = __fsub_rn(1.0f, wx1), wy0 = __fsub_rn(1.0f, wy1);
+                    wt = __fmul_rn(kx ? wx1 : wx0, ky ? wy1 : wy0);
+                    member = true;
+                    opix = yo * w + xo;
+                }
+            }
+            const unsigned ballot = __ballot_sync(0xffffffffu, member);
+            unsigned mask[PER_WARP];
+            bool any = false;
+#pragma unroll
+            for (int p = 0; p < PER_WARP; ++p) {
+                mask[p] = (ballot >> (p * GROUP)) & group_bits;
+                any |= mask[p] != 0u;
+            }
+            // each pixel's kept candidates in raster order, IN_FLIGHT loads a
+            // pixel at a time
+            while (any) {
+                float wk[PER_WARP][IN_FLIGHT];
+                int src[PER_WARP][IN_FLIGHT];
+                T v[PER_WARP][IN_FLIGHT];
+                any = false;
+#pragma unroll
+                for (int p = 0; p < PER_WARP; ++p) {
+#pragma unroll
+                    for (int j = 0; j < IN_FLIGHT; ++j) {
+                        const int l = mask[p] ? __ffs(mask[p]) - 1 + p * GROUP : 0;
+                        wk[p][j] = __shfl_sync(0xffffffffu, wt, l);
+                        src[p][j] = __shfl_sync(0xffffffffu, opix, l);
+                        if (!mask[p]) src[p][j] = -1;
+                        mask[p] &= mask[p] - 1;
+                    }
+                    any |= mask[p] != 0u;
+                }
+#pragma unroll
+                for (int p = 0; p < PER_WARP; ++p)
+#pragma unroll
+                    for (int j = 0; j < IN_FLIGHT; ++j)
+                        v[p][j] = (src[p][j] >= 0 && cv < nvec)
+                                      ? gp[p][(int64_t)src[p][j] * nvec + cv] : zero<T>();
+#pragma unroll
+                for (int p = 0; p < PER_WARP; ++p)
+#pragma unroll
+                    for (int j = 0; j < IN_FLIGHT; ++j)
+                        if (src[p][j] >= 0) acc[p] = fma_vec(wk[p][j], v[p][j], acc[p]);
+            }
+        }
+        if (cv < nvec) {
+#pragma unroll
+            for (int p = 0; p < PER_WARP; ++p)
+                if (wpix + p < total)
+                    reinterpret_cast<T*>(dsrc)[(wpix + p) * nvec + cv] = acc[p];
+        }
     }
 }
 
@@ -91,20 +249,16 @@ extern "C" int warp_affine_bwd_f32(const void* g, const void* theta, void* dsrc,
                                    int n, int h, int w, int channels,
                                    void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const size_t bytes = (size_t)n * h * w * channels * sizeof(float);
-    cudaError_t err = cudaMemsetAsync(dsrc, 0, bytes, s);
-    if (err != cudaSuccess) return (int)err;
-    const int threads = 256;
-    if (channels % 4 == 0) {
-        const long long total = (long long)n * h * w * (channels / 4);
-        if (total > 0)
-            warp_affine_bwd_kernel<4><<<(unsigned)((total + threads - 1) / threads), threads, 0, s>>>(
+    const int threads = THREADS;
+    const long long pixels = (long long)n * h * w;
+    if (pixels > 0 && channels > 0) {
+        const unsigned blocks = (unsigned)((pixels + PIXELS - 1) / PIXELS);
+        if (channels % 4 == 0)
+            warp_affine_bwd_kernel<4><<<blocks, threads, 0, s>>>(
                 static_cast<const float*>(g), static_cast<const float*>(theta),
                 static_cast<float*>(dsrc), n, h, w, channels);
-    } else {
-        const long long total = (long long)n * h * w * channels;
-        if (total > 0)
-            warp_affine_bwd_kernel<1><<<(unsigned)((total + threads - 1) / threads), threads, 0, s>>>(
+        else
+            warp_affine_bwd_kernel<1><<<blocks, threads, 0, s>>>(
                 static_cast<const float*>(g), static_cast<const float*>(theta),
                 static_cast<float*>(dsrc), n, h, w, channels);
     }

@@ -50,6 +50,48 @@ def _corners(n: int, h: int, w: int, theta: torch.Tensor):
     return out
 
 
+def _source_window(theta: torch.Tensor, h: int, w: int):
+    """K3b's window rule (``csrc/warp_affine_bwd.cu:source_window``), used
+    only by the tests: for every source pixel (n, iy, ix) the inclusive
+    output-pixel box (xo0, xo1, yo0, yo1), each (N, H, W) int64, that holds
+    every output whose sample point lies in [ix-1, ix+1) x [iy-1, iy+1).
+
+    In pixel space (x + 0.5, y + 0.5) = M (xo + 0.5, yo + 0.5) + c with
+    M = [[t0, t1 w/h], [t3 h/w, t4]]; the box bounds the preimage of that
+    square under M, widened for the rounding of the fp32 coordinate chain
+    and clipped to the map. A singular M takes the whole map."""
+    th = theta.to(torch.float64).reshape(-1, 6)
+    t0, t1, t2, t3, t4, t5 = th.unbind(-1)
+    aspect = w / h
+    m00, m01, m10, m11 = t0, t1 * aspect, t3 / aspect, t4
+    c0 = 0.5 * w * (t2 + 1.0 - t0 - t1)
+    c1 = 0.5 * h * (t5 + 1.0 - t3 - t4)
+    det = m00 * m11 - m01 * m10
+    singular = ~(det.abs() > 0)
+    inv = 1.0 / torch.where(singular, torch.ones_like(det), det)
+    i00, i01, i10, i11 = m11 * inv, -m01 * inv, -m10 * inv, m00 * inv
+    delta = 1e-4 * (1.0 + w * (t0.abs() + t1.abs() + t2.abs() + 1.0)
+                    + h * (t3.abs() + t4.abs() + t5.abs() + 1.0))
+    eu = ((i00.abs() + i01.abs()) * (1.0 + delta) + 1e-3)[:, None, None]
+    ev = ((i10.abs() + i11.abs()) * (1.0 + delta) + 1e-3)[:, None, None]
+    ix = torch.arange(w, dtype=torch.float64, device=theta.device)
+    iy = torch.arange(h, dtype=torch.float64, device=theta.device)
+    xc = ix[None, None, :] + 0.5 - c0[:, None, None]
+    yc = iy[None, :, None] + 0.5 - c1[:, None, None]
+    uc = i00[:, None, None] * xc + i01[:, None, None] * yc - 0.5
+    vc = i10[:, None, None] * xc + i11[:, None, None] * yc - 0.5
+    box = [torch.ceil(uc - eu), torch.floor(uc + eu),
+           torch.ceil(vc - ev), torch.floor(vc + ev)]
+    full = singular[:, None, None] | ~torch.stack(box).isfinite().all(0)
+    out = []
+    for v, lo, size in zip(box, (True, False, True, False), (w, w, h, h)):
+        # a first index past the map or a last one before it: an empty box
+        v = v.clamp(0.0, float(size)) if lo else v.clamp(-1.0, size - 1.0)
+        edge = 0.0 if lo else size - 1.0
+        out.append(torch.where(full, torch.full_like(v, edge), v).long())
+    return tuple(out)
+
+
 def warp_affine_plain(src: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
     """src (N, H, W, C), theta (N, 2, 3) -> (N, H, W, C): the four-corner
     gather."""

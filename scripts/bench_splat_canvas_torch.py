@@ -1,38 +1,45 @@
 #!/usr/bin/env python3
-"""Times the port's top-K depth splat K4 and pillar-canvas backward K2b on
-one NVIDIA GPU, on the arguments the port's own paths give them.
+"""Times the port's top-K depth splat K4, pillar canvas K2, pillar-canvas
+backward K2b and warp backward K3b on one NVIDIA GPU, on the arguments the
+port's own paths give them.
 
     python3 scripts/bench_splat_canvas_torch.py [--old-csrc DIR]
-        [--variant NAME=DIR ...] [--out FILE]
+        [--variant NAME=DIR ...] [--cases K4,K2,K2b,K3b] [--out FILE]
 
 The arguments are recorded from the port's models at random weights (seed 0)
 on the synthetic sampler's scenes (seed 0), as ``chip_smoke.py`` records
 them, so run lengths, the dropped rows and the invalid-row tail are the
 paths' own: K4 on the camera eval frame (24,576 pixels x top-8, 131,072
-cells) and the camera train step (49,152 pixels, 262,144 cells), K2b on the
-lidar train step (4 x 30,000 rows of 64 bf16 channels, 4 x 131,072 cells).
-For each it
-  * holds the kernel against its plain PyTorch version (K2b bit for bit; K4
-    within an fp32 sum-order tolerance, two launches bit-equal, its order
-    equal to a stable sort's);
+cells) and the camera train step (49,152 pixels, 262,144 cells); K2 on the
+lidar eval frame (2 x 30,000 rows of 64 bf16 channels, 2 x 131,072 cells)
+and the lidar train step (4 agents); K2b on the lidar train step; K3b on
+the lidar train step (g (4, 64, 128, 128) fp32) and the camera train step
+(g (4, 64, 64, 128)). For each it
+  * holds the kernel against its plain PyTorch version (K2 and K2b bit for
+    bit; K4 within an fp32 sum-order tolerance, its order equal to a stable
+    sort's; K3b within chip_smoke.py's tolerance) and, K2b aside, two of its
+    launches against each other, bit for bit;
   * times the wrapper with CUDA events, warm (back-to-back launches) and
     cold (a buffer larger than the L2 cache is written between launches),
-    beside the one-call PyTorch yardstick (``torch.index_add``; autograd of
-    ``scatter_reduce`` amax);
+    beside the one-call PyTorch yardstick (``torch.index_add``;
+    ``scatter_reduce`` amax and its autograd; autograd of ``grid_sample``);
   * splits the device time per launch over its kernels, copies and memsets
     by name with torch.profiler;
-  * prints what ptxas reports for both sources (registers, shared memory).
-With ``--old-csrc DIR`` (a directory that holds ``splat_topk.cu`` and
-``pillar_canvas_bwd.cu`` with the C interface of the port's first version of
-these kernels, e.g. written there by ``git show <commit>:<path>``) that
-version is built beside the package's and the two are timed in turns in
-this one process: old, new, new, old. The old K4 includes the index
-preparation its wrapper did in PyTorch (``torch.where`` and a stable
-``torch.sort``). ``--variant NAME=DIR`` (repeatable) builds another version
-of either source that has the package's current C interface and times it
-through the package's wrappers in the same turns, between the two "new"
-turns; it is held to the same checks. One JSON object goes to standard
-output last and, with ``--out``, to FILE.
+  * prints what ptxas reports for the sources (registers, shared memory).
+With ``--old-csrc DIR`` (a directory that holds any of ``splat_topk.cu``,
+``pillar_canvas_bwd.cu``, ``pillar_canvas.cu`` and ``warp_affine_bwd.cu``,
+e.g. written there by ``git show <commit>:<path>``) that version is built
+beside the package's and the two are timed in turns in this one process:
+old, new, new, old. ``splat_topk.cu`` and ``pillar_canvas_bwd.cu`` there
+must have the C interface of the port's first version of those kernels;
+the old K4 includes the index preparation its wrapper did in PyTorch
+(``torch.where`` and a stable ``torch.sort``). ``pillar_canvas.cu`` and
+``warp_affine_bwd.cu`` have kept their C interface and run through the
+package's wrappers. ``--variant NAME=DIR`` (repeatable) builds another
+version of any of the four sources that has the package's current C
+interface and times it through the package's wrappers in the same turns,
+between the two "new" turns; it is held to the same checks. One JSON object
+goes to standard output last and, with ``--out``, to FILE.
 """
 
 from __future__ import annotations
@@ -48,6 +55,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 L2_FLUSH_BYTES = 128 << 20
 SPLAT_TOL = 1e-5  # fp32 sums of a cell's rows in another order
+# the sources this script times; the first two changed their C interface
+# after the port's first version, the last two did not
+SOURCES = ("splat_topk", "pillar_canvas_bwd", "pillar_canvas", "warp_affine_bwd")
 
 
 def time_ms(torch, fn, iters=50, warmup=5, flush=None):
@@ -101,18 +111,26 @@ def split_by_launch(torch, fn, n=20):
 
 
 def build_old(torch, _cuda, csrc):
-    """Builds DIR/splat_topk.cu and DIR/pillar_canvas_bwd.cu and returns
-    (splat(dvals, feats, ids, num_cells, bf16_rows), canvas_bwd(rows, gids,
-    canvas, gout, n_agents, ncell)) on the first version's C interface; the
-    splat prepares its indices in PyTorch as that version's wrapper did."""
+    """Builds the sources of DIR and returns ({kernel name: the old version
+    as a callable with the package wrapper's arguments}, {name: nvcc's
+    output}). ``splat_topk`` and ``pillar_canvas_bwd`` are bound on the
+    first version's C interface (the splat prepares its indices in PyTorch
+    as that version's wrapper did); ``pillar_canvas`` and
+    ``warp_affine_bwd`` run through the package's wrappers."""
+    from gencomm_tpu_torch.ops import pillar_canvas as pc, warp
+
     out_dir = os.path.join(os.path.dirname(_cuda.BUILD_DIR), "kernels_old")
     os.makedirs(out_dir, exist_ok=True)
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     sigs = {"splat_topk": ("splat_topk_f32", [P] * 7 + [L, I, I, I, I, P]),
             "pillar_canvas_bwd": ("pillar_canvas_bwd_bf16",
-                                  [P] * 6 + [L, L, I, I, P])}
+                                  [P] * 6 + [L, L, I, I, P]),
+            "pillar_canvas": _cuda.SIGNATURES["pillar_canvas"],
+            "warp_affine_bwd": _cuda.SIGNATURES["warp_affine_bwd"]}
     fns, logs = {}, {}
     for name, (sym, argtypes) in sigs.items():
+        if not os.path.exists(os.path.join(csrc, f"{name}.cu")):
+            continue
         so = os.path.join(out_dir, f"lib{name}.so")
         done = subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", so,
                                os.path.join(csrc, f"{name}.cu")], check=True,
@@ -154,17 +172,34 @@ def build_old(torch, _cuda, csrc):
         assert err == 0, err
         return drows
 
-    return splat, canvas_bwd, logs
+    def wrapped(name, wrapper):
+        # the package's wrapper with the old library bound while it runs
+        saved = _cuda.library(name)
+
+        def call(*args):
+            _cuda._loaded[name] = fns[name]
+            try:
+                return wrapper(*args)
+            finally:
+                _cuda._loaded[name] = saved
+        return call
+
+    olds = {"splat_topk": splat, "pillar_canvas_bwd": canvas_bwd}
+    for name, wrapper in (("pillar_canvas", pc.pillar_canvas_fwd),
+                          ("warp_affine_bwd", warp.warp_affine_bwd)):
+        if name in fns:
+            olds[name] = wrapped(name, wrapper)
+    return {name: olds[name] for name in fns}, logs
 
 
 def build_variant(_cuda, tag, csrc):
-    """Builds the sources of DIR that stand for ``splat_topk.cu`` or
-    ``pillar_canvas_bwd.cu`` with the package's C interface; returns
+    """Builds the sources of DIR that stand for any of ``SOURCES`` with the
+    package's C interface; returns
     ({kernel name: ctypes function}, {kernel name: nvcc's output})."""
     out_dir = os.path.join(os.path.dirname(_cuda.BUILD_DIR), f"kernels_{tag}")
     os.makedirs(out_dir, exist_ok=True)
     fns, logs = {}, {}
-    for name in ("splat_topk", "pillar_canvas_bwd"):
+    for name in SOURCES:
         src = os.path.join(csrc, f"{name}.cu")
         if not os.path.exists(src):
             continue
@@ -193,19 +228,22 @@ def through(_cuda, fns, call):
     return run
 
 
-def path_arguments(torch, dev):
-    """The arguments the port's camera eval frame and camera train step give
-    ``splat_topk`` and the lidar train step gives ``pillar_canvas_bwd``,
-    recorded from one forward (and backward) of each model."""
+def path_arguments(torch, dev, cases):
+    """The arguments the port's paths give the kernels of ``cases``,
+    recorded from one forward (and backward) of each model: ``splat_topk``
+    on the camera eval frame and train step, ``pillar_canvas`` on the lidar
+    eval frame and train step, ``pillar_canvas_bwd`` on the lidar train
+    step, ``warp_affine_bwd`` on the lidar and camera train steps.
+    Returns {path: {kernel name: arguments}}."""
     import chip_smoke as cs
     from gencomm_tpu_torch.data.bucketing import trim_agent_slots
     from gencomm_tpu_torch.data.decorate import decorate_modality
     from gencomm_tpu_torch.data.synthetic import SyntheticConfig, SyntheticScenes
     from gencomm_tpu_torch.loss import build_loss
-    from gencomm_tpu_torch.models.encoders import lss
+    from gencomm_tpu_torch.models.encoders import lss, point_pillar
     from gencomm_tpu_torch.models.heter_baseline import HeterModel
     from gencomm_tpu_torch.native import PillarVoxelizer
-    from gencomm_tpu_torch.ops import pillar_canvas
+    from gencomm_tpu_torch.ops import pillar_canvas, warp
     from gencomm_tpu_torch.pipeline import batch_to_device
     from gencomm_tpu_torch.weights import random_state_dict
 
@@ -219,49 +257,67 @@ def path_arguments(torch, dev):
         return [torch.randn((n,) + shape, generator=gen).to(dev)
                 for _ in range(3)]
 
-    cam_scenes = SyntheticScenes(SyntheticConfig(
-        lidar_range=cs.CAMERA_RANGE, max_cav=5, num_agents=2, num_vehicles=12,
-        points_per_vehicle=300,
-        modalities={"m1": {"sensor": "camera", "final_dim": cs.CAMERA_DIM,
-                           "ncam": cs.CAMERA_NCAM}},
-        max_spawn_radius=cs.CAMERA_GRID["ddiscr"][1] - 2.0))
     out = {}
+    if {"K4", "K3b"} & cases:
+        cam_scenes = SyntheticScenes(SyntheticConfig(
+            lidar_range=cs.CAMERA_RANGE, max_cav=5, num_agents=2,
+            num_vehicles=12, points_per_vehicle=300,
+            modalities={"m1": {"sensor": "camera", "final_dim": cs.CAMERA_DIM,
+                               "ncam": cs.CAMERA_NCAM}},
+            max_spawn_radius=cs.CAMERA_GRID["ddiscr"][1] - 2.0))
+    if "K4" in cases:
+        host = trim_agent_slots(cam_scenes.sample(seed=0, batch_size=1),
+                                buckets=(2, 3, 5))
+        model, batch = model_on(cs.CAMERA, False), batch_to_device(host, dev)
+        nz = noises(host["agent_mask"].size, cs.CAMERA_FEATURE_SHAPE, 1)
 
-    host = trim_agent_slots(cam_scenes.sample(seed=0, batch_size=1),
-                            buckets=(2, 3, 5))
-    model, batch = model_on(cs.CAMERA, False), batch_to_device(host, dev)
-    nz = noises(host["agent_mask"].size, cs.CAMERA_FEATURE_SHAPE, 1)
+        def eval_forward():
+            with torch.inference_mode():
+                model(batch, noises=nz)
 
-    def eval_forward():
-        with torch.inference_mode():
-            model(batch, noises=nz)
-
-    out["camera eval"] = cs.record_calls([(lss, "splat_topk")],
-                                         eval_forward)["splat_topk"]
-
-    host = trim_agent_slots(cam_scenes.sample(cs.TRAIN_SEED * 10000,
-                                              cs.TRAIN_BATCH), buckets=(2, 3, 5))
-    model, batch = model_on(cs.CAMERA, True), batch_to_device(host, dev)
-    nz = noises(host["agent_mask"].size, cs.CAMERA_FEATURE_SHAPE, 2)
-    with torch.no_grad():
+        out["camera eval"] = cs.record_calls([(lss, "splat_topk")],
+                                             eval_forward)
+    if {"K4", "K3b"} & cases:
+        host = trim_agent_slots(cam_scenes.sample(cs.TRAIN_SEED * 10000,
+                                                  cs.TRAIN_BATCH),
+                                buckets=(2, 3, 5))
+        model, batch = model_on(cs.CAMERA, True), batch_to_device(host, dev)
+        nz = noises(host["agent_mask"].size, cs.CAMERA_FEATURE_SHAPE, 2)
+        criterion = build_loss(cs.CAMERA_TRAIN_HYPES["loss"])
         out["camera step"] = cs.record_calls(
-            [(lss, "splat_topk")],
-            lambda: model(batch, noises=nz))["splat_topk"]
+            [(lss, "splat_topk"), (warp, "warp_affine_bwd")],
+            lambda: criterion(model(batch, noises=nz),
+                              batch)["total_loss"].backward())
+    if {"K2", "K2b", "K3b"} & cases:
+        scenes = SyntheticScenes(SyntheticConfig(
+            lidar_range=cs.LIDAR_RANGE, max_cav=5, num_agents=2,
+            points_per_agent=30000, num_vehicles=12, points_per_vehicle=300))
+        voxelizer = PillarVoxelizer(cs.LIDAR_RANGE, cs.VOXEL)
+    if "K2" in cases:
+        host = decorate_modality(trim_agent_slots(
+            scenes.sample(seed=0, batch_size=1), buckets=(2, 3, 5)), voxelizer)
+        model, batch = model_on(cs.FLAGSHIP, False), batch_to_device(host, dev)
+        nz = noises(host["agent_mask"].size, cs.FEATURE_SHAPE, 1)
 
-    scenes = SyntheticScenes(SyntheticConfig(
-        lidar_range=cs.LIDAR_RANGE, max_cav=5, num_agents=2,
-        points_per_agent=30000, num_vehicles=12, points_per_vehicle=300))
-    host = decorate_modality(trim_agent_slots(
-        scenes.sample(cs.TRAIN_SEED * 10000, cs.TRAIN_BATCH),
-        buckets=(2, 3, 5)), PillarVoxelizer(cs.LIDAR_RANGE, cs.VOXEL))
-    model, batch = model_on(cs.FLAGSHIP, True), batch_to_device(host, dev)
-    nz = noises(host["agent_mask"].size, cs.FEATURE_SHAPE, 2)
-    criterion = build_loss(cs.TRAIN_HYPES["loss"])
-    out["lidar step"] = cs.record_calls(
-        [(pillar_canvas, "pillar_canvas_bwd")],
-        lambda: criterion(model(batch, noises=nz),
-                          batch)["total_loss"].backward())["pillar_canvas_bwd"]
-    del model, batch, nz
+        def lidar_forward():
+            with torch.inference_mode():
+                model(batch, noises=nz)
+
+        out["lidar eval"] = cs.record_calls([(point_pillar, "pillar_canvas")],
+                                            lidar_forward)
+    if {"K2", "K2b", "K3b"} & cases:
+        host = decorate_modality(trim_agent_slots(
+            scenes.sample(cs.TRAIN_SEED * 10000, cs.TRAIN_BATCH),
+            buckets=(2, 3, 5)), voxelizer)
+        model, batch = model_on(cs.FLAGSHIP, True), batch_to_device(host, dev)
+        nz = noises(host["agent_mask"].size, cs.FEATURE_SHAPE, 2)
+        criterion = build_loss(cs.TRAIN_HYPES["loss"])
+        out["lidar step"] = cs.record_calls(
+            [(point_pillar, "pillar_canvas"),
+             (pillar_canvas, "pillar_canvas_bwd"), (warp, "warp_affine_bwd")],
+            lambda: criterion(model(batch, noises=nz),
+                              batch)["total_loss"].backward())
+    model = batch = nz = None
     torch.cuda.empty_cache()
     return out
 
@@ -401,14 +457,105 @@ def bench_canvas_bwd(torch, label, args, old, variants, iters, flush):
     return row
 
 
+def bench_canvas(torch, label, args, old, variants, iters, flush):
+    from gencomm_tpu_torch.ops import _cuda, pillar_canvas as pc
+
+    rows, gids, n_agents, ncell = args
+    m, c = rows.shape
+    want = pc.pillar_canvas_plain(rows, gids, n_agents, ncell)
+    got = pc.pillar_canvas_fwd(rows, gids, n_agents, ncell)
+    again = pc.pillar_canvas_fwd(rows, gids, n_agents, ncell)
+    torch.cuda.synchronize()
+    cells = (torch.arange(m, device=rows.device) // (m // n_agents) * ncell
+             + gids.long().clamp(0, ncell - 1))
+    tail = [int((gids.view(n_agents, -1)[a] >= ncell - 1).sum())
+            for a in range(n_agents)]
+
+    def bits(t):
+        return t.view(torch.int16)
+
+    row = {"rows": [m, c], "n_agents": n_agents, "ncell": ncell,
+           "cells": run_stats(torch, cells), "rows_in_last_cell_per_agent": tail,
+           "bit_exact": bool(torch.equal(bits(got), bits(want))),
+           "bit_equal_twice": bool(torch.equal(bits(got), bits(again)))}
+    flat = cells[:, None].expand(m, c)
+    zeros = torch.zeros(n_agents * ncell, c, dtype=rows.dtype,
+                        device=rows.device)
+    row["bound_ms"] = (rows.numel() * 2 + gids.numel() * 4
+                       + got.numel() * 2) / 3.35e12 * 1e3
+    runs = {"new": lambda: pc.pillar_canvas_fwd(rows, gids, n_agents, ncell),
+            "library": lambda: torch.scatter_reduce(zeros, 0, flat, rows,
+                                                    "amax", include_self=True)}
+    order = ["new", "new", "library"]
+    if old:
+        runs["old"] = lambda: old(rows, gids, n_agents, ncell)
+        order = ["old", "new", "new", "old", "library"]
+        row["old_equals_new_bits"] = bool(torch.equal(bits(runs["old"]()),
+                                                      bits(got)))
+    row["variant_equals_new_bits"] = with_variants(
+        _cuda, runs, order, variants, "pillar_canvas",
+        lambda out: bool(torch.equal(bits(out), bits(got))))
+    row.update(turns(torch, runs, order, iters, flush))
+    for which in runs:
+        row[f"{which}_split_ms"] = split_by_launch(torch, runs[which])
+    row["ok"] = row["bit_exact"] and row["bit_equal_twice"]
+    print(label, json.dumps(row), flush=True)
+    return row
+
+
+def bench_warp_bwd(torch, label, args, old, variants, iters, flush):
+    import torch.nn.functional as F
+    from gencomm_tpu_torch.ops import _cuda, warp
+
+    g, theta = args
+    n, h, w, c = g.shape
+    want = warp.warp_affine_bwd_plain(g, theta)
+    got = warp.warp_affine_bwd(g, theta)
+    again = warp.warp_affine_bwd(g, theta)
+    torch.cuda.synchronize()
+    tol = 16.0 * max(h, w) * 2.0 ** -23 * float(g.abs().max())
+    row = {"g": [n, h, w, c], "theta": theta.reshape(n, 6).tolist(),
+           "max_abs_err": float((got - want).abs().max()), "tol": tol,
+           "bit_equal_twice": bool(torch.equal(got, again))}
+    src_req = torch.zeros(n, c, h, w, device=g.device).requires_grad_()
+    grid = F.affine_grid(theta, [n, c, h, w], align_corners=False)
+    lib_out = F.grid_sample(src_req, grid, mode="bilinear",
+                            padding_mode="zeros", align_corners=False)
+    g_nchw = g.permute(0, 3, 1, 2).contiguous()
+    row["bound_ms"] = (2 * g.numel() * 4 + theta.numel() * 4) / 3.35e12 * 1e3
+    runs = {"new": lambda: warp.warp_affine_bwd(g, theta),
+            "library": lambda: torch.autograd.grad(lib_out, src_req, g_nchw,
+                                                   retain_graph=True)}
+    order = ["new", "new", "library"]
+
+    def close(out):
+        return float((out - want).abs().max()) <= tol
+
+    if old:
+        runs["old"] = lambda: old(g, theta)
+        order = ["old", "new", "new", "old", "library"]
+        row["old_within_tol"] = close(runs["old"]())
+    row["variant_within_tol"] = with_variants(
+        _cuda, runs, order, variants, "warp_affine_bwd", close)
+    row.update(turns(torch, runs, order, iters, flush))
+    for which in runs:
+        row[f"{which}_split_ms"] = split_by_launch(torch, runs[which])
+    row["ok"] = row["max_abs_err"] <= tol and row["bit_equal_twice"]
+    print(label, json.dumps(row), flush=True)
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old-csrc", default=None)
     ap.add_argument("--variant", action="append", default=[],
                     metavar="NAME=DIR")
+    ap.add_argument("--cases", default="K4,K2,K2b,K3b",
+                    help="comma-separated kernels to time")
     ap.add_argument("--out", default=None)
     ap.add_argument("--iters", type=int, default=50)
     args = ap.parse_args()
+    cases = set(args.cases.split(","))
 
     import torch
 
@@ -426,11 +573,10 @@ def main() -> int:
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
     print(f"card: {smi}", flush=True)
     _cuda.build_all()
-    logs = {n: _cuda.build_log.get(n, "")
-            for n in ("splat_topk", "pillar_canvas_bwd")}
+    logs = {n: _cuda.build_log.get(n, "") for n in SOURCES}
     old = build_old(torch, _cuda, args.old_csrc) if args.old_csrc else None
     if old:
-        logs.update({f"{n} (old)": text for n, text in old[2].items()})
+        logs.update({f"{n} (old)": text for n, text in old[1].items()})
     variants = {}
     for spec in args.variant:
         tag, csrc = spec.split("=", 1)
@@ -440,17 +586,24 @@ def main() -> int:
         for line in text.splitlines():
             if any(k in line for k in ("registers", "spill", "Compiling")):
                 print(f"ptxas {name}: {line.strip()}", flush=True)
-    paths = path_arguments(torch, dev)
+    paths = path_arguments(torch, dev, cases)
     flush = torch.zeros(L2_FLUSH_BYTES // 4, device=dev)
+    olds = old[0] if old else {}
 
     result = {"card": smi, "cases": {}}
-    for label in ("camera eval", "camera step"):
-        result["cases"][f"K4 {label}"] = bench_splat(
-            torch, f"K4 {label}", paths[label], old and old[0], variants,
-            args.iters, flush)
-    result["cases"]["K2b lidar step"] = bench_canvas_bwd(
-        torch, "K2b lidar step", paths["lidar step"], old and old[1],
-        variants, args.iters, flush)
+    plan = [("K4", "camera eval", "splat_topk", bench_splat),
+            ("K4", "camera step", "splat_topk", bench_splat),
+            ("K2", "lidar eval", "pillar_canvas", bench_canvas),
+            ("K2", "lidar step", "pillar_canvas", bench_canvas),
+            ("K2b", "lidar step", "pillar_canvas_bwd", bench_canvas_bwd),
+            ("K3b", "lidar step", "warp_affine_bwd", bench_warp_bwd),
+            ("K3b", "camera step", "warp_affine_bwd", bench_warp_bwd)]
+    for kernel, path, name, bench in plan:
+        if kernel in cases:
+            label = f"{kernel} {path}"
+            result["cases"][label] = bench(
+                torch, label, paths[path][name], olds.get(name), variants,
+                args.iters, flush)
     text = json.dumps(result)
     if args.out:
         with open(args.out, "w") as f:

@@ -40,7 +40,8 @@ from gencomm_tpu_torch.ops.splat import (
     splat_topk_with_order,
 )
 from gencomm_tpu_torch.ops.warp import (
-    warp_affine, warp_affine_bwd, warp_affine_bwd_plain, warp_affine_plain,
+    _corners, _source_window, warp_affine, warp_affine_bwd,
+    warp_affine_bwd_plain, warp_affine_plain,
 )
 
 # rotations, a shear, a scale, translations pushing part of the map out of
@@ -53,6 +54,14 @@ THETAS = np.asarray([
     [[-1.0, 0.0, 0.5], [0.0, -1.0, -0.7]],
     [[1.0, 0.0, 2.5], [0.0, 1.0, 0.0]],
 ], np.float32)
+# K3b's window rule at its edges: a zero theta (every output samples the
+# centre: a singular M, the whole map), a 4x zoom (up to 16 outputs a source
+# pixel) and a nearly singular shear (|det| ~ 1e-6: windows up to the map)
+EXTRA_THETAS = np.asarray([
+    [[0.0, 0, 0], [0, 0.0, 0]],
+    [[0.25, 0, 0.1], [0, 0.25, -0.05]],
+    [[1.0, 0.5, 0.1], [2.0, 1.000001, -0.2]],
+], np.float32)
 
 
 @pytest.fixture(scope="module")
@@ -61,6 +70,7 @@ def jx():
     so that the card's halves of this file also run where JAX is not
     installed."""
     pytest.importorskip("jax")
+    import jax
     import jax.numpy as jnp
     from gencomm_tpu.native import stripe_pad_sorted
     from gencomm_tpu.ops.deform import deform_conv3x3_nhwc
@@ -81,6 +91,14 @@ def jx():
     def bf16_rows(x):
         return jnp.asarray(x).astype(jnp.bfloat16)
 
+    def warp_vjp(fn):
+        # d src of ``fn(src, theta)`` for the cotangent g, as numpy
+        def vjp(src, theta, g):
+            _, pull = jax.vjp(lambda s: fn(s, jnp.asarray(theta)),
+                              jnp.asarray(src))
+            return np.asarray(pull(jnp.asarray(g))[0])
+        return vjp
+
     return SimpleNamespace(
         deform_mxu=numpy_fn(deform_conv3x3_mxu),
         deform_gather=numpy_fn(deform_conv3x3_nhwc),
@@ -89,7 +107,9 @@ def jx():
         canvas_kernel=numpy_fn(striped_pillar_canvas),
         stripe_pad_sorted=stripe_pad_sorted, bf16_rows=bf16_rows,
         warp_gather=numpy_fn(warp_affine_nhwc),
-        warp_mxu=numpy_fn(warp_affine_mxu))
+        warp_mxu=numpy_fn(warp_affine_mxu),
+        warp_gather_vjp=warp_vjp(warp_affine_nhwc),
+        warp_mxu_vjp=warp_vjp(warp_affine_mxu))
 
 
 @pytest.fixture
@@ -309,6 +329,93 @@ def test_canvas_kernel_bit_exact_on_card(cuda):
     torch.cuda.synchronize()
     np.testing.assert_array_equal(_bits(got.cpu()),
                                   _bits(pillar_canvas_plain(rows, g, a, ncell).cpu()))
+
+
+def canvas_edge_case(kind, c=64, ncell=5000):
+    """(rows bf16, raw gids int32, agents, ncell) of a layout at K2's edges:
+    runs over many 32-row chunks and across agents, an empty agent, empty
+    ranges of cells at both ends (and at the edges of the 256-cell tiles,
+    2048-cell clusters of the tile variant in ``csrc/variants``), -0.0
+    rows, raw ids. Gids are sorted within each agent and not clamped."""
+    rng = np.random.default_rng(["one_cell", "invalid_tail", "empty_agent",
+                                 "gaps", "split_runs", "negative_zero",
+                                 "raw_ids"].index(kind))
+    a, p = 2, 3000
+
+    def spread(n, lo=0, hi=ncell):
+        return np.sort(rng.integers(lo, hi, n)).astype(np.int32)
+
+    feats = np.abs(rng.normal(size=(a, p, c))).astype(np.float32)
+    gids = np.stack([spread(p) for _ in range(a)])
+    if kind == "one_cell":        # every row of agent 0 in one cell
+        gids[0] = 700
+    elif kind == "invalid_tail":  # agent 1: 10,000 zeroed rows clamped last
+        p = 12000
+        feats = np.abs(rng.normal(size=(a, p, c))).astype(np.float32)
+        gids = np.stack([spread(p), np.full(p, ncell, np.int32)])
+        gids[1, :2000] = spread(2000)
+        feats[1, 2000:] = 0.0
+    elif kind == "empty_agent":   # agent 1 holds only invalid rows
+        gids[1] = ncell
+        feats[1] = 0.0
+    elif kind == "gaps":          # no rows in the first and last clusters
+        gids = np.stack([spread(p, 2100, 3900) for _ in range(a)])
+    elif kind == "split_runs":    # long runs at tile and cluster edges
+        cells = np.repeat([255, 256, 2047, 2048, 4095], [700, 40, 1500, 33, 727])
+        gids = np.stack([cells.astype(np.int32)] * a)
+    elif kind == "negative_zero":  # -0.0 and negative rows, whole cells of them
+        feats = rng.normal(size=(a, p, c)).astype(np.float32)
+        feats[:, ::3] = -0.0
+        feats[:, :400] = -0.0
+        gids[:, :400] = np.arange(400, dtype=np.int32)[None] // 7
+        feats[:, 400:] = np.where(gids[:, 400:, None] % 5 == 0, -0.0,
+                                  feats[:, 400:])
+    elif kind == "raw_ids":       # ids below 0 and from ncell up, not zeroed
+        gids[:, :50] = np.arange(-50, 0, dtype=np.int32)[None]
+        gids[:, -60:] = ncell + np.arange(60, dtype=np.int32)[None]
+    rows = torch.from_numpy(feats.reshape(-1, c)).to(torch.bfloat16)
+    return rows, torch.from_numpy(gids.reshape(-1).copy()), a, ncell
+
+
+@pytest.mark.parametrize("kind", ["one_cell", "invalid_tail", "empty_agent",
+                                  "gaps", "split_runs", "negative_zero",
+                                  "raw_ids"])
+def test_canvas_edge_cases_are_sorted_and_sized(kind):
+    """The layouts the card cases below hand K2: gids sorted within each
+    agent (the kernel's contract), raw ids where the case needs them."""
+    rows, gids, a, ncell = canvas_edge_case(kind)
+    per = gids.view(a, -1)
+    assert rows.shape[0] == gids.shape[0] and rows.shape[0] % a == 0
+    assert bool((per[:, 1:] >= per[:, :-1]).all())
+    assert (int(gids.min()) < 0) == (kind == "raw_ids")
+    canvas = pillar_canvas_plain(rows, gids, a, ncell)
+    assert canvas.shape == (a, ncell, rows.shape[1])
+    assert not bool((canvas.float() < 0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["one_cell", "invalid_tail", "empty_agent",
+                                  "gaps", "split_runs", "negative_zero",
+                                  "raw_ids"])
+def test_canvas_kernel_edge_layouts_bit_exact_on_card(cuda, kind):
+    rows, gids, a, ncell = canvas_edge_case(kind)
+    rows, gids = rows.to(cuda), gids.to(cuda)
+    got = pillar_canvas(rows, gids, a, ncell)
+    again = pillar_canvas(rows, gids, a, ncell)
+    torch.cuda.synchronize()
+    want = pillar_canvas_plain(rows, gids, a, ncell)
+    np.testing.assert_array_equal(_bits(got.cpu()), _bits(want.cpu()))
+    np.testing.assert_array_equal(_bits(again.cpu()), _bits(want.cpu()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [64, 6])
+def test_canvas_kernel_without_rows_writes_zeros_on_card(cuda, c):
+    rows = torch.zeros(0, c, dtype=torch.bfloat16, device=cuda)
+    gids = torch.zeros(0, dtype=torch.int32, device=cuda)
+    got = pillar_canvas(rows, gids, 2, 1000)
+    torch.cuda.synchronize()
+    assert got.shape == (2, 1000, c) and not bool(got.view(torch.int16).any())
 
 
 # ---------------------------------------------------------------- K3
@@ -596,12 +703,79 @@ def test_warp_bwd_kernel_matches_plain_on_card(cuda, c):
     th = _t(THETAS).to(cuda)
     got = warp_affine_bwd(g, th)
     torch.cuda.synchronize()
-    # the plain version's coordinate may differ in its last bit on the card
-    # (see the forward's test); each source pixel gathers a few weights
-    tol = 16.0 * 48 * 2.0 ** -23 * float(g.abs().max())
     np.testing.assert_allclose(got.cpu().numpy(),
                                warp_affine_bwd_plain(g, th).cpu().numpy(),
-                               rtol=0, atol=tol)
+                               rtol=0, atol=_warp_bwd_tolerance(g, 48))
+
+
+def _warp_bwd_tolerance(g, w):
+    # the plain version's coordinate may differ in its last bit on the card
+    # (see the forward's test); each source pixel gathers a few weights
+    return 16.0 * w * 2.0 ** -23 * float(g.abs().max())
+
+
+@pytest.mark.parametrize("which", [f"THETAS[{i}]" for i in range(len(THETAS))]
+                         + [f"EXTRA_THETAS[{i}]" for i in range(len(EXTRA_THETAS))])
+def test_warp_bwd_window_holds_every_corner(which):
+    """K3b gathers each source pixel's sum from the outputs in its window
+    (``_source_window`` mirrors the kernel's rule): every (output, corner)
+    pair that the scatter of ``_corners`` adds must lie in the window of
+    the corner's source pixel."""
+    theta = torch.from_numpy(eval(which)[None])
+    n, h, w = 1, 32, 48
+    x0, x1, y0, y1 = _source_window(theta, h, w)
+    yo, xo = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+    pairs = 0
+    for idx, inb, _ in _corners(n, h, w, theta):
+        iy, ix = idx[0] // w, idx[0] % w
+        inside = ((x0[0, iy, ix] <= xo) & (xo <= x1[0, iy, ix])
+                  & (y0[0, iy, ix] <= yo) & (yo <= y1[0, iy, ix]))
+        assert not bool((inb[0] & ~inside).any()), which
+        pairs += int(inb.sum())
+    sizes = (x1 - x0 + 1).clamp(min=0) * (y1 - y0 + 1).clamp(min=0)
+    assert int(sizes.sum()) >= pairs
+    if which == "EXTRA_THETAS[0]":  # singular: the whole map
+        assert bool((sizes == h * w).all())
+    if which == "THETAS[0]":  # identity: a 3 x 3 box at most
+        assert int(sizes.max()) <= 9
+
+
+@pytest.mark.parametrize("h,w,c", [(16, 24, 8), (9, 20, 3)])
+def test_warp_bwd_plain_matches_jax_vjp_on_extra_thetas(jx, h, w, c):
+    rng = np.random.RandomState(h * w + c)
+    n = len(EXTRA_THETAS)
+    src = rng.randn(n, h, w, c).astype(np.float32)
+    g = rng.randn(n, h, w, c).astype(np.float32)
+    got = warp_affine_bwd_plain(_t(g), _t(EXTRA_THETAS)).numpy()
+    # fp32 sums of up to h * w weighted terms (the singular and nearly
+    # singular thetas) in another order; the weights round alike
+    _close(got, jx.warp_gather_vjp(src, EXTRA_THETAS, g), 1e-5, "gather")
+    _close(got, jx.warp_mxu_vjp(src, EXTRA_THETAS, g), 1e-5, "mxu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [128, 6])
+def test_warp_bwd_kernel_matches_plain_on_extra_thetas_on_card(cuda, c):
+    rng = np.random.RandomState(c + 1)
+    g = _t(rng.randn(len(EXTRA_THETAS), 32, 48, c).astype(np.float32)).to(cuda)
+    th = _t(EXTRA_THETAS).to(cuda)
+    got = warp_affine_bwd(g, th)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               warp_affine_bwd_plain(g, th).cpu().numpy(),
+                               rtol=0, atol=_warp_bwd_tolerance(g, 48))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [128, 6])
+def test_warp_bwd_kernel_repeats_bit_for_bit_on_card(cuda, c):
+    rng = np.random.RandomState(c + 2)
+    thetas = np.concatenate([THETAS, EXTRA_THETAS])
+    g = _t(rng.randn(len(thetas), 32, 48, c).astype(np.float32)).to(cuda)
+    th = _t(thetas).to(cuda)
+    first, second = warp_affine_bwd(g, th), warp_affine_bwd(g, th)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 # ---------------------------------------------------------------- K4, K4b
