@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Builds the port's eight CUDA kernels from ``gencomm_tpu_torch/csrc`` with
-nvcc (sm_90a) into ``build/``, then drives the port's paths through its entry
+Builds the port's eight CUDA kernel sources from ``gencomm_tpu_torch/csrc``
+(ten entries: K1 and K3 also in bf16) with nvcc (sm_90a) into ``build/``, then drives the port's paths through its entry
 points (SyntheticScenes, trim_agent_slots, host decoration for lidar,
 HeterModel, InferencePipeline.run, train.trainer.make_train_step), fp32
 activations with TF32 off, random weights from a seed: the lidar flagship --
@@ -14,6 +14,10 @@ camera model of configs/opv2v/gencomm/stage1/m2_att.yaml at full width --
 Lift-Splat-Shoot, 4 cameras of 384 x 512 per agent, 48 depth bins, top-8, a
 256 x 256 BEV grid, the same neck, diffusion, fusion and heads.
 
+The lidar and camera eval paths also run at bf16 (``half=True``, as bench.py
+builds the flagship): the same frames, weights and noise, with K1 and K3 on
+their bf16 instantiations.
+
 Phases, each of which raises on failure:
   1. the card, its power limit, torch / CUDA versions, fp32 settings;
   2. the kernel build, timed; K1 and K1b once on their general route
@@ -21,57 +25,71 @@ Phases, each of which raises on failure:
      offsets to +-9), K2b once on its (6 channels) and K3b on four thetas
      no path builds (zero, a 4x zoom, a nearly singular shear, a scaled
      rotation; 128 and 6 channels) against their plain versions;
-  3. each kernel (K1 deformable conv, K2 pillar canvas, K3 affine warp) on
-     the inputs the main path gives it, held against its plain PyTorch
-     version (K2 bit-exact and the same bits on a second launch, K1 / K3
-     within the stated fp32 tolerance) and
-     timed beside the plain version, a one-call PyTorch yardstick where one
-     exists, and its bound on the card. K1 and K1b are timed warm and with
-     the L2 cache evicted before every launch ("cold_ms"), and their rows
-     name the route the wrapper took ("path_route"; "route_launches" counts
-     the main path's launches by route); K3 and F.grid_sample are timed in
-     turns, 200 launches a turn ("turns_ms"). Every kernel and every library
-     yardstick also has the profiler's device time per call ("device_ms",
+  3. every path counted and timed, before the process's first
+     torch.profiler session (a finished session left later launches slower,
+     ROADMAP p1): lidar eval fp32 and bf16, lidar training, camera eval fp32
+     and bf16, camera training; each 1 warm-up + 10 frames or steps (CUDA
+     events) with every launch count set to 0 just before and read just
+     after (each of the path's kernels must be > 0): frames/s, detections,
+     finite outputs; for training the loss terms of every step, ms/step,
+     steps/s, training frames/s and peak memory;
+  4. the lidar eval path's checks: each kernel (K1 deformable conv, K2 pillar
+     canvas, K3 affine warp) on the inputs the path gives it, held against
+     its plain PyTorch version (K2 bit-exact and the same bits on a second
+     launch, K1 / K3 within the stated fp32 tolerance) and timed beside the
+     plain version, a one-call PyTorch yardstick where one exists, and its
+     bound on the card. K1 and K1b are timed warm and with the L2 cache
+     evicted before every launch ("cold_ms"), and their rows name the route
+     the wrapper took ("path_route"; "route_launches" counts the path's
+     launches by route); K3 and F.grid_sample are timed in turns, 200
+     launches a turn ("turns_ms"). Every kernel and every library yardstick
+     also has the profiler's device time per call ("device_ms",
      "library_device_ms"), which leaves out the host work between launches
      that the event time of a short kernel is made of; K2 and K3b log the
-     profiler's split by launch (K3b: one kernel a call, no memset);
-  4. the main path: 1 warm-up + 10 timed frames (CUDA events), frames/s,
-     detections, finite outputs, and each kernel's launch count in this
-     phase (it must be > 0);
-  5. the same frame, weights and noise through the port on the CPU (plain
-     versions): cls/reg/dir must agree with the card's;
-  6. training, the flagship's fp32 train step with the settings of
-     configs/opv2v/gencomm/stage1/m1_att.yaml (batch 2 x 2 agents, AdamW,
-     multistep LR, point_pillar_gencomm_loss) through
-     gencomm_tpu_torch.train.trainer: K2 and the backward kernels (K1b
-     deformable conv, K2b pillar canvas, K3b affine warp) on the arguments
-     the train step gives them, held against their plain versions (K2 and
-     K2b bit-exact; K3b also twice for the same bits) and timed; 1 warm-up + 10 timed steps (CUDA events) with every kernel's
-     launch count (each must be > 0) and the loss terms of every step; 4
-     steps on one repeated batch, whose loss must fall; one step on the card
-     and on the port's CPU, whose losses must agree and whose gradients
-     must differ no more than the CPU's own under a 1e-7 input jitter;
+     profiler's split by launch (K3b: one kernel a call, no memset). Then a
+     3-frame device profile, and the same frame, weights and noise through
+     the port on the CPU (plain versions): cls/reg/dir must agree;
+  5. the lidar eval path at bf16: K1 and K3 on their bf16 instantiations
+     (rows "deform_conv3x3_bf16", "warp_affine_bf16"; bound by the bf16
+     tensor-core rate or the bytes) and K2 on the path's arguments, against
+     their plain versions (one bf16 step beside the fp32 tolerance) and
+     bit for bit against the fp32 kernels on the widened maps, rounded
+     once; the profile (with cuDNN's FFT kernels counted); the card's bf16
+     run against its fp32 run on scripts/bf16_parity.py's statistics (the
+     top-100 overlap must be >= 0.9), and against the port's bf16 run on the
+     CPU (a relative L2 within sqrt(2) x the card's bf16-vs-fp32 one, the
+     same top-100 overlap), the CPU's time logged;
+  6. the lidar training path (configs/opv2v/gencomm/stage1/m1_att.yaml:
+     batch 2 x 2 agents, AdamW, multistep LR, point_pillar_gencomm_loss,
+     through gencomm_tpu_torch.train.trainer): K2 and the backward kernels
+     (K1b deformable conv, K2b pillar canvas, K3b affine warp) on the
+     arguments the train step gives them, held against their plain versions
+     (K2 and K2b bit-exact; K3b also twice for the same bits) and timed; a
+     2-step profile; 4 steps on one repeated batch, whose loss must fall;
+     one step on the card and on the port's CPU, whose losses must agree and
+     whose gradients must differ no more than the CPU's own under a 1e-7
+     input jitter;
   7. the camera eval path: K4 (top-K depth splat) on the arguments the path
      gives it, held against its plain version (fp32 sum-order tolerance; K4
-     itself gives the same bits on every run), once more with bf16 rows, the
-     order it summed in held against a stable torch.sort's, and timed, with
-     the device time of each of its launches by name (none may be a
-     library's kernel); K1 and K3 held and timed again on this path's arguments (maps of
-     64 x 64, not 64 x 128); 1 warm-up + 10 timed frames with the launch counts of K1, K3 and
-     K4 (each must be > 0), the device profile, and the same frame on the
-     CPU;
-  8. the camera train step with the optimizer, schedule and
+     itself gives the same bits on every run), once more with bf16 rows,
+     the order it summed in held against a stable torch.sort's, and timed,
+     with the device time of each of its launches by name (none may be a
+     library's kernel); K1 and K3 held and timed again on this path's
+     arguments (maps of 64 x 64, not 64 x 128); the device profile and the
+     same frame on the CPU;
+  8. the camera eval path at bf16 as in phase 5 (K1 and K3 bf16 on its
+     maps; the trunk in bf16, K4 with bf16 rows);
+  9. the camera train step with the optimizer, schedule and
      point_pillar_depth_loss of m2_att.yaml (batch 2 x 2 agents): K1, K3 and
      K4 at the step's shapes, K1b, K3b and K4b (K4's backward) on the step's
-     arguments, against their plain versions and timed; 1 warm-up + 10 timed steps with the launch counts of K1, K1b,
-     K3, K3b, K4 and K4b (each must be > 0) and finite loss terms,
-     depth_loss included; 4 steps on one batch, whose loss must fall; one
-     step on the card and on the CPU, held as in phase 6.
+     arguments, against their plain versions and timed; the profile, 4 steps
+     on one batch, whose loss must fall; one step on the card and on the
+     CPU, held as in phase 6.
 Each phase prints its wall time, and each profile the convolution operators
 by the shapes of their arguments. The last line is {"ok": true, "device":
 {...}}; before it come the card's nvidia-smi line and one JSON line with
 every kernel's numbers on the path that ran it first and, under
-"other_paths", on the camera paths' arguments where those differ.
+"other_paths", on later paths' arguments where those differ.
 Exits non-zero, printing no result, without a CUDA device.
 """
 
@@ -83,9 +101,10 @@ import subprocess
 import sys
 import time
 
-# fp32 peak outside the tensor cores and memory rate of one H100 SXM
-# (NVIDIA data sheet, dense, at the 700 W limit)
+# fp32 peak outside the tensor cores, bf16 tensor-core peak and memory rate
+# of one H100 SXM (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 LIDAR_RANGE = (-102.4, -51.2, -3.0, 102.4, 51.2, 1.0)
@@ -129,6 +148,17 @@ CAMERA = dict(
     use_gencomm=True, use_enhancer=True, half=False)
 CAMERA_FEATURE_SHAPE = (64, 64, 128)
 TIMED_FRAMES = 10
+# bf16 eval (half=True): the card's bf16 run against its fp32 run keeps at
+# least TOP100_MIN of the fp32 top-100 cells (scripts/bf16_parity.py's
+# statistic). Two bf16 runs whose sums are taken in other orders (cuDNN on
+# the card, oneDNN on the CPU) differ by two draws of bf16 rounding noise,
+# which the 3-pass bf16 diffusion at random weights carries to the heads
+# (tests/test_torch_half.py::test_bf16_generation_amplifies_a_one_step_
+# change): the card's bf16 run is held to the port's CPU bf16 run within
+# HALF_SPREAD times the card's own bf16-vs-fp32 relative L2 of
+# sigmoid(cls), and by the same top-100 overlap
+TOP100_MIN = 0.9
+HALF_SPREAD = math.sqrt(2.0)
 # card vs CPU on the whole model, fp32 with TF32 off: sums in other orders
 # over ~30 layers, and a bf16 canvas whose rounding can flip by one ulp
 # where the two PFN matmuls differ in the last bit
@@ -301,10 +331,10 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def bound(flops, moved):
-    """(ms, what bounds it): the least time for ``flops`` fp32 operations
-    and ``moved`` bytes on the card."""
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, moved / PEAK_BYTES
+def bound(flops, moved, peak=PEAK_FP32_FLOPS):
+    """(ms, what bounds it): the least time for ``flops`` operations at the
+    rate ``peak`` (default fp32) and ``moved`` bytes on the card."""
+    t_ops, t_bytes = flops / peak, moved / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
                                        else "bytes")
 
@@ -361,7 +391,7 @@ def add_rows(kernel_rows, path, rows):
                 k: row[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms",
                                     "cold_ms", "path_route", "route_launches",
-                                    "turns_ms", "device_ms",
+                                    "turns_ms", "device_ms", "dtype",
                                     "library_device_ms") if k in row}
 
 
@@ -369,7 +399,7 @@ def route_launches():
     """{kernel name: {route: launches}} of the kernels that have routes."""
     from gencomm_tpu_torch.ops import deform_conv, pillar_canvas
 
-    return {**deform_conv.ROUTE_LAUNCHES,
+    return {**deform_conv.ROUTE_LAUNCHES, **deform_conv.HALF_ROUTE_LAUNCHES,
             "pillar_canvas_bwd": pillar_canvas.ROUTE_LAUNCHES}
 
 
@@ -384,11 +414,16 @@ def reset_launch_counts():
             counts[route] = 0
 
 
-def fill_launches(rows, launches, path):
+def route_counts():
+    """A copy of the launch counts by route, read where a path's run ends."""
+    return {k: dict(v) for k, v in route_launches().items()}
+
+
+def fill_launches(rows, launches, by_kernel, path):
     """The path's launch counts into the kernels' rows; for a kernel with
-    routes also the counts by route, which must show the route the check
+    routes also the counts by route (``by_kernel``, read with ``launches``
+    where the path's run ended), which must show the route the check
     timed."""
-    by_kernel = route_launches()
     for row in rows:
         row["launches"] = launches[row["name"]]
         by_route = by_kernel.get(row["name"])
@@ -398,8 +433,7 @@ def fill_launches(rows, launches, path):
                 raise AssertionError(
                     f"{row['name']} on the {path} path: route "
                     f"{row['path_route']} expected, launches {by_route}")
-    log(f"{path} path, launches by route: "
-        f"{ {k: dict(v) for k, v in by_kernel.items()} }")
+    log(f"{path} path, launches by route: {by_kernel}")
 
 
 def postprocess_cfg(gt_range):
@@ -455,33 +489,55 @@ def profile_device(run, period_ms, n, unit):
         f"ms/{unit}, calls/{unit}):")
     for dev_ms, calls, key, shapes in sorted(convs, reverse=True)[:8]:
         log(f"  {dev_ms:8.4f} {calls:6.0f}  {key} {shapes}")
+    # cuDNN's FFT convolutions (PERF.md section 5: which dtypes pick them):
+    # the transforms and the product in the frequency domain
+    fft = [r for r in rows if "fft" in r[2].lower() or "complex" in r[2]]
+    log(f"profile: FFT convolution kernels {sum(r[0] for r in fft):.3f} "
+        f"ms/{unit} in {len(fft)} kernels")
 
 
 def check_deform(inputs, where):
     """K1 (deformable 3x3 conv) against its plain version on the arguments
     the path ``where`` gives it; returns its row of the kernels JSON line
-    (launches filled in later)."""
+    (launches filled in later). On a bf16 map (``half``) the row is K1's
+    bf16 instantiation's, which must also give the bits of the fp32 kernel
+    on the widened map, rounded once."""
     import torch
     from gencomm_tpu_torch.ops.deform_conv import (
         deform_conv3x3, deform_conv3x3_plain, kernel_route,
     )
 
     x, off, wt = inputs["deform_conv3x3"]
+    half = x.dtype == torch.bfloat16
     b, h, w, cin = x.shape
     cout = wt.shape[-1]
     got, want = deform_conv3x3(x, off, wt), deform_conv3x3_plain(x, off, wt)
     torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    tol = 1e-4 * max(1.0, float(want.abs().max()))
-    log(f"K1 deform_conv3x3 ({where}) x{tuple(x.shape)} w{tuple(wt.shape)}: "
-        f"max|kernel-plain| {err:.3e} (tol {tol:.3e}: fp32 sums of "
-        f"{9 * cin} products in another order)")
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    # fp32 sums in another order; in bf16 then one rounding each, which may
+    # land one bf16 step (2^-7 of the largest value) apart
+    tol = 1e-4 * max(1.0, scale) + (2.0 ** -7 * scale if half else 0.0)
+    log(f"K1 deform_conv3x3 ({where}, {x.dtype}) x{tuple(x.shape)} "
+        f"w{tuple(wt.shape)}: max|kernel-plain| {err:.3e} (tol {tol:.3e}: "
+        f"fp32 sums of {9 * cin} products in another order"
+        + (", then one bf16 rounding)" if half else ")"))
     if not err <= tol:
         raise AssertionError(f"K1 disagrees with its plain version: {err}")
+    if half:
+        same = torch.equal(got, deform_conv3x3(x.float(), off, wt).to(
+            torch.bfloat16))
+        log(f"  K1 bf16 equals the fp32 kernel on the widened map, rounded "
+            f"once: {same}")
+        if not same:
+            raise AssertionError("K1 bf16 differs from the fp32 kernel's "
+                                 "rounded output")
     bound_ms, bound_by = bound(2.0 * b * h * w * 9 * cin * cout,
-                               nbytes(x, off, wt, got))
+                               nbytes(x, off, wt, got),
+                               PEAK_BF16_FLOPS if half else PEAK_FP32_FLOPS)
     row = dict(
-        name="deform_conv3x3", route="cuda",
+        name="deform_conv3x3_bf16" if half else "deform_conv3x3",
+        route="cuda", dtype="bf16" if half else "fp32",
         source="gencomm_tpu_torch/csrc/deform_conv.cu",
         replaces="gencomm_tpu/ops/deform_pallas.py:34",
         max_abs_err=err,
@@ -593,24 +649,40 @@ def check_pillar(inputs, where):
 
 def check_warp(inputs, where):
     """K3 (affine bilinear warp) against its plain version on the arguments
-    the path ``where`` gives it; returns its row."""
+    the path ``where`` gives it; returns its row. On a bf16 map (``half``)
+    the row is K3's bf16 instantiation's, which must also give the bits of
+    the fp32 kernel on the widened map, rounded once; its library yardstick
+    is ``F.grid_sample`` on the bf16 map (with a bf16 grid, which that call
+    requires)."""
     import torch
     import torch.nn.functional as F
     from gencomm_tpu_torch.ops.warp import warp_affine, warp_affine_plain
 
     src, theta = inputs["warp_affine"]
+    half = src.dtype == torch.bfloat16
     got, want = warp_affine(src, theta), warp_affine_plain(src, theta)
     torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    tol = warp_tolerance(src)
-    log(f"K3 warp_affine ({where}) src{tuple(src.shape)}: "
+    err = float((got.float() - want.float()).abs().max())
+    tol = warp_tolerance(src.float()) + (
+        2.0 ** -7 * float(src.float().abs().max()) if half else 0.0)
+    log(f"K3 warp_affine ({where}, {src.dtype}) src{tuple(src.shape)}: "
         f"max|kernel-plain| {err:.3e} "
         f"(tol {tol:.3e}: a one-ulp difference of the sampling coordinate "
-        f"times the largest neighbour step)")
+        f"times the largest neighbour step"
+        + (", then one bf16 rounding)" if half else ")"))
     if not err <= tol:
         raise AssertionError(f"K3 disagrees with its plain version: {err}")
+    if half:
+        same = torch.equal(got, warp_affine(src.float(), theta).to(
+            torch.bfloat16))
+        log(f"  K3 bf16 equals the fp32 kernel on the widened map, rounded "
+            f"once: {same}")
+        if not same:
+            raise AssertionError("K3 bf16 differs from the fp32 kernel's "
+                                 "rounded output")
     src_nchw = src.permute(0, 3, 1, 2).contiguous()
-    grid = F.affine_grid(theta, list(src_nchw.shape), align_corners=False)
+    grid = F.affine_grid(theta.to(src.dtype), list(src_nchw.shape),
+                         align_corners=False)
     k3_bytes = nbytes(src, theta, got)
 
     def library():
@@ -629,7 +701,8 @@ def check_warp(inputs, where):
         f"{', '.join(f'{t:.4f}' for t in lib_ms)} ms; device time alone "
         f"(torch.profiler): K3 {k3_dev} ms, grid_sample {lib_dev} ms")
     row = dict(
-        name="warp_affine", route="cuda",
+        name="warp_affine_bf16" if half else "warp_affine", route="cuda",
+        dtype="bf16" if half else "fp32",
         source="gencomm_tpu_torch/csrc/warp_affine.cu",
         replaces="gencomm_tpu/ops/warp_pallas.py:43",
         max_abs_err=err,
@@ -1025,98 +1098,173 @@ def check_splat_bwd(inputs):
     return row
 
 
-def eval_phase(smi, dev, label, model_kw, feature_shape, scenes, host,
-               targets, check, expected):
-    """An eval path: the kernels named by ``targets`` on the arguments the
-    path gives them (``check``), the path counted and timed, the device
-    profile, and the same frame on the CPU. Returns the kernels' rows."""
+def sigmoid_closeness(cls, ref):
+    """The protocol of scripts/bf16_parity.py on one frame's class logits:
+    (max |sigmoid difference|, relative L2 of the sigmoids, top-100 and
+    top-50 overlap of the scoring cells, as fractions)."""
     import torch
+
+    p = torch.sigmoid(cls.float().cpu()).reshape(-1)
+    q = torch.sigmoid(ref.float().cpu()).reshape(-1)
+
+    def overlap(k):
+        a = set(torch.topk(p, k).indices.tolist())
+        return len(a & set(torch.topk(q, k).indices.tolist())) / k
+
+    return (float((p - q).abs().max()), float((p - q).norm() / q.norm()),
+            overlap(100), overlap(50))
+
+
+def setup_eval(dev, model_kw, feature_shape, scenes, host, half=False,
+               state=None):
+    """One eval cell: the model (bf16 activations with ``half``) with
+    seeded random weights (``state``, to give a bf16 cell its fp32 cell's),
+    the frame on the card, the pipeline and the diffusion noise (fp32,
+    from one seed for every cell)."""
+    import torch
+    from types import SimpleNamespace
     from gencomm_tpu_torch.models.heter_baseline import HeterModel
-    from gencomm_tpu_torch.ops import _cuda
     from gencomm_tpu_torch.pipeline import InferencePipeline, batch_to_device
     from gencomm_tpu_torch.weights import random_state_dict
 
-    t_phase = time.perf_counter()
-    model = HeterModel(**model_kw, device=dev)
-    state = random_state_dict(model, seed=0)
+    kw = dict(model_kw, half=half)
+    model = HeterModel(**kw, device=dev)
+    state = state if state is not None else random_state_dict(model, seed=0)
     model.load_state_dict(state)
-    batch = batch_to_device(host, dev)
-    pipe = InferencePipeline(model, scenes.anchors,
-                             postprocess_cfg(model_kw["lidar_range"]),
-                             device=dev)
     gen = torch.Generator().manual_seed(1)
     n = host["agent_mask"].size
     noises = [torch.randn((n,) + feature_shape, generator=gen)
               for _ in range(3)]
-    noises_dev = [t.to(dev) for t in noises]
+    return SimpleNamespace(
+        model_kw=kw, half=half, model=model, state=state, host=host,
+        batch=batch_to_device(host, dev), n=n, noises=noises,
+        noises_dev=[t.to(dev) for t in noises],
+        pipe=InferencePipeline(model, scenes.anchors,
+                               postprocess_cfg(model_kw["lidar_range"]),
+                               device=dev))
 
-    # the kernels on the path's inputs
-    def forward():
-        with torch.inference_mode():
-            model(batch, noises=noises_dev)
 
-    rows = check(record_calls(targets, forward))
+def time_eval(smi, cell, label, expected):
+    """An eval path counted and timed: every launch count to 0, then 1
+    warm-up + TIMED_FRAMES frames through InferencePipeline.run (CUDA
+    events), the counts read just after. Run before the process's first
+    profiler session (ROADMAP p1)."""
+    import torch
+    from gencomm_tpu_torch.ops import _cuda
 
-    # the path, counted and timed
+    t_phase = time.perf_counter()
     reset_launch_counts()
-    dets = pipe.run(batch, seed=0)  # warm-up
+    dets = cell.pipe.run(cell.batch, seed=0)  # warm-up
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for i in range(TIMED_FRAMES):
-        dets = pipe.run(batch, seed=i + 1)
+        dets = cell.pipe.run(cell.batch, seed=i + 1)
     end.record()
     end.synchronize()
-    launches = dict(_cuda.LAUNCHES)
-    ms = start.elapsed_time(end) / TIMED_FRAMES
-    n_det = int(dets.valid.sum())
-    log(f"{label} eval path: {1 + TIMED_FRAMES} frames, {ms:.3f} ms/frame, "
-        f"{1000.0 / ms:.2f} frames/s (fp32, batch 1, {n} agents) on {smi}; "
-        f"{n_det} detections kept in the last frame; launches {launches}")
+    cell.launches, cell.routes = dict(_cuda.LAUNCHES), route_counts()
+    cell.ms = start.elapsed_time(end) / TIMED_FRAMES
+    dtype = "bf16" if cell.half else "fp32"
+    log(f"{label} eval path ({dtype}): {1 + TIMED_FRAMES} frames, "
+        f"{cell.ms:.3f} ms/frame, {1000.0 / cell.ms:.2f} frames/s (batch 1, "
+        f"{cell.n} agents) on {smi}; {int(dets.valid.sum())} detections "
+        f"kept in the last frame; launches {cell.launches}")
     if dets.corners3d.shape != (1, NMS_TOPK, 8, 3):
         raise AssertionError(f"detections shape {tuple(dets.corners3d.shape)}")
     if not (torch.isfinite(dets.corners3d[dets.valid]).all()
             and torch.isfinite(dets.scores).all()):
         raise AssertionError("non-finite detections")
     for name in expected:
-        if launches[name] <= 0:
+        if cell.launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
-                                 f"{label} eval path")
-    fill_launches(rows, launches, f"{label} eval")
+                                 f"{label} {dtype} eval path")
+    phase_done(f"{label} eval ({dtype}), timed", t_phase)
 
-    profile_device(lambda i: pipe.run(batch, seed=100 + i), ms, 3, "frame")
 
-    # the same frame, weights and noise on the CPU
+def check_eval(smi, cell, label, targets, check, fp32_cell=None):
+    """An eval path's checks, after every path is timed: the kernels named
+    by ``targets`` on the arguments the path gives them (``check``), the
+    device profile, and the same frame, weights and noise on the CPU. A bf16
+    cell (``fp32_cell`` given) is also held against the card's fp32 run of
+    its frame. Returns the kernels' rows."""
+    import torch
+    from gencomm_tpu_torch.models.heter_baseline import HeterModel
+    from gencomm_tpu_torch.pipeline import batch_to_device
+
+    t_phase = time.perf_counter()
+    dtype = "bf16" if cell.half else "fp32"
+
+    def forward():
+        with torch.inference_mode():
+            cell.model(cell.batch, noises=cell.noises_dev)
+
+    rows = check(record_calls(targets, forward))
+    fill_launches(rows, cell.launches, cell.routes, f"{label} eval {dtype}")
+    profile_device(lambda i: cell.pipe.run(cell.batch, seed=100 + i),
+                   cell.ms, 3, "frame")
+
     with torch.inference_mode():
-        out_dev = model(batch, noises=noises_dev)
-        cpu_model = HeterModel(**model_kw, device="cpu")
-        cpu_model.load_state_dict(state)
-        t0 = time.perf_counter()
-        out_cpu = cpu_model(batch_to_device(host, "cpu"), noises=noises)
-        cpu_s = time.perf_counter() - t0
+        out_dev = cell.model(cell.batch, noises=cell.noises_dev)
+    cell.cls = out_dev["cls_preds"]
     for key in ("cls_preds", "reg_preds", "dir_preds"):
-        a, b = out_dev[key].float().cpu(), out_cpu[key]
-        if not torch.isfinite(a).all():
+        if out_dev[key].dtype != torch.float32:
+            raise AssertionError(f"{key} is {out_dev[key].dtype}, not fp32")
+        if not torch.isfinite(out_dev[key]).all():
             raise AssertionError(f"{key} on the card is not finite")
-        err = float((a - b).abs().max())
-        scale = max(1.0, float(b.abs().max()))
-        log(f"card vs CPU {key} {tuple(a.shape)}: max abs diff {err:.3e}, "
-            f"max |cpu| {scale:.3e}, tol {CPU_TOL:.0e} x max(1, max|cpu|)")
-        if not err <= CPU_TOL * scale:
-            raise AssertionError(f"{key}: card and CPU disagree ({err})")
-    log(f"CPU forward took {cpu_s:.1f} s")
-    phase_done(f"{label} eval", t_phase)
+    want_pred = torch.bfloat16 if cell.half else torch.float32
+    if out_dev["pred_feature"].dtype != want_pred:
+        raise AssertionError(f"pred_feature is {out_dev['pred_feature'].dtype}")
+
+    # the same frame, weights and noise through the port on the CPU
+    with torch.inference_mode():
+        cpu_model = HeterModel(**cell.model_kw, device="cpu")
+        cpu_model.load_state_dict(cell.state)
+        t0 = time.perf_counter()
+        out_cpu = cpu_model(batch_to_device(cell.host, "cpu"),
+                            noises=cell.noises)
+        cpu_s = time.perf_counter() - t0
+    if cell.half:
+        # the bf16 run on the card against the fp32 one (same weights, noise
+        # and frame), on the protocol of scripts/bf16_parity.py
+        mx, rel, top100, _ = sigmoid_closeness(cell.cls, fp32_cell.cls)
+        log(f"{label} card bf16 vs card fp32, sigmoid(cls): max abs "
+            f"{mx:.4f}, rel L2 {rel:.4f}, top-100 overlap {top100:.2f} "
+            f"(must be >= {TOP100_MIN})")
+        if not top100 >= TOP100_MIN:
+            raise AssertionError(f"bf16 keeps {top100} of the fp32 top-100")
+        mx_c, rel_c, top100_c, _ = sigmoid_closeness(cell.cls,
+                                                     out_cpu["cls_preds"])
+        tol = HALF_SPREAD * rel
+        log(f"{label} card bf16 vs CPU bf16, sigmoid(cls): max abs "
+            f"{mx_c:.4f}, rel L2 {rel_c:.4f} (tol {tol:.4f}: "
+            f"{HALF_SPREAD:.3f} x the card's bf16-vs-fp32 {rel:.4f}), top-100 "
+            f"overlap {top100_c:.2f} (must be >= {TOP100_MIN})")
+        if not (rel_c <= tol and top100_c >= TOP100_MIN):
+            raise AssertionError(f"card and CPU bf16 runs disagree "
+                                 f"({rel_c} > {tol} or {top100_c})")
+    else:
+        for key in ("cls_preds", "reg_preds", "dir_preds"):
+            a, b = out_dev[key].float().cpu(), out_cpu[key]
+            err = float((a - b).abs().max())
+            scale = max(1.0, float(b.abs().max()))
+            log(f"card vs CPU {key} {tuple(a.shape)}: max abs diff {err:.3e}, "
+                f"max |cpu| {scale:.3e}, tol {CPU_TOL:.0e} x max(1, max|cpu|)")
+            if not err <= CPU_TOL * scale:
+                raise AssertionError(f"{key}: card and CPU disagree ({err})")
+    log(f"CPU forward ({dtype}) took {cpu_s:.1f} s")
+    phase_done(f"{label} eval ({dtype}), checks", t_phase)
     return rows
 
 
-def train_phase(smi, dev, label, model_kw, hypes, feature_shape, hosts,
-                targets, check, expected, jitter_key):
-    """A training path: the kernels named by ``targets`` on the arguments
-    the train step gives them (``check``), the steps counted and timed, the
-    loss falling on one batch, and one step on the card against the CPU.
-    Returns the kernels' rows."""
+def time_train(smi, dev, label, model_kw, hypes, feature_shape, hosts,
+               expected, jitter_key):
+    """A training path counted and timed before the process's first
+    profiler session (ROADMAP p1): every launch count to 0, 1 warm-up +
+    TIMED_STEPS steps (CUDA events), the counts read just after. Returns
+    the cell for ``check_train``."""
     import torch
+    from types import SimpleNamespace
     from gencomm_tpu_torch.loss import build_loss
     from gencomm_tpu_torch.models.heter_baseline import HeterModel
     from gencomm_tpu_torch.ops import _cuda
@@ -1125,50 +1273,41 @@ def train_phase(smi, dev, label, model_kw, hypes, feature_shape, hosts,
     from gencomm_tpu_torch.weights import random_state_dict
 
     t_phase = time.perf_counter()
-    batches = [batch_to_device(h, dev) for h in hosts]
+    cell = SimpleNamespace(label=label, dev=dev, hosts=hosts,
+                           jitter_key=jitter_key,
+                           batches=[batch_to_device(h, dev) for h in hosts],
+                           criterion=build_loss(hypes["loss"]))
 
     def fresh(device):
         model = HeterModel(**model_kw, device=device)
-        model.load_state_dict(state)
+        model.load_state_dict(cell.state)
         model.train()
         opt, sched = make_optimizer(hypes, model.parameters())
-        return model, make_train_step(model, criterion, opt, sched)
+        return model, make_train_step(model, cell.criterion, opt, sched)
 
-    criterion = build_loss(hypes["loss"])
-    state = random_state_dict(HeterModel(**model_kw, device=dev), seed=0)
-    n_slots = hosts[0]["agent_mask"].size
+    cell.fresh = fresh
+    cell.state = random_state_dict(HeterModel(**model_kw, device=dev), seed=0)
+    cell.n_slots = hosts[0]["agent_mask"].size
     gen = torch.Generator().manual_seed(2)
-    noises = [torch.randn((n_slots,) + feature_shape, generator=gen)
-              for _ in range(3)]
-    noises_dev = [t.to(dev) for t in noises]
+    cell.noises = [torch.randn((cell.n_slots,) + feature_shape, generator=gen)
+                   for _ in range(3)]
+    cell.noises_dev = [t.to(dev) for t in cell.noises]
+    cell.model, cell.step = fresh(dev)
 
-    # the kernels on the train step's arguments: one forward and backward,
-    # no update
-    model, step = fresh(dev)
-
-    def forward_backward():
-        criterion(model(batches[0], noises=noises_dev),
-                  batches[0])["total_loss"].backward()
-
-    inputs = record_calls(targets, forward_backward)
-    model.zero_grad(set_to_none=True)
-    rows = check(inputs)
-
-    # the training path, counted and timed
     reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    dgen = torch.Generator(device=dev).manual_seed(3)
-    step_losses = [step(batches[0], generator=dgen)]  # warm-up
+    cell.dgen = torch.Generator(device=dev).manual_seed(3)
+    step_losses = [cell.step(cell.batches[0], generator=cell.dgen)]  # warm-up
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for i in range(1, 1 + TIMED_STEPS):
-        step_losses.append(step(batches[i], generator=dgen))
+        step_losses.append(cell.step(cell.batches[i], generator=cell.dgen))
     end.record()
     end.synchronize()
-    launches = dict(_cuda.LAUNCHES)
-    ms = start.elapsed_time(end) / TIMED_STEPS
+    cell.launches, cell.routes = dict(_cuda.LAUNCHES), route_counts()
+    cell.ms = start.elapsed_time(end) / TIMED_STEPS
     for i, losses in enumerate(step_losses):
         vals = {k: float(v) for k, v in losses.items()}
         log(f"  step {i}{' (warm-up)' if i == 0 else ''}: "
@@ -1177,21 +1316,46 @@ def train_phase(smi, dev, label, model_kw, hypes, feature_shape, hosts,
             raise AssertionError(f"step {i}: non-finite loss {vals}")
         if set(vals) != set(step_losses[0]):
             raise AssertionError(f"step {i}: loss terms {sorted(vals)}")
-    log(f"{label} train path: {1 + TIMED_STEPS} steps, {ms:.3f} ms/step, "
-        f"{1000.0 / ms:.3f} steps/s, {TRAIN_BATCH * 1000.0 / ms:.2f} training "
-        f"frames/s (fp32, TF32 off, batch {TRAIN_BATCH} x {n_slots // TRAIN_BATCH}"
-        f" agents) on {smi}; peak memory "
+    log(f"{label} train path: {1 + TIMED_STEPS} steps, {cell.ms:.3f} ms/step, "
+        f"{1000.0 / cell.ms:.3f} steps/s, {TRAIN_BATCH * 1000.0 / cell.ms:.2f} "
+        f"training frames/s (fp32, TF32 off, batch {TRAIN_BATCH} x "
+        f"{cell.n_slots // TRAIN_BATCH} agents) on {smi}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
-        f"launches {launches}")
+        f"launches {cell.launches}")
     for name in expected:
-        if launches[name] <= 0:
+        if cell.launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  f"{label} training path")
-    fill_launches(rows, launches, f"{label} training")
-    profile_device(lambda i: step(batches[i], generator=dgen), ms, 2, "step")
+    phase_done(f"{label} training, timed", t_phase)
+    return cell
+
+
+def check_train(cell, targets, check):
+    """A training path's checks, after every path is timed: the kernels
+    named by ``targets`` on the arguments the train step gives them
+    (``check``), the step's profile, the loss falling on one batch, and one
+    step on the card against the CPU. Returns the kernels' rows."""
+    import torch
+    from gencomm_tpu_torch.pipeline import batch_to_device
+
+    t_phase = time.perf_counter()
+    model, batches, noises_dev = cell.model, cell.batches, cell.noises_dev
+
+    # the kernels on the train step's arguments: one forward and backward,
+    # no update
+    def forward_backward():
+        cell.criterion(model(batches[0], noises=noises_dev),
+                       batches[0])["total_loss"].backward()
+
+    inputs = record_calls(targets, forward_backward)
+    model.zero_grad(set_to_none=True)
+    rows = check(inputs)
+    fill_launches(rows, cell.launches, cell.routes, f"{cell.label} training")
+    profile_device(lambda i: cell.step(batches[i], generator=cell.dgen),
+                   cell.ms, 2, "step")
 
     # the loss falls over 4 steps on one repeated batch
-    model, step = fresh(dev)
+    model, step = cell.fresh(cell.dev)
     totals = [float(step(batches[0], noises=noises_dev)["total_loss"])
               for _ in range(4)]
     log(f"4 steps on one batch: total_loss {totals}")
@@ -1201,23 +1365,24 @@ def train_phase(smi, dev, label, model_kw, hypes, feature_shape, hosts,
     # one step on the card and on the port's CPU; the CPU step once more
     # with its input (``jitter_key``) jittered by JITTER (relative), which
     # measures how far the gradients move with the last bits of the inputs
-    model, step = fresh(dev)
+    model, step = cell.fresh(cell.dev)
     card = step(batches[0], noises=noises_dev)
-    cpu_batch = batch_to_device(hosts[0], "cpu")
-    cpu_model, cpu_step = fresh("cpu")
+    cpu_batch = batch_to_device(cell.hosts[0], "cpu")
+    cpu_model, cpu_step = cell.fresh("cpu")
     t0 = time.perf_counter()
-    cpu = cpu_step(cpu_batch, noises=noises)
+    cpu = cpu_step(cpu_batch, noises=cell.noises)
     cpu_s = time.perf_counter() - t0
     for k, v in cpu.items():
         a, b = float(card[k]), float(v)
         log(f"card vs CPU {k}: {a:.7f} vs {b:.7f}")
         if not abs(a - b) <= LOSS_TOL * max(abs(b), 1e-6):
             raise AssertionError(f"{k}: card and CPU disagree ({a} vs {b})")
-    jit_model, jit_step = fresh("cpu")
+    jit_model, jit_step = cell.fresh("cpu")
     jgen = torch.Generator().manual_seed(4)
-    pts = cpu_batch[jitter_key]
-    jit_step({**cpu_batch, jitter_key: pts * (
-        1.0 + JITTER * torch.randn(pts.shape, generator=jgen))}, noises=noises)
+    pts = cpu_batch[cell.jitter_key]
+    jit_step({**cpu_batch, cell.jitter_key: pts * (
+        1.0 + JITTER * torch.randn(pts.shape, generator=jgen))},
+        noises=cell.noises)
     log(f"CPU step took {cpu_s:.1f} s")
     sensitivity = log_grad_errors(f"CPU vs CPU with a {JITTER:.0e} input jitter",
                                   jit_model, cpu_model)
@@ -1227,7 +1392,7 @@ def train_phase(smi, dev, label, model_kw, hypes, feature_shape, hosts,
         f"tol {GRAD_FACTOR} x {sensitivity:.3e} + {GRAD_FLOOR:.0e}")
     if not worst <= tol:
         raise AssertionError(f"gradients disagree: {worst} > {tol}")
-    phase_done(f"{label} training", t_phase)
+    phase_done(f"{cell.label} training, checks", t_phase)
     return rows
 
 
@@ -1275,7 +1440,8 @@ def main() -> int:
                     **check_pillar_bwd_general(dev),
                     **check_warp_bwd_general(dev)}
 
-    # phases 3-5: the lidar flagship's eval path
+    # the frames and batches of every path, sampled (and decorated) on the
+    # host
     cfg = SyntheticConfig(lidar_range=LIDAR_RANGE, max_cav=5, num_agents=2,
                           points_per_agent=30000, num_vehicles=12,
                           points_per_vehicle=300)
@@ -1286,16 +1452,6 @@ def main() -> int:
         scenes.sample(seed=0, batch_size=1), buckets=(2, 3, 5)), voxelizer)
     log(f"lidar frame: sampled, trimmed to {host['agent_mask'].shape[1]} "
         f"agents and decorated on the host in {time.perf_counter() - t0:.3f} s")
-    kernel_rows = eval_phase(
-        smi, dev, "lidar", FLAGSHIP, FEATURE_SHAPE, scenes, host,
-        [(point_pillar, "pillar_canvas"), (deform_conv, "deform_conv3x3"),
-         (fusion, "warp_affine")],
-        lambda inputs: [check_deform(inputs, "lidar eval"),
-                        check_pillar(inputs, "lidar eval"),
-                        check_warp(inputs, "lidar eval")],
-        ("deform_conv3x3", "pillar_canvas", "warp_affine"))
-
-    # phase 6: the lidar flagship's training path
     t0 = time.perf_counter()
     hosts = [decorate_modality(trim_agent_slots(
         scenes.sample(TRAIN_SEED * 10000 + i, TRAIN_BATCH), buckets=(2, 3, 5)),
@@ -1305,22 +1461,8 @@ def main() -> int:
         f"labelled and decorated on the host in "
         f"{time.perf_counter() - t0:.3f} s; "
         f"{int(hosts[0]['pos_equal_one'].sum())} positive anchors in the first")
-    add_rows(kernel_rows, "lidar train step", train_phase(
-        smi, dev, "lidar", FLAGSHIP, TRAIN_HYPES, FEATURE_SHAPE, hosts,
-        [(point_pillar, "pillar_canvas"), (deform_conv, "deform_conv3x3_bwd"),
-         (pillar_canvas, "pillar_canvas_bwd"), (warp, "warp_affine_bwd")],
-        lambda inputs: [check_pillar(inputs, "lidar train step"),
-                        check_deform_bwd(inputs, "lidar train step"),
-                        check_pillar_bwd(inputs, "lidar train step"),
-                        check_warp_bwd(inputs, "lidar train step")],
-        ("deform_conv3x3", "pillar_canvas", "warp_affine",
-         "deform_conv3x3_bwd", "pillar_canvas_bwd", "warp_affine_bwd"),
-        "decorated_m1"))
-    del hosts
-
-    # phase 7: the camera eval path. The sampler is configured as
-    # tools/train.py configures it for a camera-labelled model: the
-    # vehicles spawn within d_max - 2 of the ego
+    # the camera sampler is configured as tools/train.py configures it for a
+    # camera-labelled model: the vehicles spawn within d_max - 2 of the ego
     cam_cfg = SyntheticConfig(
         lidar_range=CAMERA_RANGE, max_cav=5, num_agents=2, num_vehicles=12,
         points_per_vehicle=300,
@@ -1334,18 +1476,6 @@ def main() -> int:
     log(f"camera frame: sampled (images {cam_host['imgs_m1'].shape}) and "
         f"trimmed to {cam_host['agent_mask'].shape[1]} agents on the host in "
         f"{time.perf_counter() - t0:.3f} s")
-    # K1 and K3 get (A, 64, 64, 128) maps here, not the lidar path's
-    # (A, 64, 128, 128): they are held against their plain versions again
-    add_rows(kernel_rows, "camera eval", eval_phase(
-        smi, dev, "camera", CAMERA, CAMERA_FEATURE_SHAPE, cam_scenes, cam_host,
-        [(deform_conv, "deform_conv3x3"), (fusion, "warp_affine"),
-         (lss, "splat_topk")],
-        lambda inputs: [check_deform(inputs, "camera eval"),
-                        check_warp(inputs, "camera eval"),
-                        check_splat(inputs, "camera eval")],
-        ("deform_conv3x3", "warp_affine", "splat_topk")))
-
-    # phase 8: the camera training path
     t0 = time.perf_counter()
     cam_hosts = [trim_agent_slots(
         cam_scenes.sample(TRAIN_SEED * 10000 + i, TRAIN_BATCH),
@@ -1355,6 +1485,87 @@ def main() -> int:
         f"labelled on the host in {time.perf_counter() - t0:.3f} s; "
         f"{int(cam_hosts[0]['pos_equal_one'].sum())} positive anchors in the "
         f"first")
+
+    # every path timed first, before the process's first profiler session
+    # (ROADMAP p1: a finished session left later launches slower); each
+    # run sets every launch count to 0 before and reads them after
+    lidar_kernels = ("deform_conv3x3", "pillar_canvas", "warp_affine")
+    lidar_kernels16 = ("deform_conv3x3_bf16", "pillar_canvas",
+                       "warp_affine_bf16")
+    camera_kernels = ("deform_conv3x3", "warp_affine", "splat_topk")
+    camera_kernels16 = ("deform_conv3x3_bf16", "warp_affine_bf16",
+                        "splat_topk")
+    lidar = setup_eval(dev, FLAGSHIP, FEATURE_SHAPE, scenes, host)
+    time_eval(smi, lidar, "lidar", lidar_kernels)
+    lidar16 = setup_eval(dev, FLAGSHIP, FEATURE_SHAPE, scenes, host,
+                         half=True, state=lidar.state)
+    time_eval(smi, lidar16, "lidar", lidar_kernels16)
+    lidar_train = time_train(
+        smi, dev, "lidar", FLAGSHIP, TRAIN_HYPES, FEATURE_SHAPE, hosts,
+        ("deform_conv3x3", "pillar_canvas", "warp_affine",
+         "deform_conv3x3_bwd", "pillar_canvas_bwd", "warp_affine_bwd"),
+        "decorated_m1")
+    camera = setup_eval(dev, CAMERA, CAMERA_FEATURE_SHAPE, cam_scenes,
+                        cam_host)
+    time_eval(smi, camera, "camera", camera_kernels)
+    camera16 = setup_eval(dev, CAMERA, CAMERA_FEATURE_SHAPE, cam_scenes,
+                          cam_host, half=True, state=camera.state)
+    time_eval(smi, camera16, "camera", camera_kernels16)
+    camera_train = time_train(
+        smi, dev, "camera", CAMERA, CAMERA_TRAIN_HYPES, CAMERA_FEATURE_SHAPE,
+        cam_hosts,
+        ("deform_conv3x3", "warp_affine", "splat_topk", "deform_conv3x3_bwd",
+         "warp_affine_bwd", "splat_topk_bwd"), "imgs_m1")
+    log("eval frames/s, fp32 / bf16: lidar "
+        f"{1000.0 / lidar.ms:.2f} / {1000.0 / lidar16.ms:.2f}, camera "
+        f"{1000.0 / camera.ms:.2f} / {1000.0 / camera16.ms:.2f} "
+        "(every path timed before the first profiler session)")
+
+    # then each path's kernel checks, profiles and CPU comparisons
+    kernel_rows = check_eval(
+        smi, lidar, "lidar",
+        [(point_pillar, "pillar_canvas"), (deform_conv, "deform_conv3x3"),
+         (fusion, "warp_affine")],
+        lambda inputs: [check_deform(inputs, "lidar eval"),
+                        check_pillar(inputs, "lidar eval"),
+                        check_warp(inputs, "lidar eval")])
+    # K1 and K3 take bf16 maps here: rows of their bf16 instantiations; K2
+    # is held again on the bf16 PFN's rows (its canvas is bf16 at both
+    # dtypes)
+    add_rows(kernel_rows, "lidar eval bf16", check_eval(
+        smi, lidar16, "lidar",
+        [(point_pillar, "pillar_canvas"), (deform_conv, "deform_conv3x3"),
+         (fusion, "warp_affine")],
+        lambda inputs: [check_deform(inputs, "lidar eval bf16"),
+                        check_pillar(inputs, "lidar eval bf16"),
+                        check_warp(inputs, "lidar eval bf16")],
+        fp32_cell=lidar))
+    add_rows(kernel_rows, "lidar train step", check_train(
+        lidar_train,
+        [(point_pillar, "pillar_canvas"), (deform_conv, "deform_conv3x3_bwd"),
+         (pillar_canvas, "pillar_canvas_bwd"), (warp, "warp_affine_bwd")],
+        lambda inputs: [check_pillar(inputs, "lidar train step"),
+                        check_deform_bwd(inputs, "lidar train step"),
+                        check_pillar_bwd(inputs, "lidar train step"),
+                        check_warp_bwd(inputs, "lidar train step")]))
+    del hosts, lidar_train
+
+    # K1 and K3 get (A, 64, 64, 128) maps here, not the lidar path's
+    # (A, 64, 128, 128): they are held against their plain versions again
+    add_rows(kernel_rows, "camera eval", check_eval(
+        smi, camera, "camera",
+        [(deform_conv, "deform_conv3x3"), (fusion, "warp_affine"),
+         (lss, "splat_topk")],
+        lambda inputs: [check_deform(inputs, "camera eval"),
+                        check_warp(inputs, "camera eval"),
+                        check_splat(inputs, "camera eval")]))
+    add_rows(kernel_rows, "camera eval bf16", check_eval(
+        smi, camera16, "camera",
+        [(deform_conv, "deform_conv3x3"), (fusion, "warp_affine"),
+         (lss, "splat_topk")],
+        lambda inputs: [check_deform(inputs, "camera eval bf16"),
+                        check_warp(inputs, "camera eval bf16")],
+        fp32_cell=camera))
 
     def check_camera_train(inputs):
         # the forward kernels once more at the train step's shapes (4 agent
@@ -1366,15 +1577,12 @@ def main() -> int:
         return [check_deform_bwd(inputs, where), check_warp_bwd(inputs, where),
                 check_splat_bwd(inputs)]
 
-    add_rows(kernel_rows, "camera train step", train_phase(
-        smi, dev, "camera", CAMERA, CAMERA_TRAIN_HYPES, CAMERA_FEATURE_SHAPE,
-        cam_hosts,
+    add_rows(kernel_rows, "camera train step", check_train(
+        camera_train,
         [(deform_conv, "deform_conv3x3"), (fusion, "warp_affine"),
          (lss, "splat_topk"), (deform_conv, "deform_conv3x3_bwd"),
          (warp, "warp_affine_bwd"), (splat, "splat_topk_bwd")],
-        check_camera_train,
-        ("deform_conv3x3", "warp_affine", "splat_topk", "deform_conv3x3_bwd",
-         "warp_affine_bwd", "splat_topk_bwd"), "imgs_m1"))
+        check_camera_train))
 
     general_cases = {"pillar_canvas_bwd": ("general_route", GENERAL_CANVAS),
                      "deform_conv3x3": ("general_route", GENERAL_SHAPE),

@@ -48,12 +48,39 @@
 //  * route 0, any other channel counts: the first version's kernel (fp32
 //    FMAs on a 4 x 4 register tile), kept as the general route.
 // Both take any B, H, W; pixels are tiled in flat order, 64 to a block.
+//
+// bf16 instantiation (`deform_conv3x3_bf16`, for `half`): the TPU kernel
+// takes a bf16 map and returns bf16 with fp32 accumulation
+// (deform_pallas.py:88); offsets and weights stay fp32. Both routes are
+// templates on x's and out's element type. On route 1 a thread loads one
+// pixel's corner rows 8 bf16 channels at a time (16-byte loads, four corners
+// in flight), blends them in fp32 and stores fp32 samples, so the 3xTF32
+// product is the fp32 kernel's; the sums are rounded once to bf16 at the
+// store. The result is the fp32 kernel's on the widened map, rounded once.
+// (One bf16 mma.sync.m16n8k16 pass on bf16-rounded samples and weights, the
+// TPU's default MXU precision, would issue a sixth of the products; K1 is
+// far under 1% of a frame, so the exact design was kept.)
+
+#include <cuda_bf16.h>
 
 #include "deform_common.cuh"
 
 namespace {
 
 using deform::TapGeom;
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
+    *p = __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
 
 // ---- route 0: general, fp32 FMAs -----------------------------------------
 constexpr int TP = 64;       // output pixels per block
@@ -85,9 +112,10 @@ __device__ __forceinline__ void tile_geometry(const float* __restrict__ offsets,
     }
 }
 
+template <typename TX>
 __global__ void __launch_bounds__(THREADS)
-deform_conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ offsets,
-                      const float* __restrict__ weight, float* __restrict__ out,
+deform_conv3x3_kernel(const TX* __restrict__ x, const float* __restrict__ offsets,
+                      const float* __restrict__ weight, TX* __restrict__ out,
                       int b, int h, int w, int cin, int cout) {
     __shared__ int s_idx[9 * TP * 4];
     __shared__ float s_wt[9 * TP * 4];
@@ -122,7 +150,8 @@ deform_conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ off
                     for (int q = 0; q < 4; ++q) {
                         const int id = s_idx[(k * TP + p) * 4 + q];
                         if (id >= 0)
-                            v += x[(int64_t)id * cin + ch] * s_wt[(k * TP + p) * 4 + q];
+                            v += to_float(x[(int64_t)id * cin + ch]) *
+                                 s_wt[(k * TP + p) * 4 + q];
                     }
                 }
                 s_samp[c][p] = v;
@@ -159,7 +188,7 @@ deform_conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ off
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
             const int oc = o0 + tx * 4 + j;
-            if (oc < cout) out[pg * cout + oc] = acc[i][j];
+            if (oc < cout) store1(out + pg * cout + oc, acc[i][j]);
         }
     }
 }
@@ -188,45 +217,96 @@ __device__ __forceinline__ void stage_weight(const float* __restrict__ weight, i
     }
 }
 
-// a thread's share of a chunk's corner rows: pixels sp and sp + 32, four
-// channels from sc, all four corners, left in flight
-__device__ __forceinline__ void load_corners(const float* __restrict__ x, const int* s_idx,
-                                             int k, int c0, int cin, int sp, int sc,
-                                             float4 (&v)[MI][4]) {
+// a thread's share of a chunk's corner rows, loaded into registers and left
+// in flight, then blended with the bilinear weights into fp32 samples
+template <typename TX>
+struct CornerRows;
+
+// fp32 x: pixels sp and sp + 32, four channels from sc, all four corners
+template <>
+struct CornerRows<float> {
+    float4 v[MI][4];
+    int sp, sc;
+    __device__ explicit CornerRows(int tid) : sp(tid >> 3), sc((tid & 7) * 4) {}
+
+    __device__ __forceinline__ void load(const float* __restrict__ x, const int* s_idx,
+                                         int k, int c0, int cin) {
 #pragma unroll
-    for (int j = 0; j < MI; ++j) {
-        const int4 id =
-            *reinterpret_cast<const int4*>(s_idx + (k * TP + sp + j * 32) * 4);
+        for (int j = 0; j < MI; ++j) {
+            const int4 id =
+                *reinterpret_cast<const int4*>(s_idx + (k * TP + sp + j * 32) * 4);
+            const int ids[4] = {id.x, id.y, id.z, id.w};
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+                v[j][q] = ids[q] >= 0 ? deform::ldg4(x + (int64_t)ids[q] * cin + c0 + sc)
+                                      : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+    }
+
+    __device__ __forceinline__ void store(const float* s_wt, int k, float* sA) const {
+#pragma unroll
+        for (int j = 0; j < MI; ++j) {
+            const int p = sp + j * 32;
+            const float4 wt = *reinterpret_cast<const float4*>(s_wt + (k * TP + p) * 4);
+            const float wq[4] = {wt.x, wt.y, wt.z, wt.w};
+            float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                s.x = fmaf(v[j][q].x, wq[q], s.x);
+                s.y = fmaf(v[j][q].y, wq[q], s.y);
+                s.z = fmaf(v[j][q].z, wq[q], s.z);
+                s.w = fmaf(v[j][q].w, wq[q], s.w);
+            }
+            *reinterpret_cast<float4*>(sA + p * M_AS + sc) = s;
+        }
+    }
+};
+
+// bf16 x: pixel sp, eight channels from sc, one 16-byte load a corner; the
+// blend is the fp32 one on the widened values, in the same order
+template <>
+struct CornerRows<__nv_bfloat16> {
+    uint4 v[4];
+    int sp, sc;
+    __device__ explicit CornerRows(int tid) : sp(tid >> 2), sc((tid & 3) * 8) {}
+
+    __device__ __forceinline__ void load(const __nv_bfloat16* __restrict__ x,
+                                         const int* s_idx, int k, int c0, int cin) {
+        const int4 id = *reinterpret_cast<const int4*>(s_idx + (k * TP + sp) * 4);
         const int ids[4] = {id.x, id.y, id.z, id.w};
 #pragma unroll
         for (int q = 0; q < 4; ++q)
-            v[j][q] = ids[q] >= 0 ? deform::ldg4(x + (int64_t)ids[q] * cin + c0 + sc)
-                                  : make_float4(0.f, 0.f, 0.f, 0.f);
+            v[q] = ids[q] >= 0 ? __ldg(reinterpret_cast<const uint4*>(
+                                     x + (int64_t)ids[q] * cin + c0 + sc))
+                               : make_uint4(0u, 0u, 0u, 0u);
     }
-}
 
-__device__ __forceinline__ void store_samples(const float* s_wt, int k, int sp, int sc,
-                                              const float4 (&v)[MI][4], float* sA) {
-#pragma unroll
-    for (int j = 0; j < MI; ++j) {
-        const int p = sp + j * 32;
-        const float4 wt = *reinterpret_cast<const float4*>(s_wt + (k * TP + p) * 4);
+    __device__ __forceinline__ void store(const float* s_wt, int k, float* sA) const {
+        const float4 wt = *reinterpret_cast<const float4*>(s_wt + (k * TP + sp) * 4);
         const float wq[4] = {wt.x, wt.y, wt.z, wt.w};
-        float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+        float s[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) s[i] = 0.f;
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
-            s.x = fmaf(v[j][q].x, wq[q], s.x);
-            s.y = fmaf(v[j][q].y, wq[q], s.y);
-            s.z = fmaf(v[j][q].z, wq[q], s.z);
-            s.w = fmaf(v[j][q].w, wq[q], s.w);
+            const __nv_bfloat162* pv = reinterpret_cast<const __nv_bfloat162*>(&v[q]);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                const float2 f = __bfloat1622float2(pv[i]);
+                s[2 * i] = fmaf(f.x, wq[q], s[2 * i]);
+                s[2 * i + 1] = fmaf(f.y, wq[q], s[2 * i + 1]);
+            }
         }
-        *reinterpret_cast<float4*>(sA + p * M_AS + sc) = s;
+        float* dst = sA + sp * M_AS + sc;
+        *reinterpret_cast<float4*>(dst) = make_float4(s[0], s[1], s[2], s[3]);
+        *reinterpret_cast<float4*>(dst + 4) = make_float4(s[4], s[5], s[6], s[7]);
     }
-}
+};
 
+template <typename TX>
 __global__ void __launch_bounds__(THREADS, 2)
-deform_conv3x3_mma_kernel(const float* __restrict__ x, const float* __restrict__ offsets,
-                          const float* __restrict__ weight, float* __restrict__ out,
+deform_conv3x3_mma_kernel(const TX* __restrict__ x, const float* __restrict__ offsets,
+                          const float* __restrict__ weight, TX* __restrict__ out,
                           int b, int h, int w, int cin) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     int* s_idx = reinterpret_cast<int*>(smem_raw);              // [9][TP][4]
@@ -240,7 +320,6 @@ deform_conv3x3_mma_kernel(const float* __restrict__ x, const float* __restrict__
     const int64_t npix = (int64_t)b * h * w;
     const int64_t p0 = (int64_t)blockIdx.x * TP;
     const int nchunks = 9 * (cin / KC);
-    const int sp = tid >> 3, sc = (tid & 7) * 4;
     const int wm = (warp & 1) * 16 * MI;  // the warp's pixels wm .. wm + 31
     const int wn = (warp >> 1) * 16;      // and output channels wn .. wn + 15
 
@@ -250,10 +329,10 @@ deform_conv3x3_mma_kernel(const float* __restrict__ x, const float* __restrict__
     // chunk i is tap i % 9 of channel slice i / 9: the nine taps of a slice
     // follow each other, and neighbouring taps and pixels share a corner
     // row's 128-byte line (it made no difference to the time that was seen)
-    float4 v[MI][4];
+    CornerRows<TX> rows(tid);
     stage_weight(weight, 0, sB);
-    load_corners(x, s_idx, 0, 0, cin, sp, sc, v);
-    store_samples(s_wt, 0, sp, sc, v, sA);
+    rows.load(x, s_idx, 0, 0, cin);
+    rows.store(s_wt, 0, sA);
     deform::cp_async_wait_all();
     __syncthreads();
 
@@ -271,7 +350,7 @@ deform_conv3x3_mma_kernel(const float* __restrict__ x, const float* __restrict__
         const int kn = (i + 1) % 9, cn = ((i + 1) / 9) * KC;
         if (more) {
             stage_weight(weight, kn * cin + cn, sB + (cur ^ 1) * KC * M_BS);
-            load_corners(x, s_idx, kn, cn, cin, sp, sc, v);
+            rows.load(x, s_idx, kn, cn, cin);
         }
         const float* A = sA + cur * TP * M_AS + wm * M_AS;
         const float* B = sB + cur * KC * M_BS + wn;
@@ -311,7 +390,7 @@ deform_conv3x3_mma_kernel(const float* __restrict__ x, const float* __restrict__
 #pragma unroll
                 for (int r = 0; r < 4; ++r) acc[mi][ni][r] += part[mi][ni][r];
         if (more) {
-            store_samples(s_wt, kn, sp, sc, v, sA + (cur ^ 1) * TP * M_AS);
+            rows.store(s_wt, kn, sA + (cur ^ 1) * TP * M_AS);
             deform::cp_async_wait_all();
         }
         __syncthreads();
@@ -323,49 +402,63 @@ deform_conv3x3_mma_kernel(const float* __restrict__ x, const float* __restrict__
 #pragma unroll
         for (int ni = 0; ni < 2; ++ni) {
             const int col = wn + ni * 8 + 2 * t;
-            if (row < npix)
-                *reinterpret_cast<float2*>(out + row * M_N + col) =
-                    make_float2(acc[mi][ni][0], acc[mi][ni][1]);
+            if (row < npix) store2(out + row * M_N + col, acc[mi][ni][0], acc[mi][ni][1]);
             if (row + 8 < npix)
-                *reinterpret_cast<float2*>(out + (row + 8) * M_N + col) =
-                    make_float2(acc[mi][ni][2], acc[mi][ni][3]);
+                store2(out + (row + 8) * M_N + col, acc[mi][ni][2], acc[mi][ni][3]);
         }
     }
 }
 
-}  // namespace
-
-// route 0: the general kernel; route 1: the tensor-core kernel, which takes
-// Cin % 32 == 0 and Cout == 64 only
-extern "C" int deform_conv3x3_f32(const void* x, const void* offsets,
-                                  const void* weight, void* out, int b, int h,
-                                  int w, int cin, int cout, int route,
-                                  void* stream) {
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
+template <typename TX>
+int launch(const void* x, const void* offsets, const void* weight, void* out, int b,
+           int h, int w, int cin, int cout, int route, cudaStream_t s) {
     const long long npix = (long long)b * h * w;
     if (npix <= 0 || cout <= 0) return (int)cudaGetLastError();
-    const auto* xf = static_cast<const float*>(x);
+    const auto* xt = static_cast<const TX*>(x);
     const auto* of = static_cast<const float*>(offsets);
     const auto* wf = static_cast<const float*>(weight);
+    auto* ot = static_cast<TX*>(out);
     const unsigned tiles = (unsigned)((npix + TP - 1) / TP);
     if (route == 1) {
         if (cin <= 0 || cin % KC != 0 || cout != M_N) return (int)cudaErrorInvalidValue;
         static bool configured = false;  // more than 48 KB of shared memory: opt in once
         if (!configured) {
             cudaError_t err = cudaFuncSetAttribute(
-                deform_conv3x3_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                (int)M_SMEM);
+                deform_conv3x3_mma_kernel<TX>,
+                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)M_SMEM);
             if (err != cudaSuccess) return (int)err;
             configured = true;
         }
-        deform_conv3x3_mma_kernel<<<tiles, THREADS, M_SMEM, s>>>(
-            xf, of, wf, static_cast<float*>(out), b, h, w, cin);
+        deform_conv3x3_mma_kernel<TX><<<tiles, THREADS, M_SMEM, s>>>(xt, of, wf, ot, b, h,
+                                                                     w, cin);
     } else if (route == 0) {
         dim3 grid(tiles, (unsigned)((cout + TC - 1) / TC));
-        deform_conv3x3_kernel<<<grid, THREADS, 0, s>>>(
-            xf, of, wf, static_cast<float*>(out), b, h, w, cin, cout);
+        deform_conv3x3_kernel<TX><<<grid, THREADS, 0, s>>>(xt, of, wf, ot, b, h, w, cin,
+                                                           cout);
     } else {
         return (int)cudaErrorInvalidValue;
     }
     return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// route 0: the general kernel; route 1: the tensor-core kernel, which takes
+// Cin % 32 == 0 and Cout == 64 only (and, for 16-byte loads, a 16-byte
+// aligned x)
+extern "C" int deform_conv3x3_f32(const void* x, const void* offsets,
+                                  const void* weight, void* out, int b, int h,
+                                  int w, int cin, int cout, int route,
+                                  void* stream) {
+    return launch<float>(x, offsets, weight, out, b, h, w, cin, cout, route,
+                         static_cast<cudaStream_t>(stream));
+}
+
+// the same with x and out in bf16 (offsets and weight fp32)
+extern "C" int deform_conv3x3_bf16(const void* x, const void* offsets,
+                                   const void* weight, void* out, int b, int h,
+                                   int w, int cin, int cout, int route,
+                                   void* stream) {
+    return launch<__nv_bfloat16>(x, offsets, weight, out, b, h, w, cin, cout, route,
+                                 static_cast<cudaStream_t>(stream));
 }

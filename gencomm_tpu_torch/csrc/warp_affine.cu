@@ -19,18 +19,42 @@
 // a coalesced row segment) and blends them. The coordinate arithmetic uses
 // the non-contracting intrinsics so that it rounds exactly like the plain
 // PyTorch version beside it.
+//
+// bf16 instantiation (`warp_affine_bf16`, for `half`): the TPU kernel takes
+// a bf16 map and returns bf16 with fp32 accumulation (warp_pallas.py:71-82).
+// The same coordinate chain, bit for bit; a thread loads 8 bf16 channels of
+// a corner as one 16-byte vector, blends them in fp32 and rounds once to
+// bf16. Bound by bytes: half of the fp32 kernel's.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-template <int VEC>
+// the storage type of VEC channels of element type E, and their fp32 blend
+template <typename E, int VEC>
 struct Vec;
 template <>
-struct Vec<4> { using T = float4; };
+struct Vec<float, 4> {
+    using T = float4;
+    using Acc = float4;
+};
 template <>
-struct Vec<1> { using T = float; };
+struct Vec<float, 1> {
+    using T = float;
+    using Acc = float;
+};
+template <>
+struct Vec<__nv_bfloat16, 8> {
+    using T = uint4;  // 8 bf16
+    struct Acc { float v[8]; };
+};
+template <>
+struct Vec<__nv_bfloat16, 1> {
+    using T = __nv_bfloat16;
+    using Acc = float;
+};
 
 __device__ __forceinline__ float4 axpy(float w, float4 v, float4 acc) {
     acc.x += w * v.x; acc.y += w * v.y; acc.z += w * v.z; acc.w += w * v.w;
@@ -39,18 +63,49 @@ __device__ __forceinline__ float4 axpy(float w, float4 v, float4 acc) {
 __device__ __forceinline__ float axpy(float w, float v, float acc) {
     return acc + w * v;
 }
+__device__ __forceinline__ float axpy(float w, __nv_bfloat16 v, float acc) {
+    return acc + w * __bfloat162float(v);
+}
+template <typename A>
+__device__ __forceinline__ A axpy(float w, uint4 v, A acc) {
+    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(p[i]);
+        acc.v[2 * i] += w * f.x;
+        acc.v[2 * i + 1] += w * f.y;
+    }
+    return acc;
+}
 template <typename T> __device__ __forceinline__ T zero();
 template <> __device__ __forceinline__ float4 zero<float4>() {
     return make_float4(0.f, 0.f, 0.f, 0.f);
 }
 template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
+template <> __device__ __forceinline__ Vec<__nv_bfloat16, 8>::Acc
+zero<Vec<__nv_bfloat16, 8>::Acc>() {
+    return {};
+}
 
-template <int VEC>
-__global__ void warp_affine_kernel(const float* __restrict__ src,
+// the fp32 blend rounded once to bf16
+__device__ __forceinline__ __nv_bfloat16 to_bf16(float a) {
+    return __float2bfloat16_rn(a);
+}
+__device__ __forceinline__ uint4 to_bf16(const Vec<__nv_bfloat16, 8>::Acc& a) {
+    uint4 r;
+    __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&r);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) p[i] = __floats2bfloat162_rn(a.v[2 * i], a.v[2 * i + 1]);
+    return r;
+}
+
+template <typename E, int VEC>
+__global__ void warp_affine_kernel(const E* __restrict__ src,
                                    const float* __restrict__ theta,
-                                   float* __restrict__ out, int n, int h, int w,
+                                   E* __restrict__ out, int n, int h, int w,
                                    int channels) {
-    using T = typename Vec<VEC>::T;
+    using T = typename Vec<E, VEC>::T;
+    using Acc = typename Vec<E, VEC>::Acc;
     const int nvec = channels / VEC;
     const int64_t total = (int64_t)n * h * w * nvec;
     const int64_t idx = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
@@ -76,7 +131,7 @@ __global__ void warp_affine_kernel(const float* __restrict__ src,
     const int ix0 = (int)x0, iy0 = (int)y0;
 
     const T* base = reinterpret_cast<const T*>(src) + (int64_t)b * h * w * nvec + cv;
-    T acc = zero<T>();
+    Acc acc = zero<Acc>();
     // corner order (x0,y0), (x1,y0), (x0,y1), (x1,y1), as in the plain version
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
@@ -86,7 +141,27 @@ __global__ void warp_affine_kernel(const float* __restrict__ src,
         const float wt = __fmul_rn((k & 1) ? wx1 : wx0, (k >> 1) ? wy1 : wy0);
         acc = axpy(wt, base[((int64_t)iy * w + ix) * nvec], acc);
     }
-    reinterpret_cast<T*>(out)[idx] = acc;
+    if constexpr (sizeof(E) == 4)
+        reinterpret_cast<T*>(out)[idx] = acc;
+    else
+        reinterpret_cast<T*>(out)[idx] = to_bf16(acc);
+}
+
+template <typename E, int VEC>
+void launch(const void* src, const void* theta, void* out, int n, int h, int w,
+            int channels, cudaStream_t s) {
+    const int threads = 256;
+    const long long total = (long long)n * h * w * (channels / VEC);
+    if (total > 0)
+        warp_affine_kernel<E, VEC><<<(unsigned)((total + threads - 1) / threads), threads,
+                                     0, s>>>(static_cast<const E*>(src),
+                                             static_cast<const float*>(theta),
+                                             static_cast<E*>(out), n, h, w, channels);
+}
+
+// 16-byte vectors need 16-byte aligned rows
+bool aligned16(const void* a, const void* b) {
+    return (((uintptr_t)a | (uintptr_t)b) & 15) == 0;
 }
 
 }  // namespace
@@ -94,19 +169,19 @@ __global__ void warp_affine_kernel(const float* __restrict__ src,
 extern "C" int warp_affine_f32(const void* src, const void* theta, void* out,
                                int n, int h, int w, int channels, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const int threads = 256;
-    if (channels % 4 == 0) {
-        const long long total = (long long)n * h * w * (channels / 4);
-        if (total > 0)
-            warp_affine_kernel<4><<<(unsigned)((total + threads - 1) / threads), threads, 0, s>>>(
-                static_cast<const float*>(src), static_cast<const float*>(theta),
-                static_cast<float*>(out), n, h, w, channels);
-    } else {
-        const long long total = (long long)n * h * w * channels;
-        if (total > 0)
-            warp_affine_kernel<1><<<(unsigned)((total + threads - 1) / threads), threads, 0, s>>>(
-                static_cast<const float*>(src), static_cast<const float*>(theta),
-                static_cast<float*>(out), n, h, w, channels);
-    }
+    if (channels % 4 == 0 && aligned16(src, out))
+        launch<float, 4>(src, theta, out, n, h, w, channels, s);
+    else
+        launch<float, 1>(src, theta, out, n, h, w, channels, s);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int warp_affine_bf16(const void* src, const void* theta, void* out,
+                                int n, int h, int w, int channels, void* stream) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (channels % 8 == 0 && aligned16(src, out))
+        launch<__nv_bfloat16, 8>(src, theta, out, n, h, w, channels, s);
+    else
+        launch<__nv_bfloat16, 1>(src, theta, out, n, h, w, channels, s);
     return (int)cudaGetLastError();
 }

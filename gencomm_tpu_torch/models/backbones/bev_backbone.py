@@ -3,7 +3,7 @@
 Counterpart of ``gencomm_tpu/models/backbones/bev_backbone.py``: N levels of
 strided conv stacks (stems padded (1, 1) as in the reference's
 ZeroPad2d(1)), per-level deconv heads, concatenated after cropping to the
-smallest map.
+smallest map. ``dtype`` is every layer's (``models/layers.py``).
 """
 
 from __future__ import annotations
@@ -20,16 +20,16 @@ class BEVBackbone(nn.Module):
     def __init__(self, in_ch: int, layer_nums: Sequence[int],
                  layer_strides: Sequence[int], num_filters: Sequence[int],
                  upsample_strides: Sequence[int] = (),
-                 num_upsample_filters: Sequence[int] = ()):
+                 num_upsample_filters: Sequence[int] = (), dtype=None):
         super().__init__()
         self.n_levels = len(layer_nums)
         for i, (n_layers, stride, filters) in enumerate(
                 zip(layer_nums, layer_strides, num_filters)):
             self.add_module(f"block{i}_0", ConvBNReLU(
-                in_ch, filters, 3, stride, torch_pad=True))
+                in_ch, filters, 3, stride, torch_pad=True, dtype=dtype))
             for k in range(n_layers):
                 self.add_module(f"block{i}_{k + 1}",
-                                ConvBNReLU(filters, filters, 3))
+                                ConvBNReLU(filters, filters, 3, dtype=dtype))
             in_ch = filters
         self.layer_nums = tuple(layer_nums)
         self.n_deblocks = len(upsample_strides)
@@ -39,7 +39,7 @@ class BEVBackbone(nn.Module):
                     "strided-conv decoder levels (upsample stride < 1) are "
                     "not ported yet")
             self.add_module(f"deblock{i}",
-                            DeconvBNReLU(num_filters[i], f, int(s)))
+                            DeconvBNReLU(num_filters[i], f, int(s), dtype))
         widths = list(num_upsample_filters[:self.n_deblocks]) + list(
             num_filters[self.n_deblocks:])
         self.out_channels = sum(widths) if len(widths) > 1 else widths[0]

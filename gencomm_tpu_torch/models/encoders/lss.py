@@ -13,8 +13,10 @@ dense path (``depth_topk == 0``) with all D bins as K = D. The
 ``splat_impl`` key of the JAX package, which chooses between its
 ``segment_sum`` and its kernel, is accepted and ignored. ``splat_bf16``
 follows the kernel's contract (bf16 product rows, fp32 sum; see
-``ops/splat.py``). The ``efficientnet-b0`` and ``resnet101`` trunks and
-bf16 trunk activations are not ported yet and raise.
+``ops/splat.py``). ``trunk_bf16`` runs the image trunk and its two 1x1
+heads in bf16 (the images cast at entry) and casts the heads' outputs back
+to fp32, so the splat gets fp32 depths and features. The
+``efficientnet-b0`` and ``resnet101`` trunks are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -52,12 +54,12 @@ def bin_depth_indices(depth_map: torch.Tensor, mode: str, d_min: float,
 
 
 class ResBlock(nn.Module):
-    def __init__(self, in_ch: int, ch: int, stride: int = 1):
+    def __init__(self, in_ch: int, ch: int, stride: int = 1, dtype=None):
         super().__init__()
-        self.ConvBNReLU_0 = ConvBNReLU(in_ch, ch, 3, stride)
-        self.Conv_0 = Conv(ch, ch, 3, bias=False)
-        self.BatchNorm_0 = BatchNorm(ch)
-        self.Conv_1 = (Conv(in_ch, ch, 1, stride, bias=False)
+        self.ConvBNReLU_0 = ConvBNReLU(in_ch, ch, 3, stride, dtype=dtype)
+        self.Conv_0 = Conv(ch, ch, 3, bias=False, dtype=dtype)
+        self.BatchNorm_0 = BatchNorm(ch, dtype=dtype)
+        self.Conv_1 = (Conv(in_ch, ch, 1, stride, bias=False, dtype=dtype)
                        if in_ch != ch or stride != 1 else None)
 
     def forward(self, x):
@@ -72,7 +74,8 @@ class CamEncoder(nn.Module):
     (N, fH, fW, C), depth logits) at stride 8. The patchify trunk: a 4x4
     stride-4 stem, ``trunk_blocks`` residual blocks at 128 channels,
     ``trunk_blocks`` at 256 (the first with stride 2) and a 3x3 conv to 512
-    channels; two 1x1 heads."""
+    channels; two 1x1 heads. ``bf16``: the trunk and the heads in bf16,
+    their outputs cast back to fp32."""
 
     def __init__(self, depth_bins: int, feat_ch: int, trunk_blocks: int = 2,
                  downsample: int = 8, bf16: bool = False, trunk: str = "tpu"):
@@ -82,32 +85,33 @@ class CamEncoder(nn.Module):
                 f"img_trunk {trunk!r} is not ported yet; ported: 'tpu'")
         if trunk != "tpu":
             raise ValueError(f"unknown img_trunk {trunk!r}")
-        if bf16:
-            raise NotImplementedError(
-                "bf16 trunk activations (trunk_bf16) are not ported yet")
         if downsample != 8:
             raise ValueError("the tpu patchify trunk is stride-8 only; got "
                              f"img_downsample={downsample}")
-        self.ConvBNReLU_0 = ConvBNReLU(3, 64, kernel=4, stride=4)
+        dt = torch.bfloat16 if bf16 else None
+        self.dtype = dt
+        self.ConvBNReLU_0 = ConvBNReLU(3, 64, kernel=4, stride=4, dtype=dt)
         chans = [(64, 128, 1)] + [(128, 128, 1)] * (trunk_blocks - 1)
         chans += [(128, 256, 2)] + [(256, 256, 1)] * (trunk_blocks - 1)
         for i, (cin, cout, stride) in enumerate(chans):
-            self.add_module(f"ResBlock_{i}", ResBlock(cin, cout, stride))
+            self.add_module(f"ResBlock_{i}", ResBlock(cin, cout, stride, dt))
         self.num_blocks = len(chans)
-        self.ConvBNReLU_1 = ConvBNReLU(256, 512, kernel=3)
-        self.depth_head = Conv(512, depth_bins, 1)
-        self.image_head = Conv(512, feat_ch, 1)
+        self.ConvBNReLU_1 = ConvBNReLU(256, 512, kernel=3, dtype=dt)
+        self.depth_head = Conv(512, depth_bins, 1, dtype=dt)
+        self.image_head = Conv(512, feat_ch, 1, dtype=dt)
 
     def forward(self, imgs):
+        if self.dtype is not None:
+            imgs = imgs.to(self.dtype)
         x = self.ConvBNReLU_0(imgs)
         for i in range(self.num_blocks):
             x = getattr(self, f"ResBlock_{i}")(x)
         x = self.ConvBNReLU_1(x)
-        depth_logits = self.depth_head(x)
+        depth_logits = self.depth_head(x).float()
         # depth and features stay factored; the categorical-depth outer
         # product is only formed, sparsely, inside the splat
-        return torch.softmax(depth_logits, dim=-1), self.image_head(x), \
-            depth_logits
+        return torch.softmax(depth_logits, dim=-1), \
+            self.image_head(x).float(), depth_logits
 
 
 class LSSEncoder(nn.Module):

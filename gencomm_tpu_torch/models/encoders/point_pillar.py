@@ -4,8 +4,10 @@ Counterpart of ``gencomm_tpu/models/encoders/point_pillar.py``
 (``PFNLayer``, ``MaskedBatchNorm``, ``_from_decorated``): the 10-dim
 decorated points go through the PFN (Linear without bias, masked batch
 norm, ReLU), are masked and cast to bf16, and kernel K2 builds the
-per-agent canvas (K2b its gradient in training). The raw-point and
-voxel-list paths are not ported.
+per-agent canvas (K2b its gradient in training). With ``dtype=bfloat16``
+(``half``) the PFN's Linear runs in bf16 and its norm in fp32, returning
+bf16; the canvas is bf16 either way. The raw-point and voxel-list paths are
+not ported.
 """
 
 from __future__ import annotations
@@ -24,8 +26,9 @@ class MaskedBatchNorm(nn.Module):
     rsqrt(var + eps) * scale + bias. At eval it reads the running
     statistics. In training the statistics are taken over the valid rows
     only, the variance in two passes, ((x - mean)^2 * valid).sum() / n with
-    n = max(#valid, 1), and update the running statistics. Built in eval
-    mode, like ``BatchNorm``."""
+    n = max(#valid, 1), and update the running statistics. The statistics
+    and the normalization run in fp32; the result has the input's type.
+    Built in eval mode, like ``BatchNorm``."""
 
     def __init__(self, num_features: int, eps: float = 1e-3):
         super().__init__()
@@ -37,6 +40,7 @@ class MaskedBatchNorm(nn.Module):
         self.eval()
 
     def forward(self, x, valid):
+        in_dtype, x = x.dtype, x.float()
         if self.training:
             vf = valid.to(x.dtype)[:, None]
             n = vf.sum().clamp_min(1.0)
@@ -46,13 +50,14 @@ class MaskedBatchNorm(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         y = (x - mean) * torch.rsqrt(var + self.eps)
-        return y * self.weight + self.bias
+        return (y * self.weight + self.bias).to(in_dtype)
 
 
 class PFNLayer(nn.Module):
-    def __init__(self, in_ch: int, features: int, use_norm: bool = True):
+    def __init__(self, in_ch: int, features: int, use_norm: bool = True,
+                 dtype=None):
         super().__init__()
-        self.Dense_0 = Dense(in_ch, features, bias=not use_norm)
+        self.Dense_0 = Dense(in_ch, features, bias=not use_norm, dtype=dtype)
         self.MaskedBatchNorm_0 = MaskedBatchNorm(features) if use_norm else None
 
     def forward(self, x, valid):
@@ -65,13 +70,14 @@ class PFNLayer(nn.Module):
 class PointPillarEncoder(nn.Module):
     def __init__(self, voxel_size: Tuple[float, float, float],
                  lidar_range: Tuple[float, ...], num_filters: Sequence[int] = (64,),
-                 use_norm: bool = True):
+                 use_norm: bool = True, dtype=None):
         super().__init__()
         self.nx = int(round((lidar_range[3] - lidar_range[0]) / voxel_size[0]))
         self.ny = int(round((lidar_range[4] - lidar_range[1]) / voxel_size[1]))
         in_ch = 10
         for i, f in enumerate(num_filters):
-            self.add_module(f"PFNLayer_{i}", PFNLayer(in_ch, f, use_norm))
+            self.add_module(f"PFNLayer_{i}", PFNLayer(in_ch, f, use_norm,
+                                                      dtype))
             in_ch = f
         self.out_channels = in_ch
 

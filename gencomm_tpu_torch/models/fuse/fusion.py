@@ -5,6 +5,11 @@ Counterpart of ``gencomm_tpu/models/fuse/fusion.py`` (``warp_to_ego``,
 K3 (its gradient by K3b), then a per-pixel scaled-dot attention with the
 ego as the only query, masked at -1e9 for empty slots. The other fusions
 are not ported.
+
+On a bf16 feature (``half``) the warp and the scores' einsum run in bf16;
+the scaling, the softmax over agents and the weighted sum run in fp32 and
+the fused map is fp32, as in the JAX package, where ``np.sqrt(c)`` is a
+float32 numpy scalar that promotes the bf16 scores.
 """
 
 from __future__ import annotations
@@ -33,11 +38,11 @@ class AttFusion(nn.Module):
         w = warp_to_ego(x, affine)
         c = w.shape[-1]
         q = w[:, 0]
-        scores = torch.einsum("bhwc,blhwc->blhw", q, w) / math.sqrt(c)
+        scores = torch.einsum("bhwc,blhwc->blhw", q, w).float() / math.sqrt(c)
         scores = torch.where(agent_mask[:, :, None, None], scores,
                              torch.full_like(scores, _NEG))
         attn = torch.softmax(scores, dim=1)
-        return torch.einsum("blhw,blhwc->bhwc", attn, w)
+        return torch.einsum("blhw,blhwc->bhwc", attn, w.float())
 
 
 def build_fusion(method: str) -> nn.Module:

@@ -6,7 +6,11 @@ beta schedule, x0 parameterization, chain x_{T-1} = q_sample(ego) -> T-1
 reverse steps with posterior noise -> the last step returns the model
 output. The noise is an input: ``noises`` lists the q_sample draw and then
 one draw per reverse step, t = T-1 .. 1 (the order of the JAX draws);
-without it, the draws come from ``generator``.
+without it, the draws come from ``generator``. With ``dtype`` (bf16 under
+``half``) the ego feature, the condition and each fp32 noise draw are cast
+to it and the chain runs in it; the schedule's coefficients are Python
+floats, which do not promote a bf16 tensor and, as JAX's weakly typed
+scalars are, are rounded to bf16 first.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import torch
 from torch import nn
 
 from gencomm_tpu_torch.models.gencomm.unet import DiffusionUNet
+from gencomm_tpu_torch.models.layers import as_dtype
 
 
 def make_schedule(num_timesteps: int, linear_start: float = 5e-3,
@@ -36,6 +41,8 @@ def make_schedule(num_timesteps: int, linear_start: float = 5e-3,
         "posterior_mean_coef2": (1.0 - ac_prev) * np.sqrt(alphas) / (1.0 - ac),
         "posterior_log_variance_clipped": np.log(
             np.maximum(posterior_variance, 1e-20)),
+        "posterior_std": np.exp(0.5 * np.log(
+            np.maximum(posterior_variance, 1e-20))),
     }
 
 
@@ -44,14 +51,16 @@ class GenCommDiffusion(nn.Module):
                  num_timesteps: int = 3, unet_ch: int = 8,
                  unet_ch_mult: Sequence[int] = (1, 1),
                  unet_num_res_blocks: int = 2,
-                 unet_attn_resolutions: Sequence[int] = (16,)):
+                 unet_attn_resolutions: Sequence[int] = (16,), dtype=None):
         super().__init__()
-        self.num_timesteps = num_timesteps
+        self.num_timesteps, self.dtype = num_timesteps, dtype
         self.denoiser = DiffusionUNet(
             in_ch=feat_ch + msg_ch, out_ch=feat_ch, ch=unet_ch,
             ch_mult=unet_ch_mult, num_res_blocks=unet_num_res_blocks,
-            attn_resolutions=unet_attn_resolutions)
-        self._sched = make_schedule(num_timesteps)
+            attn_resolutions=unet_attn_resolutions, dtype=dtype)
+        # the coefficients as the chain applies them (rounded to ``dtype``)
+        self._sched = {k: [as_dtype(float(v), dtype) for v in vals]
+                       for k, vals in make_schedule(num_timesteps).items()}
 
     def forward(self, ego_feature, conditions, noises=None, generator=None):
         """ego_feature (N, H, W, C): each slot's ego feature; conditions
@@ -67,8 +76,12 @@ class GenCommDiffusion(nn.Module):
         if len(noises) != self.num_timesteps:
             raise ValueError(f"expected {self.num_timesteps} noise tensors, "
                              f"got {len(noises)}")
-        x = (float(s["sqrt_alphas_cumprod"][t_max]) * ego_feature
-             + float(s["sqrt_one_minus_alphas_cumprod"][t_max]) * noises[0])
+        if self.dtype is not None:
+            ego_feature = ego_feature.to(self.dtype)
+            conditions = conditions.to(self.dtype)
+            noises = [z.to(self.dtype) for z in noises]
+        x = (s["sqrt_alphas_cumprod"][t_max] * ego_feature
+             + s["sqrt_one_minus_alphas_cumprod"][t_max] * noises[0])
         for step, t in enumerate(range(t_max, -1, -1)):
             t_vec = torch.full((n,), t, dtype=torch.int32,
                                device=ego_feature.device)
@@ -76,8 +89,7 @@ class GenCommDiffusion(nn.Module):
             if t == 0:
                 x = model_out
             else:
-                mean = (float(s["posterior_mean_coef1"][t]) * model_out
-                        + float(s["posterior_mean_coef2"][t]) * x)
-                x = mean + float(np.exp(
-                    0.5 * s["posterior_log_variance_clipped"][t])) * noises[step + 1]
+                mean = (s["posterior_mean_coef1"][t] * model_out
+                        + s["posterior_mean_coef2"][t] * x)
+                x = mean + s["posterior_std"][t] * noises[step + 1]
         return x

@@ -2,7 +2,11 @@
 
 Counterpart of ``gencomm_tpu/models/gencomm/message_extractor.py``: offset
 conv to 18 channels ((dy, dx) per tap), offsets clamped to ±4 px, kernel K1,
-bias, SE channel gate, 1x1 fuse to ``out_ch`` channels. NHWC.
+bias, SE channel gate, 1x1 fuse to ``out_ch`` channels. NHWC. Like the JAX
+module it has no ``dtype``: on a bf16 feature (``half``) the offset conv
+promotes to fp32, K1 takes the bf16 map and returns bf16 (its bf16
+instantiation on the card), and the bias, the SE gate and the fuse convs
+promote again, so the message is fp32.
 """
 
 from __future__ import annotations

@@ -3,13 +3,25 @@
 Counterpart of ``gencomm_tpu/models/heter_baseline.py`` (``ModalityBranch``,
 ``HeterModel.__call__``) restricted to: host-decorated point_pillar and
 lift_splat_shoot camera modalities, ``use_gencomm`` (message extractor +
-conditional DDPM), ``use_enhancer`` and ``att`` fusion, fp32 activations.
-The model is built in ``eval()``; under ``train()`` only the batch norms
-change (batch statistics, running averages updated), as in stage 1 of the
-JAX model, whose other train-time branches are off there. Every other branch raises
-``NotImplementedError``. Inputs are padded ``(B, L, ...)`` tensors with
-masks, agent slot 0 the ego; submodule names follow the flax auto-names so
-``weights.py`` can carry JAX parameters across.
+conditional DDPM), ``use_enhancer`` and ``att`` fusion, with fp32
+activations or, with ``half=True``, bf16 ones at eval. The model is built in
+``eval()``; under ``train()`` only the batch norms change (batch
+statistics, running averages updated), as in stage 1 of the JAX model,
+whose other train-time branches are off there. Every other branch raises
+``NotImplementedError``.
+
+``half`` (``gencomm_tpu/models/heter_baseline.py:51-52, 70-75, 286, 517,
+541, 547, 562``): parameters stay fp32, so one ``state_dict`` serves both
+graphs. Each modality's PFN, neck and shrinker run in bf16 (a camera
+encoder also takes ``trunk_bf16`` and ``splat_bf16`` unless its arguments
+set them), the feature leaves the branch in bf16 and stays so through the
+message extractor's deformable conv (its other layers promote to fp32, as
+flax's do), generation and the Enhancer; the fusion returns fp32 and the
+heads run in fp32. bf16 training is not ported: ``train()`` raises.
+
+Inputs are padded ``(B, L, ...)`` tensors with masks, agent slot 0 the ego;
+submodule names follow the flax auto-names so ``weights.py`` can carry JAX
+parameters across.
 """
 
 from __future__ import annotations
@@ -40,9 +52,10 @@ class ModalityBranch(nn.Module):
 
     def __init__(self, encoder_args: Dict[str, Any],
                  backbone_args: Dict[str, Any], shrink_args: Dict[str, Any],
-                 core_method: str = "point_pillar"):
+                 core_method: str = "point_pillar", dtype=None):
         super().__init__()
-        self.core_method = core_method
+        self.core_method, self.dtype = core_method, dtype
+        half = dtype == torch.bfloat16
         if core_method == "lift_splat_shoot":
             self.encoder = LSSEncoder(
                 grid_conf=encoder_args["grid_conf"],
@@ -52,14 +65,15 @@ class ModalityBranch(nn.Module):
                 trunk_blocks=encoder_args.get("trunk_blocks", 2),
                 trunk=encoder_args.get("img_trunk", "tpu"),
                 depth_topk=encoder_args.get("depth_topk", 0),
-                trunk_bf16=encoder_args.get("trunk_bf16", False),
-                splat_bf16=encoder_args.get("splat_bf16", False))
+                trunk_bf16=encoder_args.get("trunk_bf16", half),
+                splat_bf16=encoder_args.get("splat_bf16", half))
         elif core_method == "point_pillar":
             self.encoder = PointPillarEncoder(
                 voxel_size=tuple(encoder_args["voxel_size"]),
                 lidar_range=tuple(encoder_args["lidar_range"]),
                 num_filters=tuple(encoder_args["pillar_vfe"]["num_filters"]),
-                use_norm=encoder_args["pillar_vfe"].get("use_norm", True))
+                use_norm=encoder_args["pillar_vfe"].get("use_norm", True),
+                dtype=dtype)
         else:
             raise NotImplementedError(
                 f"encoder {core_method!r} is not ported yet")
@@ -69,10 +83,12 @@ class ModalityBranch(nn.Module):
             layer_strides=backbone_args["layer_strides"],
             num_filters=backbone_args["num_filters"],
             upsample_strides=backbone_args.get("upsample_strides", ()),
-            num_upsample_filters=backbone_args.get("num_upsample_filter", ()))
+            num_upsample_filters=backbone_args.get("num_upsample_filter", ()),
+            dtype=dtype)
         self.shrinker = DownsampleConv(
             self.backbone.out_channels, dims=shrink_args["dim"],
-            kernels=shrink_args["kernal_size"], strides=shrink_args["stride"])
+            kernels=shrink_args["kernal_size"], strides=shrink_args["stride"],
+            dtype=dtype)
         self.out_channels = shrink_args["dim"][-1]
 
     def forward(self, inputs: Dict[str, torch.Tensor]):
@@ -85,9 +101,11 @@ class ModalityBranch(nn.Module):
             canvas = self.encoder(inputs["decorated"], inputs["gids"],
                                   inputs["dvalid"])  # (B, L, ny, nx, C) bf16
         b, l = canvas.shape[:2]
-        # the neck runs in fp32 on the bf16 canvas values, as flax promotes
+        flat = canvas.reshape((b * l,) + canvas.shape[2:])
+        # in fp32 the neck runs on the bf16 canvas values, as flax promotes;
+        # under half its first conv casts a camera's fp32 canvas to bf16
         feat = self.shrinker(self.backbone(
-            canvas.reshape((b * l,) + canvas.shape[2:]).float()))
+            flat.float() if self.dtype is None else flat))
         return feat.reshape((b, l) + feat.shape[1:]), depth_logits
 
 
@@ -104,14 +122,13 @@ class HeterModel(nn.Module):
                  unet_num_res_blocks: int = 2, half: bool = False,
                  device=None):
         super().__init__()
-        if half:
-            raise NotImplementedError("bf16 activations (half=True) are not "
-                                      "ported yet")
         if num_class != 1:
             raise NotImplementedError("multi-class heads are not ported yet")
         if use_enhancer and not use_gencomm:
             raise NotImplementedError("the Enhancer runs only after GenComm")
         device = resolve_device(device)
+        self.bf16 = half
+        dtype = torch.bfloat16 if half else None
         self.lidar_range = tuple(lidar_range)
         self.use_gencomm, self.use_enhancer = use_gencomm, use_enhancer
         self.message_ch = message_ch
@@ -126,7 +143,8 @@ class HeterModel(nn.Module):
         for mname, margs in modality_args.items():
             branch = ModalityBranch(margs["encoder_args"], margs["backbone_args"],
                                     margs["shrink_header"],
-                                    margs.get("core_method", "point_pillar"))
+                                    margs.get("core_method", "point_pillar"),
+                                    dtype)
             self.add_module(f"branch_{mname}", branch)
             feat_ch = branch.out_channels
             if use_gencomm:
@@ -137,13 +155,21 @@ class HeterModel(nn.Module):
                 feat_ch=feat_ch, msg_ch=message_ch,
                 num_timesteps=gencomm_timesteps, unet_ch=unet_ch,
                 unet_ch_mult=unet_ch_mult,
-                unet_num_res_blocks=unet_num_res_blocks)
+                unet_num_res_blocks=unet_num_res_blocks, dtype=dtype)
         if use_enhancer:
-            self.enhancer = Enhancer(feat_ch, use_attn=enhancer_use_attn)
+            self.enhancer = Enhancer(feat_ch, use_attn=enhancer_use_attn,
+                                     dtype=dtype)
         self.fusion_net = build_fusion(fusion_method)
         self.heads = DetectionHeads(feat_ch, anchor_number, dir_bins)
         self.eval()
         self.to(device)
+
+    def train(self, mode: bool = True):
+        if mode and getattr(self, "bf16", False):
+            raise NotImplementedError(
+                "bf16 training (half=True) is not ported; build the model "
+                "with half=False to train it")
+        return super().train(mode)
 
     @property
     def device(self) -> torch.device:

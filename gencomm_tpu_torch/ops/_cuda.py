@@ -24,13 +24,20 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# C entry points: name -> (argument types); every entry returns cudaError_t
+# C entry points: name -> (symbol, argument types[, source]); the source is
+# csrc/<source>.cu, by default csrc/<name>.cu; every entry returns
+# cudaError_t
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "deform_conv": ("deform_conv3x3_f32",
                     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "deform_conv_bf16": ("deform_conv3x3_bf16",
+                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+                         "deform_conv"),
     "pillar_canvas": ("pillar_canvas_bf16", [_P, _P, _P, _L, _L, _I, _I, _I, _P]),
     "warp_affine": ("warp_affine_f32", [_P, _P, _P, _I, _I, _I, _I, _P]),
+    "warp_affine_bf16": ("warp_affine_bf16", [_P, _P, _P, _I, _I, _I, _I, _P],
+                         "warp_affine"),
     "deform_conv_bwd": ("deform_conv3x3_bwd_f32",
                         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _I, _P]),
@@ -46,7 +53,8 @@ SIGNATURES = {
 _loaded: dict = {}
 build_log: dict = {}  # name -> nvcc's output (ptxas register/smem report)
 # kernel launches per wrapper, counted where each wrapper launches its kernel
-LAUNCHES = {"deform_conv3x3": 0, "pillar_canvas": 0, "warp_affine": 0,
+LAUNCHES = {"deform_conv3x3": 0, "deform_conv3x3_bf16": 0,
+            "pillar_canvas": 0, "warp_affine": 0, "warp_affine_bf16": 0,
             "deform_conv3x3_bwd": 0, "pillar_canvas_bwd": 0,
             "warp_affine_bwd": 0, "splat_topk": 0, "splat_topk_bwd": 0}
 
@@ -59,9 +67,15 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def _paths(name: str):
-    return (os.path.join(CSRC_DIR, f"{name}.cu"),
-            os.path.join(BUILD_DIR, f"lib{name}.so"))
+def source(name: str) -> str:
+    """The source (``csrc/<source>.cu``) that holds entry ``name``."""
+    sig = SIGNATURES[name]
+    return sig[2] if len(sig) > 2 else name
+
+
+def _paths(src: str):
+    return (os.path.join(CSRC_DIR, f"{src}.cu"),
+            os.path.join(BUILD_DIR, f"lib{src}.so"))
 
 
 def _stale(name: str) -> bool:
@@ -75,9 +89,11 @@ def _stale(name: str) -> bool:
 
 
 def build_all(names=None) -> float:
-    """Compile the named sources (default: all) in parallel; returns the
-    wall seconds taken. Raises with nvcc's output if any build fails."""
-    names = [n for n in (names or SIGNATURES) if _stale(n)]
+    """Compile the sources of the named entries (default: all) in parallel,
+    one nvcc a source; returns the wall seconds taken. Raises with nvcc's
+    output if any build fails."""
+    names = [n for n in dict.fromkeys(source(e) for e in (names or SIGNATURES))
+             if _stale(n)]
     t0 = time.perf_counter()
     if not names:
         return 0.0
@@ -109,8 +125,8 @@ def library(name: str):
     fn = _loaded.get(name)
     if fn is None:
         build_all([name])
-        lib = ctypes.CDLL(_paths(name)[1])
-        sym, argtypes = SIGNATURES[name]
+        lib = ctypes.CDLL(_paths(source(name))[1])
+        sym, argtypes = SIGNATURES[name][:2]
         fn = getattr(lib, sym)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -129,12 +145,14 @@ def launch(name: str, *args) -> None:
 
 
 def check_cuda_tensor(t: torch.Tensor, name: str, dtype, shape=None) -> None:
-    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` (and
-    ``shape`` where given)."""
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` (or of
+    one of the types of a tuple ``dtype``; and ``shape`` where given)."""
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name} must be {' or '.join(map(str, dtypes))}, "
+                         f"got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if shape is not None and tuple(t.shape) != tuple(shape):

@@ -18,6 +18,14 @@ model of the repo), runs the contractions on the tensor cores as 3xTF32 (an
 error-compensated split that keeps fp32-level results); ``"general"`` takes
 any other channel counts with fp32 FMAs. Neither gives way to the plain
 version: a CUDA tensor reaches a kernel or the call raises.
+
+The forward also takes a bf16 ``x`` (``half``), as the TPU kernel does
+(``deform_pallas.py:88``: the output in x's type): offsets and weight stay
+fp32, the samples and the contraction are fp32, and the output is rounded
+once to bf16. On the card that is a second instantiation of K1 (C entry
+``deform_conv3x3_bf16``, launches counted under ``deform_conv3x3_bf16``);
+the backward takes fp32 only, and a backward through a bf16 forward raises
+(bf16 training is not ported).
 """
 
 from __future__ import annotations
@@ -31,7 +39,12 @@ ROUTES = {"general": 0, "mma": 1}  # the `route` argument of the C entry points
 # launches by route, counted where the wrappers launch: which route a path took
 ROUTE_LAUNCHES = {"deform_conv3x3": {"general": 0, "mma": 0},
                   "deform_conv3x3_bwd": {"general": 0, "mma": 0}}
+# the same for the bf16 instantiation of K1, kept apart so that the fp32
+# counts keep their keys
+HALF_ROUTE_LAUNCHES = {"deform_conv3x3_bf16": {"general": 0, "mma": 0}}
 _MMA_CHANNELS, _MMA_COUT, _MMA_TILE = 32, 64, 64
+# the kernels' keys in ``_cuda.SIGNATURES`` by launch-count name
+_ENTRIES = {"deform_conv3x3": "deform_conv", "deform_conv3x3_bf16": "deform_conv_bf16"}
 # K1b's tensor-core route: a block takes one row of taps; blocks an SM
 _MMA_TAP_ROWS, _MMA_BLOCKS_PER_SM = 3, 3
 # general K1b, dweight: pixels each block of the weight pass reduces before
@@ -112,15 +125,17 @@ def _corners(x: torch.Tensor, y0, x0):
 def deform_conv3x3_plain(x: torch.Tensor, offsets: torch.Tensor,
                          weight: torch.Tensor) -> torch.Tensor:
     """x (B, H, W, Cin), offsets (B, H, W, 18), weight (3, 3, Cin, Cout) ->
-    (B, H, W, Cout): bilinear gathers of the 9 taps, then one matmul."""
+    (B, H, W, Cout) in x's type: bilinear gathers of the 9 taps, then one
+    matmul, both in fp32 (a bf16 x is widened, the output rounded once)."""
     b, h, w, cin = x.shape
     cout = weight.shape[-1]
     y0, x0, wy0, wy1, wx0, wx1 = _geometry(offsets, b, h, w)
-    flat = x.reshape(b * h * w, cin)
+    flat = x.reshape(b * h * w, cin).float()
     wts = (wy0 * wx0, wy0 * wx1, wy1 * wx0, wy1 * wx1)
     samples = sum(flat[idx] * (wt * inb)[..., None]
                   for (idx, inb), wt in zip(_corners(x, y0, x0), wts))
-    return samples.reshape(b, h, w, 9 * cin) @ weight.reshape(9 * cin, cout)
+    out = samples.reshape(b, h, w, 9 * cin) @ weight.reshape(9 * cin, cout)
+    return out.to(x.dtype)
 
 
 def deform_conv3x3_bwd_plain(x: torch.Tensor, offsets: torch.Tensor,
@@ -155,10 +170,10 @@ def deform_conv3x3_bwd_plain(x: torch.Tensor, offsets: torch.Tensor,
             dweight.reshape(3, 3, cin, cout))
 
 
-def _check_args(x, offsets, weight):
+def _check_args(x, offsets, weight, x_dtypes=(torch.float32,)):
     b, h, w, cin = x.shape
     cout = weight.shape[-1]
-    _cuda.check_cuda_tensor(x, "x", torch.float32)
+    _cuda.check_cuda_tensor(x, "x", x_dtypes)
     _cuda.check_cuda_tensor(offsets, "offsets", torch.float32, (b, h, w, 18))
     _cuda.check_cuda_tensor(weight, "weight", torch.float32, (3, 3, cin, cout))
     return b, h, w, cin, cout
@@ -167,17 +182,25 @@ def _check_args(x, offsets, weight):
 def deform_conv3x3_fwd(x: torch.Tensor, offsets: torch.Tensor,
                        weight: torch.Tensor) -> torch.Tensor:
     """The forward of ``deform_conv3x3`` without autograd: the plain version
-    for a CPU tensor, kernel K1 for a CUDA tensor."""
+    for a CPU tensor, kernel K1 for a CUDA tensor (its bf16 instantiation
+    for a bf16 ``x``)."""
     if not x.is_cuda:
         return deform_conv3x3_plain(x, offsets, weight)
-    b, h, w, cin, cout = _check_args(x, offsets, weight)
+    b, h, w, cin, cout = _check_args(x, offsets, weight,
+                                     (torch.float32, torch.bfloat16))
     route = kernel_route(cin, cout)
-    out = torch.empty(b, h, w, cout, dtype=torch.float32, device=x.device)
-    _cuda.launch("deform_conv", x.data_ptr(), offsets.data_ptr(),
+    if route == "mma" and x.data_ptr() % 16:
+        raise ValueError("x must be 16-byte aligned: the tensor-core route "
+                         "reads it by 16-byte vectors")
+    name = ("deform_conv3x3_bf16" if x.dtype == torch.bfloat16
+            else "deform_conv3x3")
+    out = torch.empty(b, h, w, cout, dtype=x.dtype, device=x.device)
+    _cuda.launch(_ENTRIES[name], x.data_ptr(), offsets.data_ptr(),
                  weight.data_ptr(), out.data_ptr(), b, h, w, cin, cout,
                  ROUTES[route])
-    _cuda.LAUNCHES["deform_conv3x3"] += 1
-    ROUTE_LAUNCHES["deform_conv3x3"][route] += 1
+    _cuda.LAUNCHES[name] += 1
+    (HALF_ROUTE_LAUNCHES if name in HALF_ROUTE_LAUNCHES
+     else ROUTE_LAUNCHES)[name][route] += 1
     return out
 
 
@@ -214,15 +237,19 @@ class _DeformConv3x3(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, offsets, weight = ctx.saved_tensors
+        if x.dtype != torch.float32:
+            raise NotImplementedError(
+                "bf16 training (half=True) is not ported: the deformable "
+                "conv's backward takes fp32 only")
         return deform_conv3x3_bwd(x, offsets, weight, g.contiguous())
 
 
 def deform_conv3x3(x: torch.Tensor, offsets: torch.Tensor,
                    weight: torch.Tensor) -> torch.Tensor:
-    """Deformable 3x3 conv without bias. x (B, H, W, Cin) fp32, offsets
-    (B, H, W, 18) fp32, weight (3, 3, Cin, Cout) fp32 -> (B, H, W, Cout).
-    A CPU tensor takes the plain versions; a CUDA tensor launches K1 and,
-    in the backward, K1b."""
+    """Deformable 3x3 conv without bias. x (B, H, W, Cin) fp32 or bf16,
+    offsets (B, H, W, 18) fp32, weight (3, 3, Cin, Cout) fp32 -> (B, H, W,
+    Cout) in x's type. A CPU tensor takes the plain versions; a CUDA tensor
+    launches K1 and, in the backward (fp32 only), K1b."""
     return _DeformConv3x3.apply(x, offsets, weight)
 
 

@@ -8,6 +8,15 @@ in torch ``affine_grid`` convention (align_corners=False), NHWC, output
 H x W equal to the input's. The backward scatters each output cotangent
 into the four source corners with their bilinear weights; theta gets no
 gradient (it comes from poses), and a theta that requires one is refused.
+
+The forward also takes a bf16 ``src`` (``half``), with the TPU kernel's
+contract (``warp_pallas.py:71-82``): the same fp32 coordinates, the lerp in
+fp32, the output rounded once to bf16. On the card that is a second
+instantiation of K3 (C entry ``warp_affine_bf16``, launches counted under
+``warp_affine_bf16``). The JAX main path's bf16 gather (``ops/warp.py``)
+rounds its lerp weights and products to bf16 instead. The backward takes
+fp32 only; a backward through a bf16 forward raises (bf16 training is not
+ported).
 """
 
 from __future__ import annotations
@@ -93,12 +102,14 @@ def _source_window(theta: torch.Tensor, h: int, w: int):
 
 
 def warp_affine_plain(src: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
-    """src (N, H, W, C), theta (N, 2, 3) -> (N, H, W, C): the four-corner
-    gather."""
+    """src (N, H, W, C), theta (N, 2, 3) -> (N, H, W, C) in src's type: the
+    four-corner gather, blended in fp32 (a bf16 src is widened, the output
+    rounded once)."""
     n, h, w, c = src.shape
-    flat = src.reshape(n * h * w, c)
-    return sum(flat[idx] * (wgt * inb)[..., None].to(src.dtype)
-               for idx, inb, wgt in _corners(n, h, w, theta))
+    flat = src.reshape(n * h * w, c).float()
+    out = sum(flat[idx] * (wgt * inb)[..., None]
+              for idx, inb, wgt in _corners(n, h, w, theta))
+    return out.to(src.dtype)
 
 
 def warp_affine_bwd_plain(g: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
@@ -112,23 +123,27 @@ def warp_affine_bwd_plain(g: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
     return dflat.reshape(n, h, w, c)
 
 
-def _check_args(t, theta, name):
+def _check_args(t, theta, name, dtypes=(torch.float32,)):
     n = t.shape[0]
-    _cuda.check_cuda_tensor(t, name, torch.float32)
+    _cuda.check_cuda_tensor(t, name, dtypes)
     _cuda.check_cuda_tensor(theta, "theta", torch.float32, (n, 2, 3))
     return t.shape
 
 
 def warp_affine_fwd(src: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
     """The forward of ``warp_affine`` without autograd: the plain version
-    for a CPU tensor, kernel K3 for a CUDA tensor."""
+    for a CPU tensor, kernel K3 for a CUDA tensor (its bf16 instantiation
+    for a bf16 ``src``)."""
     if not src.is_cuda:
         return warp_affine_plain(src, theta)
-    n, h, w, c = _check_args(src, theta, "src")
+    n, h, w, c = _check_args(src, theta, "src",
+                             (torch.float32, torch.bfloat16))
+    name = ("warp_affine_bf16" if src.dtype == torch.bfloat16
+            else "warp_affine")
     out = torch.empty_like(src)
-    _cuda.launch("warp_affine", src.data_ptr(), theta.data_ptr(),
-                 out.data_ptr(), n, h, w, c)
-    _cuda.LAUNCHES["warp_affine"] += 1
+    _cuda.launch(name, src.data_ptr(), theta.data_ptr(), out.data_ptr(), n,
+                 h, w, c)
+    _cuda.LAUNCHES[name] += 1
     return out
 
 
@@ -154,14 +169,18 @@ class _WarpAffine(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (theta,) = ctx.saved_tensors
+        if g.dtype != torch.float32:
+            raise NotImplementedError(
+                "bf16 training (half=True) is not ported: the warp's "
+                "backward takes fp32 only")
         return warp_affine_bwd(g.contiguous(), theta), None
 
 
 def warp_affine(src: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
-    """Exact bilinear affine warp. src (N, H, W, C) fp32, theta (N, 2, 3)
-    fp32 -> (N, H, W, C). A CPU tensor takes the plain versions; a CUDA
-    tensor launches K3 and, in the backward, K3b. theta must not require a
-    gradient."""
+    """Exact bilinear affine warp. src (N, H, W, C) fp32 or bf16, theta
+    (N, 2, 3) fp32 -> (N, H, W, C) in src's type. A CPU tensor takes the
+    plain versions; a CUDA tensor launches K3 and, in the backward (fp32
+    only), K3b. theta must not require a gradient."""
     if theta.requires_grad and torch.is_grad_enabled():
         raise ValueError("warp_affine gives theta no gradient; pass a theta "
                          "that does not require one")

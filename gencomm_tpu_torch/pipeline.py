@@ -2,7 +2,8 @@
 
 Counterpart of ``gencomm_tpu/pipeline.py`` (``InferencePipeline`` in
 ``intermediate`` mode): the fused heads are decoded per sample on the
-device. Runs under ``torch.inference_mode()``.
+device. Runs under ``torch.inference_mode()``. A ``half`` model runs
+unchanged: its heads are fp32, so decode and NMS run in fp32 either way.
 """
 
 from __future__ import annotations

@@ -353,16 +353,25 @@ def test_unported_camera_options_raise():
             CamEncoder(8, 16, trunk=trunk)
     with pytest.raises(ValueError, match="unknown img_trunk"):
         CamEncoder(8, 16, trunk="vgg")
-    with pytest.raises(NotImplementedError, match="trunk_bf16"):
-        CamEncoder(8, 16, bf16=True)
+    # trunk_bf16 and half=True are ported: they build, and a half model
+    # refuses to train (bf16 training is not ported)
+    assert CamEncoder(8, 16, bf16=True).depth_head.dtype == torch.bfloat16
     with pytest.raises(ValueError, match="stride-8"):
         CamEncoder(8, 16, downsample=16)
-    with pytest.raises(NotImplementedError, match="half=True"):
-        HeterModel(**MODEL_KW, half=True, device="cpu")
+    half = HeterModel(**MODEL_KW, half=True, device="cpu")
+    enc = half.branch_m1.encoder
+    assert enc.cam_encode.dtype == torch.bfloat16 and enc.splat_bf16
+    with pytest.raises(NotImplementedError, match="bf16 training"):
+        half.train()
     for key, val in (("img_trunk", "resnet101"), ("trunk_bf16", True)):
         kw = dict(MODEL_KW, modality_args={"m1": dict(
             MODEL_KW["modality_args"]["m1"],
             encoder_args=dict(ENCODER_ARGS, **{key: val}))})
+        if key == "trunk_bf16":
+            enc = HeterModel(**kw, device="cpu").branch_m1.encoder
+            assert enc.cam_encode.dtype == torch.bfloat16
+            assert not enc.splat_bf16
+            continue
         with pytest.raises(NotImplementedError):
             HeterModel(**kw, device="cpu")
 

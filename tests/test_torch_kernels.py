@@ -25,9 +25,9 @@ import torch
 
 from gencomm_tpu_torch.ops._cuda import LAUNCHES
 from gencomm_tpu_torch.ops.deform_conv import (
-    MAX_OFFSET, ROUTE_LAUNCHES, backward_scratch, deform_conv3x3,
-    deform_conv3x3_bwd, deform_conv3x3_bwd_plain, deform_conv3x3_clamped,
-    deform_conv3x3_plain, kernel_route,
+    HALF_ROUTE_LAUNCHES, MAX_OFFSET, ROUTE_LAUNCHES, backward_scratch,
+    deform_conv3x3, deform_conv3x3_bwd, deform_conv3x3_bwd_plain,
+    deform_conv3x3_clamped, deform_conv3x3_plain, kernel_route,
 )
 from gencomm_tpu_torch.ops import pillar_canvas as pillar_canvas_ops
 from gencomm_tpu_torch.ops.pillar_canvas import (
@@ -263,6 +263,52 @@ def test_deform_kernel_matches_plain_at_path_shapes_on_card(cuda, shape):
            1e-4, "out")
 
 
+# K1's bf16 instantiation (half=True): the eval paths' maps, both routes
+DEFORM_BF16_CARD_SHAPES = [(2, 64, 128, 128, 64), (2, 64, 64, 128, 64),
+                           (1, 13, 21, 24, 10), (2, 20, 36, 40, 70)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", DEFORM_BF16_CARD_SHAPES)
+def test_deform_bf16_kernel_matches_plain_on_card(cuda, shape):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, h, w, cin, cout = shape
+    x, off, wt = (torch.from_numpy(a).to(cuda)
+                  for a in _deform_inputs(8, b, h, w, cin, cout, scale=3.0))
+    x, off = x.to(torch.bfloat16), off.clamp(-MAX_OFFSET, MAX_OFFSET)
+    route = kernel_route(cin, cout)
+    before = (LAUNCHES["deform_conv3x3_bf16"],
+              HALF_ROUTE_LAUNCHES["deform_conv3x3_bf16"][route])
+    got = deform_conv3x3(x, off, wt)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert (LAUNCHES["deform_conv3x3_bf16"],
+            HALF_ROUTE_LAUNCHES["deform_conv3x3_bf16"][route]) == (
+        before[0] + 1, before[1] + 1)
+    # the samples and the product are the fp32 kernel's on the widened
+    # map, rounded once: bit for bit
+    assert torch.equal(got, deform_conv3x3(x.float(), off, wt).to(
+        torch.bfloat16))
+    # against the plain version: fp32 sums in another order (1e-4), then
+    # one rounding each, which may land one bf16 step (2^-7 of the largest
+    # value) apart
+    want = deform_conv3x3_plain(x, off, wt).float().cpu().numpy()
+    _close(got.float().cpu().numpy(), want, 1e-4 + 2.0 ** -7, "out")
+
+
+@pytest.mark.cuda
+def test_deform_bf16_backward_is_refused_on_card(cuda):
+    x, off, wt = (torch.from_numpy(a).to(cuda)
+                  for a in _deform_inputs(9, 1, 8, 8, 32, 64))
+    g = torch.zeros(1, 8, 8, 64, device=cuda)
+    with pytest.raises(ValueError, match="x must be torch.float32"):
+        deform_conv3x3_bwd(x.to(torch.bfloat16), off, wt, g)
+    with pytest.raises(ValueError, match="g must be torch.float32"):
+        deform_conv3x3_bwd(x, off, wt, g.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="x must be torch.float32 or"):
+        deform_conv3x3(x.half(), off, wt)
+
+
 # ---------------------------------------------------------------- K2
 def _canvas_rows(seed, a=3, p=2000, c=64, ncell=64 * 64):
     """Decorator-like rows: sorted gids per agent, invalid rows (gid ncell,
@@ -457,6 +503,41 @@ def test_warp_kernel_matches_plain_on_card(cuda, c):
     np.testing.assert_allclose(got.cpu().numpy(),
                                warp_affine_plain(src, th).cpu().numpy(),
                                rtol=0, atol=tol)
+
+
+# K3's bf16 instantiation (half=True): the eval paths' maps, 8-channel
+# vectors and the scalar path
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 64, 128, 128), (2, 64, 64, 128),
+                                   (len(THETAS), 32, 48, 6)])
+def test_warp_bf16_kernel_matches_plain_on_card(cuda, shape):
+    n = shape[0]
+    src = torch.from_numpy(np.random.RandomState(shape[-1]).randn(
+        *shape).astype(np.float32)).to(cuda, torch.bfloat16)
+    th = torch.from_numpy(np.resize(THETAS, (n, 2, 3))).to(cuda)
+    before = LAUNCHES["warp_affine_bf16"]
+    got = warp_affine(src, th)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert LAUNCHES["warp_affine_bf16"] == before + 1
+    # the fp32 kernel's coordinate chain and blend on the widened map,
+    # rounded once: bit for bit
+    assert torch.equal(got, warp_affine(src.float(), th).to(torch.bfloat16))
+    # against the plain version: the fp32 tolerance of
+    # test_warp_kernel_matches_plain_on_card, then one rounding each (one
+    # bf16 step of the largest value)
+    scale = float(src.float().abs().max())
+    tol = 4.0 * max(shape[1:3]) * 2.0 ** -23 * scale + 2.0 ** -7 * scale
+    np.testing.assert_allclose(
+        got.float().cpu().numpy(),
+        warp_affine_plain(src, th).float().cpu().numpy(), rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+def test_warp_bf16_backward_is_refused_on_card(cuda):
+    g = torch.zeros(len(THETAS), 8, 8, 16, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="g must be torch.float32"):
+        warp_affine_bwd(g, torch.from_numpy(THETAS).to(cuda))
 
 
 # ---------------------------------------------------------------- backward
@@ -957,3 +1038,19 @@ def test_splat_kernel_refuses_what_it_does_not_take(cuda):
     dvals, feats, ids, g = (_t(a).to(cuda) for a in (dvals, feats, ids, g))
     with pytest.raises(ValueError, match="at most 128 channels"):
         splat_topk_bwd(dvals, feats, ids, g, s)
+
+
+def test_bf16_entries_live_in_the_fp32_sources():
+    import os
+    from gencomm_tpu_torch.ops import _cuda
+
+    # one source, one nvcc, one library per kernel: the bf16 entries are
+    # instantiations in their fp32 kernel's source
+    assert _cuda.source("deform_conv_bf16") == "deform_conv"
+    assert _cuda.source("warp_affine_bf16") == "warp_affine"
+    assert _cuda.source("warp_affine") == "warp_affine"
+    sources = {_cuda.source(n) for n in _cuda.SIGNATURES}
+    assert len(sources) == 8
+    for src in sources:
+        assert os.path.exists(os.path.join(_cuda.CSRC_DIR, f"{src}.cu")), src
+    assert {"deform_conv3x3_bf16", "warp_affine_bf16"} <= set(LAUNCHES)

@@ -184,8 +184,11 @@ def test_entry_points_need_a_device_without_cuda(monkeypatch):
 
 
 def test_unported_branches_raise():
-    with pytest.raises(NotImplementedError):
-        HeterModel(**MODEL_KW, half=True, device="cpu")
+    # half=True (bf16 eval) is ported; bf16 training is not
+    model = HeterModel(**MODEL_KW, half=True, device="cpu")
+    assert not model.training
+    with pytest.raises(NotImplementedError, match="bf16 training"):
+        model.train()
     with pytest.raises(NotImplementedError):
         HeterModel(**dict(MODEL_KW, fusion_method="max"), device="cpu")
     with pytest.raises(NotImplementedError):
