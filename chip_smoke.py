@@ -3,16 +3,18 @@
 
     python3 chip_smoke.py
 
-Builds the port's eight CUDA kernel sources from ``gencomm_tpu_torch/csrc``
-(ten entries: K1 and K3 also in bf16) with nvcc (sm_90a) into ``build/``, then drives the port's paths through its entry
-points (SyntheticScenes, trim_agent_slots, host decoration for lidar,
-HeterModel, InferencePipeline.run, train.trainer.make_train_step), fp32
-activations with TF32 off, random weights from a seed: the lidar flagship --
-GenComm stage 1, PointPillars on a 512 x 256 pillar grid, 2 agents, attentive
-fusion, 3-step diffusion, Enhancer, heads, decode and rotated NMS -- and the
-camera model of configs/opv2v/gencomm/stage1/m2_att.yaml at full width --
-Lift-Splat-Shoot, 4 cameras of 384 x 512 per agent, 48 depth bins, top-8, a
-256 x 256 BEV grid, the same neck, diffusion, fusion and heads.
+Builds the port's nine CUDA kernel sources from ``gencomm_tpu_torch/csrc``
+(eleven entries: K1 and K3 also in bf16; N1, the rotated NMS's keep-set)
+with nvcc (sm_90a) into ``build/``, then drives the port's paths through its
+entry points (SyntheticScenes, trim_agent_slots, host decoration for lidar,
+HeterModel, InferencePipeline.run and run_stream,
+train.trainer.make_train_step), fp32 activations with TF32 off, random
+weights from a seed: the lidar flagship -- GenComm stage 1, PointPillars on
+a 512 x 256 pillar grid, 2 agents, attentive fusion, 3-step diffusion,
+Enhancer, heads, decode and rotated NMS -- and the camera model of
+configs/opv2v/gencomm/stage1/m2_att.yaml at full width -- Lift-Splat-Shoot,
+4 cameras of 384 x 512 per agent, 48 depth bins, top-8, a 256 x 256 BEV
+grid, the same neck, diffusion, fusion and heads.
 
 The lidar and camera eval paths also run at bf16 (``half=True``, as bench.py
 builds the flagship): the same frames, weights and noise, with K1 and K3 on
@@ -28,9 +30,14 @@ Phases, each of which raises on failure:
   3. every path counted and timed, before the process's first
      torch.profiler session (a finished session left later launches slower,
      ROADMAP p1): lidar eval fp32 and bf16, lidar training, camera eval fp32
-     and bf16, camera training; each 1 warm-up + 10 frames or steps (CUDA
-     events) with every launch count set to 0 just before and read just
-     after (each of the path's kernels must be > 0): frames/s, detections,
+     and bf16, camera training. An eval path runs 1 warm-up + 30 frames
+     looped (InferencePipeline.run) and the same 30 frames and seeds
+     streamed (InferencePipeline.run_stream: one frame captured in a CUDA
+     graph, replayed per frame), each streamed frame bit for bit equal to
+     its looped frame; a training path 1 warm-up + 10 steps (CUDA events).
+     Every launch count is set to 0 just before a run and read just after
+     (each of the path's kernels must be > 0; a graph's kernels count as
+     captured launches x replays): frames/s looped and streamed, detections,
      finite outputs; for training the loss terms of every step, ms/step,
      steps/s, training frames/s and peak memory;
   4. the lidar eval path's checks: each kernel (K1 deformable conv, K2 pillar
@@ -47,8 +54,18 @@ Phases, each of which raises on failure:
      "library_device_ms"), which leaves out the host work between launches
      that the event time of a short kernel is made of; K2 and K3b log the
      profiler's split by launch (K3b: one kernel a call, no memset). Then a
-     3-frame device profile, and the same frame, weights and noise through
-     the port on the CPU (plain versions): cls/reg/dir must agree;
+     3-frame device profile, looped and streamed, and the same frame,
+     weights and noise through the port on the CPU (plain versions):
+     cls/reg/dir must agree. The late and no-fusion modes on the flagship
+     built with supervise_single (each mode's per-agent heads and
+     detections, card against CPU) and evaluate() in late mode (AP over 4
+     frames of 5 slots with the boxes on their anchors, card against CPU:
+     an AP at IoU 0.3 above 0 and the same APs). N1 (the NMS
+     keep-set) held bit for bit against its plain version (the host-synced
+     round loop) on the lidar frame's overlap matrix (K = 512), the late
+     unions (K = 1,024 and 2,560), random box sets and suppression chains K
+     boxes deep at K = 512, 1,024 and 2,560, and timed on each beside the
+     plain loop on the card and its bound;
   5. the lidar eval path at bf16: K1 and K3 on their bf16 instantiations
      (rows "deform_conv3x3_bf16", "warp_affine_bf16"; bound by the bf16
      tensor-core rate or the bytes) and K2 on the path's arguments, against
@@ -84,12 +101,15 @@ Phases, each of which raises on failure:
      K4 at the step's shapes, K1b, K3b and K4b (K4's backward) on the step's
      arguments, against their plain versions and timed; the profile, 4 steps
      on one batch, whose loss must fall; one step on the card and on the
-     CPU, held as in phase 6.
+     CPU, held as in phase 6;
+ 10. one run of ``python -m gencomm_tpu_torch.bench`` (the bf16 flagship,
+     looped and streamed, in its own process), its JSON line echoed.
 Each phase prints its wall time, and each profile the convolution operators
 by the shapes of their arguments. The last line is {"ok": true, "device":
 {...}}; before it come the card's nvidia-smi line and one JSON line with
 every kernel's numbers on the path that ran it first and, under
-"other_paths", on later paths' arguments where those differ.
+"other_paths", on later paths' arguments where those differ (N1's other
+inputs under "cases").
 Exits non-zero, printing no result, without a CUDA device.
 """
 
@@ -101,31 +121,20 @@ import subprocess
 import sys
 import time
 
+from gencomm_tpu_torch.bench import (
+    LIDAR_RANGE, POSTPROCESS, VOXEL, flagship_kwargs, scenes_config,
+)
+
 # fp32 peak outside the tensor cores, bf16 tensor-core peak and memory rate
 # of one H100 SXM (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
-LIDAR_RANGE = (-102.4, -51.2, -3.0, 102.4, 51.2, 1.0)
-VOXEL = (0.4, 0.4, 4.0)
-FLAGSHIP = dict(
-    modality_args={"m1": {
-        "encoder_args": {"voxel_size": list(VOXEL),
-                         "lidar_range": list(LIDAR_RANGE),
-                         "pillar_vfe": {"use_norm": True, "num_filters": [64]},
-                         "striped_scatter": True},
-        "backbone_args": {"layer_nums": [3, 5, 8], "layer_strides": [2, 2, 2],
-                          "num_filters": [64, 128, 256],
-                          "upsample_strides": [1, 2, 4],
-                          "num_upsample_filter": [128, 128, 128]},
-        "shrink_header": {"kernal_size": [3], "stride": [2], "padding": [1],
-                          "dim": [128], "input_dim": 384},
-    }},
-    fusion_method="att", lidar_range=LIDAR_RANGE, anchor_number=2,
-    use_gencomm=True, use_enhancer=True, half=False)
+# the flagship as the bench program builds it, at fp32
+FLAGSHIP = flagship_kwargs(half=False)
 FEATURE_SHAPE = (64, 128, 128)  # the fused map, H x W x C
-NMS_TOPK = 512
+NMS_TOPK = POSTPROCESS["nms_topk"]
 
 # the camera model: configs/opv2v/gencomm/stage1/m2_att.yaml:167-270
 CAMERA_RANGE = (-51.2, -51.2, -3.0, 51.2, 51.2, 1.0)
@@ -147,7 +156,12 @@ CAMERA = dict(
     fusion_method="att", lidar_range=CAMERA_RANGE, anchor_number=2,
     use_gencomm=True, use_enhancer=True, half=False)
 CAMERA_FEATURE_SHAPE = (64, 64, 128)
-TIMED_FRAMES = 10
+TIMED_FRAMES = 30  # eval frames, looped and streamed, after one warm-up
+# N1's sizes: nms_topk (intermediate and no-fusion modes) and the late
+# union over 2 and 5 agent slots
+NMS_KS = (512, 1024, 2560)
+EVAL_FRAMES = 4  # evaluate(): AP over these frames, card against CPU
+AP_TOL = 1e-6
 # bf16 eval (half=True): the card's bf16 run against its fp32 run keeps at
 # least TOP100_MIN of the fp32 top-100 cells (scripts/bf16_parity.py's
 # statistic). Two bf16 runs whose sums are taken in other orders (cuDNN on
@@ -437,10 +451,7 @@ def fill_launches(rows, launches, by_kernel, path):
 
 
 def postprocess_cfg(gt_range):
-    return {"gt_range": list(gt_range),
-            "target_args": {"score_threshold": 0.2}, "nms_thresh": 0.15,
-            "dir_args": {"dir_offset": 0.7853, "num_bins": 2},
-            "nms_topk": NMS_TOPK}
+    return dict(POSTPROCESS, gt_range=list(gt_range))
 
 
 def phase_done(label, t0):
@@ -1145,28 +1156,36 @@ def setup_eval(dev, model_kw, feature_shape, scenes, host, half=False,
 
 
 def time_eval(smi, cell, label, expected):
-    """An eval path counted and timed: every launch count to 0, then 1
-    warm-up + TIMED_FRAMES frames through InferencePipeline.run (CUDA
-    events), the counts read just after. Run before the process's first
-    profiler session (ROADMAP p1)."""
+    """An eval path counted and timed, looped and streamed, before the
+    process's first profiler session (ROADMAP p1). Looped: every launch
+    count to 0, then 1 warm-up + TIMED_FRAMES frames through
+    InferencePipeline.run (seeds 1..N, CUDA events), the counts read just
+    after. Streamed: the counts to 0 again, InferencePipeline.run_stream
+    over the same frames and seeds twice (the first call captures the frame
+    in a CUDA graph and replays it, the second is timed), the counts read
+    just after; a replay launches the captured kernels without counting
+    them, so the streamed path's launches are the graph's captured
+    launches x its replays. Every streamed frame must equal its looped
+    frame bit for bit."""
     import torch
     from gencomm_tpu_torch.ops import _cuda
 
     t_phase = time.perf_counter()
     reset_launch_counts()
-    dets = cell.pipe.run(cell.batch, seed=0)  # warm-up
+    cell.pipe.run(cell.batch, seed=0)  # warm-up
     torch.cuda.synchronize()
+    seeds = list(range(1, TIMED_FRAMES + 1))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for i in range(TIMED_FRAMES):
-        dets = cell.pipe.run(cell.batch, seed=i + 1)
+    looped = [cell.pipe.run(cell.batch, seed=s) for s in seeds]
     end.record()
     end.synchronize()
     cell.launches, cell.routes = dict(_cuda.LAUNCHES), route_counts()
     cell.ms = start.elapsed_time(end) / TIMED_FRAMES
+    dets = looped[-1]
     dtype = "bf16" if cell.half else "fp32"
-    log(f"{label} eval path ({dtype}): {1 + TIMED_FRAMES} frames, "
+    log(f"{label} eval path ({dtype}), looped: {1 + TIMED_FRAMES} frames, "
         f"{cell.ms:.3f} ms/frame, {1000.0 / cell.ms:.2f} frames/s (batch 1, "
         f"{cell.n} agents) on {smi}; {int(dets.valid.sum())} detections "
         f"kept in the last frame; launches {cell.launches}")
@@ -1179,6 +1198,40 @@ def time_eval(smi, cell, label, expected):
         if cell.launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  f"{label} {dtype} eval path")
+
+    cell.frames = {k: v.expand((TIMED_FRAMES,) + tuple(v.shape))
+                   for k, v in cell.batch.items()}
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    cell.pipe.run_stream(cell.frames, seeds)  # captures, then replays
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    start.record()
+    streamed = cell.pipe.run_stream(cell.frames, seeds)
+    end.record()
+    end.synchronize()
+    cell.stream_ms = start.elapsed_time(end) / TIMED_FRAMES
+    (graph,) = cell.pipe.graphs.values()
+    eager = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+    cell.stream_launches = {k: v * graph.replays
+                            for k, v in graph.launches.items()}
+    differ = [f for f in range(TIMED_FRAMES) if not all(
+        torch.equal(v[f], getattr(looped[f], name))
+        for name, v in streamed._asdict().items())]
+    log(f"{label} eval path ({dtype}), streamed: {TIMED_FRAMES} frames, "
+        f"{cell.stream_ms:.3f} ms/frame, {1000.0 / cell.stream_ms:.2f} "
+        f"frames/s ({cell.ms / cell.stream_ms:.2f}x the looped rate); the "
+        f"first call (warm-up, capture, {TIMED_FRAMES} replays) "
+        f"{capture_s:.2f} s; the graph holds {graph.launches} and was "
+        f"replayed {graph.replays} times: kernel launches {cell.stream_launches}"
+        f" (eager, warm-up and capture: {eager}); frames not bit-equal to "
+        f"the looped run: {differ}")
+    if differ:
+        raise AssertionError(f"streamed frames {differ} differ from looped")
+    for name in expected:
+        if cell.stream_launches.get(name, 0) <= 0:
+            raise AssertionError(f"kernel {name} is not in the {label} "
+                                 f"{dtype} graph")
     phase_done(f"{label} eval ({dtype}), timed", t_phase)
 
 
@@ -1203,6 +1256,12 @@ def check_eval(smi, cell, label, targets, check, fp32_cell=None):
     fill_launches(rows, cell.launches, cell.routes, f"{label} eval {dtype}")
     profile_device(lambda i: cell.pipe.run(cell.batch, seed=100 + i),
                    cell.ms, 3, "frame")
+    # the captured frame's replays, one frame a call, against the streamed
+    # frame time; then the graph and its memory pool go
+    profile_device(lambda i: cell.pipe.run_stream(
+        {k: v[:1] for k, v in cell.frames.items()}, [100 + i]),
+        cell.stream_ms, 3, "streamed frame")
+    cell.pipe.graphs.clear()
 
     with torch.inference_mode():
         out_dev = cell.model(cell.batch, noises=cell.noises_dev)
@@ -1396,6 +1455,254 @@ def check_train(cell, targets, check):
     return rows
 
 
+def nms_cases(dev):
+    """N1's inputs besides the paths': car-sized boxes at random (a few
+    overlaps a box, 10% invalid) and a suppression chain K boxes deep (box j
+    overlaps box j + 1 only), at each K of NMS_KS; {label: (overlap,
+    valid)}."""
+    import torch
+    from gencomm_tpu_torch.ops.nms import overlap_matrix
+    from gencomm_tpu_torch.utils.box_utils import boxes_to_corners_3d
+
+    gen = torch.Generator().manual_seed(8)
+    cases = {}
+    for k in NMS_KS:
+        side = 2.0 * k ** 0.5
+
+        def uniform(lo, hi):
+            return lo + (hi - lo) * torch.rand(k, generator=gen)
+
+        boxes = torch.stack([uniform(-side, side), uniform(-side, side),
+                             torch.full((k,), -1.0), torch.full((k,), 1.56),
+                             uniform(1.5, 2.0), uniform(3.5, 4.5),
+                             uniform(-math.pi, math.pi)], -1)
+        quads = boxes_to_corners_3d(boxes, "hwl")[:, :4, :2].to(dev)
+        cases[f"random K={k}"] = (overlap_matrix(quads, 0.15),
+                                  (torch.rand(k, generator=gen) > 0.1).to(dev))
+        chain = torch.zeros(k, k, dtype=torch.bool)
+        chain[torch.arange(k - 1), torch.arange(1, k)] = True
+        cases[f"chain K={k}"] = (chain.to(dev),
+                                 torch.ones(k, dtype=torch.bool, device=dev))
+    return cases
+
+
+def nms_bound(keep):
+    """(ms, "bytes"): N1's least bytes on these inputs, over the memory
+    rate: the upper part of each kept box's row (the rows greedy NMS must
+    read), the valid mask read and the keep mask written."""
+    import torch
+
+    k = keep.numel()
+    kept = torch.nonzero(keep.cpu()).flatten()
+    moved = int((k - 1 - kept).sum()) + 2 * k
+    return moved / PEAK_BYTES * 1e3, "bytes"
+
+
+def hold_nms(overlap, valid, label):
+    """N1 against its plain version (the host-synced round loop, on the
+    card): the keep masks must be equal, and two launches too. Returns
+    (mismatches, kept)."""
+    import torch
+    from gencomm_tpu_torch.ops.nms import nms_closure, nms_closure_plain
+
+    got = nms_closure(overlap, valid)
+    again = nms_closure(overlap, valid)
+    want = nms_closure_plain(overlap, valid)
+    torch.cuda.synchronize()
+    differ = int((got != want).sum())
+    log(f"N1 nms_closure ({label}): K {valid.numel()}, {int(valid.sum())} "
+        f"valid, {int(want.sum())} kept, keep-mask entries that differ from "
+        f"the plain version {differ}, two launches bit-equal "
+        f"{torch.equal(got, again)}")
+    if differ or not torch.equal(got, again):
+        raise AssertionError(f"N1 disagrees with its plain version ({label})")
+    return differ, got
+
+
+def check_nms(overlap, valid, where, cases):
+    """N1 held against its plain version on the path's own overlap matrix
+    (``where``) and on ``cases``, and timed on each: events, the profiler's
+    device time, the plain version's loop on the card (its host reads
+    included; no one PyTorch call computes the closure, so no library
+    yardstick) and the bound. Returns the row of the path's matrix, with the
+    other cases under ``cases``."""
+    from gencomm_tpu_torch.ops.nms import nms_closure, nms_closure_plain
+
+    def numbers(over, val, label):
+        differ, keep = hold_nms(over, val, label)
+        bound_ms, bound_by = nms_bound(keep)
+        return dict(
+            max_abs_err=differ, kept=int(keep.sum()), k=int(val.numel()),
+            ms=time_ms(lambda: nms_closure(over, val)),
+            device_ms=device_ms(lambda: nms_closure(over, val)),
+            plain_ms=time_ms(lambda: nms_closure_plain(over, val), iters=5,
+                             warmup=1),
+            bound_ms=bound_ms, bound_by=bound_by)
+
+    row = dict(name="nms_closure", route="cuda",
+               source="gencomm_tpu_torch/csrc/nms_closure.cu",
+               replaces="gencomm_tpu/ops/nms.py:54",
+               library_ms=None, library_device_ms=None,
+               **numbers(overlap, valid, where))
+    row["cases"] = {label: numbers(o, v, label)
+                    for label, (o, v) in cases.items()}
+    for label, r in [(where, row)] + list(row["cases"].items()):
+        log(f"  N1 {label}: {r['ms']:.4f} ms by events, {r['device_ms']} ms "
+            f"on the device, the plain loop {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.6f} ms ({r['bound_by']}), {r['kept']} of "
+            f"{r['k']} kept")
+    return row
+
+
+def compare_dets(label, card, cpu):
+    """Detections of one frame, card against CPU: the same number kept, and
+    the kept boxes' scores and corners (in score order) within CPU_TOL x
+    max(1, max|cpu|), the eval path's tolerance."""
+    import torch
+
+    cv, pv = card.valid.cpu(), cpu.valid
+    log(f"{label}: {int(cv.sum())} detections kept on the card, "
+        f"{int(pv.sum())} on the CPU")
+    if int(cv.sum()) != int(pv.sum()):
+        raise AssertionError(f"{label}: card and CPU keep different boxes")
+    for name in ("scores", "corners3d"):
+        a, b = getattr(card, name).cpu()[cv], getattr(cpu, name)[pv]
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{label}: non-finite {name}")
+        err = float((a - b).abs().max()) if a.numel() else 0.0
+        tol = CPU_TOL * max(1.0, float(b.abs().max()) if b.numel() else 0.0)
+        log(f"  {name} of the kept boxes: max |card-cpu| {err:.3e} (tol "
+            f"{tol:.3e})")
+        if not err <= tol:
+            raise AssertionError(f"{label}: {name} differ by {err}")
+
+
+def check_modes(dev, scenes, host):
+    """The late and no-fusion modes on the lidar flagship built with
+    supervise_single (fp32): each mode's frame on the card with the launch
+    counts set to 0 before and read after (N1 once a sample in no mode, L +
+    1 times in late mode), its per-agent heads and its detections held
+    against the port's CPU run (the single heads do not depend on the
+    diffusion noise); N1 held on the late union's overlap matrix (K = L x
+    512); then evaluate() in late mode over EVAL_FRAMES untrimmed frames (5
+    slots: a union of 2,560) with the boxes on their anchors, card against
+    CPU: an AP at IoU 0.3 above 0 and the same APs. Returns the N1 rows'
+    extra cases."""
+    import torch
+    from gencomm_tpu_torch.models.heter_baseline import HeterModel
+    from gencomm_tpu_torch.ops import _cuda, nms
+    from gencomm_tpu_torch.pipeline import InferencePipeline, batch_to_device
+    from gencomm_tpu_torch.weights import random_state_dict
+
+    t_phase = time.perf_counter()
+    kw = dict(FLAGSHIP, supervise_single=True)
+    model = HeterModel(**kw, device=dev)
+    state = random_state_dict(model, seed=0)
+    model.load_state_dict(state)
+    cpu_model = HeterModel(**kw, device="cpu")
+    cpu_model.load_state_dict(state)
+    batch, cpu_batch = batch_to_device(host, dev), batch_to_device(host, "cpu")
+    with torch.inference_mode():
+        out_dev, out_cpu = model(batch, generator=torch.Generator(
+            device=dev).manual_seed(0)), cpu_model(cpu_batch)
+    for key in ("cls_preds_single", "reg_preds_single", "dir_preds_single"):
+        a, b = out_dev[key].cpu(), out_cpu[key]
+        err = float((a - b).abs().max())
+        scale = max(1.0, float(b.abs().max()))
+        log(f"card vs CPU {key} {tuple(a.shape)}: max abs diff {err:.3e}, tol "
+            f"{CPU_TOL:.0e} x max(1, max|cpu|) = {CPU_TOL * scale:.3e}")
+        if not err <= CPU_TOL * scale:
+            raise AssertionError(f"{key}: card and CPU disagree ({err})")
+    l = host["agent_mask"].shape[1]
+    cases = {}
+    pipes = {}
+    for mode in ("no", "late"):
+        pipe = InferencePipeline(model, scenes.anchors,
+                                 postprocess_cfg(LIDAR_RANGE), mode=mode,
+                                 device=dev)
+        cpu_pipe = InferencePipeline(cpu_model, scenes.anchors,
+                                     postprocess_cfg(LIDAR_RANGE), mode=mode,
+                                     device="cpu")
+        reset_launch_counts()
+        card = pipe.run(batch, seed=0)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+        want_n1 = 1 if mode == "no" else l + 1
+        log(f"{mode} mode, lidar flagship with supervise_single: launches "
+            f"{launches} (N1 {want_n1} expected)")
+        if launches.get("nms_closure") != want_n1:
+            raise AssertionError(f"{mode} mode launched N1 "
+                                 f"{launches.get('nms_closure')} times")
+        for name in ("deform_conv3x3", "pillar_canvas", "warp_affine"):
+            if launches.get(name, 0) <= 0:
+                raise AssertionError(f"{mode} mode did not launch {name}")
+        want_k = NMS_TOPK
+        if tuple(card.corners3d.shape) != (1, want_k, 8, 3):
+            raise AssertionError(f"{mode}: shape {tuple(card.corners3d.shape)}")
+        compare_dets(f"{mode} mode, card vs CPU", card,
+                     cpu_pipe.run(host, seed=0))
+        pipes[mode] = (pipe, cpu_pipe)
+    seen = record_calls([(nms, "nms_closure")],
+                        lambda: pipes["late"][0].run(batch, seed=0))
+    cases[f"late union K={l * NMS_TOPK}"] = seen["nms_closure"]
+
+    # evaluate: untrimmed frames (5 slots), late mode, with the regression
+    # heads zeroed (every box is its anchor, car-sized) and the class biases
+    # raised, as tests/test_torch_serving.py::test_evaluate_matches_jax
+    # does, so that some boxes match GT at IoU 0.3 and the APs held are not
+    # zeros
+    ev_state = {k: v.clone() for k, v in state.items()}
+    for h in ("heads", "heads_single"):
+        ev_state[f"{h}.reg_head.weight"].zero_()
+        ev_state[f"{h}.reg_head.bias"].zero_()
+        ev_state[f"{h}.cls_head.bias"] += 1.0
+    model.load_state_dict(ev_state)
+    cpu_model.load_state_dict(ev_state)
+    pipe, cpu_pipe = pipes["late"]
+    t0 = time.perf_counter()
+    seen = record_calls([(nms, "nms_closure")], lambda: pipe.evaluate(
+        scenes, n_frames=1, seed0=300))
+    card_ap = pipe.evaluate(scenes, n_frames=EVAL_FRAMES, seed0=300)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_ap = cpu_pipe.evaluate(scenes, n_frames=EVAL_FRAMES, seed0=300)
+    cpu_s = time.perf_counter() - t0
+    log(f"evaluate (late mode, {EVAL_FRAMES} frames of 5 slots; random "
+        f"weights, boxes on their anchors: not a quality number): card "
+        f"{card_ap} in {card_s:.1f} s, CPU {cpu_ap} in {cpu_s:.1f} s")
+    if not card_ap["ap30"] > 0:
+        raise AssertionError(f"evaluate: no box matched GT at IoU 0.3 "
+                             f"({card_ap}), so the APs held are zeros")
+    for key, v in card_ap.items():
+        if not abs(v - cpu_ap[key]) <= AP_TOL:
+            raise AssertionError(f"evaluate {key}: card {v}, CPU {cpu_ap[key]}")
+    over, val = seen["nms_closure"]
+    cases[f"evaluate late union K={val.numel()}"] = (over, val)
+    phase_done("late and no modes, evaluate", t_phase)
+    return cases
+
+
+def run_bench():
+    """One run of ``python -m gencomm_tpu_torch.bench`` (bf16 flagship); its
+    JSON line echoed; streamed must equal looped."""
+    t_phase = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "gencomm_tpu_torch.bench"],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"the bench failed:\n{proc.stderr[-4000:]}")
+    line = proc.stdout.strip().splitlines()[-1]
+    result = json.loads(line)
+    log(f"bench: {line}")
+    for key in ("fps_dispatch_loop", "fps_streamed", "dtype",
+                "device_busy_ms", "launches_per_frame"):
+        if key not in result:
+            raise AssertionError(f"the bench's line has no {key}")
+    if not result["streamed_equals_looped"]:
+        raise AssertionError("the bench's streamed frames differ from looped")
+    phase_done("bench", t_phase)
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -1409,7 +1716,9 @@ def main() -> int:
     from gencomm_tpu_torch.models.encoders import lss, point_pillar
     from gencomm_tpu_torch.models.fuse import fusion
     from gencomm_tpu_torch.native import PillarVoxelizer
-    from gencomm_tpu_torch.ops import _cuda, deform_conv, pillar_canvas, splat, warp
+    from gencomm_tpu_torch.ops import (
+        _cuda, deform_conv, nms, pillar_canvas, splat, warp,
+    )
 
     # phase 1: the card
     t_all = time.perf_counter()
@@ -1442,10 +1751,7 @@ def main() -> int:
 
     # the frames and batches of every path, sampled (and decorated) on the
     # host
-    cfg = SyntheticConfig(lidar_range=LIDAR_RANGE, max_cav=5, num_agents=2,
-                          points_per_agent=30000, num_vehicles=12,
-                          points_per_vehicle=300)
-    scenes = SyntheticScenes(cfg)
+    scenes = SyntheticScenes(scenes_config())
     voxelizer = PillarVoxelizer(LIDAR_RANGE, VOXEL)
     t0 = time.perf_counter()
     host = decorate_modality(trim_agent_slots(
@@ -1489,12 +1795,14 @@ def main() -> int:
     # every path timed first, before the process's first profiler session
     # (ROADMAP p1: a finished session left later launches slower); each
     # run sets every launch count to 0 before and reads them after
-    lidar_kernels = ("deform_conv3x3", "pillar_canvas", "warp_affine")
+    lidar_kernels = ("deform_conv3x3", "pillar_canvas", "warp_affine",
+                     "nms_closure")
     lidar_kernels16 = ("deform_conv3x3_bf16", "pillar_canvas",
-                       "warp_affine_bf16")
-    camera_kernels = ("deform_conv3x3", "warp_affine", "splat_topk")
+                       "warp_affine_bf16", "nms_closure")
+    camera_kernels = ("deform_conv3x3", "warp_affine", "splat_topk",
+                      "nms_closure")
     camera_kernels16 = ("deform_conv3x3_bf16", "warp_affine_bf16",
-                        "splat_topk")
+                        "splat_topk", "nms_closure")
     lidar = setup_eval(dev, FLAGSHIP, FEATURE_SHAPE, scenes, host)
     time_eval(smi, lidar, "lidar", lidar_kernels)
     lidar16 = setup_eval(dev, FLAGSHIP, FEATURE_SHAPE, scenes, host,
@@ -1516,10 +1824,12 @@ def main() -> int:
         cam_hosts,
         ("deform_conv3x3", "warp_affine", "splat_topk", "deform_conv3x3_bwd",
          "warp_affine_bwd", "splat_topk_bwd"), "imgs_m1")
-    log("eval frames/s, fp32 / bf16: lidar "
-        f"{1000.0 / lidar.ms:.2f} / {1000.0 / lidar16.ms:.2f}, camera "
-        f"{1000.0 / camera.ms:.2f} / {1000.0 / camera16.ms:.2f} "
-        "(every path timed before the first profiler session)")
+    for cell, label in ((lidar, "lidar fp32"), (lidar16, "lidar bf16"),
+                        (camera, "camera fp32"), (camera16, "camera bf16")):
+        log(f"eval {label}: looped {cell.ms:.3f} ms/frame "
+            f"({1000.0 / cell.ms:.2f} frames/s), streamed {cell.stream_ms:.3f}"
+            f" ms/frame ({1000.0 / cell.stream_ms:.2f} frames/s) on {smi} "
+            "(every path timed before the first profiler session)")
 
     # then each path's kernel checks, profiles and CPU comparisons
     kernel_rows = check_eval(
@@ -1540,6 +1850,15 @@ def main() -> int:
                         check_pillar(inputs, "lidar eval bf16"),
                         check_warp(inputs, "lidar eval bf16")],
         fp32_cell=lidar))
+    # N1 on the lidar eval frame's own overlap matrix (K = 512), on random
+    # sets and chains, and on the late mode's unions; the late and no modes
+    # and evaluate, card against CPU
+    seen = record_calls([(nms, "nms_closure")],
+                        lambda: lidar.pipe.run(lidar.batch, seed=0))
+    nms_row = check_nms(*seen["nms_closure"], "lidar eval",
+                        {**check_modes(dev, scenes, host), **nms_cases(dev)})
+    nms_row["launches"] = lidar.launches["nms_closure"]
+    kernel_rows.append(nms_row)
     add_rows(kernel_rows, "lidar train step", check_train(
         lidar_train,
         [(point_pillar, "pillar_canvas"), (deform_conv, "deform_conv3x3_bwd"),
@@ -1593,6 +1912,7 @@ def main() -> int:
             key, shape = general_cases[row["name"]]
             row[key] = {"shape": list(shape),
                         "max_abs_err": general_errs[row["name"]]}
+    run_bench()
     phase_done("all phases", t_all)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernel_rows}), flush=True)

@@ -164,13 +164,16 @@ class LSSEncoder(nn.Module):
         return np.stack([xs, ys, ds], axis=-1)
 
     def _geometry(self, rots, trans, intrins, post_rots, post_trans):
-        """(A, N, D, fH, fW, 3) agent-frame xyz of every frustum point."""
+        """(A, N, D, fH, fW, 3) agent-frame xyz of every frustum point.
+        ``inv_ex`` gives ``inv``'s values without its check for singular
+        matrices, which reads a flag on the host (and so cannot be captured
+        in a CUDA graph)."""
         pts = self.frustum[None, None] - post_trans[:, :, None, None, None, :]
         pts = torch.einsum("anij,andhwj->andhwi",
-                           torch.linalg.inv(post_rots), pts)
+                           torch.linalg.inv_ex(post_rots).inverse, pts)
         # (u, v, d) -> (du, dv, d)
         pts = torch.cat([pts[..., :2] * pts[..., 2:3], pts[..., 2:3]], dim=-1)
-        combine = rots @ torch.linalg.inv(intrins)
+        combine = rots @ torch.linalg.inv_ex(intrins).inverse
         pts = torch.einsum("anij,andhwj->andhwi", combine, pts)
         return pts + trans[:, :, None, None, None, :]
 

@@ -72,6 +72,8 @@ class PointPillarEncoder(nn.Module):
                  lidar_range: Tuple[float, ...], num_filters: Sequence[int] = (64,),
                  use_norm: bool = True, dtype=None):
         super().__init__()
+        # the host decoration's grid (data/decorate.py) is this one
+        self.voxel_size, self.lidar_range = tuple(voxel_size), tuple(lidar_range)
         self.nx = int(round((lidar_range[3] - lidar_range[0]) / voxel_size[0]))
         self.ny = int(round((lidar_range[4] - lidar_range[1]) / voxel_size[1]))
         in_ch = 10

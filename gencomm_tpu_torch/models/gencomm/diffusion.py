@@ -62,6 +62,14 @@ class GenCommDiffusion(nn.Module):
         self._sched = {k: [as_dtype(float(v), dtype) for v in vals]
                        for k, vals in make_schedule(num_timesteps).items()}
 
+    def draw_noises(self, shape, generator, device):
+        """The chain's draws from ``generator``: ``num_timesteps`` fp32
+        standard normals of ``shape`` (the ego feature's), in the order
+        ``forward`` reads them."""
+        return [torch.randn(shape, generator=generator, dtype=torch.float32,
+                            device=device)
+                for _ in range(self.num_timesteps)]
+
     def forward(self, ego_feature, conditions, noises=None, generator=None):
         """ego_feature (N, H, W, C): each slot's ego feature; conditions
         (N, H, W, msg_ch): each slot's message -> generated (N, H, W, C)."""
@@ -69,10 +77,8 @@ class GenCommDiffusion(nn.Module):
         t_max = self.num_timesteps - 1
         n = ego_feature.shape[0]
         if noises is None:
-            noises = [torch.randn(ego_feature.shape, generator=generator,
-                                  dtype=torch.float32,
-                                  device=ego_feature.device)
-                      for _ in range(self.num_timesteps)]
+            noises = self.draw_noises(ego_feature.shape, generator,
+                                      ego_feature.device)
         if len(noises) != self.num_timesteps:
             raise ValueError(f"expected {self.num_timesteps} noise tensors, "
                              f"got {len(noises)}")

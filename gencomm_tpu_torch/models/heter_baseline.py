@@ -3,7 +3,8 @@
 Counterpart of ``gencomm_tpu/models/heter_baseline.py`` (``ModalityBranch``,
 ``HeterModel.__call__``) restricted to: host-decorated point_pillar and
 lift_splat_shoot camera modalities, ``use_gencomm`` (message extractor +
-conditional DDPM), ``use_enhancer`` and ``att`` fusion, with fp32
+conditional DDPM), ``use_enhancer``, ``supervise_single`` (per-agent heads)
+and ``att`` fusion, with fp32
 activations or, with ``half=True``, bf16 ones at eval. The model is built in
 ``eval()``; under ``train()`` only the batch norms change (batch
 statistics, running averages updated), as in stage 1 of the JAX model,
@@ -120,7 +121,7 @@ class HeterModel(nn.Module):
                  gencomm_timesteps: int = 3, unet_ch: int = 8,
                  unet_ch_mult: Sequence[int] = (1, 1),
                  unet_num_res_blocks: int = 2, half: bool = False,
-                 device=None):
+                 supervise_single: bool = False, device=None):
         super().__init__()
         if num_class != 1:
             raise NotImplementedError("multi-class heads are not ported yet")
@@ -161,6 +162,11 @@ class HeterModel(nn.Module):
                                      dtype=dtype)
         self.fusion_net = build_fusion(fusion_method)
         self.heads = DetectionHeads(feat_ch, anchor_number, dir_bins)
+        # per-agent heads on the combined pre-generation feature, fp32
+        # (gencomm_tpu/models/heter_baseline.py:403-413): late and no-fusion
+        # inference decode them
+        self.heads_single = (DetectionHeads(feat_ch, anchor_number, dir_bins)
+                             if supervise_single else None)
         self.eval()
         self.to(device)
 
@@ -187,7 +193,9 @@ class HeterModel(nn.Module):
         keeps ``gt_feature``, ``pred_feature`` and ``feature_mask`` for the
         generation loss and, for a camera modality, ``depth_items_<m>`` =
         (logits, gt_idx, slot weight) for the depth loss (the bare logits
-        without GT depth)."""
+        without GT depth). With ``supervise_single`` it also holds each
+        agent slot's own heads, ``cls_preds_single``, ``reg_preds_single``
+        and ``dir_preds_single`` over (B * L, H, W, .)."""
         out: Dict[str, Any] = {}
         agent_mask = batch["agent_mask"].bool()
         b, l = agent_mask.shape
@@ -242,6 +250,11 @@ class HeterModel(nn.Module):
                 message = mcontrib if message is None else message + mcontrib
 
         hw = tuple(feature.shape[2:4])
+        if self.heads_single is not None:
+            cls_s, reg_s, dir_s = self.heads_single(
+                feature.reshape((b * l,) + feature.shape[2:]).to(torch.float32))
+            out.update(cls_preds_single=cls_s, reg_preds_single=reg_s,
+                       dir_preds_single=dir_s)
         if self.use_gencomm:
             out["message"] = message
             # only `message` crosses agents; generation starts from the ego

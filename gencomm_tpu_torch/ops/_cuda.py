@@ -48,6 +48,7 @@ SIGNATURES = {
                    [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P]),
     "splat_topk_bwd": ("splat_topk_bwd_f32",
                        [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P]),
+    "nms_closure": ("nms_closure", [_P, _P, _P, _P, _I, _P]),
 }
 
 _loaded: dict = {}
@@ -56,7 +57,8 @@ build_log: dict = {}  # name -> nvcc's output (ptxas register/smem report)
 LAUNCHES = {"deform_conv3x3": 0, "deform_conv3x3_bf16": 0,
             "pillar_canvas": 0, "warp_affine": 0, "warp_affine_bf16": 0,
             "deform_conv3x3_bwd": 0, "pillar_canvas_bwd": 0,
-            "warp_affine_bwd": 0, "splat_topk": 0, "splat_topk_bwd": 0}
+            "warp_affine_bwd": 0, "splat_topk": 0, "splat_topk_bwd": 0,
+            "nms_closure": 0}
 
 
 def _nvcc() -> str:

@@ -256,8 +256,10 @@ def deform_conv3x3(x: torch.Tensor, offsets: torch.Tensor,
 def clamp_offsets(offsets: torch.Tensor) -> torch.Tensor:
     """Clamp to ±MAX_OFFSET as ``jnp.clip`` does, gradient included: an
     offset exactly at a bound passes half its gradient (the min/max tie
-    rule), where ``torch.clamp`` would pass all of it."""
-    lim = offsets.new_tensor(float(MAX_OFFSET))
+    rule), where ``torch.clamp`` would pass all of it. The bound is filled
+    on the device (no copy from the host, which graph capture refuses)."""
+    lim = torch.full((), float(MAX_OFFSET), dtype=offsets.dtype,
+                     device=offsets.device)
     return torch.minimum(torch.maximum(offsets, -lim), lim)
 
 

@@ -20,17 +20,33 @@ _CORNER_TEMPLATE = np.array(
     ],
     dtype=np.float32,
 ) / 2.0
+# the template on each (dtype, device), copied from the host once: a copy
+# from the host cannot be captured in a CUDA graph
+_TEMPLATES: dict = {}
+
+
+def _corner_template(dtype, device) -> torch.Tensor:
+    t = _TEMPLATES.get((dtype, device))
+    if t is None:
+        t = _TEMPLATES[(dtype, device)] = torch.as_tensor(
+            _CORNER_TEMPLATE, dtype=dtype, device=device)
+    return t
 
 
 def boxes_to_corners_3d(boxes, order: str):
     """(N, 7) boxes -> (N, 8, 3) corners."""
     if order == "hwl":
-        boxes = boxes[:, (0, 1, 2, 5, 4, 3, 6)]
+        if isinstance(boxes, torch.Tensor):
+            # slices, not an index list (its copy from the host cannot be
+            # captured in a CUDA graph)
+            boxes = torch.cat((boxes[:, :3], boxes[:, 3:6].flip(1),
+                               boxes[:, 6:]), dim=1)
+        else:
+            boxes = boxes[:, (0, 1, 2, 5, 4, 3, 6)]
     elif order != "lwh":
         raise ValueError(f"unknown box order {order}")
     if isinstance(boxes, torch.Tensor):
-        template = torch.as_tensor(_CORNER_TEMPLATE, dtype=boxes.dtype,
-                                   device=boxes.device)
+        template = _corner_template(boxes.dtype, boxes.device)
         corners = boxes[:, None, 3:6] * template[None]
         c, s = torch.cos(boxes[:, 6]), torch.sin(boxes[:, 6])
         zeros, ones = torch.zeros_like(c), torch.ones_like(c)

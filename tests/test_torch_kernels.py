@@ -1050,7 +1050,144 @@ def test_bf16_entries_live_in_the_fp32_sources():
     assert _cuda.source("warp_affine_bf16") == "warp_affine"
     assert _cuda.source("warp_affine") == "warp_affine"
     sources = {_cuda.source(n) for n in _cuda.SIGNATURES}
-    assert len(sources) == 8
+    assert len(sources) == 9  # K1-K4, K1b-K4b and N1 (the NMS keep-set)
     for src in sources:
         assert os.path.exists(os.path.join(_cuda.CSRC_DIR, f"{src}.cu")), src
     assert {"deform_conv3x3_bf16", "warp_affine_bf16"} <= set(LAUNCHES)
+
+
+# ---------------------------------------------------------------- N1
+def _nms_case(kind, k, seed=0, device="cpu"):
+    """(overlap (k, k) bool, valid (k,) bool) in score order. "random":
+    car-sized boxes at random in an area that grows with k (a few overlaps
+    a box), 10% invalid; "chain": a suppression chain k boxes deep (box j
+    overlaps box j + 1 only), all valid."""
+    if kind == "chain":
+        over = torch.zeros(k, k, dtype=torch.bool)
+        idx = torch.arange(k - 1)
+        over[idx, idx + 1] = True
+        return over.to(device), torch.ones(k, dtype=torch.bool, device=device)
+    rng = np.random.RandomState(seed)
+    side = 2.0 * k ** 0.5
+    boxes = np.stack([rng.uniform(-side, side, k), rng.uniform(-side, side, k),
+                      np.full(k, -1.0), np.full(k, 1.56),
+                      rng.uniform(1.5, 2.0, k), rng.uniform(3.5, 4.5, k),
+                      rng.uniform(-np.pi, np.pi, k)], -1).astype(np.float32)
+    from gencomm_tpu_torch.utils.box_utils import boxes_to_corners_3d
+    from gencomm_tpu_torch.ops.nms import overlap_matrix
+
+    quads = boxes_to_corners_3d(torch.from_numpy(boxes), "hwl")[:, :4, :2]
+    valid = torch.from_numpy(rng.uniform(0, 1, k) > 0.1)
+    return overlap_matrix(quads.to(device), 0.15), valid.to(device)
+
+
+def test_nms_scratch_only_where_shared_memory_is_too_small():
+    from gencomm_tpu_torch.ops.nms import SMEM_MASK_BYTES, scratch_words
+
+    # K x ceil(K / 32) packed words: in shared memory up to 1,280 boxes
+    assert scratch_words(512) == 0 and scratch_words(1280) == 0
+    assert 4 * 1280 * 40 <= SMEM_MASK_BYTES < 4 * 1281 * 41
+    assert scratch_words(1281) == 1281 * 41
+    assert scratch_words(2560) == 2560 * 80
+
+
+def test_nms_wrapper_takes_plain_version_on_cpu():
+    from gencomm_tpu_torch.ops.nms import nms_closure, nms_closure_plain
+
+    over, valid = _nms_case("random", 200, seed=4)
+    before = LAUNCHES["nms_closure"]
+    got = nms_closure(over, valid)
+    assert torch.equal(got, nms_closure_plain(over, valid))
+    assert 0 < int(got.sum()) < int(valid.sum())
+    assert LAUNCHES["nms_closure"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "chain"])
+@pytest.mark.parametrize("k", [512, 1024, 2560, 37])
+def test_nms_kernel_matches_plain_on_card(cuda, kind, k):
+    """N1 gives its plain version's keep mask bit for bit: K = 512 (eval,
+    nms_topk), 1,024 and 2,560 (late fusion over 2 and 5 agents; 2,560
+    through global scratch) and a ragged K, on random sets and on a chain
+    K boxes deep."""
+    from gencomm_tpu_torch.ops.nms import nms_closure, nms_closure_plain
+
+    over, valid = _nms_case(kind, k, seed=k, device=cuda)
+    before = LAUNCHES["nms_closure"]
+    got = nms_closure(over, valid)
+    torch.cuda.synchronize()
+    assert LAUNCHES["nms_closure"] == before + 1
+    want = nms_closure_plain(over, valid)
+    assert torch.equal(got, want)
+    if kind == "chain":
+        assert torch.equal(got.cpu(), torch.arange(k) % 2 == 0)
+    else:
+        assert 0 < int(got.sum()) < int(valid.sum())
+    assert torch.equal(nms_closure(over, valid), got)
+
+
+@pytest.mark.cuda
+def test_nms_kernel_refuses_more_than_its_limit(cuda):
+    from gencomm_tpu_torch.ops.nms import NMS_MAX_K, nms_closure
+
+    k = NMS_MAX_K + 1
+    with pytest.raises(ValueError, match=f"at most {NMS_MAX_K} boxes"):
+        nms_closure(torch.zeros(k, k, dtype=torch.bool, device=cuda),
+                    torch.ones(k, dtype=torch.bool, device=cuda))
+
+
+@pytest.mark.cuda
+def test_run_stream_replays_a_captured_frame_bit_equal_to_run(cuda):
+    """A tiny GenComm model on the card: run_stream captures one frame (K1,
+    K2, K3 and N1 among its launches) and its replays give the detections of
+    looped run with the same seeds, bit for bit."""
+    from gencomm_tpu_torch.data.bucketing import trim_agent_slots
+    from gencomm_tpu_torch.data.decorate import decorate_modality
+    from gencomm_tpu_torch.data.synthetic import SyntheticConfig, SyntheticScenes
+    from gencomm_tpu_torch.models.heter_baseline import HeterModel
+    from gencomm_tpu_torch.native import PillarVoxelizer
+    from gencomm_tpu_torch.pipeline import InferencePipeline
+    from gencomm_tpu_torch.weights import random_state_dict
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lr, voxel = (-16.0, -8.0, -3.0, 16.0, 8.0, 1.0), (0.4, 0.4, 4.0)
+    cfg = SyntheticConfig(lidar_range=lr, max_cav=3, num_agents=2,
+                          points_per_agent=2048, num_vehicles=3,
+                          points_per_vehicle=200, comm_range=10.0)
+    scenes = SyntheticScenes(cfg)
+    model = HeterModel(
+        modality_args={"m1": {
+            "encoder_args": {"voxel_size": list(voxel), "lidar_range": list(lr),
+                             "pillar_vfe": {"use_norm": True,
+                                            "num_filters": [32]}},
+            "backbone_args": {"layer_nums": [1, 1], "layer_strides": [2, 2],
+                              "num_filters": [32, 64],
+                              "upsample_strides": [1, 2],
+                              "num_upsample_filter": [32, 32]},
+            "shrink_header": {"kernal_size": [3], "stride": [2],
+                              "padding": [1], "dim": [64], "input_dim": 64}}},
+        fusion_method="att", lidar_range=lr, anchor_number=2,
+        use_gencomm=True, use_enhancer=True, device=cuda)
+    model.load_state_dict(random_state_dict(model, seed=0))
+    pipe = InferencePipeline(
+        model, scenes.anchors,
+        {"gt_range": list(lr), "target_args": {"score_threshold": 0.2},
+         "nms_thresh": 0.15, "dir_args": {"dir_offset": 0.7853, "num_bins": 2},
+         "nms_topk": 512}, device=cuda)
+    vox = PillarVoxelizer(lr, voxel)
+    frames = [decorate_modality(trim_agent_slots(scenes.sample(s, 1)), vox)
+              for s in (3, 4, 5)]
+    stacked = {k: np.stack([f[k] for f in frames]) for k in frames[0]}
+    seeds = [7, 8, 9]
+    got = pipe.run_stream(stacked, seeds)
+    again = pipe.run_stream(stacked, seeds)
+    (fg,) = pipe.graphs.values()
+    assert fg.replays == 6
+    for name in ("deform_conv3x3", "pillar_canvas", "warp_affine",
+                 "nms_closure"):
+        assert fg.launches.get(name, 0) >= 1, (name, fg.launches)
+    for f, (frame, s) in enumerate(zip(frames, seeds)):
+        want = pipe.run(frame, seed=s)
+        for a, b, c in zip(got, again, want):
+            assert torch.equal(a[f], c) and torch.equal(b[f], c)

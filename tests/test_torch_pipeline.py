@@ -191,7 +191,7 @@ def test_unported_branches_raise():
         model.train()
     with pytest.raises(NotImplementedError):
         HeterModel(**dict(MODEL_KW, fusion_method="max"), device="cpu")
+    # the late and no-fusion modes are ported (test_torch_serving.py); the
+    # v2xvit fusion of seven GenComm configs is not
     with pytest.raises(NotImplementedError):
-        InferencePipeline(HeterModel(**MODEL_KW, device="cpu"),
-                          np.zeros((10, 20, 2, 7), np.float32), POSTPROCESS,
-                          mode="late", device="cpu")
+        HeterModel(**dict(MODEL_KW, fusion_method="v2xvit"), device="cpu")
