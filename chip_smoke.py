@@ -70,9 +70,11 @@ Phases, each of which raises on failure:
      (rows "deform_conv3x3_bf16", "warp_affine_bf16"; bound by the bf16
      tensor-core rate or the bytes) and K2 on the path's arguments, against
      their plain versions (one bf16 step beside the fp32 tolerance) and
-     bit for bit against the fp32 kernels on the widened maps, rounded
-     once; the profile (with cuDNN's FFT kernels counted); the card's bf16
-     run against its fp32 run on scripts/bf16_parity.py's statistics (the
+     against the fp32 kernels on the widened maps, rounded once: K3 bit for
+     bit, K1 (a split bf16 product) the same bits on two launches and each
+     output that differs within one bf16 step, the count logged; the
+     profile (with cuDNN's FFT kernels counted); the card's bf16 run
+     against its fp32 run on scripts/bf16_parity.py's statistics (the
      top-100 overlap must be >= 0.9), and against the port's bf16 run on the
      CPU (a relative L2 within sqrt(2) x the card's bf16-vs-fp32 one, the
      same top-100 overlap), the CPU's time logged;
@@ -341,6 +343,25 @@ def warp_tolerance(src):
     return 4.0 * max(h, w) * 2.0 ** -23 * max(1.0, float(src.abs().max()))
 
 
+def bf16_step(ref, scale):
+    """One bf16 step (2^-7 of the leading bit) at |ref|, taken at no less
+    than 2^-8 of ``scale``, the output's largest value: below that an
+    fp32-level error of either product (1e-5 of the largest value,
+    tests/test_torch_bf16_split.py) is more than a step of the value."""
+    import torch
+
+    m = torch.clamp(ref.float().abs(), min=2.0 ** -8 * scale)
+    return torch.ldexp(torch.ones_like(m), torch.frexp(m).exponent - 8)
+
+
+def bf16_steps_apart(got, ref):
+    """(outputs that differ, outputs more than one bf16 step apart) of two
+    bf16 tensors, the step taken at ``ref`` (``bf16_step``)."""
+    got, ref = got.float(), ref.float()
+    step = bf16_step(ref, float(ref.abs().max()))
+    return int((got != ref).sum()), int(((got - ref).abs() > step).sum())
+
+
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -406,7 +427,8 @@ def add_rows(kernel_rows, path, rows):
                                     "bound_ms", "bound_by", "library_ms",
                                     "cold_ms", "path_route", "route_launches",
                                     "turns_ms", "device_ms", "dtype",
-                                    "library_device_ms") if k in row}
+                                    "library_device_ms",
+                                    "differ_from_fp32_kernel") if k in row}
 
 
 def route_launches():
@@ -511,8 +533,9 @@ def check_deform(inputs, where):
     """K1 (deformable 3x3 conv) against its plain version on the arguments
     the path ``where`` gives it; returns its row of the kernels JSON line
     (launches filled in later). On a bf16 map (``half``) the row is K1's
-    bf16 instantiation's, which must also give the bits of the fp32 kernel
-    on the widened map, rounded once."""
+    bf16 instantiation's, which must also give the same bits on two
+    launches and lie within one bf16 step of the fp32 kernel's output on the
+    widened map, rounded once (the outputs that differ are counted)."""
     import torch
     from gencomm_tpu_torch.ops.deform_conv import (
         deform_conv3x3, deform_conv3x3_plain, kernel_route,
@@ -535,14 +558,25 @@ def check_deform(inputs, where):
         + (", then one bf16 rounding)" if half else ")"))
     if not err <= tol:
         raise AssertionError(f"K1 disagrees with its plain version: {err}")
+    differ = None
     if half:
-        same = torch.equal(got, deform_conv3x3(x.float(), off, wt).to(
-            torch.bfloat16))
-        log(f"  K1 bf16 equals the fp32 kernel on the widened map, rounded "
-            f"once: {same}")
-        if not same:
-            raise AssertionError("K1 bf16 differs from the fp32 kernel's "
-                                 "rounded output")
+        # the tensor-core route's split bf16 product sums in another order
+        # than the fp32 kernel: a rounded output may land one bf16 step from
+        # the fp32 kernel's on the widened map
+        again = deform_conv3x3(x, off, wt)
+        ref = deform_conv3x3(x.float(), off, wt).to(torch.bfloat16)
+        torch.cuda.synchronize()
+        twice = torch.equal(got, again)
+        differ, beyond = bf16_steps_apart(got, ref)
+        log(f"  K1 bf16: two launches bit-equal {twice}; {differ} of "
+            f"{got.numel()} outputs differ from the fp32 kernel's on the "
+            f"widened map, rounded once, {beyond} of them by more than one "
+            f"bf16 step")
+        if not twice:
+            raise AssertionError("K1 bf16 gave different bits on a second launch")
+        if beyond:
+            raise AssertionError(f"K1 bf16: {beyond} outputs more than one "
+                                 f"bf16 step from the fp32 kernel's")
     bound_ms, bound_by = bound(2.0 * b * h * w * 9 * cin * cout,
                                nbytes(x, off, wt, got),
                                PEAK_BF16_FLOPS if half else PEAK_FP32_FLOPS)
@@ -555,7 +589,7 @@ def check_deform(inputs, where):
         ms=time_ms(lambda: deform_conv3x3(x, off, wt)),
         device_ms=device_ms(lambda: deform_conv3x3(x, off, wt)),
         cold_ms=time_ms(lambda: deform_conv3x3(x, off, wt), cold=True),
-        path_route=kernel_route(cin, cout),
+        path_route=kernel_route(cin, cout), differ_from_fp32_kernel=differ,
         plain_ms=time_ms(lambda: deform_conv3x3_plain(x, off, wt), iters=5),
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
         library_device_ms=None)

@@ -14,14 +14,38 @@ namespace deform {
 struct TapGeom {
     int idx[4];  // flat pixel of corners (y0,x0), (y0,x1), (y1,x0), (y1,x1); -1 outside
     float wy0, wy1, wx0, wx1;
+    int iy0, ix0;  // the corner (y0, x0) in the image, inside the map or not
 };
 
-// the sampling position of tap k at pixel pg for the offset (dy, dx):
-// y = (row + tap_y) + dy and x = (col + tap_x) + dx in round-to-nearest fp32
-// with no FMA contraction, the fractions by exact subtraction
+// the sampling position of tap k at pixel (bi, hi, wi) for the offset (dy,
+// dx): y = (row + tap_y) + dy and x = (col + tap_x) + dx in round-to-nearest
+// fp32 with no FMA contraction, the fractions by exact subtraction
+__device__ __forceinline__ TapGeom tap_geometry_pix(float dy, float dx, int bi, int hi, int wi,
+                                                    int k, int h, int w) {
+    TapGeom t;
+    const float y = __fadd_rn((float)(hi + k / 3 - 1), dy);
+    const float x = __fadd_rn((float)(wi + k % 3 - 1), dx);
+    const float y0 = floorf(y), x0 = floorf(x);
+    t.wy1 = __fsub_rn(y, y0);
+    t.wx1 = __fsub_rn(x, x0);
+    t.wy0 = __fsub_rn(1.0f, t.wy1);
+    t.wx0 = __fsub_rn(1.0f, t.wx1);
+    const int iy0 = (int)y0, ix0 = (int)x0;
+    t.iy0 = iy0;
+    t.ix0 = ix0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+        const int iy = iy0 + (q >> 1), ix = ix0 + (q & 1);
+        t.idx[q] = (iy >= 0 && iy <= h - 1 && ix >= 0 && ix <= w - 1)
+                       ? (bi * h + iy) * w + ix
+                       : -1;
+    }
+    return t;
+}
+
+// the same at flat pixel pg
 __device__ __forceinline__ TapGeom tap_geometry_at(float dy, float dx, int64_t pg, int k,
                                                    int h, int w) {
-    TapGeom t;
     const int64_t hw = (int64_t)h * w;
     int bi, rem;
     if (pg <= 0x7fffffff && hw <= 0x7fffffff) {  // 32-bit division is several times cheaper
@@ -32,22 +56,7 @@ __device__ __forceinline__ TapGeom tap_geometry_at(float dy, float dx, int64_t p
         rem = (int)(pg % hw);
     }
     const int hi = rem / w, wi = rem - hi * w;
-    const float y = __fadd_rn((float)(hi + k / 3 - 1), dy);
-    const float x = __fadd_rn((float)(wi + k % 3 - 1), dx);
-    const float y0 = floorf(y), x0 = floorf(x);
-    t.wy1 = __fsub_rn(y, y0);
-    t.wx1 = __fsub_rn(x, x0);
-    t.wy0 = __fsub_rn(1.0f, t.wy1);
-    t.wx0 = __fsub_rn(1.0f, t.wx1);
-    const int iy0 = (int)y0, ix0 = (int)x0;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-        const int iy = iy0 + (q >> 1), ix = ix0 + (q & 1);
-        t.idx[q] = (iy >= 0 && iy <= h - 1 && ix >= 0 && ix <= w - 1)
-                       ? (bi * h + iy) * w + ix
-                       : -1;
-    }
-    return t;
+    return tap_geometry_pix(dy, dx, bi, hi, wi, k, h, w);
 }
 
 __device__ __forceinline__ TapGeom tap_geometry(const float* __restrict__ offsets,

@@ -22,9 +22,14 @@
 //
 // bf16 instantiation (`warp_affine_bf16`, for `half`): the TPU kernel takes
 // a bf16 map and returns bf16 with fp32 accumulation (warp_pallas.py:71-82).
-// The same coordinate chain, bit for bit; a thread loads 8 bf16 channels of
-// a corner as one 16-byte vector, blends them in fp32 and rounds once to
-// bf16. Bound by bytes: half of the fp32 kernel's.
+// The same coordinate chain and blend, bit for bit, rounded once to bf16;
+// bound by bytes, half of the fp32 kernel's. With 8-channel vectors it runs
+// the row kernel (`warp_affine_bf16_rows_kernel`): a block per run of 16
+// output pixels of a row (no index divisions), the chain once a pixel,
+// shuffled to the pixel's eight lanes, each of which has its four corners'
+// 16-byte loads of up to two vectors in flight at once. The one-thread-a-
+// vector kernel ran the chain and five 64-bit divisions per vector, with
+// four loads in flight a thread.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -99,6 +104,37 @@ __device__ __forceinline__ uint4 to_bf16(const Vec<__nv_bfloat16, 8>::Acc& a) {
     return r;
 }
 
+// the source coordinate of output pixel (xo, yo) under theta (6 floats):
+// its floor corner and bilinear factors, in the plain version's rounding
+struct Sample {
+    int ix0, iy0;
+    float wx0, wx1, wy0, wy1;
+    // the weight of corner k: (x0,y0), (x1,y0), (x0,y1), (x1,y1)
+    __device__ __forceinline__ float weight(int k) const {
+        return __fmul_rn((k & 1) ? wx1 : wx0, (k >> 1) ? wy1 : wy0);
+    }
+};
+
+__device__ __forceinline__ Sample sample_at(const float* __restrict__ th, int xo, int yo,
+                                            int w, int h) {
+    const float fw = (float)w, fh = (float)h;
+    const float gx = __fsub_rn(__fdiv_rn(__fadd_rn(2.0f * xo, 1.0f), fw), 1.0f);
+    const float gy = __fsub_rn(__fdiv_rn(__fadd_rn(2.0f * yo, 1.0f), fh), 1.0f);
+    const float sx = __fadd_rn(__fadd_rn(__fmul_rn(th[0], gx), __fmul_rn(th[1], gy)), th[2]);
+    const float sy = __fadd_rn(__fadd_rn(__fmul_rn(th[3], gx), __fmul_rn(th[4], gy)), th[5]);
+    const float x = __fsub_rn(__fdiv_rn(__fmul_rn(__fadd_rn(sx, 1.0f), fw), 2.0f), 0.5f);
+    const float y = __fsub_rn(__fdiv_rn(__fmul_rn(__fadd_rn(sy, 1.0f), fh), 2.0f), 0.5f);
+    const float x0 = floorf(x), y0 = floorf(y);
+    Sample sm;
+    sm.wx1 = __fsub_rn(x, x0);
+    sm.wy1 = __fsub_rn(y, y0);
+    sm.wx0 = __fsub_rn(1.0f, sm.wx1);
+    sm.wy0 = __fsub_rn(1.0f, sm.wy1);
+    sm.ix0 = (int)x0;
+    sm.iy0 = (int)y0;
+    return sm;
+}
+
 template <typename E, int VEC>
 __global__ void warp_affine_kernel(const E* __restrict__ src,
                                    const float* __restrict__ theta,
@@ -116,35 +152,87 @@ __global__ void warp_affine_kernel(const E* __restrict__ src,
     const int yo = (int)((pix / w) % h);
     const int b = (int)(pix / ((int64_t)w * h));
 
-    const float* th = theta + b * 6;
-    const float fw = (float)w, fh = (float)h;
-    const float gx = __fsub_rn(__fdiv_rn(__fadd_rn(2.0f * xo, 1.0f), fw), 1.0f);
-    const float gy = __fsub_rn(__fdiv_rn(__fadd_rn(2.0f * yo, 1.0f), fh), 1.0f);
-    const float sx = __fadd_rn(__fadd_rn(__fmul_rn(th[0], gx), __fmul_rn(th[1], gy)), th[2]);
-    const float sy = __fadd_rn(__fadd_rn(__fmul_rn(th[3], gx), __fmul_rn(th[4], gy)), th[5]);
-    const float x = __fsub_rn(__fdiv_rn(__fmul_rn(__fadd_rn(sx, 1.0f), fw), 2.0f), 0.5f);
-    const float y = __fsub_rn(__fdiv_rn(__fmul_rn(__fadd_rn(sy, 1.0f), fh), 2.0f), 0.5f);
-
-    const float x0 = floorf(x), y0 = floorf(y);
-    const float wx1 = __fsub_rn(x, x0), wy1 = __fsub_rn(y, y0);
-    const float wx0 = __fsub_rn(1.0f, wx1), wy0 = __fsub_rn(1.0f, wy1);
-    const int ix0 = (int)x0, iy0 = (int)y0;
-
+    const Sample sm = sample_at(theta + b * 6, xo, yo, w, h);
     const T* base = reinterpret_cast<const T*>(src) + (int64_t)b * h * w * nvec + cv;
     Acc acc = zero<Acc>();
     // corner order (x0,y0), (x1,y0), (x0,y1), (x1,y1), as in the plain version
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-        const int ix = ix0 + (k & 1);
-        const int iy = iy0 + (k >> 1);
+        const int ix = sm.ix0 + (k & 1);
+        const int iy = sm.iy0 + (k >> 1);
         if (ix < 0 || ix > w - 1 || iy < 0 || iy > h - 1) continue;
-        const float wt = __fmul_rn((k & 1) ? wx1 : wx0, (k >> 1) ? wy1 : wy0);
-        acc = axpy(wt, base[((int64_t)iy * w + ix) * nvec], acc);
+        acc = axpy(sm.weight(k), base[((int64_t)iy * w + ix) * nvec], acc);
     }
     if constexpr (sizeof(E) == 4)
         reinterpret_cast<T*>(out)[idx] = acc;
     else
         reinterpret_cast<T*>(out)[idx] = to_bf16(acc);
+}
+
+// bf16 maps with 8-channel vectors: the row kernel. blockIdx.z is the
+// image, blockIdx.y the output row and blockIdx.x a run of R_PIX pixels of
+// it, so no index needs a division. A warp owns 4 pixels: lanes 0-3 run the
+// coordinate chain of one pixel each (once a pixel) and shuffle it to the
+// pixel's R_TPP lanes; a lane then holds up to R_VEC vectors of its pixel
+// (lane t: vectors t, t + 8, ...), all four corners' loads in flight at
+// once (8 at 128 channels). The blend and its order are the general
+// kernel's, so the bits are too.
+constexpr int R_PIX = 16;   // output pixels a block
+constexpr int R_TPP = 8;    // lanes a pixel
+constexpr int R_VEC = 2;    // vectors a lane holds at once
+constexpr int R_THREADS = R_PIX * R_TPP;
+
+__global__ void __launch_bounds__(R_THREADS)
+warp_affine_bf16_rows_kernel(const __nv_bfloat16* __restrict__ src,
+                             const float* __restrict__ theta,
+                             __nv_bfloat16* __restrict__ out, int h, int w, int nvec) {
+    using V = Vec<__nv_bfloat16, 8>;
+    const int b = blockIdx.z, yo = blockIdx.y;
+    const int lane = threadIdx.x & 31;
+    const int x_warp = blockIdx.x * R_PIX + (threadIdx.x >> 5) * (32 / R_TPP);
+    Sample sm{};
+    if (lane < 32 / R_TPP && x_warp + lane < w)
+        sm = sample_at(theta + b * 6, x_warp + lane, yo, w, h);
+    const int from = lane / R_TPP;
+    sm.ix0 = __shfl_sync(0xffffffffu, sm.ix0, from);
+    sm.iy0 = __shfl_sync(0xffffffffu, sm.iy0, from);
+    sm.wx0 = __shfl_sync(0xffffffffu, sm.wx0, from);
+    sm.wx1 = __shfl_sync(0xffffffffu, sm.wx1, from);
+    sm.wy0 = __shfl_sync(0xffffffffu, sm.wy0, from);
+    sm.wy1 = __shfl_sync(0xffffffffu, sm.wy1, from);
+    const int xo = x_warp + from;
+    if (xo >= w) return;
+    const int t = lane % R_TPP;
+    const uint4* base = reinterpret_cast<const uint4*>(src) + (int64_t)b * h * w * nvec;
+    uint4* dst = reinterpret_cast<uint4*>(out) + ((int64_t)(b * h + yo) * w + xo) * nvec;
+    bool inside[4];
+    const uint4* corner[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        const int ix = sm.ix0 + (k & 1), iy = sm.iy0 + (k >> 1);
+        inside[k] = !(ix < 0 || ix > w - 1 || iy < 0 || iy > h - 1);
+        corner[k] = base + ((int64_t)iy * w + ix) * nvec;
+    }
+    for (int v0 = t; v0 < nvec; v0 += R_TPP * R_VEC) {
+        uint4 val[4][R_VEC];
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+#pragma unroll
+            for (int j = 0; j < R_VEC; ++j) {
+                const int cv = v0 + j * R_TPP;
+                if (inside[k] && cv < nvec) val[k][j] = __ldg(corner[k] + cv);
+            }
+#pragma unroll
+        for (int j = 0; j < R_VEC; ++j) {
+            const int cv = v0 + j * R_TPP;
+            if (cv >= nvec) break;
+            V::Acc acc = zero<V::Acc>();
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+                if (inside[k]) acc = axpy(sm.weight(k), val[k][j], acc);
+            dst[cv] = to_bf16(acc);
+        }
+    }
 }
 
 template <typename E, int VEC>
@@ -179,9 +267,14 @@ extern "C" int warp_affine_f32(const void* src, const void* theta, void* out,
 extern "C" int warp_affine_bf16(const void* src, const void* theta, void* out,
                                 int n, int h, int w, int channels, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (channels % 8 == 0 && aligned16(src, out))
-        launch<__nv_bfloat16, 8>(src, theta, out, n, h, w, channels, s);
-    else
+    if (channels % 8 == 0 && aligned16(src, out)) {
+        if (n > 0 && h > 0 && w > 0)
+            warp_affine_bf16_rows_kernel<<<dim3((unsigned)((w + R_PIX - 1) / R_PIX),
+                                                (unsigned)h, (unsigned)n),
+                                           R_THREADS, 0, s>>>(
+                static_cast<const __nv_bfloat16*>(src), static_cast<const float*>(theta),
+                static_cast<__nv_bfloat16*>(out), h, w, channels / 8);
+    } else
         launch<__nv_bfloat16, 1>(src, theta, out, n, h, w, channels, s);
     return (int)cudaGetLastError();
 }

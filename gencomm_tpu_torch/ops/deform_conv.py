@@ -22,10 +22,15 @@ version: a CUDA tensor reaches a kernel or the call raises.
 The forward also takes a bf16 ``x`` (``half``), as the TPU kernel does
 (``deform_pallas.py:88``: the output in x's type): offsets and weight stay
 fp32, the samples and the contraction are fp32, and the output is rounded
-once to bf16. On the card that is a second instantiation of K1 (C entry
-``deform_conv3x3_bf16``, launches counted under ``deform_conv3x3_bf16``);
-the backward takes fp32 only, and a backward through a bf16 forward raises
-(bf16 training is not ported).
+once to bf16. On the card that is K1's bf16 entry (C entry
+``deform_conv3x3_bf16``, launches counted under ``deform_conv3x3_bf16``):
+on route ``mma`` a kernel of its own, which takes the fp32 contraction as
+three bf16 tensor-core products of operands split into hi + lo (within
+~1e-5 of the fp32 product, ``tests/test_torch_bf16_split.py``), so a
+rounded output may lie one bf16 step from the fp32 kernel's; on route
+``general`` the fp32 kernel on the widened map. The backward takes fp32
+only, and a backward through a bf16 forward raises (bf16 training is not
+ported).
 """
 
 from __future__ import annotations

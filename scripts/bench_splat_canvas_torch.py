@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Times the port's top-K depth splat K4, pillar canvas K2, pillar-canvas
-backward K2b and warp backward K3b on one NVIDIA GPU, on the arguments the
-port's own paths give them.
+backward K2b, BEV warp K3 and warp backward K3b on one NVIDIA GPU, on the
+arguments the port's own paths give them.
 
     python3 scripts/bench_splat_canvas_torch.py [--old-csrc DIR]
-        [--variant NAME=DIR ...] [--cases K4,K2,K2b,K3b] [--out FILE]
+        [--variant NAME=DIR ...] [--cases K4,K2,K2b,K3b,K3] [--out FILE]
 
 The arguments are recorded from the port's models at random weights (seed 0)
 on the synthetic sampler's scenes (seed 0), as ``chip_smoke.py`` records
@@ -14,7 +14,10 @@ cells) and the camera train step (49,152 pixels, 262,144 cells); K2 on the
 lidar eval frame (2 x 30,000 rows of 64 bf16 channels, 2 x 131,072 cells)
 and the lidar train step (4 agents); K2b on the lidar train step; K3b on
 the lidar train step (g (4, 64, 128, 128) fp32) and the camera train step
-(g (4, 64, 64, 128)). For each it
+(g (4, 64, 64, 128)); K3 on the four eval frames (lidar and camera, fp32
+and bf16: src (2, 64, 128, 128) and (2, 64, 64, 128), the bf16 maps from
+the ``half=True`` models), where the bf16 instantiation must also give the
+fp32 kernel's bits on the widened map, rounded once. For each it
   * holds the kernel against its plain PyTorch version (K2 and K2b bit for
     bit; K4 within an fp32 sum-order tolerance, its order equal to a stable
     sort's; K3b within chip_smoke.py's tolerance) and, K2b aside, two of its
@@ -22,20 +25,23 @@ the lidar train step (g (4, 64, 128, 128) fp32) and the camera train step
   * times the wrapper with CUDA events, warm (back-to-back launches) and
     cold (a buffer larger than the L2 cache is written between launches),
     beside the one-call PyTorch yardstick (``torch.index_add``;
-    ``scatter_reduce`` amax and its autograd; autograd of ``grid_sample``);
+    ``scatter_reduce`` amax and its autograd; ``F.grid_sample`` and its
+    autograd);
   * splits the device time per launch over its kernels, copies and memsets
     by name with torch.profiler;
   * prints what ptxas reports for the sources (registers, shared memory).
 With ``--old-csrc DIR`` (a directory that holds any of ``splat_topk.cu``,
-``pillar_canvas_bwd.cu``, ``pillar_canvas.cu`` and ``warp_affine_bwd.cu``,
+``pillar_canvas_bwd.cu``, ``pillar_canvas.cu``, ``warp_affine_bwd.cu`` and
+``warp_affine.cu``,
 e.g. written there by ``git show <commit>:<path>``) that version is built
 beside the package's and the two are timed in turns in this one process:
 old, new, new, old. ``splat_topk.cu`` and ``pillar_canvas_bwd.cu`` there
 must have the C interface of the port's first version of those kernels;
 the old K4 includes the index preparation its wrapper did in PyTorch
-(``torch.where`` and a stable ``torch.sort``). ``pillar_canvas.cu`` and
-``warp_affine_bwd.cu`` have kept their C interface and run through the
-package's wrappers. ``--variant NAME=DIR`` (repeatable) builds another
+(``torch.where`` and a stable ``torch.sort``). ``pillar_canvas.cu``,
+``warp_affine_bwd.cu`` and ``warp_affine.cu`` have kept their C interface
+and run through the package's wrappers; K3's old version must give the
+package's bits, fp32 and bf16. ``--variant NAME=DIR`` (repeatable) builds another
 version of any of the four sources that has the package's current C
 interface and times it through the package's wrappers in the same turns,
 between the two "new" turns; it is held to the same checks. One JSON object
@@ -57,7 +63,10 @@ L2_FLUSH_BYTES = 128 << 20
 SPLAT_TOL = 1e-5  # fp32 sums of a cell's rows in another order
 # the sources this script times; the first two changed their C interface
 # after the port's first version, the last two did not
-SOURCES = ("splat_topk", "pillar_canvas_bwd", "pillar_canvas", "warp_affine_bwd")
+SOURCES = ("splat_topk", "pillar_canvas_bwd", "pillar_canvas", "warp_affine_bwd",
+           "warp_affine")
+# the C entries of a source besides its own name
+EXTRA_ENTRIES = {"warp_affine": ("warp_affine_bf16",)}
 
 
 def time_ms(torch, fn, iters=50, warmup=5, flush=None):
@@ -126,8 +135,9 @@ def build_old(torch, _cuda, csrc):
             "pillar_canvas_bwd": ("pillar_canvas_bwd_bf16",
                                   [P] * 6 + [L, L, I, I, P]),
             "pillar_canvas": _cuda.SIGNATURES["pillar_canvas"],
-            "warp_affine_bwd": _cuda.SIGNATURES["warp_affine_bwd"]}
-    fns, logs = {}, {}
+            "warp_affine_bwd": _cuda.SIGNATURES["warp_affine_bwd"],
+            "warp_affine": _cuda.SIGNATURES["warp_affine"]}
+    fns, logs, extra = {}, {}, {}
     for name, (sym, argtypes) in sigs.items():
         if not os.path.exists(os.path.join(csrc, f"{name}.cu")):
             continue
@@ -136,9 +146,14 @@ def build_old(torch, _cuda, csrc):
                                os.path.join(csrc, f"{name}.cu")], check=True,
                               capture_output=True, text=True)
         logs[name] = done.stdout + done.stderr
-        fn = getattr(ctypes.CDLL(so), sym)
+        lib = ctypes.CDLL(so)
+        fn = getattr(lib, sym)
         fn.argtypes, fn.restype = argtypes, I
         fns[name] = fn
+        for entry in EXTRA_ENTRIES.get(name, ()):
+            esym, eargs = _cuda.SIGNATURES[entry][:2]
+            extra[entry] = getattr(lib, esym)
+            extra[entry].argtypes, extra[entry].restype = eargs, I
 
     def stream():
         return torch.cuda.current_stream().cuda_stream
@@ -174,19 +189,14 @@ def build_old(torch, _cuda, csrc):
 
     def wrapped(name, wrapper):
         # the package's wrapper with the old library bound while it runs
-        saved = _cuda.library(name)
-
-        def call(*args):
-            _cuda._loaded[name] = fns[name]
-            try:
-                return wrapper(*args)
-            finally:
-                _cuda._loaded[name] = saved
-        return call
+        entries = {name: fns[name], **{e: extra[e] for e in
+                                       EXTRA_ENTRIES.get(name, ())}}
+        return through(_cuda, entries, wrapper)
 
     olds = {"splat_topk": splat, "pillar_canvas_bwd": canvas_bwd}
     for name, wrapper in (("pillar_canvas", pc.pillar_canvas_fwd),
-                          ("warp_affine_bwd", warp.warp_affine_bwd)):
+                          ("warp_affine_bwd", warp.warp_affine_bwd),
+                          ("warp_affine", warp.warp_affine_fwd)):
         if name in fns:
             olds[name] = wrapped(name, wrapper)
     return {name: olds[name] for name in fns}, logs
@@ -207,22 +217,23 @@ def build_variant(_cuda, tag, csrc):
         done = subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", so, src],
                               check=True, capture_output=True, text=True)
         logs[name] = done.stdout + done.stderr
-        sym, argtypes = _cuda.SIGNATURES[name]
-        fn = getattr(ctypes.CDLL(so), sym)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        fns[name] = fn
+        lib = ctypes.CDLL(so)
+        for entry in (name, *EXTRA_ENTRIES.get(name, ())):
+            sym, argtypes = _cuda.SIGNATURES[entry][:2]
+            fn = getattr(lib, sym)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            fns[entry] = fn
     return fns, logs
 
 
 def through(_cuda, fns, call):
-    """``call`` with the package's wrappers bound to the variant's
-    functions ``fns`` while it runs."""
-    saved = {name: _cuda.library(name) for name in fns}
-
-    def run():
+    """``call`` with the package's wrappers bound to the functions ``fns``
+    (by entry name) while it runs."""
+    def run(*args):
+        saved = {name: _cuda.library(name) for name in fns}
         _cuda._loaded.update(fns)
         try:
-            return call()
+            return call(*args)
         finally:
             _cuda._loaded.update(saved)
     return run
@@ -233,7 +244,8 @@ def path_arguments(torch, dev, cases):
     recorded from one forward (and backward) of each model: ``splat_topk``
     on the camera eval frame and train step, ``pillar_canvas`` on the lidar
     eval frame and train step, ``pillar_canvas_bwd`` on the lidar train
-    step, ``warp_affine_bwd`` on the lidar and camera train steps.
+    step, ``warp_affine_bwd`` on the lidar and camera train steps,
+    ``warp_affine`` on the four eval frames (fp32 and bf16).
     Returns {path: {kernel name: arguments}}."""
     import chip_smoke as cs
     from gencomm_tpu_torch.data.bucketing import trim_agent_slots
@@ -241,6 +253,7 @@ def path_arguments(torch, dev, cases):
     from gencomm_tpu_torch.data.synthetic import SyntheticConfig, SyntheticScenes
     from gencomm_tpu_torch.loss import build_loss
     from gencomm_tpu_torch.models.encoders import lss, point_pillar
+    from gencomm_tpu_torch.models.fuse import fusion
     from gencomm_tpu_torch.models.heter_baseline import HeterModel
     from gencomm_tpu_torch.native import PillarVoxelizer
     from gencomm_tpu_torch.ops import pillar_canvas, warp
@@ -258,25 +271,27 @@ def path_arguments(torch, dev, cases):
                 for _ in range(3)]
 
     out = {}
-    if {"K4", "K3b"} & cases:
+    def eval_forward(model, batch, nz):
+        with torch.inference_mode():
+            model(batch, noises=nz)
+
+    if {"K4", "K3b", "K3"} & cases:
         cam_scenes = SyntheticScenes(SyntheticConfig(
             lidar_range=cs.CAMERA_RANGE, max_cav=5, num_agents=2,
             num_vehicles=12, points_per_vehicle=300,
             modalities={"m1": {"sensor": "camera", "final_dim": cs.CAMERA_DIM,
                                "ncam": cs.CAMERA_NCAM}},
             max_spawn_radius=cs.CAMERA_GRID["ddiscr"][1] - 2.0))
-    if "K4" in cases:
+    if {"K4", "K3"} & cases:
         host = trim_agent_slots(cam_scenes.sample(seed=0, batch_size=1),
                                 buckets=(2, 3, 5))
-        model, batch = model_on(cs.CAMERA, False), batch_to_device(host, dev)
+        batch = batch_to_device(host, dev)
         nz = noises(host["agent_mask"].size, cs.CAMERA_FEATURE_SHAPE, 1)
-
-        def eval_forward():
-            with torch.inference_mode():
-                model(batch, noises=nz)
-
-        out["camera eval"] = cs.record_calls([(lss, "splat_topk")],
-                                             eval_forward)
+        for half in (False, True) if "K3" in cases else (False,):
+            model = model_on(dict(cs.CAMERA, half=half), False)
+            out["camera eval bf16" if half else "camera eval"] = cs.record_calls(
+                [(lss, "splat_topk"), (fusion, "warp_affine")],
+                lambda: eval_forward(model, batch, nz))
     if {"K4", "K3b"} & cases:
         host = trim_agent_slots(cam_scenes.sample(cs.TRAIN_SEED * 10000,
                                                   cs.TRAIN_BATCH),
@@ -288,23 +303,21 @@ def path_arguments(torch, dev, cases):
             [(lss, "splat_topk"), (warp, "warp_affine_bwd")],
             lambda: criterion(model(batch, noises=nz),
                               batch)["total_loss"].backward())
-    if {"K2", "K2b", "K3b"} & cases:
+    if {"K2", "K2b", "K3b", "K3"} & cases:
         scenes = SyntheticScenes(SyntheticConfig(
             lidar_range=cs.LIDAR_RANGE, max_cav=5, num_agents=2,
             points_per_agent=30000, num_vehicles=12, points_per_vehicle=300))
         voxelizer = PillarVoxelizer(cs.LIDAR_RANGE, cs.VOXEL)
-    if "K2" in cases:
+    if {"K2", "K3"} & cases:
         host = decorate_modality(trim_agent_slots(
             scenes.sample(seed=0, batch_size=1), buckets=(2, 3, 5)), voxelizer)
-        model, batch = model_on(cs.FLAGSHIP, False), batch_to_device(host, dev)
+        batch = batch_to_device(host, dev)
         nz = noises(host["agent_mask"].size, cs.FEATURE_SHAPE, 1)
-
-        def lidar_forward():
-            with torch.inference_mode():
-                model(batch, noises=nz)
-
-        out["lidar eval"] = cs.record_calls([(point_pillar, "pillar_canvas")],
-                                            lidar_forward)
+        for half in (False, True) if "K3" in cases else (False,):
+            model = model_on(dict(cs.FLAGSHIP, half=half), False)
+            out["lidar eval bf16" if half else "lidar eval"] = cs.record_calls(
+                [(point_pillar, "pillar_canvas"), (fusion, "warp_affine")],
+                lambda: eval_forward(model, batch, nz))
     if {"K2", "K2b", "K3b"} & cases:
         host = decorate_modality(trim_agent_slots(
             scenes.sample(cs.TRAIN_SEED * 10000, cs.TRAIN_BATCH),
@@ -350,7 +363,8 @@ def with_variants(_cuda, runs, order, variants, kernel, check):
     at = order.index("new") + 1
     for tag, fns in variants.items():
         if kernel in fns:
-            runs[tag] = through(_cuda, {kernel: fns[kernel]}, runs["new"])
+            runs[tag] = through(_cuda, {e: fns[e] for e in (
+                kernel, *EXTRA_ENTRIES.get(kernel, ()))}, runs["new"])
             order.insert(at, tag)
             at += 1
             checks[tag] = check(runs[tag]())
@@ -545,6 +559,57 @@ def bench_warp_bwd(torch, label, args, old, variants, iters, flush):
     return row
 
 
+def bench_warp(torch, label, args, old, variants, iters, flush):
+    import torch.nn.functional as F
+    import chip_smoke as cs
+    from gencomm_tpu_torch.ops import _cuda, warp
+
+    src, theta = args
+    n, h, w, c = src.shape
+    half = src.dtype == torch.bfloat16
+    want = warp.warp_affine_plain(src, theta)
+    got = warp.warp_affine_fwd(src, theta)
+    again = warp.warp_affine_fwd(src, theta)
+    torch.cuda.synchronize()
+    scale = float(src.float().abs().max())
+    tol = cs.warp_tolerance(src.float()) + (2.0 ** -7 * scale if half else 0.0)
+    row = {"src": [n, h, w, c], "dtype": "bf16" if half else "fp32",
+           "theta": theta.reshape(n, 6).tolist(),
+           "max_abs_err": float((got.float() - want.float()).abs().max()),
+           "tol": tol, "bit_equal_twice": bool(torch.equal(got, again))}
+    ok = row["max_abs_err"] <= tol and row["bit_equal_twice"]
+    if half:
+        row["equals_fp32_kernel_rounded"] = bool(torch.equal(
+            got, warp.warp_affine_fwd(src.float(), theta).to(torch.bfloat16)))
+        ok = ok and row["equals_fp32_kernel_rounded"]
+    src_nchw = src.permute(0, 3, 1, 2).contiguous()
+    grid = F.affine_grid(theta.to(src.dtype), list(src_nchw.shape),
+                         align_corners=False)
+    row["bound_ms"] = (2 * src.numel() * src.element_size()
+                       + theta.numel() * 4) / 3.35e12 * 1e3
+    name = "warp_affine_bf16" if half else "warp_affine"
+    runs = {"new": lambda: warp.warp_affine_fwd(src, theta),
+            "library": lambda: F.grid_sample(src_nchw, grid, mode="bilinear",
+                                             padding_mode="zeros",
+                                             align_corners=False)}
+    order = ["new", "new", "library"]
+    if old:
+        runs["old"] = lambda: old(src, theta)
+        order = ["old", "new", "new", "old", "library"]
+        row["old_equals_new_bits"] = bool(torch.equal(runs["old"](), got))
+        ok = ok and row["old_equals_new_bits"]
+    row["variant_equals_new_bits"] = with_variants(
+        _cuda, runs, order, variants, "warp_affine",
+        lambda out: bool(torch.equal(out, got)))
+    row.update(turns(torch, runs, order, iters, flush))
+    for which in runs:
+        row[f"{which}_split_ms"] = split_by_launch(torch, runs[which])
+    row["entry"] = name
+    row["ok"] = bool(ok)
+    print(label, json.dumps(row), flush=True)
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old-csrc", default=None)
@@ -597,7 +662,11 @@ def main() -> int:
             ("K2", "lidar step", "pillar_canvas", bench_canvas),
             ("K2b", "lidar step", "pillar_canvas_bwd", bench_canvas_bwd),
             ("K3b", "lidar step", "warp_affine_bwd", bench_warp_bwd),
-            ("K3b", "camera step", "warp_affine_bwd", bench_warp_bwd)]
+            ("K3b", "camera step", "warp_affine_bwd", bench_warp_bwd),
+            ("K3", "lidar eval", "warp_affine", bench_warp),
+            ("K3", "lidar eval bf16", "warp_affine", bench_warp),
+            ("K3", "camera eval", "warp_affine", bench_warp),
+            ("K3", "camera eval bf16", "warp_affine", bench_warp)]
     for kernel, path, name, bench in plan:
         if kernel in cases:
             label = f"{kernel} {path}"

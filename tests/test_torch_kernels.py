@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import bf16_steps_apart
 from gencomm_tpu_torch.ops._cuda import LAUNCHES
 from gencomm_tpu_torch.ops.deform_conv import (
     HALF_ROUTE_LAUNCHES, MAX_OFFSET, ROUTE_LAUNCHES, backward_scratch,
@@ -263,9 +264,37 @@ def test_deform_kernel_matches_plain_at_path_shapes_on_card(cuda, shape):
            1e-4, "out")
 
 
-# K1's bf16 instantiation (half=True): the eval paths' maps, both routes
+# K1's bf16 instantiation (half=True): the eval paths' maps, both routes,
+# and maps whose W is no multiple of the 64-pixel tile on the tensor-core
+# route (tiles that cross rows and images)
 DEFORM_BF16_CARD_SHAPES = [(2, 64, 128, 128, 64), (2, 64, 64, 128, 64),
-                           (1, 13, 21, 24, 10), (2, 20, 36, 40, 70)]
+                           (1, 13, 21, 24, 10), (2, 20, 36, 40, 70),
+                           (2, 20, 36, 64, 64), (1, 9, 100, 32, 64)]
+
+
+def _deform_bf16_checks(x, off, wt, route):
+    """K1 bf16 on the card: the launch counts, two launches bit-equal,
+    within one bf16 step of the fp32 kernel's rounded output, and within the
+    plain version's tolerance."""
+    before = (LAUNCHES["deform_conv3x3_bf16"],
+              HALF_ROUTE_LAUNCHES["deform_conv3x3_bf16"][route])
+    got = deform_conv3x3(x, off, wt)
+    again = deform_conv3x3(x, off, wt)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert (LAUNCHES["deform_conv3x3_bf16"],
+            HALF_ROUTE_LAUNCHES["deform_conv3x3_bf16"][route]) == (
+        before[0] + 2, before[1] + 2)
+    assert torch.equal(got, again)
+    # the tensor-core route's split bf16 product sums in another order than
+    # the fp32 kernel: a rounded output may land one bf16 step away
+    ref = deform_conv3x3(x.float(), off, wt).to(torch.bfloat16)
+    assert bf16_steps_apart(got, ref)[1] == 0
+    # against the plain version: fp32 sums in another order (1e-4), then
+    # one rounding each, which may land one bf16 step (2^-7 of the largest
+    # value) apart
+    want = deform_conv3x3_plain(x, off, wt).float().cpu().numpy()
+    _close(got.float().cpu().numpy(), want, 1e-4 + 2.0 ** -7, "out")
 
 
 @pytest.mark.cuda
@@ -276,24 +305,21 @@ def test_deform_bf16_kernel_matches_plain_on_card(cuda, shape):
     x, off, wt = (torch.from_numpy(a).to(cuda)
                   for a in _deform_inputs(8, b, h, w, cin, cout, scale=3.0))
     x, off = x.to(torch.bfloat16), off.clamp(-MAX_OFFSET, MAX_OFFSET)
-    route = kernel_route(cin, cout)
-    before = (LAUNCHES["deform_conv3x3_bf16"],
-              HALF_ROUTE_LAUNCHES["deform_conv3x3_bf16"][route])
-    got = deform_conv3x3(x, off, wt)
-    torch.cuda.synchronize()
-    assert got.dtype == torch.bfloat16
-    assert (LAUNCHES["deform_conv3x3_bf16"],
-            HALF_ROUTE_LAUNCHES["deform_conv3x3_bf16"][route]) == (
-        before[0] + 1, before[1] + 1)
-    # the samples and the product are the fp32 kernel's on the widened
-    # map, rounded once: bit for bit
-    assert torch.equal(got, deform_conv3x3(x.float(), off, wt).to(
-        torch.bfloat16))
-    # against the plain version: fp32 sums in another order (1e-4), then
-    # one rounding each, which may land one bf16 step (2^-7 of the largest
-    # value) apart
-    want = deform_conv3x3_plain(x, off, wt).float().cpu().numpy()
-    _close(got.float().cpu().numpy(), want, 1e-4 + 2.0 ** -7, "out")
+    _deform_bf16_checks(x, off, wt, kernel_route(cin, cout))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 24, 40, 128, 64), (1, 12, 70, 32, 64)])
+def test_deform_bf16_kernel_far_offsets_on_card(cuda, shape):
+    """Offsets up to +-12, not clamped: taps leave the staged band and the
+    map on all four sides."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, h, w, cin, cout = shape
+    x, off, wt = (torch.from_numpy(a).to(cuda)
+                  for a in _deform_inputs(10, b, h, w, cin, cout, scale=6.0))
+    x, off = x.to(torch.bfloat16), off.clamp(-12.0, 12.0)
+    assert float(off.min()) < -10 and float(off.max()) > 10
+    _deform_bf16_checks(x, off, wt, kernel_route(cin, cout))
 
 
 @pytest.mark.cuda
@@ -505,11 +531,13 @@ def test_warp_kernel_matches_plain_on_card(cuda, c):
                                rtol=0, atol=tol)
 
 
-# K3's bf16 instantiation (half=True): the eval paths' maps, 8-channel
-# vectors and the scalar path
+# K3's bf16 instantiation (half=True): the eval paths' maps, one image, a
+# W no multiple of the row kernel's 32 pixels with 3 vectors a pixel, and
+# the scalar path (channels no multiple of 8)
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 64, 128, 128), (2, 64, 64, 128),
-                                   (len(THETAS), 32, 48, 6)])
+                                   (1, 64, 128, 128), (3, 20, 37, 24),
+                                   (len(THETAS), 32, 48, 6), (2, 9, 13, 12)])
 def test_warp_bf16_kernel_matches_plain_on_card(cuda, shape):
     n = shape[0]
     src = torch.from_numpy(np.random.RandomState(shape[-1]).randn(
@@ -517,9 +545,11 @@ def test_warp_bf16_kernel_matches_plain_on_card(cuda, shape):
     th = torch.from_numpy(np.resize(THETAS, (n, 2, 3))).to(cuda)
     before = LAUNCHES["warp_affine_bf16"]
     got = warp_affine(src, th)
+    again = warp_affine(src, th)
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16
-    assert LAUNCHES["warp_affine_bf16"] == before + 1
+    assert LAUNCHES["warp_affine_bf16"] == before + 2
+    assert torch.equal(got, again)
     # the fp32 kernel's coordinate chain and blend on the widened map,
     # rounded once: bit for bit
     assert torch.equal(got, warp_affine(src.float(), th).to(torch.bfloat16))
