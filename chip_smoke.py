@@ -105,7 +105,35 @@ Phases, each of which raises on failure:
      on one batch, whose loss must fall; one step on the card and on the
      CPU, held as in phase 6;
  10. one run of ``python -m gencomm_tpu_torch.bench`` (the bf16 flagship,
-     looped and streamed, in its own process), its JSON line echoed.
+     looped and streamed, in its own process), its JSON line echoed;
+ 11. the GenComm two-stage workflow through the command-line tools, at the
+     full width of the repo's yamls, in its own process (``chip_smoke.py
+     --workflow DIR``, after no profiler session; its kernel counts are its
+     own), on the card with --dataset synthetic: each tool's main(argv) --
+     train stage1/m1_att.yaml for 2 epochs of 12 steps, the same run again
+     to epoch 3 (it must resume at epoch 2), stage1/m2_att.yaml for 1 epoch
+     (the camera runs cycle a pool of 4 batches, --batch_pool: the host
+     renders a camera batch slower than the card steps it, its time
+     logged), heal_tools merge, stage2/m1m2_att.yaml from the merge for 1
+     epoch, inference of the stage-2 run over 4 frames with the payload
+     report, inference_heter_in_order over 2 frames and 1-2 agents. Held:
+     every model's parameters and every training batch on the card; K1-K4,
+     K1b-K4b and N1 each launched; stage 2 left every parameter and running
+     statistic outside message_extractor_m2 bit for bit and changed
+     message_extractor_m2; every logged loss finite; inference again with
+     --device cpu on the same 4 frames (both runs draw the diffusion noise
+     of a frame's seed from the host generator, so that they share it) gives
+     the card's APs within 1e-6 for the stage-2 checkpoint, for a copy with
+     its running statistics refreshed (trainer.refresh_batch_stats; its
+     fused heads within 1e-3 of the CPU's on every frame, and the same kept
+     boxes) and for a copy whose heads put every box on its anchor (the
+     same kept boxes, and an AP at IoU 0.3 above 0, so the APs held are not
+     all zeros). Then each training run's step, 2 more on its last batch,
+     under torch.profiler: device busy ms/step. One JSON line: each
+     training run's ms/step as the CLI prints it at it = 10 and by CUDA
+     events over the same steps, its device busy ms/step, each tool's wall
+     seconds and kernel launches, the APs, the payload report and the
+     kernel counts.
 Each phase prints its wall time, and each profile the convolution operators
 by the shapes of their arguments. The last line is {"ok": true, "device":
 {...}}; before it come the card's nvidia-smi line and one JSON line with
@@ -117,8 +145,10 @@ Exits non-zero, printing no result, without a CUDA device.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -126,6 +156,8 @@ import time
 from gencomm_tpu_torch.bench import (
     LIDAR_RANGE, POSTPROCESS, VOXEL, flagship_kwargs, scenes_config,
 )
+from gencomm_tpu_torch.config.yaml_utils import load_yaml
+from gencomm_tpu_torch.models.heter_baseline import model_kwargs
 
 # fp32 peak outside the tensor cores, bf16 tensor-core peak and memory rate
 # of one H100 SXM (NVIDIA data sheet, dense, at the 700 W limit)
@@ -138,25 +170,21 @@ FLAGSHIP = flagship_kwargs(half=False)
 FEATURE_SHAPE = (64, 128, 128)  # the fused map, H x W x C
 NMS_TOPK = POSTPROCESS["nms_topk"]
 
-# the camera model: configs/opv2v/gencomm/stage1/m2_att.yaml:167-270
-CAMERA_RANGE = (-51.2, -51.2, -3.0, 51.2, 51.2, 1.0)
-CAMERA_DIM, CAMERA_NCAM = (384, 512), 4
-CAMERA_GRID = {"xbound": [-51.2, 51.2, 0.4], "ybound": [-51.2, 51.2, 0.4],
-               "zbound": [-10, 10, 20.0], "ddiscr": [2, 50, 48], "mode": "LID"}
-CAMERA = dict(
-    modality_args={"m1": {
-        "core_method": "lift_splat_shoot", "sensor_type": "camera",
-        "encoder_args": {"grid_conf": CAMERA_GRID,
-                         "data_aug_conf": {"final_dim": list(CAMERA_DIM),
-                                           "Ncams": CAMERA_NCAM},
-                         "img_downsample": 8, "img_features": 128,
-                         "trunk_blocks": 2, "depth_topk": 8,
-                         "lidar_range": list(CAMERA_RANGE)},
-        "backbone_args": FLAGSHIP["modality_args"]["m1"]["backbone_args"],
-        "shrink_header": FLAGSHIP["modality_args"]["m1"]["shrink_header"],
-    }},
-    fusion_method="att", lidar_range=CAMERA_RANGE, anchor_number=2,
-    use_gencomm=True, use_enhancer=True, half=False)
+# the camera model and both paths' training hypes from the repo's yamls:
+# configs/opv2v/gencomm/stage1/m2_att.yaml built as create_model builds it
+# (model_kwargs, so that a cell can set half), m1_att.yaml's and m2_att.yaml's
+# optimizer, schedule and loss (create_loss)
+GENCOMM_CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "configs", "opv2v", "gencomm")
+TRAIN_HYPES = load_yaml(os.path.join(GENCOMM_CONFIGS, "stage1", "m1_att.yaml"))
+CAMERA_TRAIN_HYPES = load_yaml(os.path.join(GENCOMM_CONFIGS, "stage1",
+                                            "m2_att.yaml"))
+CAMERA = model_kwargs(CAMERA_TRAIN_HYPES)
+_CAMERA_ENC = CAMERA["modality_args"]["m1"]["encoder_args"]
+CAMERA_RANGE = tuple(CAMERA_TRAIN_HYPES["preprocess"]["cav_lidar_range"])
+CAMERA_DIM = tuple(_CAMERA_ENC["data_aug_conf"]["final_dim"])
+CAMERA_NCAM = _CAMERA_ENC["data_aug_conf"]["Ncams"]
+CAMERA_GRID = _CAMERA_ENC["grid_conf"]
 CAMERA_FEATURE_SHAPE = (64, 64, 128)
 TIMED_FRAMES = 30  # eval frames, looped and streamed, after one warm-up
 # N1's sizes: nms_topk (intermediate and no-fusion modes) and the late
@@ -180,29 +208,6 @@ HALF_SPREAD = math.sqrt(2.0)
 # where the two PFN matmuls differ in the last bit
 CPU_TOL = 1e-3
 
-# training: configs/opv2v/gencomm/stage1/m1_att.yaml:108-141 (optimizer,
-# lr_scheduler, loss), with train_params.batch_size 2 (:7)
-TRAIN_HYPES = {
-    "optimizer": {"core_method": "Adam", "lr": 0.002,
-                  "args": {"eps": 1e-10, "weight_decay": 1e-4}},
-    "lr_scheduler": {"core_method": "multistep", "gamma": 0.1,
-                     "step_size": [10, 15]},
-    "loss": {"core_method": "point_pillar_gencomm_loss", "args": {
-        "pos_cls_weight": 2.0,
-        "cls": {"type": "SigmoidFocalLoss", "alpha": 0.25, "gamma": 2.0,
-                "weight": 2.0},
-        "reg": {"type": "WeightedSmoothL1Loss", "sigma": 3.0,
-                "codewise": True, "weight": 2.0},
-        "dir": {"type": "WeightedSoftmaxClassificationLoss", "weight": 0.2,
-                "args": {"dir_offset": 0.7853, "num_bins": 2,
-                         "anchor_yaw": [0, 90]}},
-        "generate_weight": 1}},
-}
-# the camera model's: m2_att.yaml:131-166 (generate_weight is read by nothing
-# in point_pillar_depth_loss, as in the JAX package)
-CAMERA_TRAIN_HYPES = dict(TRAIN_HYPES, loss={
-    "core_method": "point_pillar_depth_loss",
-    "args": dict(TRAIN_HYPES["loss"]["args"], depth={"weight": 1.0})})
 TRAIN_BATCH = 2
 TRAIN_SEED = 0  # tools/train.py batches(): sample(seed * 10000 + step, 2)
 TIMED_STEPS = 10
@@ -504,7 +509,7 @@ def profile_device(run, period_ms, n, unit):
     launches = sum(r[1] for r in rows)
     if busy <= 0:
         log("profile: the profiler saw no device time")
-        return
+        return 0.0, 0.0
     log(f"profile: device busy {busy:.3f} ms/{unit} of {period_ms:.3f} ms "
         f"(idle share {1 - busy / period_ms:.3f}), {launches:.0f} kernels "
         f"and copies per {unit}; top by device time (ms/{unit}, "
@@ -527,6 +532,7 @@ def profile_device(run, period_ms, n, unit):
     fft = [r for r in rows if "fft" in r[2].lower() or "complex" in r[2]]
     log(f"profile: FFT convolution kernels {sum(r[0] for r in fft):.3f} "
         f"ms/{unit} in {len(fft)} kernels")
+    return busy, launches
 
 
 def check_deform(inputs, where):
@@ -1358,7 +1364,7 @@ def time_train(smi, dev, label, model_kw, hypes, feature_shape, hosts,
     the cell for ``check_train``."""
     import torch
     from types import SimpleNamespace
-    from gencomm_tpu_torch.loss import build_loss
+    from gencomm_tpu_torch.loss import create_loss
     from gencomm_tpu_torch.models.heter_baseline import HeterModel
     from gencomm_tpu_torch.ops import _cuda
     from gencomm_tpu_torch.pipeline import batch_to_device
@@ -1369,13 +1375,13 @@ def time_train(smi, dev, label, model_kw, hypes, feature_shape, hosts,
     cell = SimpleNamespace(label=label, dev=dev, hosts=hosts,
                            jitter_key=jitter_key,
                            batches=[batch_to_device(h, dev) for h in hosts],
-                           criterion=build_loss(hypes["loss"]))
+                           criterion=create_loss(hypes))
 
     def fresh(device):
         model = HeterModel(**model_kw, device=device)
         model.load_state_dict(cell.state)
         model.train()
-        opt, sched = make_optimizer(hypes, model.parameters())
+        opt, sched = make_optimizer(hypes, model.named_parameters())
         return model, make_train_step(model, cell.criterion, opt, sched)
 
     cell.fresh = fresh
@@ -1611,6 +1617,45 @@ def compare_dets(label, card, cpu):
             raise AssertionError(f"{label}: {name} differ by {err}")
 
 
+def match_dets(label, card, cpu):
+    """Detections of one frame, card against CPU, as sets: the same number
+    kept, and each card box matched to a CPU box of its own with the score
+    within CPU_TOL and the corners within CPU_TOL x max(1, max|cpu|). Two
+    kept boxes whose scores differ by less than the card's and the CPU's
+    scores do may come in either order, so the order is not held."""
+    import torch
+
+    cv, pv = card.valid.cpu(), cpu.valid.cpu()
+    a_s, b_s = card.scores.cpu()[cv], cpu.scores.cpu()[pv]
+    a_c = card.corners3d.cpu()[cv].flatten(1)
+    b_c = cpu.corners3d.cpu()[pv].flatten(1)
+    log(f"{label}: {len(a_s)} detections kept on the card, {len(b_s)} on "
+        "the CPU")
+    if len(a_s) != len(b_s):
+        raise AssertionError(f"{label}: card and CPU keep different boxes")
+    if not (torch.isfinite(a_s).all() and torch.isfinite(a_c).all()):
+        raise AssertionError(f"{label}: non-finite detections")
+    c_tol = CPU_TOL * max(1.0, float(b_c.abs().max()) if b_c.numel()
+                          else 0.0)
+    free = torch.ones(len(b_s), dtype=torch.bool)
+    worst_s = worst_c = 0.0
+    swapped = 0
+    for i in range(len(a_s)):
+        ds = (b_s - a_s[i]).abs()
+        dc = (b_c - a_c[i]).abs().amax(1)
+        ok = free & (ds <= CPU_TOL) & (dc <= c_tol)
+        if not ok.any():
+            raise AssertionError(f"{label}: the card's box {i} (score "
+                                 f"{float(a_s[i])}) has no CPU match")
+        j = int(torch.where(ok, dc, torch.full_like(dc, math.inf)).argmin())
+        free[j] = False
+        swapped += int(j != i)
+        worst_s, worst_c = max(worst_s, float(ds[j])), max(worst_c, float(dc[j]))
+    log(f"  kept boxes matched: scores max |card-cpu| {worst_s:.3e} (tol "
+        f"{CPU_TOL:.0e}), corners {worst_c:.3e} (tol {c_tol:.3e}); {swapped} "
+        "at another rank")
+
+
 def check_modes(dev, scenes, host):
     """The late and no-fusion modes on the lidar flagship built with
     supervise_single (fp32): each mode's frame on the card with the launch
@@ -1734,6 +1779,402 @@ def run_bench():
     if not result["streamed_equals_looped"]:
         raise AssertionError("the bench's streamed frames differ from looped")
     phase_done("bench", t_phase)
+    return result
+
+
+WORKFLOW_STEPS = 12  # steps per epoch of each training run
+WORKFLOW_KERNELS = ("deform_conv3x3", "pillar_canvas", "warp_affine",
+                    "splat_topk", "deform_conv3x3_bwd", "pillar_canvas_bwd",
+                    "warp_affine_bwd", "splat_topk_bwd", "nms_closure")
+WORKFLOW_POOL = 4  # --batch_pool of the runs with a camera modality
+# the anchor-box evaluation: the first ANCHOR_TOPK of the 16,384 anchors by
+# score into N1; scores by anchor type (yaw 0, yaw 90)
+ANCHOR_TOPK = 2048
+ANCHOR_LOGITS = (1.0, 0.0)
+
+
+class _Tee:
+    """Writes to a buffer and to the process's stdout."""
+
+    def __init__(self, buf, out):
+        self.buf, self.out = buf, out
+
+    def write(self, text):
+        self.buf.write(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def workflow(root: str) -> dict:
+    """Phase 11, in its own process: the two-stage workflow through the
+    tools' main(argv) on the card; raises on any failed check and returns
+    the phase's numbers."""
+    import ast
+    import contextlib
+    import io
+    import re
+    import shutil
+
+    import torch
+    import yaml
+    from gencomm_tpu_torch.models.gencomm.diffusion import GenCommDiffusion
+    from gencomm_tpu_torch.ops import _cuda
+    from gencomm_tpu_torch.pipeline import InferencePipeline
+    from gencomm_tpu_torch.config.yaml_utils import save_yaml
+    from gencomm_tpu_torch.models import create_model
+    from gencomm_tpu_torch.tools import (
+        heal_tools, inference, inference_heter_in_order, train,
+    )
+    from gencomm_tpu_torch.train import checkpoint, trainer
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("the workflow phase needs a CUDA device")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    _cuda.build_all()
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    run = {k: os.path.join(root, k)
+           for k in ("stage1_m1", "stage1_m2", "stage2_m1m2")}
+    merged = os.path.join(run["stage2_m1m2"], "merged")
+    yaml_of = {k: os.path.join(GENCOMM_CONFIGS, *k.split("_", 1)) + "_att.yaml"
+               for k in run}
+
+    # every model the tools build and every batch they step, on the card
+    models = []
+    real_create, real_inf_create = train.create_model, inference.create_model
+    real_to_device = train.batch_to_device
+
+    def recorded(create):
+        def create_model(hypes, device=None):
+            models.append(create(hypes, device=device))
+            return models[-1]
+        return create_model
+
+    def to_device(batch, device):
+        out = real_to_device(batch, device)
+        off = sorted(k for k, v in out.items() if not v.is_cuda)
+        if off:
+            raise AssertionError(f"batch fields {off} are not on the card")
+        return out
+
+    train.create_model = recorded(real_create)
+    inference.create_model = recorded(real_inf_create)
+    train.batch_to_device = to_device
+    # the state each training run starts its steps from, CUDA events
+    # around every step (a cross-check of the CLI's host-clock ms/step) and
+    # each run's step with its last arguments (profiled after every timing)
+    starts, step_events, last_calls = [], [], []
+    real_make_step = trainer.make_train_step
+
+    def make_train_step(model, *a, **kw):
+        starts.append({k: v.detach().clone()
+                       for k, v in model.state_dict().items()})
+        step, events = real_make_step(model, *a, **kw), []
+        step_events.append(events)
+        last_calls.append([step, None])
+
+        def timed(*sa, **skw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step(*sa, **skw)
+            end.record()
+            events.append((start, end))
+            last_calls[-1][1] = (sa, skw)
+            return out
+        return timed
+
+    trainer.make_train_step = make_train_step
+    # a frame's diffusion noise from the host generator, seeded with the
+    # frame's seed, for the card's and the CPU's evaluation alike
+    real_draw = GenCommDiffusion.draw_noises
+
+    def host_drawn(self, shape, generator, device):
+        g = torch.Generator().manual_seed(generator.initial_seed())
+        return [z.to(device) for z in real_draw(self, shape, g, "cpu")]
+
+    # the heads of every frame an inference run decodes, by tool
+    heads, real_detect = {}, InferencePipeline._detect
+    current = [None]
+
+    def recorded_detect(self, out, batch):
+        heads.setdefault(current[0], []).append(
+            {k: out[k].float().cpu() for k in ("cls_preds", "reg_preds",
+                                               "dir_preds")})
+        return real_detect(self, out, batch)
+
+    InferencePipeline._detect = recorded_detect
+    # and the detections of every frame
+    dets, real_run = {}, InferencePipeline.run
+
+    def recorded_run(self, *a, **kw):
+        out = real_run(self, *a, **kw)
+        dets.setdefault(current[0], []).append(out)
+        return out
+
+    InferencePipeline.run = recorded_run
+    walls, texts, by_tool = {}, {}, {}
+
+    def tool(label, main_fn, argv):
+        log(f"workflow: {label}: {' '.join(argv)}")
+        buf = io.StringIO()
+        before = dict(_cuda.LAUNCHES)
+        current[0] = label
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(_Tee(buf, sys.stdout)):
+            result = main_fn(argv)
+        torch.cuda.synchronize()
+        walls[label] = round(time.perf_counter() - t0, 3)
+        texts[label] = buf.getvalue()
+        by_tool[label] = {k: v - before[k] for k, v in _cuda.LAUNCHES.items()
+                          if v != before[k]}
+        log(f"workflow: {label} took {walls[label]} s; launches "
+            f"{by_tool[label]}")
+        return result
+
+    def train_argv(key, epochs, *extra):
+        return ["-y", yaml_of[key], "--model_dir", run[key], "--dataset",
+                "synthetic", "--device", "cuda", "--epochs", str(epochs),
+                "--steps_per_epoch", str(WORKFLOW_STEPS), "--val_steps", "1",
+                *extra]
+
+    # how long the host takes for one camera batch (sampled and adapted)
+    hypes_m2 = load_yaml(yaml_of["stage1_m2"])
+    ds = train.build_dataset(hypes_m2, True, "synthetic")
+    t0 = time.perf_counter()
+    train.Adapt(hypes_m2)(ds.sample(0, hypes_m2["train_params"]["batch_size"]))
+    host_camera_s = round(time.perf_counter() - t0, 3)
+    log(f"workflow: the host makes one m2_att batch in {host_camera_s} s")
+
+    reset_launch_counts()
+    pool = ["--batch_pool", str(WORKFLOW_POOL)]
+    tool("train stage1 m1_att", train.main, train_argv("stage1_m1", 2))
+    tool("train stage1 m1_att, resumed", train.main, train_argv("stage1_m1", 3))
+    if "resumed from" not in texts["train stage1 m1_att, resumed"] or \
+            "(epoch 2)" not in texts["train stage1 m1_att, resumed"]:
+        raise AssertionError("the second m1_att run did not resume at epoch 2")
+    tool("train stage1 m2_att", train.main, train_argv("stage1_m2", 1, *pool))
+    tool("heal_tools merge", heal_tools.main, [
+        "--device", "cuda", "merge", "--new_ckpt", run["stage1_m2"],
+        "--base_ckpt", run["stage1_m1"], "--out", merged])
+    tool("train stage2 m1m2_att", train.main, train_argv(
+        "stage2_m1m2", 1, "--init_from", merged, *pool))
+    GenCommDiffusion.draw_noises = host_drawn
+    card = tool("inference", inference.main, [
+        "--model_dir", run["stage2_m1m2"], "--dataset", "synthetic",
+        "--frames", str(EVAL_FRAMES), "--report_comm", "--device", "cuda"])
+    GenCommDiffusion.draw_noises = real_draw
+    tool("inference_heter_in_order", inference_heter_in_order.main, [
+        "--model_dir", run["stage2_m1m2"], "--dataset", "synthetic",
+        "--frames", "2", "--max_cav", "2", "--device", "cuda"])
+    launches = {k: _cuda.LAUNCHES[k] for k in WORKFLOW_KERNELS}
+    log(f"workflow: kernel launches {launches}")
+    missing = [k for k, n in launches.items() if n <= 0]
+    if missing:
+        raise AssertionError(f"the workflow launched no {missing}")
+    for m in models:
+        off = [n for n, t in itertools.chain(m.named_parameters(),
+                                             m.named_buffers())
+               if not t.is_cuda]
+        if off:
+            raise AssertionError(f"model tensors {off[:5]} are not on the card")
+
+    # stage 2: only message_extractor_m2 moved
+    start = starts[-1]
+    final = checkpoint.load_checkpoint(
+        checkpoint.latest_checkpoint(run["stage2_m1m2"]))["state_dict"]
+    trained = [k for k in final if k.startswith("message_extractor_m2.")]
+    moved = [k for k in final if not torch.equal(final[k], start[k].cpu())]
+    log(f"workflow: stage 2 moved {len(moved)} of {len(final)} tensors, "
+        f"{len(trained)} trainable ones")
+    if not moved or set(moved) - set(trained):
+        raise AssertionError(f"stage 2 moved {sorted(set(moved) - set(trained))[:5]}"
+                             f" outside message_extractor_m2, or nothing")
+
+    # every logged loss finite; each run's ms/step at it = 10
+    ms_per_step, ms_per_step_events = {}, {}
+    for key, d in run.items():
+        with open(os.path.join(d, "metrics.jsonl")) as f:
+            for line in f:
+                vals = json.loads(line)
+                if not all(math.isfinite(v) for v in vals.values()):
+                    raise AssertionError(f"{key}: a non-finite loss {vals}")
+    for label, text in texts.items():
+        rates = [float(x) for x in re.findall(
+            r"\]\[10\] .*\[([0-9.]+) ms/step\]", text)]
+        if label.startswith("train"):
+            ms_per_step[label] = rates
+
+    # the per-step device clock: from the start of an epoch's step 1 to the
+    # end of its step 10, as the CLI's line at it = 10 spans
+    for label, events in zip([k for k in texts if k.startswith("train")],
+                             step_events):
+        for e in range(len(events) // WORKFLOW_STEPS):
+            ep = events[e * WORKFLOW_STEPS:(e + 1) * WORKFLOW_STEPS]
+            ms_per_step_events.setdefault(label, []).append(round(
+                ep[1][0].elapsed_time(ep[10][1]) / 10, 3))
+
+    # the same 4 frames on the CPU, for three checkpoints. (1) The trained
+    # stage-2 checkpoint: the same APs. After 36 + 12 steps its norms'
+    # running statistics are far from the data's, so eval-mode activations
+    # reach 1e7-1e9 in the lidar backbone and the message extractor's
+    # offsets 1e5-1e7 pixels, where the last bits of an offset move a
+    # sample by whole pixels: its heads, card against CPU, read 3.3e-5 to
+    # 6.5e-3 of their scale over five runs, so they are logged, not held
+    # (scripts/workflow_module_diff_torch.py compares it module by module).
+    # (2) The same checkpoint with its running statistics refreshed on the
+    # stage-2 run's last batch (trainer.refresh_batch_stats): the heads of
+    # every frame within CPU_TOL (the fused cls / reg / dir maps, which no
+    # NMS decision stands between), the same kept boxes and the same APs.
+    # (3) The stage-2 checkpoint with its heads' weights zeroed, so that
+    # every box is its anchor (car-sized) with the score of its type's bias,
+    # the same on the card and the CPU (ties kept in anchor order by the
+    # stable sorts), and the first ANCHOR_TOPK into N1: its AP at IoU 0.3
+    # must be above 0 (a lattice over a quarter of the map: 8 of the 48 GT
+    # at IoU 0.3 on the CPU, scripts/anchor_box_ap_torch.py), and the same
+    # kept boxes and APs on both
+    hypes2 = load_yaml(None, run["stage2_m1m2"])
+    derived = {"stage2_refreshed": hypes2,
+               "stage2_anchor_boxes": {**hypes2, "postprocess": {
+                   **hypes2["postprocess"], "nms_topk": ANCHOR_TOPK}}}
+    for name, hypes in derived.items():
+        os.makedirs(os.path.join(root, name))
+        save_yaml(hypes, os.path.join(root, name, "config.yaml"))
+    model2 = create_model(hypes2, device="cuda")
+    model2.load_state_dict(final)
+    trainer.refresh_batch_stats(model2, [last_calls[-1][1][0][0]],
+                                generator=torch.Generator(
+                                    device="cuda").manual_seed(0))
+    checkpoint.save_checkpoint(
+        os.path.join(root, "stage2_refreshed"),
+        {k: v.cpu() for k, v in model2.state_dict().items()}, 0, epoch=0)
+    del model2
+    anchor_state = {k: v.clone() for k, v in final.items()}
+    for head in ("cls_head", "reg_head", "dir_head"):
+        anchor_state[f"heads.{head}.weight"].zero_()
+        anchor_state[f"heads.{head}.bias"].zero_()
+    anchor_state["heads.cls_head.bias"].copy_(torch.tensor(ANCHOR_LOGITS))
+    checkpoint.save_checkpoint(os.path.join(root, "stage2_anchor_boxes"),
+                               anchor_state, 0, epoch=0)
+    GenCommDiffusion.draw_noises = host_drawn
+    tool("inference on the CPU", inference.main, [
+        "--model_dir", run["stage2_m1m2"], "--dataset", "synthetic",
+        "--frames", str(EVAL_FRAMES), "--infer_info", "cpu",
+        "--device", "cpu"])
+    for name in derived:
+        argv = ["--model_dir", os.path.join(root, name), "--dataset",
+                "synthetic", "--frames", str(EVAL_FRAMES)]
+        tool(f"inference, {name}", inference.main, argv + ["--device", "cuda"])
+        tool(f"inference, {name}, on the CPU", inference.main, argv + [
+            "--infer_info", "cpu", "--device", "cpu"])
+    GenCommDiffusion.draw_noises = real_draw
+    InferencePipeline._detect = real_detect
+    InferencePipeline.run = real_run
+
+    def head_error(label, cpu_label):
+        got, ref = heads[label], heads[cpu_label]
+        if len(got) != EVAL_FRAMES or len(ref) != EVAL_FRAMES:
+            raise AssertionError(f"{label}: the frames' heads were not "
+                                 "recorded")
+        worst = 0.0
+        for a, b in zip(got, ref):
+            for key in a:
+                err = float((a[key] - b[key]).abs().max())
+                worst = max(worst, err / max(1.0, float(b[key].abs().max())))
+        return worst
+
+    trained_err = head_error("inference", "inference on the CPU")
+    head_err = head_error("inference, stage2_refreshed",
+                          "inference, stage2_refreshed, on the CPU")
+    log(f"workflow: heads over {EVAL_FRAMES} frames, max |d| / max(1, "
+        f"max|cpu|), card vs CPU: trained {trained_err:.3e} (not held), "
+        f"refreshed {head_err:.3e} (tol {CPU_TOL:.0e})")
+    if not head_err <= CPU_TOL:
+        raise AssertionError(f"card and CPU heads disagree ({head_err})")
+    kept = {}
+    for name in derived:
+        label = f"inference, {name}"
+        card_dets, cpu_dets = dets[label], dets[f"{label}, on the CPU"]
+        if len(card_dets) != EVAL_FRAMES or len(cpu_dets) != EVAL_FRAMES:
+            raise AssertionError(f"{label}: the frames' detections were not "
+                                 "recorded")
+        for f, (a, b) in enumerate(zip(card_dets, cpu_dets)):
+            match_dets(f"workflow: {label}, frame {f}, card vs CPU", a, b)
+        kept[name] = [int(a.valid.sum()) for a in card_dets]
+    aps = {}
+    for name, d in [("stage2", run["stage2_m1m2"])] + [
+            (name, os.path.join(root, name)) for name in derived]:
+        for tag in ("eval", "eval_global_sort"):
+            with open(os.path.join(d, f"{tag}.yaml")) as f:
+                on_card = yaml.safe_load(f)
+            with open(os.path.join(d, f"{tag}_cpu.yaml")) as f:
+                on_cpu = yaml.safe_load(f)
+            aps[f"{name} {tag}"] = {"card": on_card, "cpu": on_cpu}
+            bad = [k for k in on_card
+                   if not abs(on_card[k] - on_cpu[k]) <= AP_TOL]
+            if bad or set(on_card) != set(on_cpu):
+                raise AssertionError(f"{name} {tag}: card {on_card} and CPU "
+                                     f"{on_cpu} disagree")
+    log(f"workflow: APs card and CPU {aps}")
+    if not aps["stage2_anchor_boxes eval"]["card"]["ap30"] > 0:
+        raise AssertionError(
+            f"the anchor boxes matched no GT at IoU 0.3 "
+            f"({aps['stage2_anchor_boxes eval']}), so the APs held are zeros")
+    if card != aps["stage2 eval_global_sort"]["card"]:
+        raise AssertionError(f"inference returned {card}")
+    comm = ast.literal_eval(re.search(r"comm report: (\{.*\})",
+                                      texts["inference"]).group(1))
+
+    # device time per step of each training run, from torch.profiler over 2
+    # more steps on its last batch, after every timing of the phase: what
+    # freezing saves on the card, whatever pace the host sets
+    device_ms_per_step = {}
+    train_labels = [k for k in texts if k.startswith("train")]
+    for label, (step, call), events in zip(train_labels, last_calls,
+                                           step_events):
+        if "resumed" in label:
+            continue
+        sa, skw = call
+        log(f"workflow: {label}, 2 steps on its last batch under the "
+            "profiler")
+        busy, n_launches = profile_device(
+            lambda i: step(*sa, **skw), ms_per_step_events[label][-1], 2,
+            "step")
+        device_ms_per_step[label] = {"busy_ms": round(busy, 3),
+                                     "launches": round(n_launches)}
+    log(f"workflow: device time per step {device_ms_per_step}")
+    return {"ms_per_step": ms_per_step,
+            "ms_per_step_events": ms_per_step_events,
+            "device_ms_per_step": device_ms_per_step, "wall_s": walls,
+            "aps": aps, "kept_per_frame": kept,
+            "comm": comm, "launches": launches, "launches_by_tool": by_tool,
+            "host_camera_batch_s": host_camera_s,
+            "stage2_moved": len(moved), "stage2_tensors": len(final),
+            "card_vs_cpu_heads_refreshed": head_err,
+            "card_vs_cpu_heads_trained": trained_err}
+
+
+def run_workflow():
+    """Phase 11 in its own process (``chip_smoke.py --workflow DIR``); its
+    last line is the phase's JSON, echoed here."""
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "workflow")
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--workflow", root],
+                          capture_output=True, text=True, timeout=900)
+    for line in proc.stdout.splitlines()[:-1]:
+        log(f"  | {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"the workflow phase failed:\n"
+                             f"{proc.stderr[-6000:]}")
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"workflow: {json.dumps(result)}")
+    phase_done("two-stage workflow", t_phase)
     return result
 
 
@@ -1947,6 +2388,8 @@ def main() -> int:
             row[key] = {"shape": list(shape),
                         "max_abs_err": general_errs[row["name"]]}
     run_bench()
+    torch.cuda.empty_cache()
+    run_workflow()
     phase_done("all phases", t_all)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernel_rows}), flush=True)
@@ -1957,4 +2400,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--workflow"]:
+        print(json.dumps(workflow(sys.argv[2])), flush=True)
+        sys.exit(0)
     sys.exit(main())

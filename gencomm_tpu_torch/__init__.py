@@ -14,11 +14,11 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: ``cuda`` unless one is given."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run on "
-                "the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
+    """The device an entry point runs on: ``cuda`` unless one is given; a
+    CUDA device, asked for or by default, must be present."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the "
+            "CPU")
+    return device

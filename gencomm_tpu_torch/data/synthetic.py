@@ -65,7 +65,8 @@ class SyntheticScenes:
         c = self.cfg
         if c.per_agent_labels:
             raise NotImplementedError(
-                "per-agent labels (supervise_single) are not ported yet")
+                "per-agent labels (supervise_single) are not ported yet "
+                "(ROADMAP item 21)")
         W = int(round((c.lidar_range[3] - c.lidar_range[0]) / c.voxel_size[0]))
         H = int(round((c.lidar_range[4] - c.lidar_range[1]) / c.voxel_size[1]))
         self.anchor_args = {

@@ -7,12 +7,11 @@ from gencomm_tpu_torch.loss.point_pillar_loss import (
     PointPillarLoss,
 )
 from gencomm_tpu_torch.loss.pyramid_loss import PointPillarDepthLoss
+from gencomm_tpu_torch.registry import LOSSES
 
-LOSSES = {
-    "point_pillar_loss": PointPillarLoss,
-    "point_pillar_gencomm_loss": PointPillarGenCommLoss,
-    "point_pillar_depth_loss": PointPillarDepthLoss,
-}
+LOSSES.register("point_pillar_loss", PointPillarLoss)
+LOSSES.register("point_pillar_gencomm_loss", PointPillarGenCommLoss)
+LOSSES.register("point_pillar_depth_loss", PointPillarDepthLoss)
 
 
 def build_loss(loss_hypes: dict):
@@ -21,5 +20,38 @@ def build_loss(loss_hypes: dict):
     name = loss_hypes["core_method"]
     if name not in LOSSES:
         raise NotImplementedError(
-            f"loss {name!r} is not ported yet; ported: {sorted(LOSSES)}")
-    return LOSSES[name](dict(loss_hypes["args"]))
+            f"loss {name!r} is not ported yet; ported: {LOSSES.names()}")
+    return LOSSES.get(name)(dict(loss_hypes["args"]))
+
+
+def create_loss(hypes: dict):
+    """The criterion of a hypes dict, as ``gencomm_tpu/loss/__init__.py:
+    create_loss`` builds it: the pyramid mode tag from the model's
+    ``core_method``, the model's lidar range and, for the IoU-rescore
+    losses, the anchor grid are injected into the loss arguments. The
+    ``supervise_single`` second pass raises until the per-agent labels are
+    ported (ROADMAP item 21)."""
+    args = dict(hypes["loss"]["args"])
+    core = hypes.get("model", {}).get("core_method", "").lower()
+    if "pyramid" in args and isinstance(args["pyramid"], dict):
+        args["pyramid"] = dict(args["pyramid"])
+        args["pyramid"].setdefault("mode",
+                                   "collab" if "collab" in core else "single")
+    mr = hypes.get("model", {}).get("args", {}).get("lidar_range")
+    if mr is not None:
+        args.setdefault("lidar_range", mr)
+    if ("iou" in args or "stage1" in args) and "_anchors" not in args \
+            and "anchor_args" in hypes.get("postprocess", {}):
+        from gencomm_tpu_torch.data.postprocessor import generate_anchor_box
+
+        anchors = generate_anchor_box(hypes["postprocess"]["anchor_args"])
+        args["_anchors"] = anchors
+        if isinstance(args.get("stage1"), dict):
+            args["stage1"] = dict(args["stage1"], _anchors=anchors)
+    criterion = build_loss({"core_method": hypes["loss"]["core_method"],
+                            "args": args})
+    if hypes.get("model", {}).get("args", {}).get("supervise_single"):
+        raise NotImplementedError(
+            "the supervise_single loss needs per-agent labels, which are not "
+            "ported yet (ROADMAP item 21)")
+    return criterion

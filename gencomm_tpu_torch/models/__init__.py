@@ -1,1 +1,38 @@
-"""Part of the PyTorch port; mirrors the gencomm_tpu subpackage of the same name."""
+"""Models of the port. ``create_model`` builds one from a hypes dict, as
+``gencomm_tpu/models/__init__.py:create_model`` does; of the JAX package's
+families only the heterogeneous GenComm model (``heter_baseline``) is
+ported, and every other ``model.core_method`` raises ``NotImplementedError``
+naming the ROADMAP item that ports it."""
+
+from __future__ import annotations
+
+# the JAX package's other model cores (matched as its create_model matches
+# them) and the ROADMAP item of each
+_OTHER_CORES = (
+    (("ciassd", "second_ssfa", "second_ssfa_uncertainty"), 19),
+    (("second", "second_intermediate"), 18),
+    (("point_pillar_uncertainty", "point_pillar_baseline_multiscale",
+      "fpvrcnn"), 19),
+)
+
+
+def create_model(hypes: dict, device=None):
+    """The model named by ``model.core_method``, on ``device`` (default
+    ``cuda``)."""
+    core = hypes["model"]["core_method"].lower()
+    for names, item in _OTHER_CORES:
+        if core in names:
+            raise NotImplementedError(
+                f"model {core!r} is not ported yet (ROADMAP item {item})")
+    if core == "heter_model_baseline_ms" or "pyramid" in core:
+        raise NotImplementedError(
+            f"model {core!r} is not ported yet (ROADMAP item 17)")
+    if core.startswith("center_point"):
+        raise NotImplementedError(
+            f"model {core!r} is not ported yet (ROADMAP item 19)")
+    if core.startswith("pixor"):
+        raise NotImplementedError(
+            f"model {core!r} is not ported yet (ROADMAP item 18)")
+    from gencomm_tpu_torch.models.heter_baseline import build_model
+
+    return build_model(hypes, device=device)

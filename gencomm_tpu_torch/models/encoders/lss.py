@@ -82,7 +82,8 @@ class CamEncoder(nn.Module):
         super().__init__()
         if trunk in ("efficientnet-b0", "resnet101"):
             raise NotImplementedError(
-                f"img_trunk {trunk!r} is not ported yet; ported: 'tpu'")
+                f"img_trunk {trunk!r} is not ported yet (ROADMAP item 15); "
+                "ported: 'tpu'")
         if trunk != "tpu":
             raise ValueError(f"unknown img_trunk {trunk!r}")
         if downsample != 8:

@@ -47,5 +47,6 @@ class AttFusion(nn.Module):
 
 def build_fusion(method: str) -> nn.Module:
     if method != "att":
-        raise NotImplementedError(f"fusion {method!r} is not ported yet")
+        raise NotImplementedError(
+            f"fusion {method!r} is not ported yet (ROADMAP item 17)")
     return AttFusion()

@@ -70,7 +70,8 @@ class Enhancer(nn.Module):
         super().__init__()
         if use_attn:
             raise NotImplementedError(
-                "the Enhancer attention branches are not ported yet")
+                "the Enhancer attention branches are not ported yet (ROADMAP "
+                "item 17)")
         self.block_1 = EnhancerBlock(dim, dtype)
         self.split_attn = SplitAttn(dim, dtype)
 

@@ -3,7 +3,8 @@
 Counterpart of ``gencomm_tpu/models/heter_baseline.py`` (``ModalityBranch``,
 ``HeterModel.__call__``) restricted to: host-decorated point_pillar and
 lift_splat_shoot camera modalities, ``use_gencomm`` (message extractor +
-conditional DDPM), ``use_enhancer``, ``supervise_single`` (per-agent heads)
+conditional DDPM), ``use_enhancer``, ``supervise_single`` (per-agent heads),
+the two stage-2 switches ``missing_message_rate`` and ``gencomm_trick``
 and ``att`` fusion, with fp32
 activations or, with ``half=True``, bf16 ones at eval. The model is built in
 ``eval()``; under ``train()`` only the batch norms change (batch
@@ -22,7 +23,9 @@ heads run in fp32. bf16 training is not ported: ``train()`` raises.
 
 Inputs are padded ``(B, L, ...)`` tensors with masks, agent slot 0 the ego;
 submodule names follow the flax auto-names so ``weights.py`` can carry JAX
-parameters across.
+parameters across. ``build_model`` builds the model from a hypes dict
+(``heter_baseline.py:574-659``); a config that needs a branch the port
+does not have raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -77,7 +80,7 @@ class ModalityBranch(nn.Module):
                 dtype=dtype)
         else:
             raise NotImplementedError(
-                f"encoder {core_method!r} is not ported yet")
+                f"encoder {core_method!r} is not ported yet (ROADMAP item 18)")
         self.backbone = BEVBackbone(
             self.encoder.out_channels,
             layer_nums=backbone_args["layer_nums"],
@@ -121,10 +124,13 @@ class HeterModel(nn.Module):
                  gencomm_timesteps: int = 3, unet_ch: int = 8,
                  unet_ch_mult: Sequence[int] = (1, 1),
                  unet_num_res_blocks: int = 2, half: bool = False,
-                 supervise_single: bool = False, device=None):
+                 supervise_single: bool = False,
+                 missing_message_rate: float = 0.0,
+                 gencomm_trick: bool = False, device=None):
         super().__init__()
         if num_class != 1:
-            raise NotImplementedError("multi-class heads are not ported yet")
+            raise NotImplementedError(
+                "multi-class heads are not ported yet (ROADMAP item 19)")
         if use_enhancer and not use_gencomm:
             raise NotImplementedError("the Enhancer runs only after GenComm")
         device = resolve_device(device)
@@ -133,6 +139,10 @@ class HeterModel(nn.Module):
         self.lidar_range = tuple(lidar_range)
         self.use_gencomm, self.use_enhancer = use_gencomm, use_enhancer
         self.message_ch = message_ch
+        # stage 2: the eval-time spatial dropout of the non-ego messages,
+        # and the prediction masked where the true feature is zero
+        self.missing_message_rate = float(missing_message_rate)
+        self.gencomm_trick = gencomm_trick
         self.modalities = list(modality_args)
         # camera modalities: name -> the (x, y) extent of their BEV grid
         self.camera_extent = {
@@ -181,6 +191,15 @@ class HeterModel(nn.Module):
     def device(self) -> torch.device:
         return self.heads.cls_head.weight.device
 
+    def camera_bev_shape(self, mname: str, h: int, w: int) -> Tuple[int, int]:
+        """The (H, W) that camera modality ``mname``'s (h, w) feature is
+        cropped or padded to so that it spans the lidar range; rounded,
+        since 100.8 / 51.2 lies just below 1.96875 in binary and int()
+        would cut a column."""
+        xmax, ymax = self.camera_extent[mname]
+        return (int(round(h * (self.lidar_range[4] / ymax))),
+                int(round(w * (self.lidar_range[3] / xmax))))
+
     def forward(self, batch: Dict[str, torch.Tensor], noises=None,
                 generator: torch.Generator | None = None) -> Dict[str, Any]:
         """batch: tensors on the model's device (``agent_mask``,
@@ -189,7 +208,9 @@ class HeterModel(nn.Module):
         ``dvalid_<m>``; for a camera modality ``imgs_<m>``, ``rots_<m>``,
         ``trans_<m>``, ``intrins_<m>``, ``post_rots_<m>``,
         ``post_trans_<m>`` and optionally ``depths_<m>``). ``noises`` or
-        ``generator`` feed the diffusion (see GenCommDiffusion). The output
+        ``generator`` feed the diffusion (see GenCommDiffusion); with a
+        ``missing_message_rate`` an eval forward first draws the messages'
+        keep mask from ``generator``, which it then needs. The output
         keeps ``gt_feature``, ``pred_feature`` and ``feature_mask`` for the
         generation loss and, for a camera modality, ``depth_items_<m>`` =
         (logits, gt_idx, slot weight) for the depth loss (the bare logits
@@ -223,12 +244,9 @@ class HeterModel(nn.Module):
             feat, depth_logits = getattr(self, f"branch_{mname}")(inputs)
             if mname in self.camera_extent:
                 # align the camera's BEV extent to the lidar range by a
-                # center crop or pad; rounded, since 100.8 / 51.2 lies just
-                # below 1.96875 in binary and int() would cut a column
-                xmax, ymax = self.camera_extent[mname]
-                th = int(round(feat.shape[2] * (self.lidar_range[4] / ymax)))
-                tw = int(round(feat.shape[3] * (self.lidar_range[3] / xmax)))
-                feat = center_crop_or_pad(feat, (th, tw))
+                # center crop or pad
+                feat = center_crop_or_pad(feat, self.camera_bev_shape(
+                    mname, feat.shape[2], feat.shape[3]))
                 if isinstance(depth_logits, tuple):
                     # the slot weight keeps the depth loss's mean on the
                     # real camera agents of the padded layout
@@ -256,6 +274,15 @@ class HeterModel(nn.Module):
             out.update(cls_preds_single=cls_s, reg_preds_single=reg_s,
                        dir_preds_single=dir_s)
         if self.use_gencomm:
+            if not self.training and self.missing_message_rate > 0:
+                # spatial dropout of the non-ego messages, the ego's intact
+                if generator is None:
+                    raise ValueError("missing_message_rate draws its mask "
+                                     "from a generator; none was given")
+                keep = torch.rand((b, l) + hw + (1,), generator=generator,
+                                  device=message.device) > self.missing_message_rate
+                keep[:, 0] = True
+                message = message * keep
             out["message"] = message
             # only `message` crosses agents; generation starts from the ego
             ego_bc = feature[:, 0:1].expand(feature.shape).reshape(
@@ -265,7 +292,12 @@ class HeterModel(nn.Module):
             out["gt_feature"] = feature.reshape(pred.shape)
             out["pred_feature"] = pred
             out["feature_mask"] = agent_mask.reshape(-1)
-            fused_in = self.enhancer(pred) if self.use_enhancer else pred
+            fused_in = pred
+            if self.gencomm_trick:
+                fused_in = pred * (out["gt_feature"] != 0).any(
+                    dim=-1, keepdim=True).to(pred.dtype)
+            if self.use_enhancer:
+                fused_in = self.enhancer(fused_in)
             feature = fused_in.reshape((b, l) + hw + (pred.shape[-1],))
 
         fused = self.fusion_net(feature, affine, agent_mask)
@@ -274,3 +306,67 @@ class HeterModel(nn.Module):
         out.update(cls_preds=cls_preds, reg_preds=reg_preds,
                    dir_preds=dir_preds)
         return out
+
+
+# model cores of the JAX package's heter family whose extra branches are
+# not ported, with the ROADMAP item that ports them
+_UNPORTED_CORES = {"backalign": 16, "codebook": 16, "mpda": 16, "stamp": 16}
+
+
+def model_kwargs(hypes: dict) -> Dict[str, Any]:
+    """``HeterModel`` arguments from a hypes dict, as ``build_model`` of
+    the JAX package reads its ``model.args`` block; raises
+    ``NotImplementedError`` for a branch the port does not have."""
+    args = hypes["model"]["args"]
+    core = hypes["model"]["core_method"].lower()
+    for name, item in _UNPORTED_CORES.items():
+        if name in core:
+            raise NotImplementedError(
+                f"model {core!r} is not ported yet (ROADMAP item {item})")
+    for key, item in (("codebook", 16), ("communication", 17),
+                      ("seg_head_args", 16)):
+        if key in args:
+            raise NotImplementedError(
+                f"model.args.{key} is not ported yet (ROADMAP item {item})")
+    if "gmatch" in hypes.get("loss", {}).get("core_method", ""):
+        raise NotImplementedError(
+            "the gradient-matching model branch is not ported yet (ROADMAP "
+            "item 16)")
+    modality_args = {}
+    for key, val in args.items():
+        if key.startswith("m") and key[1:].isdigit():
+            margs = dict(val)
+            enc = dict(margs["encoder_args"])
+            enc.setdefault("lidar_range", args["lidar_range"])
+            margs["encoder_args"] = enc
+            modality_args[key] = margs
+    use_gencomm = "gencomm" in core or "gencomm" in args
+    gencomm_cfg = args.get("gencomm", {})
+    unet_cfg = gencomm_cfg.get("model", {})
+    diff_cfg = gencomm_cfg.get("diffusion", {})
+    return dict(
+        modality_args=modality_args,
+        fusion_method=args["fusion_method"],
+        lidar_range=tuple(args["lidar_range"]),
+        anchor_number=args["anchor_number"],
+        num_class=int(args.get("num_class", 1)),
+        dir_bins=args["dir_args"]["num_bins"],
+        use_gencomm=use_gencomm,
+        use_enhancer=use_gencomm and "enhancer" in args,
+        enhancer_use_attn=bool(args.get("enhancer", {}).get("use_attn", False)),
+        message_ch=args.get("message_extractor", {}).get("out_ch", 2),
+        gencomm_timesteps=diff_cfg.get("num_diffusion_timesteps", 3),
+        unet_ch=unet_cfg.get("ch", 8),
+        unet_ch_mult=tuple(unet_cfg.get("ch_mult", (1, 1))),
+        unet_num_res_blocks=unet_cfg.get("num_res_blocks", 2),
+        half=bool(args.get("half", False)),
+        supervise_single=bool(args.get("supervise_single", False)),
+        missing_message_rate=(
+            0.4 if use_gencomm and args.get("missing_message", False) else 0.0),
+        gencomm_trick=bool(args.get("trick", False)),
+    )
+
+
+def build_model(hypes: dict, device=None) -> HeterModel:
+    """``HeterModel`` from a hypes dict, on ``device`` (default ``cuda``)."""
+    return HeterModel(**model_kwargs(hypes), device=device)

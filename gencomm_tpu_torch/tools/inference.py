@@ -1,0 +1,197 @@
+"""Evaluation entry point of the port: a trained run over synthetic frames,
+VOC AP at IoU 0.3 / 0.5 / 0.7, per-frame and global-sort.
+
+Counterpart of ``gencomm_tpu/tools/inference.py``:
+
+    python -m gencomm_tpu_torch.tools.inference --model_dir <run> \
+        --dataset synthetic [--frames N] [--ckpt <dir>] [--use_cav K] \
+        [--range xmin,ymin,zmin,xmax,ymax,zmax] [--score_threshold T] \
+        [--half] [--report_comm] [--device cuda|cpu]
+
+The run's ``config.yaml`` builds the model; the checkpoint is ``--ckpt``,
+else the run's bestval, else its latest. Frame f is
+``sample(1000 + f, 1)``, its agents capped at ``--use_cav``, trimmed to the
+agent buckets (2, 3, 5) and decorated on the host, then
+``InferencePipeline.run`` with diffusion seed f. Writes ``eval.yaml`` and
+``eval_global_sort.yaml`` (suffixed ``_<infer_info>``) into the run dir.
+``--report_comm`` prints the GenComm message's payload of the last frame.
+Runs on ``cuda`` unless ``--device cpu``. Pose noise, delay and the BEV
+snapshots raise (ROADMAP item 21), as do multi-class configs (item 19).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import numpy as np
+import torch
+
+from gencomm_tpu_torch import resolve_device
+from gencomm_tpu_torch.config.yaml_utils import load_yaml, save_yaml, update_yaml
+from gencomm_tpu_torch.data.bucketing import trim_agent_slots
+from gencomm_tpu_torch.data.postprocessor import generate_anchor_box
+from gencomm_tpu_torch.models import create_model
+from gencomm_tpu_torch.pipeline import InferencePipeline, batch_to_device
+from gencomm_tpu_torch.tools.train import DATASETS, build_dataset
+from gencomm_tpu_torch.train import checkpoint
+from gencomm_tpu_torch.utils import box_utils, eval_utils
+from gencomm_tpu_torch.utils.misc_utils import cpm_size_bytes
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--model_dir", required=True)
+    parser.add_argument("--dataset", default="opv2v", choices=DATASETS)
+    parser.add_argument("--frames", type=int, default=50)
+    parser.add_argument("--pos_std", type=float, default=0.0)
+    parser.add_argument("--rot_std", type=float, default=0.0)
+    parser.add_argument("--laplace", action="store_true")
+    parser.add_argument("--delay", type=int, default=0,
+                        help="comm delay in ms (100 ms frames)")
+    parser.add_argument("--infer_info", default=None)
+    parser.add_argument("--ckpt", default=None,
+                        help="evaluate this checkpoint dir instead of "
+                             "bestval / latest")
+    parser.add_argument("--score_threshold", type=float, default=None)
+    parser.add_argument("--use_cav", type=int, default=0,
+                        help="cap the number of collaborating agents; 0 = all")
+    parser.add_argument("--report_comm", action="store_true",
+                        help="report the transmitted payload's size")
+    parser.add_argument("--save_vis_interval", type=int, default=0)
+    parser.add_argument("--range", dest="det_range", default=None,
+                        help="'xmin,ymin,zmin,xmax,ymax,zmax': override the "
+                             "detection range and re-derive the anchor grid")
+    parser.add_argument("--half", action="store_true",
+                        help="bf16 activations (fp32 checkpoints load "
+                             "unchanged)")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (default) or cpu")
+    return parser.parse_args(argv)
+
+
+def override_range(hypes: dict, det_range) -> dict:
+    """The hypes with every range (data, anchors, model grids) set to
+    ``det_range`` and the derivations run again."""
+    rng_ = [float(v) for v in det_range]
+    if len(rng_) != 6:
+        raise ValueError("--range needs 6 comma-separated floats")
+    hypes["cav_lidar_range"] = list(rng_)
+    hypes["preprocess"]["cav_lidar_range"] = list(rng_)
+    hypes["postprocess"]["anchor_args"]["cav_lidar_range"] = list(rng_)
+    hypes["postprocess"]["gt_range"] = list(rng_)
+    for setting in hypes.get("heter", {}).get("modality_setting", {}).values():
+        setting.setdefault("preprocess", {})["cav_lidar_range"] = list(rng_)
+    margs = hypes["model"].get("args", {})
+    if "lidar_range" in margs:
+        margs["lidar_range"] = list(rng_)
+    for mcfg in margs.values():
+        if isinstance(mcfg, dict) and "encoder_args" in mcfg \
+                and "lidar_range" in mcfg["encoder_args"]:
+            mcfg["encoder_args"]["lidar_range"] = list(rng_)
+    return update_yaml(hypes)
+
+
+def cap_agents(host: dict, use_cav: int) -> dict:
+    """The frame with the agent and modality masks cleared from slot
+    ``use_cav`` on."""
+    host = dict(host)
+    for k in list(host):
+        if k == "agent_mask" or k.startswith("modality_mask_"):
+            m = host[k].copy()
+            m[:, use_cav:] = False
+            host[k] = m
+    return host
+
+
+def comm_report(model, batch: dict) -> dict:
+    """The payload the valid non-ego agents of ``batch`` send: GenComm's
+    2-channel message, else the BEV feature; fp16 bytes raw and deflated."""
+    with torch.inference_mode():
+        out = model(batch, generator=torch.Generator(
+            device=model.device).manual_seed(0))
+    amask = batch["agent_mask"][0].cpu().numpy() > 0
+    senders = np.nonzero(amask[1:])[0] + 1
+    if out.get("message") is not None:
+        payload = "gencomm_message_2ch"
+        per_agent = out["message"][0].float().cpu().numpy()[senders]
+    else:
+        payload = "bev_feature"
+        per_agent = out["feature"].float().cpu().numpy().reshape(
+            (amask.shape[0], -1))[senders]
+    sizes = cpm_size_bytes(per_agent)
+    return {"payload": payload, "n_senders": int(len(senders)),
+            "cpm_bytes_fp16_raw": sizes["raw_bytes"],
+            "cpm_bytes_fp16_deflate": sizes["compressed_bytes"]}
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if args.pos_std or args.rot_std or args.laplace or args.delay:
+        raise NotImplementedError(
+            "pose noise and communication delay are not ported yet (ROADMAP "
+            "item 21)")
+    if args.save_vis_interval:
+        raise NotImplementedError(
+            "--save_vis_interval is not ported yet (ROADMAP item 21)")
+    device = resolve_device(args.device)
+
+    hypes = load_yaml(None, args.model_dir)
+    if args.half:
+        hypes["model"]["args"]["half"] = True
+    if args.det_range:
+        hypes = override_range(hypes, args.det_range.split(","))
+    if args.score_threshold is not None:
+        hypes["postprocess"]["target_args"]["score_threshold"] = \
+            args.score_threshold
+    if int(hypes["postprocess"].get("num_class", 1)) > 1:
+        raise NotImplementedError(
+            "multi-class evaluation is not ported yet (ROADMAP item 19)")
+
+    np.random.seed(303)
+    dataset = build_dataset(hypes, False, args.dataset)
+    model = create_model(hypes, device=device)
+    ckpt_path = args.ckpt or (checkpoint.bestval_checkpoint(args.model_dir)
+                              or checkpoint.latest_checkpoint(args.model_dir))
+    if not ckpt_path:
+        raise FileNotFoundError(f"no checkpoint in {args.model_dir}")
+    restored = checkpoint.load_checkpoint(ckpt_path)
+    model.load_state_dict(checkpoint.load_into(model.state_dict(),
+                                               restored["state_dict"]))
+    print(f"loaded {ckpt_path}")
+    anchors = generate_anchor_box(hypes["postprocess"]["anchor_args"],
+                                  hypes["postprocess"].get("order", "hwl"))
+    pipe = InferencePipeline(model, anchors, hypes["postprocess"],
+                             device=device)
+
+    stat = eval_utils.new_result_stat()
+    host = None
+    for f in range(args.frames):
+        host = dataset.sample(1000 + f, 1)
+        if args.use_cav:
+            host = cap_agents(host, args.use_cav)
+        host = pipe.decorate(trim_agent_slots(host, buckets=(2, 3, 5)))
+        dets = pipe.run(host, seed=f)
+        valid = dets.valid[0].cpu().numpy()
+        corners = dets.corners3d[0].cpu().numpy()[valid]
+        scores = dets.scores[0].cpu().numpy()[valid]
+        gt_boxes = host["gt_boxes"][0][host["gt_mask"][0] == 1]
+        gt = box_utils.boxes_to_corners_3d(gt_boxes, "hwl")
+        for t in (0.3, 0.5, 0.7):
+            eval_utils.calculate_tp_fp(corners, scores, gt, stat, t)
+
+    if args.report_comm and host is not None:
+        print("comm report:", comm_report(model, batch_to_device(host, device)))
+
+    for global_sort in (False, True):
+        res = eval_utils.eval_final_results(stat, global_sort)
+        tag = "eval_global_sort" if global_sort else "eval"
+        if args.infer_info:
+            tag += f"_{args.infer_info}"
+        save_yaml(res, os.path.join(args.model_dir, f"{tag}.yaml"))
+        print(tag, {k: round(v, 4) for k, v in res.items()})
+    return res
+
+
+if __name__ == "__main__":
+    main()

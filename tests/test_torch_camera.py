@@ -655,7 +655,7 @@ def train_run():
 
     model = HeterModel(**MODEL_KW, device="cpu")
     model.load_state_dict(flax_to_state_dict(model, variables))
-    opt, sched = make_optimizer(HYPES, model.parameters())
+    opt, sched = make_optimizer(HYPES, model.named_parameters())
     step = make_train_step(model, build_loss(HYPES["loss"]), opt, sched)
     losses = step(batch_to_device(batch, "cpu"),
                   noises=[_t(n) for n in noises])

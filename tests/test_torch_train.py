@@ -455,8 +455,9 @@ def test_lr_schedule_matches_optax_at_its_boundaries():
     for count in (0, 1, 69, 70, 71, 104, 105, 106, 500):
         np.testing.assert_allclose(got(count), float(want(count)), rtol=1e-6,
                                    err_msg=str(count))
-    opt, sched = make_optimizer(HYPES, [torch.nn.Parameter(torch.zeros(1))],
-                                steps_per_epoch=spe)
+    opt, sched = make_optimizer(
+        HYPES, [("w", torch.nn.Parameter(torch.zeros(1)))],
+        steps_per_epoch=spe)
     for count in range(107):
         np.testing.assert_allclose(opt.param_groups[0]["lr"],
                                    float(want(count)), rtol=1e-6)
@@ -479,7 +480,8 @@ def test_adamw_updates_match_optax_across_a_boundary(weight_decay):
     jp = [jnp.asarray(p) for p in params0]
     state = tx.init(jp)
     tp = [torch.nn.Parameter(_t(p.copy())) for p in params0]
-    opt, sched = make_optimizer(hypes, tp)
+    opt, sched = make_optimizer(hypes, [(str(i), p) for i, p in
+                                        enumerate(tp)])
     for gs in grads:
         updates, state = tx.update([jnp.asarray(g) for g in gs], state, jp)
         jp = optax.apply_updates(jp, updates)
@@ -493,11 +495,9 @@ def test_adamw_updates_match_optax_across_a_boundary(weight_decay):
 
 
 def test_unported_training_options_raise():
+    # freezing (a frozen predicate) is ported: tests/test_torch_workflow.py
     model = HeterModel(**MODEL_KW, device="cpu")
-    with pytest.raises(NotImplementedError):
-        make_optimizer(HYPES, model.parameters(),
-                       frozen_predicate=lambda path: True)
-    opt, sched = make_optimizer(HYPES, model.parameters())
+    opt, sched = make_optimizer(HYPES, model.named_parameters())
     with pytest.raises(NotImplementedError):
         make_train_step(model, build_loss(HYPES["loss"]), opt, sched,
                         supervise_single=True)
@@ -599,7 +599,7 @@ def train_step_run():
 
     model = HeterModel(**MODEL_KW, device="cpu")
     model.load_state_dict(flax_to_state_dict(model, variables))
-    opt, sched = make_optimizer(HYPES, model.parameters())
+    opt, sched = make_optimizer(HYPES, model.named_parameters())
     step = make_train_step(model, build_loss(HYPES["loss"]), opt, sched)
     tbatch = batch_to_device(batch, "cpu")
     tnoises = [torch.from_numpy(n) for n in noises]
