@@ -11,9 +11,11 @@ from typing import Dict, Sequence
 
 import numpy as np
 
+AGENT_BUCKETS = (2, 3, 5)
+
 
 def trim_agent_slots(batch: Dict[str, np.ndarray],
-                     buckets: Sequence[int] = (2, 3, 5),
+                     buckets: Sequence[int] = AGENT_BUCKETS,
                      max_cav: int | None = None) -> Dict[str, np.ndarray]:
     """Slice every agent-axis array (shape[1] == L) down to the smallest
     bucket holding all valid agents; the pairwise transform is sliced on

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 from gencomm_tpu_torch.loss.point_pillar_loss import (
+    PointPillarDiscoNetLoss,
     PointPillarGenCommLoss,
     PointPillarLoss,
 )
@@ -11,6 +12,7 @@ from gencomm_tpu_torch.registry import LOSSES
 
 LOSSES.register("point_pillar_loss", PointPillarLoss)
 LOSSES.register("point_pillar_gencomm_loss", PointPillarGenCommLoss)
+LOSSES.register("point_pillar_disconet_loss", PointPillarDiscoNetLoss)
 LOSSES.register("point_pillar_depth_loss", PointPillarDepthLoss)
 
 

@@ -1,11 +1,12 @@
-"""PointPillars detection loss and its GenComm variant.
+"""PointPillars detection loss and its GenComm and DiscoNet variants.
 
 Counterpart of ``gencomm_tpu/loss/point_pillar_loss.py``
 (``sigmoid_focal_loss``, ``weighted_smooth_l1``, ``add_sin_difference``,
-``direction_targets``, ``PointPillarLoss``, ``PointPillarGenCommLoss``):
-sigmoid focal classification, weighted smooth-L1 regression with the
-sin-difference yaw, softmax direction-bin cross entropy, and the GenComm
-generation MSE. Prediction maps are channel-last (B, H', W', C).
+``direction_targets``, ``PointPillarLoss``, ``PointPillarGenCommLoss``,
+``PointPillarDiscoNetLoss``): sigmoid focal classification, weighted
+smooth-L1 regression with the sin-difference yaw, softmax direction-bin
+cross entropy, the GenComm generation MSE and DiscoNet's distillation KL.
+Prediction maps are channel-last (B, H', W', C).
 """
 
 from __future__ import annotations
@@ -144,4 +145,31 @@ class PointPillarGenCommLoss(PointPillarLoss):
             gen_loss = gen_loss * self.generate_weight
             losses["gen_loss"] = gen_loss
             losses["total_loss"] = losses["total_loss"] + gen_loss
+        return losses
+
+
+class PointPillarDiscoNetLoss(PointPillarLoss):
+    """DiscoNet distillation: the detection loss plus ``kd`` weight x
+    KL(softmax(teacher) || softmax(student)) over the channel axis of the
+    fused feature, with the teacher detached and ``q + 1e-12`` inside the
+    log. The reduction is torch ``KLDivLoss``'s elementwise mean, over N * H
+    * W * C (``gencomm_tpu/loss/point_pillar_loss.py:197-200``)."""
+
+    def __init__(self, args: dict):
+        super().__init__(args)
+        kd = args.get("kd")
+        self.kd_weight = (kd.get("weight", 1.0) if isinstance(kd, dict)
+                          else args.get("kd", 1.0))
+
+    def __call__(self, output: dict, target: dict) -> Dict[str, torch.Tensor]:
+        losses = super().__call__(output, target)
+        if "teacher_feature" in output and "student_feature" in output:
+            c = output["teacher_feature"].shape[-1]
+            t = output["teacher_feature"].reshape(-1, c).detach()
+            s = output["student_feature"].reshape(-1, c)
+            q = torch.softmax(t, dim=-1)
+            kd = (q * (torch.log(q + 1e-12) - torch.log_softmax(s, dim=-1))
+                  ).mean() * self.kd_weight
+            losses["kd_loss"] = kd
+            losses["total_loss"] = losses["total_loss"] + kd
         return losses

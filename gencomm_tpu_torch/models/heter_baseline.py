@@ -4,8 +4,9 @@ Counterpart of ``gencomm_tpu/models/heter_baseline.py`` (``ModalityBranch``,
 ``HeterModel.__call__``) restricted to: host-decorated point_pillar and
 lift_splat_shoot camera modalities, ``use_gencomm`` (message extractor +
 conditional DDPM), ``use_enhancer``, ``supervise_single`` (per-agent heads),
-the two stage-2 switches ``missing_message_rate`` and ``gencomm_trick``
-and ``att`` fusion, with fp32
+the two stage-2 switches ``missing_message_rate`` and ``gencomm_trick``,
+Where2comm's communication mask (``use_comm_mask``) and the intermediate
+fusions of ``models/fuse`` other than ``pyramid``, with fp32
 activations or, with ``half=True``, bf16 ones at eval. The model is built in
 ``eval()``; under ``train()`` only the batch norms change (batch
 statistics, running averages updated), as in stage 1 of the JAX model,
@@ -19,7 +20,9 @@ encoder also takes ``trunk_bf16`` and ``splat_bf16`` unless its arguments
 set them), the feature leaves the branch in bf16 and stays so through the
 message extractor's deformable conv (its other layers promote to fp32, as
 flax's do), generation and the Enhancer; the fusion returns fp32 and the
-heads run in fp32. bf16 training is not ported: ``train()`` raises.
+heads run in fp32 (``v2xvit`` takes ``half`` itself; the other fusions
+compute in the promoted type of the bf16 feature and their fp32
+parameters). bf16 training is not ported: ``train()`` raises.
 
 Inputs are padded ``(B, L, ...)`` tensors with masks, agent slot 0 the ego;
 submodule names follow the flax auto-names so ``weights.py`` can carry JAX
@@ -36,12 +39,14 @@ import torch
 from torch import nn
 
 from gencomm_tpu_torch import resolve_device
+from gencomm_tpu_torch.data.bucketing import AGENT_BUCKETS
 from gencomm_tpu_torch.models.backbones.bev_backbone import BEVBackbone
 from gencomm_tpu_torch.models.encoders.lss import (
     LSSEncoder, center_crop_or_pad,
 )
 from gencomm_tpu_torch.models.encoders.point_pillar import PointPillarEncoder
 from gencomm_tpu_torch.models.fuse.fusion import build_fusion
+from gencomm_tpu_torch.models.fuse.where2comm import Communication
 from gencomm_tpu_torch.models.gencomm.diffusion import GenCommDiffusion
 from gencomm_tpu_torch.models.gencomm.enhancer import Enhancer
 from gencomm_tpu_torch.models.gencomm.message_extractor import MessageExtractor
@@ -126,7 +131,10 @@ class HeterModel(nn.Module):
                  unet_num_res_blocks: int = 2, half: bool = False,
                  supervise_single: bool = False,
                  missing_message_rate: float = 0.0,
-                 gencomm_trick: bool = False, device=None):
+                 gencomm_trick: bool = False,
+                 fusion_args: Dict[str, Any] | None = None,
+                 num_agents: int | None = None, use_comm_mask: bool = False,
+                 comm_thre: float = 0.01, device=None):
         super().__init__()
         if num_class != 1:
             raise NotImplementedError(
@@ -170,7 +178,15 @@ class HeterModel(nn.Module):
         if use_enhancer:
             self.enhancer = Enhancer(feat_ch, use_attn=enhancer_use_attn,
                                      dtype=dtype)
-        self.fusion_net = build_fusion(fusion_method)
+        # Where2comm's mask from the shared heads; no parameters
+        self.communication = Communication(thre=comm_thre) \
+            if use_comm_mask else None
+        self.fusion_net = build_fusion(fusion_method, fusion_args, half,
+                                       in_ch=feat_ch, num_agents=num_agents)
+        # the agent buckets a batch is trimmed to: a fusion built for one
+        # agent-slot count (CoBEVT) takes that count alone
+        slots = getattr(self.fusion_net, "fixed_agent_slots", None)
+        self.agent_buckets = (slots,) if slots else AGENT_BUCKETS
         self.heads = DetectionHeads(feat_ch, anchor_number, dir_bins)
         # per-agent heads on the combined pre-generation feature, fp32
         # (gencomm_tpu/models/heter_baseline.py:403-413): late and no-fusion
@@ -216,7 +232,9 @@ class HeterModel(nn.Module):
         (logits, gt_idx, slot weight) for the depth loss (the bare logits
         without GT depth). With ``supervise_single`` it also holds each
         agent slot's own heads, ``cls_preds_single``, ``reg_preds_single``
-        and ``dir_preds_single`` over (B * L, H, W, .)."""
+        and ``dir_preds_single`` over (B * L, H, W, .). With the
+        communication mask it holds ``comm_rate``, the share of the
+        neighbours' cells sent."""
         out: Dict[str, Any] = {}
         agent_mask = batch["agent_mask"].bool()
         b, l = agent_mask.shape
@@ -273,6 +291,16 @@ class HeterModel(nn.Module):
                 feature.reshape((b * l,) + feature.shape[2:]).to(torch.float32))
             out.update(cls_preds_single=cls_s, reg_preds_single=reg_s,
                        dir_preds_single=dir_s)
+        if self.communication is not None:
+            # Where2comm: cells of low confidence under the shared heads are
+            # not sent (a hard threshold, no gradient), before generation
+            with torch.no_grad():
+                cls_before = self.heads(feature.reshape(
+                    (b * l,) + feature.shape[2:]).to(torch.float32))[0]
+                masks, out["comm_rate"] = self.communication(
+                    cls_before.reshape((b, l) + cls_before.shape[1:]),
+                    agent_mask)
+            feature = feature * masks
         if self.use_gencomm:
             if not self.training and self.missing_message_rate > 0:
                 # spatial dropout of the non-ego messages, the ego's intact
@@ -323,8 +351,7 @@ def model_kwargs(hypes: dict) -> Dict[str, Any]:
         if name in core:
             raise NotImplementedError(
                 f"model {core!r} is not ported yet (ROADMAP item {item})")
-    for key, item in (("codebook", 16), ("communication", 17),
-                      ("seg_head_args", 16)):
+    for key, item in (("codebook", 16), ("seg_head_args", 16)):
         if key in args:
             raise NotImplementedError(
                 f"model.args.{key} is not ported yet (ROADMAP item {item})")
@@ -344,9 +371,17 @@ def model_kwargs(hypes: dict) -> Dict[str, Any]:
     gencomm_cfg = args.get("gencomm", {})
     unet_cfg = gencomm_cfg.get("model", {})
     diff_cfg = gencomm_cfg.get("diffusion", {})
+    method = args["fusion_method"]
     return dict(
         modality_args=modality_args,
-        fusion_method=args["fusion_method"],
+        fusion_method=method,
+        fusion_args={method: dict(args.get(method, {}))},
+        # the agent-slot count of the batch the JAX package's train CLI
+        # initialises from (untrimmed, max_cav): CoBEVT sizes its table by
+        # it, the other fusions ignore it
+        num_agents=int(hypes.get("train_params", {}).get("max_cav", 5)),
+        use_comm_mask="communication" in args,
+        comm_thre=args.get("communication", {}).get("thre", 0.01),
         lidar_range=tuple(args["lidar_range"]),
         anchor_number=args["anchor_number"],
         num_class=int(args.get("num_class", 1)),

@@ -62,6 +62,16 @@ def sigmoid(x: torch.Tensor) -> torch.Tensor:
     return 1.0 / (1.0 + torch.exp(-x))
 
 
+def softmax(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """flax's ``nn.softmax``. On bf16 it follows ``jax.nn.softmax``'s
+    composition, exp(x - max) / sum, each operation rounded to bf16 (the
+    fused softmax rounded once differs in most values)."""
+    if x.dtype == torch.float32:
+        return torch.softmax(x, dim=dim)
+    e = torch.exp(x - x.amax(dim=dim, keepdim=True))
+    return e / e.sum(dim=dim, keepdim=True)
+
+
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
 
 

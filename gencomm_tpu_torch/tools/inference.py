@@ -170,7 +170,8 @@ def main(argv=None):
         host = dataset.sample(1000 + f, 1)
         if args.use_cav:
             host = cap_agents(host, args.use_cav)
-        host = pipe.decorate(trim_agent_slots(host, buckets=(2, 3, 5)))
+        host = pipe.decorate(trim_agent_slots(host,
+                                              buckets=model.agent_buckets))
         dets = pipe.run(host, seed=f)
         valid = dets.valid[0].cpu().numpy()
         corners = dets.corners3d[0].cpu().numpy()[valid]

@@ -4,7 +4,8 @@ Counterpart of ``gencomm_tpu/tools/train.py`` on the synthetic dataset:
 
     python -m gencomm_tpu_torch.tools.train -y configs/opv2v/xxx.yaml \
         [--model_dir logs/run1] [--dataset synthetic] [--epochs N] \
-        [--init_from <checkpoint or model dir>] [--device cuda|cpu]
+        [--init_from <checkpoint or model dir>] [--device cuda|cpu] \
+        [--trainer kd --teacher_ckpt <checkpoint or model dir>]
 
 The hypes yaml builds the model (``create_model``) and its criterion
 (``create_loss``); ``config.yaml`` in ``--model_dir`` is authoritative and
@@ -12,7 +13,10 @@ is written there. A ``stage2`` model trains only the new agents' message
 extractors, the rest frozen (``train.trainer``). A run resumes from the
 newest ``step_N`` in its model dir unless ``--init_from`` names a
 checkpoint to start from (non-strict: parameters and running statistics
-where names and shapes match, the rest reported). Each epoch: the host
+where names and shapes match, the rest reported). ``--trainer kd`` distils
+(DiscoNet): a teacher of the same architecture with the weights of
+``--teacher_ckpt`` runs frozen beside the student, and a plain detection
+criterion is upgraded to ``point_pillar_disconet_loss``. Each epoch: the host
 pipeline (sampling, labels, agent-slot trimming, the C++ pillar
 decoration) on a producer thread or ``--workers`` processes, the steps on
 the device, ``step_<epoch>`` every ``save_freq`` epochs, and the
@@ -34,7 +38,7 @@ import torch
 
 from gencomm_tpu_torch import resolve_device
 from gencomm_tpu_torch.config.yaml_utils import load_yaml, save_yaml
-from gencomm_tpu_torch.data.bucketing import trim_agent_slots
+from gencomm_tpu_torch.data.bucketing import AGENT_BUCKETS, trim_agent_slots
 from gencomm_tpu_torch.data.decorate import HostDecoration
 from gencomm_tpu_torch.data.prefetch import multi_worker_iter, prefetch_iter
 from gencomm_tpu_torch.loss import create_loss
@@ -114,10 +118,12 @@ def batches(dataset, batch_size: int, seed: int, dataset_kind: str):
 
 class Adapt:
     """The host adaptation of a sampled batch for intermediate fusion:
-    ``trim_agent_slots`` to the smallest agent bucket, then the C++ pillar
-    decoration of the lidar modalities. Sent to worker processes whole."""
+    ``trim_agent_slots`` to the smallest of the model's ``agent_buckets``
+    (a CoBEVT model's batches keep the agent count it was built for), then
+    the C++ pillar decoration of the lidar modalities. Sent to worker
+    processes whole."""
 
-    def __init__(self, hypes: dict):
+    def __init__(self, hypes: dict, buckets=AGENT_BUCKETS):
         fusion_mode = hypes.get("fusion", {}).get("core_method", "").lower()
         if fusion_mode == "early":
             raise NotImplementedError(
@@ -128,9 +134,10 @@ class Adapt:
                 f"{fusion_mode} fusion training (ego-only batches) is not "
                 "ported yet (ROADMAP item 21)")
         self.decorate = HostDecoration(hypes)
+        self.buckets = buckets
 
     def __call__(self, batch):
-        return self.decorate(trim_agent_slots(batch))
+        return self.decorate(trim_agent_slots(batch, buckets=self.buckets))
 
 
 def epoch_batches(dataset, batch_size: int, dataset_kind: str, adapt,
@@ -191,10 +198,11 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.trainer != "plain":
+    if args.trainer == "gmatch":
         raise NotImplementedError(
-            f"--trainer {args.trainer} is not ported yet (ROADMAP item "
-            f"{17 if args.trainer == 'kd' else 16})")
+            "--trainer gmatch is not ported yet (ROADMAP item 16)")
+    if args.trainer == "kd" and not args.teacher_ckpt:
+        raise SystemExit("--trainer kd requires --teacher_ckpt")
     if args.half:
         raise NotImplementedError(
             "bf16 training (--half) is not ported yet (ROADMAP section 2: "
@@ -215,7 +223,7 @@ def main(argv=None):
         torch.manual_seed(0)
         model = create_model(hypes, device=device)
     criterion = create_loss(hypes)
-    adapt = Adapt(hypes)
+    adapt = Adapt(hypes, model.agent_buckets)
     frozen = frozen_predicate(args, hypes)
     opt, sched = trainer.make_optimizer(hypes, model.named_parameters(),
                                         args.steps_per_epoch, frozen)
@@ -239,8 +247,27 @@ def main(argv=None):
             start_epoch = step // max(args.steps_per_epoch, 1)
             print(f"resumed from {latest} (epoch {start_epoch})")
 
-    step_fn = trainer.make_train_step(model, criterion, opt, sched,
-                                      frozen_predicate=frozen)
+    if args.trainer == "kd":
+        from gencomm_tpu_torch.loss.point_pillar_loss import (
+            PointPillarDiscoNetLoss,
+        )
+
+        if not isinstance(criterion, PointPillarDiscoNetLoss):
+            # as the JAX CLI: a plain detection config gets the KD term
+            criterion = PointPillarDiscoNetLoss(hypes["loss"]["args"])
+            print("trainer kd: upgraded criterion to PointPillarDiscoNetLoss "
+                  f"(kd weight {criterion.kd_weight})")
+        teacher = create_model(hypes, device=device)
+        tpath = (checkpoint.latest_checkpoint(args.teacher_ckpt)
+                 or args.teacher_ckpt)
+        teacher.load_state_dict(checkpoint.load_checkpoint(tpath)["state_dict"])
+        teacher.requires_grad_(False)
+        print(f"trainer kd: teacher from {tpath}")
+        step_fn = trainer.make_kd_train_step(model, teacher, criterion, opt,
+                                             sched)
+    else:
+        step_fn = trainer.make_train_step(model, criterion, opt, sched,
+                                          frozen_predicate=frozen)
     eval_fn = trainer.make_eval_step(model, criterion)
     batch_size = hypes["train_params"]["batch_size"]
     epochs = args.epochs or hypes["train_params"]["epoches"]

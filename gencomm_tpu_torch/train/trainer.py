@@ -14,6 +14,7 @@ Counterpart of ``gencomm_tpu/train/trainer.py``:
                           backward, one optimizer update)
   ``refresh_batch_stats`` trainer.py:322-353
   ``make_eval_step``      trainer.py:356-372
+  ``make_kd_train_step``  trainer.py:375-414 (DiscoNet distillation)
 optax's ``adamw`` applies the decay decoupled and scaled by the learning
 rate, with eps added after the square root of the bias-corrected second
 moment: torch's ``AdamW`` with the same ``weight_decay`` and ``eps`` does
@@ -22,8 +23,8 @@ the same update. A frozen parameter is left out of AdamW's groups (and its
 by the decoupled decay even at a zero gradient, where optax's
 ``set_to_zero`` leaves it bit for bit. A predicate takes a parameter's path,
 the ``state_dict`` key split at its dots, whose first component is the flax
-path's first component. ``supervise_single``, distillation, gradient
-matching and the BackAlign freeze are not ported yet and raise.
+path's first component. ``supervise_single``, gradient matching and the
+BackAlign freeze are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -271,10 +272,40 @@ def refresh_batch_stats(model, batches: Iterable, momentum: float = 0.99,
             v.copy_(acc[k] / n if n else start[k])
 
 
-def make_kd_train_step(*args, **kwargs):
-    """DiscoNet distillation (trainer.py:375): not ported yet."""
-    raise NotImplementedError(
-        "the distillation train step is not ported yet (ROADMAP item 17)")
+def make_kd_train_step(student, teacher, criterion, optimizer,
+                       scheduler=None, feature_key: str = "feature"):
+    """DiscoNet knowledge distillation (trainer.py:375-414): ``step(batch,
+    noises=None, generator=None) -> losses``. The teacher runs frozen in
+    eval mode (running statistics, no gradient) and its ``feature_key``
+    output is injected into the student's outputs as ``teacher_feature``,
+    the student's own as ``student_feature``, for the KD criterion
+    (``point_pillar_disconet_loss``); then the student's backward and one
+    update. Both draw the same diffusion noise, as both JAX applies take
+    the step's rngs: the given ``noises``, or from ``generator``, whose
+    state the student's forward starts from again."""
+
+    def step(batch: Dict[str, torch.Tensor], noises=None,
+             generator: torch.Generator | None = None) -> Dict[str, torch.Tensor]:
+        teacher.eval()
+        start = generator.get_state() if generator is not None else None
+        with torch.no_grad():
+            teacher_feature = teacher(batch, noises=noises,
+                                      generator=generator)[feature_key]
+        if generator is not None:
+            generator.set_state(start)
+        student.train()
+        out = dict(student(batch, noises=noises, generator=generator))
+        out["teacher_feature"] = teacher_feature
+        out["student_feature"] = out[feature_key]
+        losses = criterion(out, batch)
+        optimizer.zero_grad(set_to_none=True)
+        losses["total_loss"].backward()
+        optimizer.step()
+        if scheduler is not None:
+            scheduler.step()
+        return {k: v.detach() for k, v in losses.items()}
+
+    return step
 
 
 def make_gmatch_train_step(*args, **kwargs):

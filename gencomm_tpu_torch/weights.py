@@ -11,7 +11,9 @@ the torch key ``a.b.Conv_0.weight``. Layouts:
   Dense          (I, O)          -> (O, I)
   norm layers    scale, bias     -> weight, bias; batch_stats mean, var ->
                                     running_mean, running_var
-  raw parameters (dcn_kernel, dcn_bias) keep their layout.
+  raw parameters keep their layout: dcn_kernel, dcn_bias; the fusions'
+                 flax layouts, TypedDense / DenseGeneral kernel and bias,
+                 relation_att / relation_msg, rel_pos, rel_pos_bias.
 
 ``random_state_dict`` makes seeded random weights for runs without a
 trained checkpoint.
@@ -124,8 +126,10 @@ def load_flax_variables(model: nn.Module, variables: Dict[str, Any]) -> nn.Modul
 
 def random_state_dict(model: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
     """Seeded random weights (drawn on the CPU, so every device gets the
-    same values): He-scaled conv/linear weights, norm scales near 1, small
-    biases and running statistics near (0, 1)."""
+    same values): He-scaled conv/linear weights (a raw parameter in flax's
+    layout over the axes its module's ``FAN_IN_AXES`` names, a table at its
+    module's ``PARAM_STD``), norm scales near 1, small biases and running
+    statistics near (0, 1)."""
     gen = torch.Generator().manual_seed(seed)
     modules = dict(model.named_modules())
     sd = {}
@@ -139,8 +143,14 @@ def random_state_dict(model: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
                        "running_var": 1.0 + 0.1 * n.abs()}[name]
         elif name == "bias" or name == "dcn_bias":
             sd[key] = 0.01 * n
+        elif name in getattr(mod, "PARAM_STD", {}):
+            sd[key] = mod.PARAM_STD[name] * n
         else:
-            if isinstance(mod, ConvTranspose):
+            axes = getattr(mod, "FAN_IN_AXES", {}).get(name)
+            if axes is not None:
+                # a raw parameter in flax's layout: its contracted axes
+                fan_in = int(np.prod([ref.shape[a] for a in axes]))
+            elif isinstance(mod, ConvTranspose):
                 fan_in = ref.shape[0]
             elif name == "dcn_kernel":
                 fan_in = ref.shape[0] * ref.shape[1] * ref.shape[2]

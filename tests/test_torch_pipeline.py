@@ -189,9 +189,7 @@ def test_unported_branches_raise():
     assert not model.training
     with pytest.raises(NotImplementedError, match="bf16 training"):
         model.train()
-    with pytest.raises(NotImplementedError):
-        HeterModel(**dict(MODEL_KW, fusion_method="max"), device="cpu")
-    # the late and no-fusion modes are ported (test_torch_serving.py); the
-    # v2xvit fusion of seven GenComm configs is not
-    with pytest.raises(NotImplementedError):
-        HeterModel(**dict(MODEL_KW, fusion_method="v2xvit"), device="cpu")
+    # the late and no-fusion modes are ported (test_torch_serving.py), and
+    # every intermediate fusion but the pyramid's (test_torch_fusion.py)
+    with pytest.raises(NotImplementedError, match="item 17"):
+        HeterModel(**dict(MODEL_KW, fusion_method="pyramid"), device="cpu")

@@ -69,7 +69,7 @@ from gencomm_tpu_torch.ops.warp import (
 )
 from gencomm_tpu_torch.pipeline import batch_to_device
 from gencomm_tpu_torch.train.trainer import (
-    make_gmatch_train_step, make_kd_train_step, make_lr_schedule,
+    make_gmatch_train_step, make_lr_schedule,
     make_optimizer, make_train_step,
 )
 from gencomm_tpu_torch.weights import flax_grads_to_torch, flax_to_state_dict
@@ -501,8 +501,7 @@ def test_unported_training_options_raise():
     with pytest.raises(NotImplementedError):
         make_train_step(model, build_loss(HYPES["loss"]), opt, sched,
                         supervise_single=True)
-    with pytest.raises(NotImplementedError):
-        make_kd_train_step(model)
+    # distillation is ported: tests/test_torch_fusion.py
     with pytest.raises(NotImplementedError):
         make_gmatch_train_step(model)
     assert not model.training  # built in eval()

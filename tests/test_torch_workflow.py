@@ -152,7 +152,9 @@ def test_new_modules_import_without_jax():
         "'train.metrics', 'data.prefetch', 'tools.train', "
         "'tools.heal_tools', 'tools.inference', "
         "'tools.inference_heter_in_order', 'utils.misc_utils', 'models', "
-        "'loss'):\n"
+        "'loss', 'models.fuse.fusion', 'models.fuse.v2xvit', "
+        "'models.fuse.cobevt', 'models.fuse.where2comm', "
+        "'models.fuse.v2vnet', 'train.trainer'):\n"
         "    importlib.import_module('gencomm_tpu_torch.' + n)\n"
         "assert not any(k == 'gencomm_tpu' or k.startswith('gencomm_tpu.') "
         "for k in sys.modules), 'the JAX package was imported'\n")
@@ -181,11 +183,15 @@ def test_unported_flags_and_cores_raise(runs, tmp_path):
     y.write_text(yaml.safe_dump(runs.m1.raw))
     base = ["-y", str(y), "--dataset", "synthetic", "--device", "cpu",
             "--model_dir", str(tmp_path / "run")]
-    for extra, item in ((["--trainer", "kd"], 17), (["--trainer", "gmatch"], 16),
+    for extra, item in ((["--trainer", "gmatch"], 16),
                         (["--no_host_decorate"], 18), (["--half"], None)):
         with pytest.raises(NotImplementedError) as exc:
             train_cli.main(base + extra)
         assert item is None or f"item {item}" in str(exc.value)
+    # distillation is ported (tests/test_torch_fusion.py); as the JAX CLI,
+    # it needs a teacher
+    with pytest.raises(SystemExit, match="teacher_ckpt"):
+        train_cli.main(base + ["--trainer", "kd"])
     with pytest.raises(NotImplementedError, match="item 20"):
         train_cli.main(base[:2] + ["--dataset", "opv2v", "--device", "cpu",
                                    "--model_dir", str(tmp_path / "run")])
