@@ -30,9 +30,10 @@ Phases, each of which raises on failure:
   3. every path counted and timed, before the process's first
      torch.profiler session (a finished session left later launches slower,
      ROADMAP p1): lidar eval fp32 and bf16, lidar training, camera eval fp32
-     and bf16, camera training, and phase 12's paths (V2X-ViT eval fp32
+     and bf16, camera training, phase 12's paths (V2X-ViT eval fp32
      and bf16 and training; every other fusion's frames and steps, which
-     take no profiler session). An eval path runs 1 warm-up + 30 frames
+     take no profiler session) and phase 13's (the HEAL pyramid's eval and
+     training). An eval path runs 1 warm-up + 30 frames
      looped (InferencePipeline.run) and the same 30 frames and seeds
      streamed (InferencePipeline.run_stream: one frame captured in a CUDA
      graph, replayed per frame), each streamed frame bit for bit equal to
@@ -157,7 +158,29 @@ Phases, each of which raises on failure:
      num_iteration, and K3 is held on a non-ego theta for its 128-channel
      and its 1-channel map of ones, K3b on the latter; then one
      make_kd_train_step step (DiscoNet, the teacher on the student's
-     weights), card against CPU.
+     weights), card against CPU;
+ 13. the HEAL pyramid (configs/opv2v/heal/stage1/m1_pyramid.yaml at full
+     width on the train CLI's sampler and host adaptation, fp32, random
+     weights from seed 0): (a) eval timed with the other paths in phase 3,
+     1 + 30 frames looped and streamed (bit for bit), then K3 on each map
+     the path warps (each level's feature at 64 / 128 / 256 channels and
+     its 1-channel score: two launches a level, timed against one launch on
+     the 65 / 129 / 257 channels concatenated, the JAX package's form, with
+     the same bits), K2 and N1 held and timed, the profiles, heads card
+     against CPU (max and relative L2); (b) 1 + 10 train steps (batch 2,
+     its Adam and point_pillar_pyramid_loss with the occupancy pass), K3b
+     on each map twice for the same bits, K2 and K2b, the profile, 4 steps on one batch (the loss
+     must fall), one step card against CPU as in phase 6; (c) in the
+     workflow process HEAL's three stages through the tools' main(argv):
+     stage1/m1_pyramid.yaml for 1 epoch of 12 steps,
+     stage2/m2_single_pyramid.yaml from it (--init_from) for 1 epoch on 4
+     pooled camera batches (every pyramid and head tensor bit for bit, the
+     camera branch moved), heal_tools merge, inference of
+     final_infer/m1m2.yaml over 4 frames on the card and the CPU (the same
+     APs; the payload report), of its copy refreshed on one batch of that
+     config (heads card against CPU) and of an anchor-box copy on a
+     51.2 x 25.6 m range (AP at IoU 0.3 above 0), inference_heter_in_order
+     over 2 frames; K2, K3, K4, K2b, K3b, K4b and N1 each launched.
 Each phase prints its wall time, and each profile the convolution operators
 by the shapes of their arguments. The last line is {"ok": true, "device":
 {...}}; before it come the card's nvidia-smi line and one JSON line with
@@ -182,6 +205,7 @@ from gencomm_tpu_torch.bench import (
 )
 from gencomm_tpu_torch.config.yaml_utils import load_yaml
 from gencomm_tpu_torch.models.heter_baseline import model_kwargs
+from gencomm_tpu_torch.models.heter_pyramid import pyramid_kwargs
 
 # fp32 peak outside the tensor cores, bf16 tensor-core peak and memory rate
 # of one H100 SXM (NVIDIA data sheet, dense, at the 700 W limit)
@@ -311,6 +335,24 @@ EXACT_ZERO_GRADS = {
     "disconet": ("PixelWeightLayer_0.Conv_0.bias",)}
 
 
+# phase 13, the HEAL pyramid: configs/opv2v/heal/stage1/m1_pyramid.yaml at
+# full width (PointPillars m1 on a 512 x 256 grid, the ResNet backbone and
+# the ResNeXt pyramid 64 / 128 / 256 at 3 / 5 / 8 blocks, heads at stride
+# 2), its Adam and point_pillar_pyramid_loss with the occupancy pass; K3
+# warps each level's feature and its 1-channel score in two launches (one
+# launch on the C + 1 channels, the JAX package's form, is timed beside)
+HEAL_CONFIGS = os.path.join(os.path.dirname(GENCOMM_CONFIGS), "heal")
+PYRAMID_HYPES = load_yaml(os.path.join(HEAL_CONFIGS, "stage1",
+                                       "m1_pyramid.yaml"))
+PYRAMID = pyramid_kwargs(PYRAMID_HYPES)
+PYRAMID_WARP_WIDTHS = [c for f in PYRAMID["fusion_backbone"]["num_filters"]
+                       for c in (f, 1)]
+# the kernels HEAL's workflow (phase 13 (c)) must launch
+HEAL_KERNELS = ("pillar_canvas", "warp_affine", "splat_topk",
+                "pillar_canvas_bwd", "warp_affine_bwd", "splat_topk_bwd",
+                "nms_closure")
+
+
 def log(*a):
     print(*a, flush=True)
 
@@ -410,7 +452,12 @@ def split_ms(label, fn, one_launch):
     launch; a library kernel (``at::``, ``cub::``) among them fails. With
     ``one_launch`` the call must launch one kernel and nothing else (no
     memset, no copy)."""
-    split, counted = device_launches(fn)
+    # the profiler may drop a call's records (ROADMAP p3), now and then all
+    # of them: profile again before reading an empty split
+    for _ in range(3):
+        split, counted = device_launches(fn)
+        if split:
+            break
     log(f"  {label}, one call's launches (device ms, launches): " + ", ".join(
         f"{short_name(k)} {ms:.4f} x{count:g}" for k, (ms, count) in split.items()))
     if any("at::" in k or "cub::" in k for k in split):
@@ -1264,19 +1311,21 @@ def sigmoid_closeness(cls, ref):
 
 
 def setup_eval(dev, model_kw, feature_shape, scenes, host, half=False,
-               state=None):
-    """One eval cell: the model (bf16 activations with ``half``) with
-    seeded random weights (``state``, to give a bf16 cell its fp32 cell's),
-    the frame on the card, the pipeline and the diffusion noise (fp32,
-    from one seed for every cell)."""
+               state=None, build=None, postprocess=None):
+    """One eval cell: the model (``build``, default ``HeterModel``; bf16
+    activations with ``half``) with seeded random weights (``state``, to
+    give a bf16 cell its fp32 cell's), the frame on the card, the pipeline
+    (``postprocess``, default the bench's on the model's range) and the
+    diffusion noise (fp32, from one seed for every cell)."""
     import torch
     from types import SimpleNamespace
     from gencomm_tpu_torch.models.heter_baseline import HeterModel
     from gencomm_tpu_torch.pipeline import InferencePipeline, batch_to_device
     from gencomm_tpu_torch.weights import random_state_dict
 
-    kw = dict(model_kw, half=half)
-    model = HeterModel(**kw, device=dev)
+    build = build or HeterModel
+    kw = dict(model_kw, half=half) if build is HeterModel else dict(model_kw)
+    model = build(**kw, device=dev)
     state = state if state is not None else random_state_dict(model, seed=0)
     model.load_state_dict(state)
     gen = torch.Generator().manual_seed(1)
@@ -1284,10 +1333,10 @@ def setup_eval(dev, model_kw, feature_shape, scenes, host, half=False,
     noises = [torch.randn((n,) + feature_shape, generator=gen)
               for _ in range(3)]
     return SimpleNamespace(
-        model_kw=kw, half=half, model=model, state=state, host=host,
-        batch=batch_to_device(host, dev), n=n, noises=noises,
+        model_kw=kw, half=half, model=model, build=build, state=state,
+        host=host, batch=batch_to_device(host, dev), n=n, noises=noises,
         noises_dev=[t.to(dev) for t in noises],
-        pipe=InferencePipeline(model, scenes.anchors,
+        pipe=InferencePipeline(model, scenes.anchors, postprocess or
                                postprocess_cfg(model_kw["lidar_range"]),
                                device=dev))
 
@@ -1376,14 +1425,16 @@ def check_eval(smi, cell, label, targets, check, fp32_cell=None,
                top100_min=TOP100_MIN):
     """An eval path's checks, after every path is timed: the kernels named
     by ``targets`` on the arguments the path gives them (``check``), the
-    device profile, and the same frame, weights and noise on the CPU. A bf16
+    device profile, and the same frame, weights and noise on the CPU (fp32:
+    each head within CPU_TOL x max(1, max|cpu|) and its relative L2 error
+    within CPU_TOL, which also holds the values that the largest dwarf, as
+    the pyramid's at random weights). A bf16
     cell (``fp32_cell`` given) is also held against the card's fp32 run of
     its frame and against the CPU's bf16 run: each keeps at least
     ``top100_min`` of the other's top-100 cells, and the relative L2 against
     the CPU's run is within HALF_SPREAD x the CPU's own against the card's
     fp32 run. Returns the kernels' rows."""
     import torch
-    from gencomm_tpu_torch.models.heter_baseline import HeterModel
     from gencomm_tpu_torch.pipeline import batch_to_device
 
     t_phase = time.perf_counter()
@@ -1413,12 +1464,12 @@ def check_eval(smi, cell, label, targets, check, fp32_cell=None,
         if not torch.isfinite(out_dev[key]).all():
             raise AssertionError(f"{key} on the card is not finite")
     want_pred = torch.bfloat16 if cell.half else torch.float32
-    if out_dev["pred_feature"].dtype != want_pred:
+    if cell.model.use_gencomm and out_dev["pred_feature"].dtype != want_pred:
         raise AssertionError(f"pred_feature is {out_dev['pred_feature'].dtype}")
 
     # the same frame, weights and noise through the port on the CPU
     with torch.inference_mode():
-        cpu_model = HeterModel(**cell.model_kw, device="cpu")
+        cpu_model = cell.build(**cell.model_kw, device="cpu")
         cpu_model.load_state_dict(cell.state)
         t0 = time.perf_counter()
         out_cpu = cpu_model(batch_to_device(cell.host, "cpu"),
@@ -1455,21 +1506,29 @@ def check_eval(smi, cell, label, targets, check, fp32_cell=None,
             a, b = out_dev[key].float().cpu(), out_cpu[key]
             err = float((a - b).abs().max())
             scale = max(1.0, float(b.abs().max()))
+            rel = float((a - b).norm() / b.norm().clamp_min(1e-30))
             log(f"card vs CPU {key} {tuple(a.shape)}: max abs diff {err:.3e}, "
-                f"max |cpu| {scale:.3e}, tol {CPU_TOL:.0e} x max(1, max|cpu|)")
+                f"max |cpu| {scale:.3e}, median |cpu| "
+                f"{float(b.abs().median()):.3e}, tol {CPU_TOL:.0e} x max(1, "
+                f"max|cpu|); relative L2 {rel:.3e} (tol {CPU_TOL:.0e})")
             if not err <= CPU_TOL * scale:
                 raise AssertionError(f"{key}: card and CPU disagree ({err})")
+            if not rel <= CPU_TOL:
+                raise AssertionError(f"{key}: card and CPU disagree (relative "
+                                     f"L2 {rel})")
     log(f"CPU forward ({dtype}) took {cpu_s:.1f} s")
     phase_done(f"{label} eval ({dtype}), checks", t_phase)
     return rows
 
 
 def time_train(smi, dev, label, model_kw, hypes, feature_shape, hosts,
-               expected, jitter_key):
+               expected, jitter_key, build=None, supervise_single=False):
     """A training path counted and timed before the process's first
     profiler session (ROADMAP p1): every launch count to 0, 1 warm-up +
-    len(hosts) - 1 steps (CUDA events), the counts read just after. Returns
-    the cell for ``check_train`` and ``hold_step``."""
+    len(hosts) - 1 steps (CUDA events), the counts read just after. The
+    model is ``build``'s (default ``HeterModel``); ``supervise_single``
+    goes to the train step. Returns the cell for ``check_train`` and
+    ``hold_step``."""
     import torch
     from types import SimpleNamespace
     from gencomm_tpu_torch.loss import create_loss
@@ -1480,20 +1539,22 @@ def time_train(smi, dev, label, model_kw, hypes, feature_shape, hosts,
     from gencomm_tpu_torch.weights import random_state_dict
 
     t_phase = time.perf_counter()
+    build = build or HeterModel
     cell = SimpleNamespace(label=label, dev=dev, hosts=hosts,
                            jitter_key=jitter_key,
                            batches=[batch_to_device(h, dev) for h in hosts],
                            criterion=create_loss(hypes))
 
     def fresh(device):
-        model = HeterModel(**model_kw, device=device)
+        model = build(**model_kw, device=device)
         model.load_state_dict(cell.state)
         model.train()
         opt, sched = make_optimizer(hypes, model.named_parameters())
-        return model, make_train_step(model, cell.criterion, opt, sched)
+        return model, make_train_step(model, cell.criterion, opt, sched,
+                                      supervise_single=supervise_single)
 
     cell.fresh = fresh
-    cell.state = random_state_dict(HeterModel(**model_kw, device=dev), seed=0)
+    cell.state = random_state_dict(build(**model_kw, device=dev), seed=0)
     cell.n_slots = hosts[0]["agent_mask"].size
     gen = torch.Generator().manual_seed(2)
     cell.noises = [torch.randn((cell.n_slots,) + feature_shape, generator=gen)
@@ -1898,24 +1959,6 @@ def fusion_kwargs(method, num_agents):
         num_agents)
 
 
-def record_warps(run):
-    """Every (src, theta) K3 is given during ``run()``, cloned."""
-    from gencomm_tpu_torch.models.fuse import fusion
-
-    seen, real = [], fusion.warp_affine
-
-    def recorder(src, theta):
-        seen.append((src.detach().clone(), theta.detach().clone()))
-        return real(src, theta)
-
-    fusion.warp_affine = recorder
-    try:
-        run()
-    finally:
-        fusion.warp_affine = real
-    return seen
-
-
 def hold_heads(label, out_dev, out_cpu):
     """cls / reg / dir, card against CPU, within CPU_TOL x max(1,
     max|cpu|); returns the worst of max|d| / max(1, max|cpu|)."""
@@ -1949,6 +1992,7 @@ def fusion_cell(smi, dev, method, scenes, host, hosts):
     launched, then one step card against CPU (``hold_step``). Returns the
     fusion's numbers."""
     import torch
+    from gencomm_tpu_torch.models.fuse import fusion
     from gencomm_tpu_torch.models.heter_baseline import HeterModel
     from gencomm_tpu_torch.ops import _cuda
     from gencomm_tpu_torch.pipeline import batch_to_device
@@ -1982,7 +2026,7 @@ def fusion_cell(smi, dev, method, scenes, host, hosts):
             return cell.model(cell.batch, noises=cell.noises_dev)
 
     reset_launch_counts()
-    warps = record_warps(forward)
+    warps = record_all(fusion, "warp_affine", forward)
     k3 = _cuda.LAUNCHES["warp_affine"]
     want_k3 = 1
     if method == "v2vnet":
@@ -2156,6 +2200,181 @@ def fusion_checks(smi, fam, kernel_rows):
     return summary
 
 
+def record_all(module, attr, run):
+    """The arguments (tensors detached and cloned) of every call of
+    ``module.attr`` during ``run()``."""
+    import torch
+
+    seen, real = [], getattr(module, attr)
+
+    def recorder(*args):
+        seen.append(tuple(a.detach().clone() if torch.is_tensor(a) else a
+                          for a in args))
+        return real(*args)
+
+    setattr(module, attr, recorder)
+    try:
+        run()
+    finally:
+        setattr(module, attr, real)
+    return seen
+
+
+def pyramid_timed(smi, dev):
+    """Phase 13 (a) and (b), timed with the other paths before the
+    process's first profiler session: stage1/m1_pyramid.yaml's model at
+    full width on the train CLI's sampler and host adaptation (2 agents
+    trimmed from 5, decorated), eval looped and streamed (``time_eval``)
+    and 1 + 10 train steps at batch 2 with its optimizer and
+    point_pillar_pyramid_loss, the occupancy pass included
+    (``time_train``)."""
+    from types import SimpleNamespace
+    from gencomm_tpu_torch.models.heter_pyramid import HeterPyramidModel
+    from gencomm_tpu_torch.tools import train as train_cli
+
+    t0 = time.perf_counter()
+    scenes = train_cli.build_dataset(PYRAMID_HYPES, True, "synthetic")
+    adapt = train_cli.Adapt(PYRAMID_HYPES)
+    host = adapt(scenes.sample(0, 1))
+    hosts = [adapt(scenes.sample(TRAIN_SEED * 10000 + i, TRAIN_BATCH))
+             for i in range(1 + TIMED_STEPS)]
+    log(f"pyramid frame and {len(hosts)} train batches sampled, labelled "
+        f"(per agent too) and decorated on the host in "
+        f"{time.perf_counter() - t0:.3f} s; {host['agent_mask'].shape[1]} "
+        f"agent slots; labels {host['pos_equal_one'].shape}, per agent "
+        f"{hosts[0]['pos_equal_one_single'].shape}")
+    pyr = SimpleNamespace(scenes=scenes)
+    pyr.eval = setup_eval(dev, PYRAMID, FEATURE_SHAPE, scenes, host,
+                          build=HeterPyramidModel,
+                          postprocess=PYRAMID_HYPES["postprocess"])
+    time_eval(smi, pyr.eval, "pyramid",
+              ("pillar_canvas", "warp_affine", "nms_closure"))
+    pyr.train = time_train(
+        smi, dev, "pyramid", PYRAMID, PYRAMID_HYPES, FEATURE_SHAPE, hosts,
+        ("pillar_canvas", "warp_affine", "pillar_canvas_bwd",
+         "warp_affine_bwd"), "decorated_m1", build=HeterPyramidModel,
+        supervise_single=True)
+    return pyr
+
+
+def split_warp(feat, score, theta):
+    """K3 on a pyramid level's feature and occupancy score warped apart
+    (C channels on the vector route and 1, the model's two launches)
+    against the two concatenated (one launch on C + 1 channels, on the
+    scalar route: the JAX package's form): the same bits, and both timed,
+    the one launch with the concatenation it needs."""
+    import torch
+    from gencomm_tpu_torch.ops.warp import warp_affine
+
+    src = torch.cat([feat, score], dim=-1)
+    both = warp_affine(src, theta)
+    same = (torch.equal(both[..., :-1], warp_affine(feat, theta))
+            and torch.equal(both[..., -1:], warp_affine(score, theta)))
+
+    def one_launch():
+        return warp_affine(torch.cat([feat, score], dim=-1), theta)
+
+    def two_launches():
+        return warp_affine(feat, theta), warp_affine(score, theta)
+
+    out = {"split_same_bits": same,
+           "one_launch_ms": time_ms(one_launch, iters=K3_TURN_LAUNCHES),
+           "two_launch_ms": time_ms(two_launches, iters=K3_TURN_LAUNCHES),
+           "one_launch_device_ms": device_time(one_launch)["device_ms"],
+           "two_launch_device_ms": device_time(two_launches)["device_ms"]}
+    log(f"  K3 at {src.shape[-1]} channels, one launch (cat + warp) against "
+        f"two (feature, score): same bits {same}; events "
+        f"{out['one_launch_ms']:.4f} / {out['two_launch_ms']:.4f} ms, device "
+        f"{out['one_launch_device_ms']} / {out['two_launch_device_ms']} ms")
+    if not same:
+        raise AssertionError("K3 on the concatenated map differs from the "
+                             "feature and score warped apart")
+    return out
+
+
+def pyramid_checks(smi, pyr, kernel_rows):
+    """Phase 13's checks, after every path is timed. Eval: K3 on every map
+    the path warps (each level's feature, 64 / 128 / 256 channels, and its
+    1-channel score) held and timed with the grid_sample yardstick, and
+    each level's two launches against one on the 65 / 129 / 257 channels
+    concatenated; K2 and N1 on the path's arguments, the profiles, card
+    against CPU (``check_eval``). Training: K3b on every map, twice for the
+    same bits (``check_warp_bwd``), the step's profile, the loss falling on
+    one batch, one step card against CPU (``check_train``); K2 and K2b on
+    the step's arguments."""
+    import torch
+    from gencomm_tpu_torch.models.encoders import point_pillar
+    from gencomm_tpu_torch.models.fuse import fusion
+    from gencomm_tpu_torch.ops import _cuda, nms, pillar_canvas, warp
+
+    t_phase = time.perf_counter()
+    cell = pyr.eval
+
+    def forward():
+        with torch.inference_mode():
+            cell.model(cell.batch)
+
+    reset_launch_counts()
+    warps = record_all(fusion, "warp_affine", forward)
+    widths = [src.shape[-1] for src, _ in warps]
+    log(f"pyramid eval: K3 launches in one forward {_cuda.LAUNCHES['warp_affine']}"
+        f", maps {[tuple(src.shape) for src, _ in warps]}")
+    if widths != PYRAMID_WARP_WIDTHS or \
+            _cuda.LAUNCHES["warp_affine"] != len(PYRAMID_WARP_WIDTHS):
+        raise AssertionError(f"pyramid: K3 widths {widths}, "
+                             f"{PYRAMID_WARP_WIDTHS} expected")
+    for level, (feat, score) in enumerate(zip(warps[::2], warps[1::2])):
+        for (src, theta), what in ((feat, "feature"), (score, "score")):
+            where = (f"pyramid eval, level {level} {what}, {src.shape[-1]} "
+                     "channels")
+            row = check_warp({"warp_affine": (src, theta)}, where)
+            row["launches"] = cell.launches["warp_affine"]
+            if what == "score":
+                row.update(split_warp(feat[0], src, theta))
+            add_rows(kernel_rows, where, [row])
+    add_rows(kernel_rows, "pyramid eval", check_eval(
+        smi, cell, "pyramid", [(point_pillar, "pillar_canvas")],
+        lambda inputs: [check_pillar(inputs, "pyramid eval")]))
+    seen = record_calls([(nms, "nms_closure")],
+                        lambda: cell.pipe.run(cell.batch, seed=0))
+    n1 = check_nms(*seen["nms_closure"], "pyramid eval", {})
+    n1["launches"] = cell.launches["nms_closure"]
+    add_rows(kernel_rows, "pyramid eval", [n1])
+
+    train = pyr.train
+
+    def forward_backward():
+        train.criterion(train.model(train.batches[0]),
+                        train.batches[0])["total_loss"].backward()
+
+    grads = record_all(warp, "warp_affine_bwd", forward_backward)
+    train.model.zero_grad(set_to_none=True)
+    if sorted(g.shape[-1] for g, _ in grads) != sorted(PYRAMID_WARP_WIDTHS):
+        raise AssertionError(f"pyramid step: K3b widths "
+                             f"{[g.shape[-1] for g, _ in grads]}")
+
+    def check(inputs):
+        for i, (g3, theta) in enumerate(grads):
+            where = f"pyramid train step, {g3.shape[-1]} channels ({i})"
+            row = check_warp_bwd({"warp_affine_bwd": (g3, theta)}, where)
+            row["launches"] = train.launches["warp_affine_bwd"]
+            add_rows(kernel_rows, where, [row])
+        return [check_pillar(inputs, "pyramid train step"),
+                check_pillar_bwd(inputs, "pyramid train step")]
+
+    add_rows(kernel_rows, "pyramid train step", check_train(
+        train, [(point_pillar, "pillar_canvas"),
+                (pillar_canvas, "pillar_canvas_bwd")], check))
+    summary = {"eval": {"looped_ms": round(cell.ms, 3),
+                        "streamed_ms": round(cell.stream_ms, 3),
+                        "launches": cell.launches},
+               "train_ms_per_step": round(train.ms, 3),
+               "step_launches": {k: v for k, v in train.launches.items() if v}}
+    log(f"pyramid: {json.dumps(summary)}")
+    phase_done("HEAL pyramid, checks", t_phase)
+    return summary
+
+
 def run_bench():
     """One run of ``python -m gencomm_tpu_torch.bench`` (bf16 flagship); its
     JSON line echoed; streamed must equal looped."""
@@ -2186,6 +2405,12 @@ WORKFLOW_POOL = 4  # --batch_pool of the runs with a camera modality
 # score into N1; scores by anchor type (yaw 0, yaw 90)
 ANCHOR_TOPK = 2048
 ANCHOR_LOGITS = (1.0, 0.0)
+# the HEAL heads sit at stride 2: the first 2,048 of the 204.8 x 102.4 m
+# grid's 65,536 anchors are a 3.2 m strip at its edge, where no vehicle
+# spawns (0.9 of the range), so the anchor-box copy of phase 13 (c) is
+# evaluated on a 51.2 x 25.6 m range (--range: 4,096 anchors, the first
+# 2,048 half of the map)
+HEAL_ANCHOR_RANGE = "-25.6,-12.8,-3,25.6,12.8,1"
 V2XVIT_FRAMES = 2  # phase 12 (c): m1_v2xvit's evaluation frames
 
 
@@ -2204,9 +2429,9 @@ class _Tee:
 
 
 def workflow(root: str) -> dict:
-    """Phase 11, in its own process: the two-stage workflow through the
-    tools' main(argv) on the card; raises on any failed check and returns
-    the phase's numbers."""
+    """Phases 11, 12 (c) and 13 (c), in their own process: the GenComm
+    two-stage workflow and HEAL's through the tools' main(argv) on the
+    card; raises on any failed check and returns the phase's numbers."""
     import ast
     import contextlib
     import io
@@ -2241,6 +2466,14 @@ def workflow(root: str) -> dict:
     run["stage1_v2xvit"] = os.path.join(root, "stage1_v2xvit")
     yaml_of["stage1_v2xvit"] = os.path.join(GENCOMM_CONFIGS, "stage1",
                                             "m1_v2xvit.yaml")
+    # phase 13 (c): HEAL's base, its back-aligned camera model and the
+    # final m1 + m2 inference (scripts/heal_pipeline_torch.sh)
+    for key, rel in (("heal_base_m1", "stage1/m1_pyramid"),
+                     ("heal_single_m2", "stage2/m2_single_pyramid")):
+        run[key] = os.path.join(root, key)
+        yaml_of[key] = os.path.join(HEAL_CONFIGS, rel + ".yaml")
+    heal_final = os.path.join(root, "heal_final_m1m2")
+    heal_final_yaml = os.path.join(HEAL_CONFIGS, "final_infer", "m1m2.yaml")
 
     # every model the tools build and every batch they step, on the card
     models = []
@@ -2379,10 +2612,33 @@ def workflow(root: str) -> dict:
         "--frames", str(V2XVIT_FRAMES), "--device", "cuda"])
     GenCommDiffusion.draw_noises = real_draw
     launches = {k: _cuda.LAUNCHES[k] for k in WORKFLOW_KERNELS}
-    log(f"workflow: kernel launches {launches}")
+    log(f"workflow: GenComm kernel launches {launches}")
     missing = [k for k, n in launches.items() if n <= 0]
     if missing:
         raise AssertionError(f"the workflow launched no {missing}")
+    # phase 13 (c): HEAL's three stages (scripts/heal_pipeline_torch.sh)
+    heal_start = len(by_tool)
+    tool("train heal m1_pyramid", train.main, train_argv("heal_base_m1", 1))
+    heal_single_index = len(last_calls)
+    tool("train heal m2_single_pyramid", train.main, train_argv(
+        "heal_single_m2", 1, "--init_from", run["heal_base_m1"], *pool))
+    tool("heal_tools merge, HEAL", heal_tools.main, [
+        "--device", "cuda", "merge", "--new_ckpt", run["heal_single_m2"],
+        "--base_ckpt", run["heal_base_m1"], "--out", heal_final])
+    shutil.copy(heal_final_yaml, os.path.join(heal_final, "config.yaml"))
+    heal_card = tool("inference heal m1m2", inference.main, [
+        "--model_dir", heal_final, "--dataset", "synthetic",
+        "--frames", str(EVAL_FRAMES), "--report_comm", "--device", "cuda"])
+    tool("inference_heter_in_order heal m1m2", inference_heter_in_order.main, [
+        "--model_dir", heal_final, "--dataset", "synthetic", "--frames", "2",
+        "--max_cav", "2", "--device", "cuda"])
+    heal_launches = {k: sum(t.get(k, 0) for t in
+                            list(by_tool.values())[heal_start:])
+                     for k in HEAL_KERNELS}
+    log(f"workflow: HEAL kernel launches {heal_launches}")
+    missing = [k for k, n in heal_launches.items() if n <= 0]
+    if missing:
+        raise AssertionError(f"the HEAL workflow launched no {missing}")
     for m in models:
         off = [n for n, t in itertools.chain(m.named_parameters(),
                                              m.named_buffers())
@@ -2390,17 +2646,41 @@ def workflow(root: str) -> dict:
         if off:
             raise AssertionError(f"model tensors {off[:5]} are not on the card")
 
+    def latest(run_dir):
+        return checkpoint.load_checkpoint(
+            checkpoint.latest_checkpoint(run_dir))["state_dict"]
+
     # stage 2: only message_extractor_m2 moved
     start = starts[stage2_index]
-    final = checkpoint.load_checkpoint(
-        checkpoint.latest_checkpoint(run["stage2_m1m2"]))["state_dict"]
+    final = latest(run["stage2_m1m2"])
     trained = [k for k in final if k.startswith("message_extractor_m2.")]
     moved = [k for k in final if not torch.equal(final[k], start[k].cpu())]
     log(f"workflow: stage 2 moved {len(moved)} of {len(final)} tensors, "
         f"{len(trained)} trainable ones")
     if not moved or set(moved) - set(trained):
-        raise AssertionError(f"stage 2 moved {sorted(set(moved) - set(trained))[:5]}"
-                             f" outside message_extractor_m2, or nothing")
+        raise AssertionError(
+            f"stage 2 moved {sorted(set(moved) - set(trained))[:5]} "
+            "outside message_extractor_m2, or nothing")
+    result = dict(stage2_moved=len(moved), stage2_tensors=len(final),
+                  launches=launches)
+    # HEAL's stage 2: every parameter and running statistic of the pyramid
+    # and the heads is the base's, bit for bit; the camera branch
+    # (encoder_m2, backbone_m2) moved
+    base, single = latest(run["heal_base_m1"]), latest(run["heal_single_m2"])
+    start = starts[heal_single_index]
+    shared = [k for k in single
+              if k.startswith(("pyramid_backbone.", "heads."))]
+    kept_bits = all(torch.equal(single[k], base[k]) for k in shared)
+    moved = [k for k in single if not torch.equal(single[k], start[k].cpu())]
+    log(f"workflow: HEAL stage 2 kept {len(shared)} pyramid and head tensors "
+        f"bit for bit: {kept_bits}; moved {len(moved)} of {len(single)}")
+    if not (shared and kept_bits and moved and all(
+            k.startswith(("encoder_m2.", "backbone_m2.")) for k in moved)
+            and any(k.startswith("backbone_m2.") for k in moved)):
+        raise AssertionError(f"HEAL stage 2 froze the wrong tensors: "
+                             f"kept {kept_bits}, moved {moved[:5]}")
+    result["heal"] = {"launches": heal_launches, "frozen": len(shared),
+                      "moved": len(moved), "tensors": len(single)}
 
     # every logged loss finite; each run's ms/step at it = 10
     ms_per_step, ms_per_step_events = {}, {}
@@ -2444,28 +2724,35 @@ def workflow(root: str) -> dict:
     # must be above 0 (a lattice over a quarter of the map: 8 of the 48 GT
     # at IoU 0.3 on the CPU, scripts/anchor_box_ap_torch.py), and the same
     # kept boxes and APs on both
-    def evaluate_run(name, run_dir, frames, batch, card_label):
+    def evaluate_run(name, run_dir, frames, batch, card_label,
+                     anchor_range=None):
         """The checks above for the trained checkpoint of ``run_dir`` (its
-        card run, ``card_label``, already made), its refreshed copy and its
-        anchor-box copy, over ``frames`` frames; returns (APs, kept boxes a
-        frame, the trained heads' error, the refreshed heads' error)."""
+        card run, ``card_label``, already made), its refreshed copy (none
+        without a ``batch``) and its anchor-box copy (on the detection
+        range ``anchor_range``, where one is given), over ``frames``
+        frames; returns (APs, kept boxes a frame, the trained heads' error,
+        the refreshed heads' error)."""
         hypes = load_yaml(None, run_dir)
-        final = checkpoint.load_checkpoint(
-            checkpoint.latest_checkpoint(run_dir))["state_dict"]
+        final = latest(run_dir)
         derived = {f"{name}_refreshed": hypes,
                    f"{name}_anchor_boxes": {**hypes, "postprocess": {
                        **hypes["postprocess"], "nms_topk": ANCHOR_TOPK}}}
+        if batch is None:
+            del derived[f"{name}_refreshed"]
         for dname, dhypes in derived.items():
             os.makedirs(os.path.join(root, dname))
             save_yaml(dhypes, os.path.join(root, dname, "config.yaml"))
-        model = create_model(hypes, device="cuda")
-        model.load_state_dict(final)
-        trainer.refresh_batch_stats(model, [batch], generator=torch.Generator(
-            device="cuda").manual_seed(0))
-        checkpoint.save_checkpoint(
-            os.path.join(root, f"{name}_refreshed"),
-            {k: v.cpu() for k, v in model.state_dict().items()}, 0, epoch=0)
-        del model
+        if batch is not None:
+            model = create_model(hypes, device="cuda")
+            model.load_state_dict(final)
+            trainer.refresh_batch_stats(model, [batch],
+                                        generator=torch.Generator(
+                                            device="cuda").manual_seed(0))
+            checkpoint.save_checkpoint(
+                os.path.join(root, f"{name}_refreshed"),
+                {k: v.cpu() for k, v in model.state_dict().items()}, 0,
+                epoch=0)
+            del model
         anchor_state = {k: v.clone() for k, v in final.items()}
         for head in ("cls_head", "reg_head", "dir_head"):
             anchor_state[f"heads.{head}.weight"].zero_()
@@ -2480,6 +2767,8 @@ def workflow(root: str) -> dict:
         for dname in derived:
             argv = ["--model_dir", os.path.join(root, dname), "--dataset",
                     "synthetic", "--frames", str(frames)]
+            if anchor_range and dname.endswith("_anchor_boxes"):
+                argv.append(f"--range={anchor_range}")
             tool(f"inference, {dname}", inference.main,
                  argv + ["--device", "cuda"])
             tool(f"inference, {dname}, on the CPU", inference.main, argv + [
@@ -2500,12 +2789,14 @@ def workflow(root: str) -> dict:
             return worst
 
         trained_err = head_error(card_label, f"{card_label} on the CPU")
-        head_err = head_error(f"inference, {name}_refreshed",
-                              f"inference, {name}_refreshed, on the CPU")
+        head_err = None
+        if batch is not None:
+            head_err = head_error(f"inference, {name}_refreshed",
+                                  f"inference, {name}_refreshed, on the CPU")
         log(f"workflow: {name} heads over {frames} frames, max |d| / max(1, "
             f"max|cpu|), card vs CPU: trained {trained_err:.3e} (not held), "
-            f"refreshed {head_err:.3e} (tol {CPU_TOL:.0e})")
-        if not head_err <= CPU_TOL:
+            f"refreshed {head_err} (tol {CPU_TOL:.0e})")
+        if head_err is not None and not head_err <= CPU_TOL:
             raise AssertionError(f"{name}: card and CPU heads disagree "
                                  f"({head_err})")
         kept = {}
@@ -2540,6 +2831,10 @@ def workflow(root: str) -> dict:
                 "zeros")
         return aps, kept, trained_err, head_err
 
+    def comm_report(label):
+        return ast.literal_eval(re.search(r"comm report: (\{.*\})",
+                                          texts[label]).group(1))
+
     stage2_batch = last_calls[stage2_index][1][0][0]
     aps, kept, trained_err, head_err = evaluate_run(
         "stage2", run["stage2_m1m2"], EVAL_FRAMES, stage2_batch, "inference")
@@ -2548,11 +2843,34 @@ def workflow(root: str) -> dict:
     # phase 12 (c): V2X-ViT's stage 1 through the same tools and checks
     vx_aps, vx_kept, vx_trained_err, vx_head_err = evaluate_run(
         "v2xvit", run["stage1_v2xvit"], V2XVIT_FRAMES,
-        last_calls[-1][1][0][0], "inference m1_v2xvit")
+        last_calls[stage2_index + 1][1][0][0], "inference m1_v2xvit")
+    result.update(
+        aps=aps, kept_per_frame=kept, comm=comm_report("inference"),
+        card_vs_cpu_heads_refreshed=head_err,
+        card_vs_cpu_heads_trained=trained_err,
+        v2xvit={"aps": vx_aps, "kept_per_frame": vx_kept,
+                "card_vs_cpu_heads_refreshed": vx_head_err,
+                "card_vs_cpu_heads_trained": vx_trained_err})
+    # phase 13 (c): the final m1 + m2 model on the card and the CPU, its
+    # copy refreshed on one batch of its own config (no training run has
+    # one: a lidar agent and a camera agent, the score masks, the crop and
+    # K4 before the pyramid, held at the heads), its anchor-box copy; the
+    # payload report of a pyramid model (fault l)
+    final_hypes = load_yaml(heal_final_yaml)
+    final_batch = train.batch_to_device(train.Adapt(final_hypes)(
+        train.build_dataset(final_hypes, True, "synthetic").sample(
+            0, final_hypes["train_params"]["batch_size"])), "cuda")
+    h_aps, h_kept, h_trained_err, h_head_err = evaluate_run(
+        "heal", heal_final, EVAL_FRAMES, final_batch, "inference heal m1m2",
+        anchor_range=HEAL_ANCHOR_RANGE)
+    if heal_card != h_aps["heal eval_global_sort"]["card"]:
+        raise AssertionError(f"inference returned {heal_card}")
+    result["heal"].update(aps=h_aps, kept_per_frame=h_kept,
+                          card_vs_cpu_heads_refreshed=h_head_err,
+                          card_vs_cpu_heads_trained=h_trained_err,
+                          comm=comm_report("inference heal m1m2"))
     InferencePipeline._detect = real_detect
     InferencePipeline.run = real_run
-    comm = ast.literal_eval(re.search(r"comm report: (\{.*\})",
-                                      texts["inference"]).group(1))
 
     # device time per step of each training run, from torch.profiler over 2
     # more steps on its last batch, after every timing of the phase: what
@@ -2572,29 +2890,21 @@ def workflow(root: str) -> dict:
         device_ms_per_step[label] = {"busy_ms": round(busy, 3),
                                      "launches": round(n_launches)}
     log(f"workflow: device time per step {device_ms_per_step}")
-    return {"ms_per_step": ms_per_step,
-            "ms_per_step_events": ms_per_step_events,
-            "device_ms_per_step": device_ms_per_step, "wall_s": walls,
-            "aps": aps, "kept_per_frame": kept,
-            "comm": comm, "launches": launches, "launches_by_tool": by_tool,
-            "host_camera_batch_s": host_camera_s,
-            "stage2_moved": len(moved), "stage2_tensors": len(final),
-            "card_vs_cpu_heads_refreshed": head_err,
-            "card_vs_cpu_heads_trained": trained_err,
-            "v2xvit": {"aps": vx_aps, "kept_per_frame": vx_kept,
-                       "card_vs_cpu_heads_refreshed": vx_head_err,
-                       "card_vs_cpu_heads_trained": vx_trained_err}}
+    return dict(result, ms_per_step=ms_per_step,
+                ms_per_step_events=ms_per_step_events,
+                device_ms_per_step=device_ms_per_step, wall_s=walls,
+                launches_by_tool=by_tool, host_camera_batch_s=host_camera_s)
 
 
 def run_workflow():
-    """Phase 11 in its own process (``chip_smoke.py --workflow DIR``); its
-    last line is the phase's JSON, echoed here."""
+    """Phases 11, 12 (c) and 13 (c) in their own process (``chip_smoke.py
+    --workflow DIR``); its last line is the phases' JSON, echoed here."""
     t_phase = time.perf_counter()
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         "workflow")
     proc = subprocess.run([sys.executable, os.path.abspath(__file__),
                            "--workflow", root],
-                          capture_output=True, text=True, timeout=900)
+                          capture_output=True, text=True, timeout=1000)
     for line in proc.stdout.splitlines()[:-1]:
         log(f"  | {line}")
     if proc.returncode != 0:
@@ -2607,6 +2917,7 @@ def run_workflow():
 
 
 def main() -> int:
+    """All phases."""
     import torch
 
     if not torch.cuda.is_available():
@@ -2727,11 +3038,14 @@ def main() -> int:
         cam_hosts,
         ("deform_conv3x3", "warp_affine", "splat_topk", "deform_conv3x3_bwd",
          "warp_affine_bwd", "splat_topk_bwd"), "imgs_m1")
-    # phase 12: the fusion family, timed with the paths above
+    # phases 12 and 13: the fusion family and the HEAL pyramid, timed with
+    # the paths above
     fam = fusion_timed(smi, dev, scenes, host, hosts)
+    pyr = pyramid_timed(smi, dev)
     for cell, label in ((lidar, "lidar fp32"), (lidar16, "lidar bf16"),
                         (camera, "camera fp32"), (camera16, "camera bf16"),
-                        (fam.vx, "v2xvit fp32"), (fam.vx16, "v2xvit bf16")):
+                        (fam.vx, "v2xvit fp32"), (fam.vx16, "v2xvit bf16"),
+                        (pyr.eval, "pyramid fp32")):
         log(f"eval {label}: looped {cell.ms:.3f} ms/frame "
             f"({1000.0 / cell.ms:.2f} frames/s), streamed {cell.stream_ms:.3f}"
             f" ms/frame ({1000.0 / cell.stream_ms:.2f} frames/s) on {smi} "
@@ -2811,6 +3125,8 @@ def main() -> int:
 
     fusion_checks(smi, fam, kernel_rows)
     del fam, hosts
+    pyramid_checks(smi, pyr, kernel_rows)
+    del pyr
 
     general_cases = {"pillar_canvas_bwd": ("general_route", GENERAL_CANVAS),
                      "deform_conv3x3": ("general_route", GENERAL_SHAPE),
@@ -2824,6 +3140,13 @@ def main() -> int:
     run_bench()
     torch.cuda.empty_cache()
     run_workflow()
+    return finish(smi, t_all, kernel_rows)
+
+
+def finish(smi, t_all, kernel_rows) -> int:
+    """The run's last lines: the card, the kernels' numbers, the result."""
+    import torch
+
     phase_done("all phases", t_all)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernel_rows}), flush=True)

@@ -6,8 +6,13 @@ their calibration and GT depth maps, masks, pairwise transforms and GT
 boxes, drawn from the same numpy RNG stream, so the same seed gives the
 same arrays, and the ego-frame anchor labels ``pos_equal_one``,
 ``neg_equal_one`` and ``targets`` (``generate_label``, which draws no random
-numbers). Per-agent labels and the robustness knobs (pose noise, delay)
-belong to later slices.
+numbers). With ``per_agent_labels`` it also labels each agent slot on the
+same anchors in its own frame (``pos_equal_one_single``,
+``neg_equal_one_single``, ``targets_single`` of shape (B, L, ...), the GT
+projected through world -> agent), which the ``supervise_single`` and HEAL
+pyramid losses read; those draw no random numbers, so the other arrays do
+not change. The robustness knobs (pose noise, delay) belong to a later
+slice.
 """
 
 from __future__ import annotations
@@ -45,7 +50,8 @@ class SyntheticConfig:
     anchor_yaw_deg: tuple = (0.0, 90.0)
     pos_threshold: float = 0.6
     neg_threshold: float = 0.45
-    # per-agent labels (supervise_single) are not ported: True raises
+    # per-agent anchor labels in each agent's own frame (supervise_single,
+    # the HEAL pyramid's occupancy loss)
     per_agent_labels: bool = False
     # name -> {"sensor": "lidar"} or {"sensor": "camera", "final_dim":
     # (H, W), "ncam": 4, "focal": f}; agent slots take the listed
@@ -63,10 +69,6 @@ class SyntheticScenes:
     def __init__(self, cfg: SyntheticConfig | None = None):
         self.cfg = cfg or SyntheticConfig()
         c = self.cfg
-        if c.per_agent_labels:
-            raise NotImplementedError(
-                "per-agent labels (supervise_single) are not ported yet "
-                "(ROADMAP item 21)")
         W = int(round((c.lidar_range[3] - c.lidar_range[0]) / c.voxel_size[0]))
         H = int(round((c.lidar_range[4] - c.lidar_range[1]) / c.voxel_size[1]))
         self.anchor_args = {
@@ -186,6 +188,10 @@ class SyntheticScenes:
                            + (self.anchors.shape[2] * 7,), np.float32)
         gt_boxes = np.zeros((B, c.max_gt, 7), np.float32)
         gt_mask = np.zeros((B, c.max_gt), np.float32)
+        if c.per_agent_labels:
+            pos_single = np.zeros((B, L) + pos.shape[1:], np.float32)
+            neg_single = np.zeros_like(pos_single)
+            tgt_single = np.zeros((B, L) + targets.shape[1:], np.float32)
 
         for b in range(B):
             na = c.num_agents
@@ -267,6 +273,23 @@ class SyntheticScenes:
             neg[b] = label["neg_equal_one"]
             targets[b] = label["targets"]
 
+            if c.per_agent_labels:
+                # the GT projected into each agent's frame, labelled on the
+                # same anchors
+                corners = box_utils.boxes_to_corners_3d(gt_boxes[b, :nv],
+                                                        "hwl")
+                for i in range(na):
+                    world_to_agent = np.linalg.inv(x_to_world(poses[i]))
+                    proj = box_utils.project_box3d(
+                        corners, world_to_agent.astype(np.float32))
+                    padded = np.zeros_like(gt_boxes[b])
+                    padded[:nv] = box_utils.corner_to_center(proj, order="hwl")
+                    lab_i = generate_label(padded, gt_mask[b], self.anchors,
+                                           c.pos_threshold, c.neg_threshold)
+                    pos_single[b, i] = lab_i["pos_equal_one"]
+                    neg_single[b, i] = lab_i["neg_equal_one"]
+                    tgt_single[b, i] = lab_i["targets"]
+
         batch = {
             "agent_mask": agent_mask,
             "pairwise_t_matrix": pairwise,
@@ -284,6 +307,10 @@ class SyntheticScenes:
             for k, v in ca.items():
                 batch[f"{k}_{m}"] = v
             batch[f"modality_mask_{m}"] = modality_mask[m]
+        if c.per_agent_labels:
+            batch["pos_equal_one_single"] = pos_single
+            batch["neg_equal_one_single"] = neg_single
+            batch["targets_single"] = tgt_single
         return batch
 
     def gt_corners(self, batch: dict, b: int) -> np.ndarray:

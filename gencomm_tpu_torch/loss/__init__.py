@@ -7,13 +7,17 @@ from gencomm_tpu_torch.loss.point_pillar_loss import (
     PointPillarGenCommLoss,
     PointPillarLoss,
 )
-from gencomm_tpu_torch.loss.pyramid_loss import PointPillarDepthLoss
+from gencomm_tpu_torch.loss.pyramid_loss import (
+    PointPillarDepthLoss,
+    PointPillarPyramidLoss,
+)
 from gencomm_tpu_torch.registry import LOSSES
 
 LOSSES.register("point_pillar_loss", PointPillarLoss)
 LOSSES.register("point_pillar_gencomm_loss", PointPillarGenCommLoss)
 LOSSES.register("point_pillar_disconet_loss", PointPillarDiscoNetLoss)
 LOSSES.register("point_pillar_depth_loss", PointPillarDepthLoss)
+LOSSES.register("point_pillar_pyramid_loss", PointPillarPyramidLoss)
 
 
 def build_loss(loss_hypes: dict):
@@ -30,9 +34,12 @@ def create_loss(hypes: dict):
     """The criterion of a hypes dict, as ``gencomm_tpu/loss/__init__.py:
     create_loss`` builds it: the pyramid mode tag from the model's
     ``core_method``, the model's lidar range and, for the IoU-rescore
-    losses, the anchor grid are injected into the loss arguments. The
-    ``supervise_single`` second pass raises until the per-agent labels are
-    ported (ROADMAP item 21)."""
+    losses, the anchor grid are injected into the loss arguments. With
+    ``model.args.supervise_single`` the criterion is wrapped: where the
+    output has per-agent heads (``cls_preds_single``) and the target
+    per-agent labels (``pos_equal_one_single``), a second pass with the
+    suffix "_single" against those labels, their (B, L) lead flattened,
+    adds its terms as ``single_<term>`` and its total to ``total_loss``."""
     args = dict(hypes["loss"]["args"])
     core = hypes.get("model", {}).get("core_method", "").lower()
     if "pyramid" in args and isinstance(args["pyramid"], dict):
@@ -52,8 +59,20 @@ def create_loss(hypes: dict):
             args["stage1"] = dict(args["stage1"], _anchors=anchors)
     criterion = build_loss({"core_method": hypes["loss"]["core_method"],
                             "args": args})
-    if hypes.get("model", {}).get("args", {}).get("supervise_single"):
-        raise NotImplementedError(
-            "the supervise_single loss needs per-agent labels, which are not "
-            "ported yet (ROADMAP item 21)")
-    return criterion
+    if not hypes.get("model", {}).get("args", {}).get("supervise_single"):
+        return criterion
+    base = criterion
+
+    def with_single(output, target, suffix=""):
+        losses = base(output, target, suffix)
+        if "cls_preds_single" in output and "pos_equal_one_single" in target:
+            tgt = {k[:-len("_single")]: v.reshape((-1,) + tuple(v.shape[2:]))
+                   for k, v in target.items() if k.endswith("_single")}
+            single = base(output, tgt, suffix="_single")
+            for k, v in single.items():
+                if k != "total_loss":
+                    losses[f"single_{k}"] = v
+            losses["total_loss"] = losses["total_loss"] + single["total_loss"]
+        return losses
+
+    return with_single

@@ -62,6 +62,18 @@ def direction_targets(reg_targets, anchor_yaw_deg, dir_offset: float,
     return torch.nn.functional.one_hot(bins, num_bins).to(reg_targets.dtype)
 
 
+def per_agent_targets(target: dict) -> dict:
+    """The target with the per-agent labels (``<label>_single``, (B, L,
+    ...)) as its labels, flattened to the B * L agents of per-agent heads,
+    where it has them."""
+    if "pos_equal_one_single" not in target:
+        return target
+    return dict(target, **{
+        k: target[f"{k}_single"].reshape(
+            (-1,) + tuple(target[f"{k}_single"].shape[2:]))
+        for k in ("pos_equal_one", "neg_equal_one", "targets")})
+
+
 class PointPillarLoss:
     """Configured with the hypes ``loss.args`` dict."""
 
@@ -71,11 +83,17 @@ class PointPillarLoss:
         self.reg = args["reg"]
         self.dir = args.get("dir")
 
-    def __call__(self, output: dict, target: dict) -> Dict[str, torch.Tensor]:
+    def __call__(self, output: dict, target: dict,
+                 suffix: str = "") -> Dict[str, torch.Tensor]:
         """output: cls_preds (B, H, W, A), reg_preds (B, H, W, A*7),
         dir_preds (B, H, W, A*nb); target: pos/neg_equal_one (B, H, W, A),
-        targets (B, H, W, A*7). Returns the scalar losses."""
-        cls_preds = output["cls_preds"]
+        targets (B, H, W, A*7). Returns the scalar losses. With ``suffix``
+        the heads ``<key><suffix>`` are read; a "_single" pass (per-agent
+        heads over B * L) reads the per-agent labels ``<label>_single``
+        where the target has them, their (B, L) lead flattened."""
+        if suffix == "_single":
+            target = per_agent_targets(target)
+        cls_preds = output[f"cls_preds{suffix}"]
         b = cls_preds.shape[0]
         dt = cls_preds.dtype
 
@@ -94,7 +112,7 @@ class PointPillarLoss:
         reg_weights = positives.to(dt) / pos_norm
         reg_targets = target["targets"].reshape(b, -1, 7)
         reg_enc, tgt_enc = add_sin_difference(
-            output["reg_preds"].reshape(b, -1, 7), reg_targets)
+            output[f"reg_preds{suffix}"].reshape(b, -1, 7), reg_targets)
         reg_loss = weighted_smooth_l1(
             reg_enc, tgt_enc, reg_weights, sigma=self.reg["sigma"],
         ).sum() * self.reg["weight"] / b
@@ -103,7 +121,7 @@ class PointPillarLoss:
         total = cls_loss + reg_loss
         if self.dir is not None:
             num_bins = self.dir["args"]["num_bins"]
-            dir_logits = output["dir_preds"].reshape(b, -1, num_bins)
+            dir_logits = output[f"dir_preds{suffix}"].reshape(b, -1, num_bins)
             dir_tgt = direction_targets(
                 reg_targets, self.dir["args"]["anchor_yaw"],
                 self.dir["args"]["dir_offset"], num_bins)
@@ -127,8 +145,9 @@ class PointPillarGenCommLoss(PointPillarLoss):
         super().__init__(args)
         self.generate_weight = args.get("generate_weight", 1.0)
 
-    def __call__(self, output: dict, target: dict) -> Dict[str, torch.Tensor]:
-        losses = super().__call__(output, target)
+    def __call__(self, output: dict, target: dict,
+                 suffix: str = "") -> Dict[str, torch.Tensor]:
+        losses = super().__call__(output, target, suffix)
         if "pred_feature" in output and "gt_feature" in output:
             pred = output["pred_feature"].to(torch.float32)
             gt = output["gt_feature"].to(torch.float32)
@@ -161,8 +180,9 @@ class PointPillarDiscoNetLoss(PointPillarLoss):
         self.kd_weight = (kd.get("weight", 1.0) if isinstance(kd, dict)
                           else args.get("kd", 1.0))
 
-    def __call__(self, output: dict, target: dict) -> Dict[str, torch.Tensor]:
-        losses = super().__call__(output, target)
+    def __call__(self, output: dict, target: dict,
+                 suffix: str = "") -> Dict[str, torch.Tensor]:
+        losses = super().__call__(output, target, suffix)
         if "teacher_feature" in output and "student_feature" in output:
             c = output["teacher_feature"].shape[-1]
             t = output["teacher_feature"].reshape(-1, c).detach()

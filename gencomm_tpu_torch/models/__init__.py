@@ -1,8 +1,9 @@
 """Models of the port. ``create_model`` builds one from a hypes dict, as
 ``gencomm_tpu/models/__init__.py:create_model`` does; of the JAX package's
-families only the heterogeneous GenComm model (``heter_baseline``) is
-ported, and every other ``model.core_method`` raises ``NotImplementedError``
-naming the ROADMAP item that ports it."""
+families the heterogeneous GenComm model (``heter_baseline``) and the HEAL
+pyramid and multiscale models (``heter_pyramid``) are ported, and every
+other ``model.core_method`` raises ``NotImplementedError`` naming the
+ROADMAP item that ports it."""
 
 from __future__ import annotations
 
@@ -24,9 +25,14 @@ def create_model(hypes: dict, device=None):
         if core in names:
             raise NotImplementedError(
                 f"model {core!r} is not ported yet (ROADMAP item {item})")
-    if core == "heter_model_baseline_ms" or "pyramid" in core:
-        raise NotImplementedError(
-            f"model {core!r} is not ported yet (ROADMAP item 17)")
+    if core == "heter_model_baseline_ms":
+        from gencomm_tpu_torch.models.heter_pyramid import build_ms_model
+
+        return build_ms_model(hypes, device=device)
+    if "pyramid" in core:
+        from gencomm_tpu_torch.models.heter_pyramid import build_pyramid_model
+
+        return build_pyramid_model(hypes, device=device)
     if core.startswith("center_point"):
         raise NotImplementedError(
             f"model {core!r} is not ported yet (ROADMAP item 19)")

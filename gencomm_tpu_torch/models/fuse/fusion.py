@@ -6,10 +6,12 @@ query), ``max`` (F-Cooper's elementwise max), ``disconet`` (a per-pixel
 softmax weight over agents from ``PixelWeightLayer``) and ``who2com`` (one
 global score per agent, then a 1x1 decode), with ``build_fusion``, which
 also builds ``v2xvit``, ``cobevt``, ``where2comm`` and ``v2vnet`` from their
-own modules. Every fusion takes ``(x (B, L, H, W, C), affine (B, L, L, 2,
-3), agent_mask (B, L))``, warps the agents into the ego frame with kernel K3
-(its gradient by K3b), masks empty slots at -1e9 and returns (B, H, W, C');
-the train-mode norms of ``disconet`` follow ``self.training``.
+own modules (the HEAL pyramid is built by its models,
+``models/heter_pyramid.py``). Every fusion takes ``(x (B, L, H, W, C),
+affine (B, L, L, 2, 3), agent_mask (B, L))``, warps the agents into the ego
+frame with kernel K3 (its gradient by K3b), masks empty slots at -1e9 and
+returns (B, H, W, C'); the train-mode norms of ``disconet`` follow
+``self.training``.
 
 On a bf16 feature (``half``) the warp runs in bf16 and each layer computes
 in the promoted type of its input and its fp32 parameters, as flax does:
@@ -188,6 +190,7 @@ def build_fusion(method: str, args: dict | None = None, half: bool = False,
             mlp_dim=cfg.get("mlp_dim", 256),
             half=half or cfg.get("half", False))
     if method == "pyramid":
-        raise NotImplementedError(
-            "fusion 'pyramid' is not ported yet (ROADMAP item 17)")
+        raise ValueError("the pyramid fusion runs inside the HEAL pyramid "
+                         "models (heter_pyramid_collab / _single, "
+                         "models/heter_pyramid.py)")
     raise KeyError(f"unknown fusion {method!r}")

@@ -57,13 +57,18 @@ from gencomm_tpu_torch.utils.transformation_utils import normalize_pairwise_tfm
 
 class ModalityBranch(nn.Module):
     """encoder -> backbone -> shrinker for one modality; ``core_method``
-    selects the encoder, ``point_pillar`` or ``lift_splat_shoot``."""
+    selects the encoder, ``point_pillar`` or ``lift_splat_shoot``. With
+    ``encode_only`` (the HEAL pyramid models) the branch is the encoder
+    alone and returns its canvas."""
 
     def __init__(self, encoder_args: Dict[str, Any],
-                 backbone_args: Dict[str, Any], shrink_args: Dict[str, Any],
-                 core_method: str = "point_pillar", dtype=None):
+                 backbone_args: Dict[str, Any] | None,
+                 shrink_args: Dict[str, Any] | None,
+                 core_method: str = "point_pillar", dtype=None,
+                 encode_only: bool = False):
         super().__init__()
         self.core_method, self.dtype = core_method, dtype
+        self.encode_only = encode_only
         half = dtype == torch.bfloat16
         if core_method == "lift_splat_shoot":
             self.encoder = LSSEncoder(
@@ -86,6 +91,9 @@ class ModalityBranch(nn.Module):
         else:
             raise NotImplementedError(
                 f"encoder {core_method!r} is not ported yet (ROADMAP item 18)")
+        if encode_only:
+            self.out_channels = self.encoder.out_channels
+            return
         self.backbone = BEVBackbone(
             self.encoder.out_channels,
             layer_nums=backbone_args["layer_nums"],
@@ -109,6 +117,8 @@ class ModalityBranch(nn.Module):
         else:
             canvas = self.encoder(inputs["decorated"], inputs["gids"],
                                   inputs["dvalid"])  # (B, L, ny, nx, C) bf16
+        if self.encode_only:
+            return canvas, depth_logits
         b, l = canvas.shape[:2]
         flat = canvas.reshape((b * l,) + canvas.shape[2:])
         # in fp32 the neck runs on the bf16 canvas values, as flax promotes;
@@ -206,6 +216,11 @@ class HeterModel(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.heads.cls_head.weight.device
+
+    def lidar_encoder(self, mname: str) -> PointPillarEncoder:
+        """The pillar encoder of lidar modality ``mname`` (its grid is the
+        host decoration's)."""
+        return getattr(self, f"branch_{mname}").encoder
 
     def camera_bev_shape(self, mname: str, h: int, w: int) -> Tuple[int, int]:
         """The (H, W) that camera modality ``mname``'s (h, w) feature is

@@ -306,3 +306,21 @@ class DownsampleConv(nn.Module):
         for m in self.children():
             x = m(x)
         return x
+
+
+class NaiveCompressor(nn.Module):
+    """The conv autoencoder channel compressor: ConvBNReLU to
+    ``input_dim // compress_ratio`` channels, ConvBNReLU back, then a 3x3
+    conv (no bias), BN (eps 1e-3) and ReLU; flax "SAME" padding."""
+
+    def __init__(self, input_dim: int, compress_ratio: int):
+        super().__init__()
+        hidden = input_dim // compress_ratio
+        self.ConvBNReLU_0 = ConvBNReLU(input_dim, hidden, 3)
+        self.ConvBNReLU_1 = ConvBNReLU(hidden, input_dim, 3)
+        self.Conv_0 = Conv(input_dim, input_dim, 3, bias=False)
+        self.BatchNorm_0 = BatchNorm(input_dim)
+
+    def forward(self, x):
+        x = self.ConvBNReLU_1(self.ConvBNReLU_0(x))
+        return torch.relu(self.BatchNorm_0(self.Conv_0(x)))

@@ -224,7 +224,7 @@ class InferencePipeline:
                 continue
             vox = self._voxelizers.get(m)
             if vox is None:
-                enc = getattr(self.model, f"branch_{m}").encoder
+                enc = self.model.lidar_encoder(m)
                 vox = self._voxelizers[m] = PillarVoxelizer(enc.lidar_range,
                                                             enc.voxel_size)
             host = decorate_modality(host, vox, m)

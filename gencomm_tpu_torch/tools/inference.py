@@ -106,7 +106,9 @@ def cap_agents(host: dict, use_cav: int) -> dict:
 
 def comm_report(model, batch: dict) -> dict:
     """The payload the valid non-ego agents of ``batch`` send: GenComm's
-    2-channel message, else the BEV feature; fp16 bytes raw and deflated."""
+    2-channel message, else the BEV feature; fp16 bytes raw and deflated.
+    A model whose output has neither (the HEAL pyramid) reports zero-width
+    rows, 0 bytes, as the JAX package's report does (ROADMAP fault l)."""
     with torch.inference_mode():
         out = model(batch, generator=torch.Generator(
             device=model.device).manual_seed(0))
@@ -115,10 +117,13 @@ def comm_report(model, batch: dict) -> dict:
     if out.get("message") is not None:
         payload = "gencomm_message_2ch"
         per_agent = out["message"][0].float().cpu().numpy()[senders]
-    else:
+    elif out.get("feature") is not None:
         payload = "bev_feature"
         per_agent = out["feature"].float().cpu().numpy().reshape(
             (amask.shape[0], -1))[senders]
+    else:
+        payload = "bev_feature"
+        per_agent = np.zeros((len(senders), 0), np.float16)
     sizes = cpm_size_bytes(per_agent)
     return {"payload": payload, "n_senders": int(len(senders)),
             "cpm_bytes_fp16_raw": sizes["raw_bytes"],

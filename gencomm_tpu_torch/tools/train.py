@@ -13,7 +13,11 @@ is written there. A ``stage2`` model trains only the new agents' message
 extractors, the rest frozen (``train.trainer``). A run resumes from the
 newest ``step_N`` in its model dir unless ``--init_from`` names a
 checkpoint to start from (non-strict: parameters and running statistics
-where names and shapes match, the rest reported). ``--trainer kd`` distils
+where names and shapes match, the rest reported). A
+``heter_pyramid_single`` model (HEAL's stage 2) trains with the restored
+pyramid and heads frozen. With ``supervise_single`` (and for the single
+pyramid model) the sampler also labels every agent in its own frame and the
+train step runs the criterion's "_single" pass. ``--trainer kd`` distils
 (DiscoNet): a teacher of the same architecture with the weights of
 ``--teacher_ckpt`` runs frozen beside the student, and a plain detection
 criterion is upgraded to ``point_pillar_disconet_loss``. Each epoch: the host
@@ -69,6 +73,11 @@ def build_dataset(hypes: dict, train: bool, dataset: str):
             "pose noise and communication delay are not ported yet "
             "(ROADMAP item 21)")
     margs = hypes.get("model", {}).get("args", {})
+    core = hypes.get("model", {}).get("core_method", "").lower()
+    # per-agent labels: the supervise_single pass and the single pyramid
+    # model's heads over every agent
+    needs_single = bool(margs.get("supervise_single")) or \
+        core.startswith("heter_pyramid_single")
     modalities = {}
     spawn_radius = 0.0
     for name, m in margs.items():
@@ -92,7 +101,7 @@ def build_dataset(hypes: dict, train: bool, dataset: str):
     cfg = SyntheticConfig(
         lidar_range=tuple(hypes["preprocess"]["cav_lidar_range"]),
         max_cav=hypes["train_params"]["max_cav"],
-        per_agent_labels=bool(margs.get("supervise_single")),
+        per_agent_labels=needs_single,
         modalities=modalities,
         max_spawn_radius=spawn_radius,
         voxel_size=tuple(vs),
@@ -149,13 +158,25 @@ def epoch_batches(dataset, batch_size: int, dataset_kind: str, adapt,
 
 def frozen_predicate(args, hypes: dict):
     """The freeze schedule: ``--freeze_prefixes``, else the stage-2
-    protocol's for a ``stage2`` model; None trains everything."""
+    protocol's for a ``stage2`` model, HEAL's for ``heter_pyramid_single``
+    (the shared pyramid and the heads frozen: only the new agent's
+    encoder, backbone and aligner learn); None trains everything. The
+    BackAlign, codebook, STAMP and MPDA schedules raise."""
+    core = hypes["model"]["core_method"].lower()
     if args.freeze_prefixes:
         return trainer.freeze_by_prefixes(args.freeze_prefixes.split(","))
-    if "stage2" in hypes["model"]["core_method"].lower():
+    if "stage2" in core:
         trainable = trainer.stage2_trainable_prefixes(hypes)
         print("stage-2 freeze: training only", trainable)
         return trainer.freeze_all_except(trainable)
+    for name in ("backalign", "codebook", "stamp", "mpda"):
+        if name in core:
+            raise NotImplementedError(
+                f"the {name} freeze schedule is not ported yet (ROADMAP "
+                "item 16)")
+    if core == "heter_pyramid_single":
+        print("pyramid-single freeze: ['pyramid_backbone', 'heads']")
+        return trainer.freeze_by_prefixes(["pyramid_backbone", "heads"])
     return None
 
 
@@ -266,8 +287,10 @@ def main(argv=None):
         step_fn = trainer.make_kd_train_step(model, teacher, criterion, opt,
                                              sched)
     else:
-        step_fn = trainer.make_train_step(model, criterion, opt, sched,
-                                          frozen_predicate=frozen)
+        step_fn = trainer.make_train_step(
+            model, criterion, opt, sched, frozen_predicate=frozen,
+            supervise_single=bool(hypes["model"]["args"].get(
+                "supervise_single")))
     eval_fn = trainer.make_eval_step(model, criterion)
     batch_size = hypes["train_params"]["batch_size"]
     epochs = args.epochs or hypes["train_params"]["epoches"]

@@ -23,8 +23,8 @@ the same update. A frozen parameter is left out of AdamW's groups (and its
 by the decoupled decay even at a zero gradient, where optax's
 ``set_to_zero`` leaves it bit for bit. A predicate takes a parameter's path,
 the ``state_dict`` key split at its dots, whose first component is the flax
-path's first component. ``supervise_single``, gradient matching and the
-BackAlign freeze are not ported yet and raise.
+path's first component. Gradient matching and the BackAlign freeze are
+not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -200,10 +200,21 @@ def make_train_step(model, criterion, optimizer, scheduler=None,
     the model's device. After a step the trainable parameters' ``.grad``
     hold that step's gradients. ``noises`` / ``generator`` feed the
     diffusion. With a ``frozen_predicate`` the frozen modules' running
-    statistics are put back after the step."""
-    if supervise_single:
-        raise NotImplementedError(
-            "supervise_single training is not ported yet (ROADMAP item 21)")
+    statistics are put back after the step. With ``supervise_single`` the
+    criterion runs a second time with the suffix "_single" (per-agent heads
+    or, for the HEAL pyramid, its occupancy maps, against the per-agent
+    labels): its terms join the losses, a term whose name the first pass
+    already has as ``<term>_single``, and its total is added."""
+
+    def loss_fn(out, batch):
+        losses = criterion(out, batch)
+        if supervise_single:
+            single = criterion(out, batch, suffix="_single")
+            losses = dict(losses, **{
+                (k if k not in losses else f"{k}_single"): v
+                for k, v in single.items() if k != "total_loss"})
+            losses["total_loss"] = losses["total_loss"] + single["total_loss"]
+        return losses
 
     def step(batch: Dict[str, torch.Tensor], noises=None,
              generator: torch.Generator | None = None) -> Dict[str, torch.Tensor]:
@@ -213,7 +224,7 @@ def make_train_step(model, criterion, optimizer, scheduler=None,
             old = {k: v.clone() for k, v in stats.items()
                    if frozen_predicate(tuple(k.split(".")))}
         out = model(batch, noises=noises, generator=generator)
-        losses = criterion(out, batch)
+        losses = loss_fn(out, batch)
         optimizer.zero_grad(set_to_none=True)
         losses["total_loss"].backward()
         optimizer.step()

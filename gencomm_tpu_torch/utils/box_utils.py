@@ -63,13 +63,46 @@ def boxes_to_corners_3d(boxes, order: str):
     return corners @ rot + boxes[:, None, 0:3]
 
 
-def project_box3d(corners3d: torch.Tensor, transformation_matrix: torch.Tensor):
-    """(N, 8, 3) corners through a (4, 4) transform."""
+def project_box3d(corners3d, transformation_matrix):
+    """(N, 8, 3) corners through a (4, 4) transform, in the corners' type:
+    numpy (host, ``hom @ T.T``) or torch."""
     n = corners3d.shape[0]
+    if not isinstance(corners3d, torch.Tensor):
+        hom = np.concatenate(
+            [corners3d, np.ones((n, 8, 1), dtype=corners3d.dtype)], axis=-1)
+        tfm = np.asarray(transformation_matrix, dtype=corners3d.dtype)
+        return (hom @ tfm.T)[..., :3]
     ones = corners3d.new_ones((n, 8, 1))
     hom = torch.cat([corners3d, ones], dim=-1)
     tfm = transformation_matrix.to(corners3d.dtype)
     return torch.einsum("nkj,ij->nki", hom, tfm)[..., :3]
+
+
+def corner_to_center(corner3d: np.ndarray, order: str = "lwh") -> np.ndarray:
+    """(N, 8, 3) corners -> (N, 7) float32 boxes (numpy): the centre of the
+    four corners 0, 3, 5, 6, the mean height, the four bottom and top edge
+    lengths averaged for l and w, and the four edge yaws averaged."""
+    xyz = np.mean(corner3d[:, [0, 3, 5, 6], :], axis=1)
+    h = np.abs(np.mean(corner3d[:, 4:, 2] - corner3d[:, :4, 2], axis=1,
+                       keepdims=True))
+
+    def _elen(i, j):
+        return np.sqrt(((corner3d[:, i, :2] - corner3d[:, j, :2]) ** 2).sum(
+            axis=1, keepdims=True))
+
+    def _eyaw(i, j):
+        return np.arctan2(corner3d[:, i, 1] - corner3d[:, j, 1],
+                          corner3d[:, i, 0] - corner3d[:, j, 0])
+
+    l = (_elen(0, 3) + _elen(2, 1) + _elen(4, 7) + _elen(5, 6)) / 4
+    w = (_elen(0, 1) + _elen(2, 3) + _elen(4, 5) + _elen(6, 7)) / 4
+    theta = ((_eyaw(1, 2) + _eyaw(0, 3) + _eyaw(5, 6) + _eyaw(4, 7))
+             / 4)[:, None]
+    if order == "lwh":
+        return np.concatenate([xyz, l, w, h, theta], axis=1).astype(np.float32)
+    if order == "hwl":
+        return np.concatenate([xyz, h, w, l, theta], axis=1).astype(np.float32)
+    raise ValueError(f"unknown box order {order}")
 
 
 def corners_to_standup_2d(corners: np.ndarray) -> np.ndarray:

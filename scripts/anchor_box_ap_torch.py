@@ -4,13 +4,16 @@ evaluates, on the CPU, with no model: which pre-NMS top-K lets a lattice of
 anchors reach the synthetic ground truth at IoU 0.3?
 
     python3 scripts/anchor_box_ap_torch.py [-y CONFIG] [--frames 4] \
-        [--topk 512,4096] [--logits 0,0 1,0]
+        [--topk 512,4096] [--logits 0,0 1,0] \
+        [--range xmin,ymin,zmin,xmax,ymax,zmax]
 
 Heads with their weights zeroed give every anchor its own box (no
 regression, the first direction bin) and the score of its type's bias
 (``--logits``, one logit per anchor type: yaw 0, yaw 90). The frames are
 those of ``gencomm_tpu_torch.tools.inference`` with ``--dataset
-synthetic``: ``np.random.seed(303)``, then ``sample(1000 + f, 1)``. Each
+synthetic`` (and its ``--range``, which sets the detection range, the
+anchor grid and the sampler's range): ``np.random.seed(303)``, then
+``sample(1000 + f, 1)``. Each
 case decodes with ``decode_and_nms`` (the plain NMS on the CPU) and scores
 with ``eval_utils`` at IoU 0.3 / 0.5 / 0.7. It also reports how many ground
 truth boxes some anchor reaches at IoU 0.3 at all. One JSON object per case
@@ -33,6 +36,7 @@ from gencomm_tpu_torch.config.yaml_utils import load_yaml  # noqa: E402
 from gencomm_tpu_torch.data.postprocessor import (  # noqa: E402
     decode_and_nms, generate_anchor_box,
 )
+from gencomm_tpu_torch.tools.inference import override_range  # noqa: E402
 from gencomm_tpu_torch.tools.train import build_dataset  # noqa: E402
 from gencomm_tpu_torch.utils import box_utils, eval_utils  # noqa: E402
 
@@ -68,9 +72,12 @@ def main(argv=None) -> int:
     ap.add_argument("--frames", type=int, default=4)
     ap.add_argument("--topk", default="512,4096")
     ap.add_argument("--logits", nargs="+", default=["0,0", "1,0"])
+    ap.add_argument("--range", dest="det_range", default=None)
     args = ap.parse_args(argv)
 
     hypes = load_yaml(args.yaml)
+    if args.det_range:
+        hypes = override_range(hypes, args.det_range.split(","))
     pp = hypes["postprocess"]
     np.random.seed(303)
     dataset = build_dataset(hypes, False, "synthetic")
@@ -104,7 +111,8 @@ def main(argv=None) -> int:
                         dets.corners3d.numpy()[valid],
                         dets.scores.numpy()[valid], gt, stat, t)
             print(json.dumps({
-                "config": args.yaml, "frames": args.frames, "anchors":
+                "config": args.yaml, "range": args.det_range,
+                "frames": args.frames, "anchors":
                 h * w * a, "topk": topk, "logits": logits, "gt": n_gt,
                 "gt_reachable_at_0.3": n_reach, "kept_per_frame": kept,
                 "tp": {str(t): int(sum(stat[t]["tp"])) for t in stat},

@@ -64,6 +64,12 @@ GENCOMM = ["configs/opv2v/gencomm/stage1/m1_att.yaml",
            "configs/opv2v/gencomm/stage2/m1m2_v2xvit.yaml",
            "configs/opv2v/gencomm/stage2/m1m4_v2xvit.yaml",
            "configs/dairv2x/gencomm/stage1/m1_v2xvit.yaml"]
+# the opv2v HEAL configs without a SECOND modality: stage 1, the stage-2
+# single models and the final m1 + m2 inference
+HEAL = [f"configs/opv2v/heal/{p}.yaml" for p in (
+    "stage1/m1_pyramid", "stage1/m2_pyramid", "stage1/m4_pyramid",
+    "stage2/m1_single_pyramid", "stage2/m2_single_pyramid",
+    "stage2/m4_single_pyramid", "final_infer/m1m2")]
 SMALL_RANGE = [-16.0, -8.0, -3.0, 16.0, 8.0, 1.0]
 
 
@@ -164,8 +170,10 @@ def test_build_count_and_the_roadmap_items_named(capsys):
     built = sorted(c for c, o in outcomes.items() if o == "built")
     with capsys.disabled():
         print(f"\n{len(built)} of {len(outcomes)} configs build in the port")
-    assert all(c in built for c in GENCOMM)
-    assert len(built) >= 98
+    assert all(c in built for c in GENCOMM + HEAL)
+    # 98 before the HEAL pyramid slice, + 22 pyramid cores (the 6 with a
+    # SECOND modality raise item 18) + 14 supervise_single configs
+    assert len(built) >= 134
     # each refusal names the ROADMAP item that ports what is missing
     for c, o in outcomes.items():
         assert o == "built" or "ROADMAP item" in o, (c, o)
@@ -221,7 +229,7 @@ def _load_both(config):
     return out
 
 
-@pytest.mark.parametrize("config", GENCOMM)
+@pytest.mark.parametrize("config", GENCOMM + HEAL)
 def test_gencomm_config_has_jax_parameter_names_and_shapes(config):
     hypes, jhypes = _load_both(config)
     jmodel = jax_create_model(jhypes)
@@ -446,14 +454,55 @@ def test_yaml_built_losses_match_jax(slice_run):
                                    err_msg=k)
 
 
-def test_create_loss_injects_the_range_and_refuses_supervise_single():
-    hypes = yaml_utils.load_yaml(os.path.join(REPO, GENCOMM[1]))
-    crit = create_loss(hypes)
+@functools.lru_cache(maxsize=None)
+def _supervise_single_outputs():
+    """(JAX hypes, port hypes, seeded head outputs with per-agent heads, the
+    sampler's labels with the per-agent ones) of a narrowed stage1/m1_att
+    with supervise_single: 2 samples of 3 agent slots."""
+    raw = narrowed(GENCOMM[0])
+    raw["model"]["args"]["supervise_single"] = True
+    hypes = jax_yaml.update_yaml(copy.deepcopy(raw))
+    port_hypes = yaml_utils.update_yaml(copy.deepcopy(raw))
+    cfg = small_scenes_config(hypes, jax_side=True)
+    cfg.per_agent_labels = True
+    batch = trim_agent_slots(JaxScenes(cfg).sample(5, 2), buckets=(3,))
+    labels = {k: batch[k] for k in batch if k.startswith(
+        ("pos_equal_one", "neg_equal_one", "targets"))}
+    b, l = batch["agent_mask"].shape
+    h, w, a = labels["pos_equal_one"].shape[1:]
+    rng = np.random.RandomState(8)
+    out = {"feature_mask": batch["agent_mask"].reshape(-1)}
+    for n, lead in ((b, ""), (b * l, "_single")):
+        for key, ch in (("cls", a), ("reg", 7 * a), ("dir", 2 * a)):
+            out[f"{key}_preds{lead}"] = rng.randn(n, h, w, ch).astype(
+                np.float32)
+    for key in ("gt_feature", "pred_feature"):
+        out[key] = rng.randn(b * l, 4, 8, 32).astype(np.float32)
+    return hypes, port_hypes, out, labels
+
+
+@pytest.mark.parametrize("suffix", ["", "_single"])
+def test_create_loss_wraps_supervise_single_as_jax_does(suffix):
+    """``supervise_single``: the criterion of both packages on the outputs
+    of the JAX model with per-agent heads (narrowed stage1/m1_att) and the
+    sampler's per-agent labels, in the plain pass and in the train step's
+    "_single" pass; the single terms join as ``single_<term>``."""
+    hypes, port_hypes, out, labels = _supervise_single_outputs()
+    assert "pos_equal_one_single" in labels and "cls_preds_single" in out
+    crit = jax_create_loss(hypes)
+    want = jax.jit(lambda o, t: crit(o, t, suffix))(
+        {k: jnp.asarray(v) for k, v in out.items()},
+        {k: jnp.asarray(v) for k, v in labels.items()})
+    got = create_loss(port_hypes)(
+        {k: torch.from_numpy(np.array(v)) for k, v in out.items()},
+        {k: torch.from_numpy(np.array(v)) for k, v in labels.items()}, suffix)
+    assert set(got) == set(want) and "single_cls_loss" in got
+    for k in want:
+        np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-5,
+                                   err_msg=k)
+    # the range and the depth weight of a camera config, injected
+    crit = create_loss(yaml_utils.load_yaml(os.path.join(REPO, GENCOMM[1])))
     assert crit.depth_weight == 1.0
-    single = copy.deepcopy(hypes)
-    single["model"]["args"]["supervise_single"] = True
-    with pytest.raises(NotImplementedError, match="item 21"):
-        create_loss(single)
 
 
 def test_missing_messages_drop_non_ego_cells_at_eval():

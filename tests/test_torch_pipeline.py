@@ -190,6 +190,7 @@ def test_unported_branches_raise():
     with pytest.raises(NotImplementedError, match="bf16 training"):
         model.train()
     # the late and no-fusion modes are ported (test_torch_serving.py), and
-    # every intermediate fusion but the pyramid's (test_torch_fusion.py)
-    with pytest.raises(NotImplementedError, match="item 17"):
+    # every intermediate fusion (test_torch_fusion.py); the pyramid fusion
+    # runs inside the HEAL pyramid models (test_torch_pyramid.py)
+    with pytest.raises(ValueError, match="heter_pyramid"):
         HeterModel(**dict(MODEL_KW, fusion_method="pyramid"), device="cpu")

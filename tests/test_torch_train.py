@@ -69,7 +69,7 @@ from gencomm_tpu_torch.ops.warp import (
 )
 from gencomm_tpu_torch.pipeline import batch_to_device
 from gencomm_tpu_torch.train.trainer import (
-    make_gmatch_train_step, make_lr_schedule,
+    backalign_frozen_modules, make_gmatch_train_step, make_lr_schedule,
     make_optimizer, make_train_step,
 )
 from gencomm_tpu_torch.weights import flax_grads_to_torch, flax_to_state_dict
@@ -336,8 +336,16 @@ def test_anchor_cache_keys_on_every_byte():
 
 
 def test_per_agent_labels_raise():
-    with pytest.raises(NotImplementedError):
-        SyntheticScenes(SyntheticConfig(per_agent_labels=True))
+    """The per-agent labels, which raised until the HEAL pyramid slice,
+    now build: bit for bit the JAX sampler's
+    (tests/test_torch_pyramid.py holds them with a camera agent too)."""
+    kw = dict(lidar_range=LR, points_per_agent=3000, num_vehicles=6,
+              points_per_vehicle=60, comm_range=12.0, per_agent_labels=True)
+    want = JaxScenes(JaxSyntheticConfig(**kw)).sample(3, 2)
+    got = SyntheticScenes(SyntheticConfig(**kw)).sample(3, 2)
+    assert set(got) == set(want) and "targets_single" in got
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 # ---------------------------------------------------------------- loss
@@ -370,7 +378,7 @@ def test_gencomm_loss_matches_jax():
         np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-5,
                                    err_msg=k)
     with pytest.raises(NotImplementedError):
-        build_loss({"core_method": "point_pillar_pyramid_loss", "args": {}})
+        build_loss({"core_method": "point_pillar_codebook_loss", "args": {}})
 
 
 # ---------------------------------------------------------------- norms
@@ -496,11 +504,10 @@ def test_adamw_updates_match_optax_across_a_boundary(weight_decay):
 
 def test_unported_training_options_raise():
     # freezing (a frozen predicate) is ported: tests/test_torch_workflow.py
+    # so is supervise_single: tests/test_torch_pyramid.py
     model = HeterModel(**MODEL_KW, device="cpu")
-    opt, sched = make_optimizer(HYPES, model.named_parameters())
-    with pytest.raises(NotImplementedError):
-        make_train_step(model, build_loss(HYPES["loss"]), opt, sched,
-                        supervise_single=True)
+    with pytest.raises(NotImplementedError, match="item 16"):
+        backalign_frozen_modules(HYPES)
     # distillation is ported: tests/test_torch_fusion.py
     with pytest.raises(NotImplementedError):
         make_gmatch_train_step(model)

@@ -209,10 +209,12 @@ def test_unported_flags_and_cores_raise(runs, tmp_path):
     late["fusion"] = {"core_method": "late"}
     with pytest.raises(NotImplementedError, match="item 21"):
         train_cli.Adapt(late)
-    single = copy.deepcopy(runs.m1.ph)
-    single["model"]["args"]["supervise_single"] = True
+    # supervise_single's per-agent labels are ported
+    # (tests/test_torch_pyramid.py); pose noise is not
+    noisy = copy.deepcopy(runs.m1.ph)
+    noisy["noise_setting"] = {"add_noise": True, "add_pose_noise": True}
     with pytest.raises(NotImplementedError, match="item 21"):
-        train_cli.build_dataset(single, True, "synthetic")
+        train_cli.build_dataset(noisy, True, "synthetic")
     multi = copy.deepcopy(runs.m1.ph)
     multi["model"]["args"]["num_class"] = 3
     with pytest.raises(NotImplementedError, match="item 19"):
