@@ -26,7 +26,9 @@ Phases, each of which raises on failure:
      (channel counts the tensor-core route does not take, a ragged map,
      offsets to +-9), K2b once on its (6 channels) and K3b on four thetas
      no path builds (zero, a 4x zoom, a nearly singular shear, a scaled
-     rotation; 128 and 6 channels) against their plain versions;
+     rotation; 128 channels on its warp route, 6, 3, 2 and 1 on its pixel
+     route, which must also give the warp route's bits) against their
+     plain versions;
   3. every path counted and timed, before the process's first
      torch.profiler session (a finished session left later launches slower,
      ROADMAP p1): lidar eval fp32 and bf16, lidar training, camera eval fp32
@@ -70,8 +72,10 @@ Phases, each of which raises on failure:
      keep-set) held bit for bit against its plain version (the host-synced
      round loop) on the lidar frame's overlap matrix (K = 512), the late
      unions (K = 1,024 and 2,560), random box sets and suppression chains K
-     boxes deep at K = 512, 1,024 and 2,560, and timed on each beside the
-     plain loop on the card and its bound;
+     boxes deep at K = 512, 1,024, 2,560 and 5,120, a random
+     upper-triangular matrix (at the random sets' density) and a chain at
+     K = 8,192, and timed on each beside the plain loop on the card and its
+     bound, also over a CUDA graph of 200 launches ("graph_ms");
   5. the lidar eval path at bf16: K1 and K3 on their bf16 instantiations
      (rows "deform_conv3x3_bf16", "warp_affine_bf16"; bound by the bf16
      tensor-core rate or the bytes) and K2 on the path's arguments, against
@@ -166,10 +170,15 @@ Phases, each of which raises on failure:
      the path warps (each level's feature at 64 / 128 / 256 channels and
      its 1-channel score: two launches a level, timed against one launch on
      the 65 / 129 / 257 channels concatenated, the JAX package's form, with
-     the same bits), K2 and N1 held and timed, the profiles, heads card
-     against CPU (max and relative L2); (b) 1 + 10 train steps (batch 2,
-     its Adam and point_pillar_pyramid_loss with the occupancy pass), K3b
-     on each map twice for the same bits, K2 and K2b, the profile, 4 steps on one batch (the loss
+     the same bits; each map's device time also over a CUDA graph of 200
+     launches, beside grid_sample's), K2 and N1 held and timed, the
+     profiles, heads card against CPU (max and relative L2); (b) 1 + 10
+     train steps (batch 2, its Adam and point_pillar_pyramid_loss with the
+     occupancy pass; K3b's pixel route launched for every 1-channel score,
+     its warp route for every feature), K3b on each map twice for the same
+     bits (on the scores the pixel route also against the warp route, bit
+     for bit, and both routes and autograd of grid_sample over CUDA
+     graphs), K2 and K2b, the profile, 4 steps on one batch (the loss
      must fall), one step card against CPU as in phase 6; (c) in the
      workflow process HEAL's three stages through the tools' main(argv):
      stage1/m1_pyramid.yaml for 1 epoch of 12 steps,
@@ -235,9 +244,15 @@ CAMERA_NCAM = _CAMERA_ENC["data_aug_conf"]["Ncams"]
 CAMERA_GRID = _CAMERA_ENC["grid_conf"]
 CAMERA_FEATURE_SHAPE = (64, 64, 128)
 TIMED_FRAMES = 30  # eval frames, looped and streamed, after one warm-up
-# N1's sizes: nms_topk (intermediate and no-fusion modes) and the late
-# union over 2 and 5 agent slots
-NMS_KS = (512, 1024, 2560)
+# N1's sizes: nms_topk (intermediate and no-fusion modes), the late union
+# over 2 and 5 agent slots, and over 5 slots at an nms_topk of 1,024; and a
+# K past the parent kernel's 4,096 boxes whose pairwise IoU would cost too
+# much, built as a random matrix (nms_cases)
+NMS_KS = (512, 1024, 2560, 5120)
+NMS_DENSE_K = 8192
+# device times of one-channel maps and of N1: CUDA events over replays of a
+# CUDA graph of this many captured launches (graph_ms)
+GRAPH_LAUNCHES = 200
 EVAL_FRAMES = 4  # evaluate(): AP over these frames, card against CPU
 AP_TOL = 1e-6
 # bf16 eval (half=True): the card's bf16 run against its fp32 run keeps at
@@ -392,6 +407,36 @@ def time_ms(fn, iters=20, warmup=3, cold=False):
         pairs.append((start, end))
     torch.cuda.synchronize()
     return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
+def graph_ms(fn, n=GRAPH_LAUNCHES, reps=3):
+    """Device ms per call of ``fn``: ``n`` calls captured in a CUDA graph
+    (after two on a side stream), the graph replayed ``reps`` times between
+    two CUDA events. No host work stands between the launches, so a short
+    kernel's time is its own, where the profiler may drop its records
+    (ROADMAP p3)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * n)
 
 
 def device_launches(fn, n=20):
@@ -573,15 +618,18 @@ def add_rows(kernel_rows, path, rows):
                                     "cold_ms", "path_route", "route_launches",
                                     "turns_ms", "device_ms", "dtype",
                                     "library_device_ms", "records_short",
-                                    "differ_from_fp32_kernel") if k in row}
+                                    "differ_from_fp32_kernel", "graph_ms",
+                                    "library_graph_ms", "warp_route_graph_ms")
+                if k in row}
 
 
 def route_launches():
     """{kernel name: {route: launches}} of the kernels that have routes."""
-    from gencomm_tpu_torch.ops import deform_conv, pillar_canvas
+    from gencomm_tpu_torch.ops import deform_conv, pillar_canvas, warp
 
     return {**deform_conv.ROUTE_LAUNCHES, **deform_conv.HALF_ROUTE_LAUNCHES,
-            "pillar_canvas_bwd": pillar_canvas.ROUTE_LAUNCHES}
+            "pillar_canvas_bwd": pillar_canvas.ROUTE_LAUNCHES,
+            "warp_affine_bwd": warp.ROUTE_LAUNCHES}
 
 
 def reset_launch_counts():
@@ -839,13 +887,14 @@ def check_pillar(inputs, where):
     return row
 
 
-def check_warp(inputs, where):
+def check_warp(inputs, where, graph=False):
     """K3 (affine bilinear warp) against its plain version on the arguments
     the path ``where`` gives it; returns its row. On a bf16 map (``half``)
     the row is K3's bf16 instantiation's, which must also give the bits of
     the fp32 kernel on the widened map, rounded once; its library yardstick
     is ``F.grid_sample`` on the bf16 map (with a bf16 grid, which that call
-    requires)."""
+    requires). With ``graph`` the row also has device times over CUDA
+    graphs (``graph_ms``, ``library_graph_ms``)."""
     import torch
     import torch.nn.functional as F
     from gencomm_tpu_torch.ops.warp import warp_affine, warp_affine_plain
@@ -906,6 +955,12 @@ def check_warp(inputs, where):
         library_ms=sum(lib_ms) / len(lib_ms),
         turns_ms={"kernel": k3_ms, "library": lib_ms},
         **k3_time, library_device_ms=lib_dev)
+    if graph:
+        row.update(graph_ms=graph_ms(lambda: warp_affine(src, theta)),
+                   library_graph_ms=graph_ms(library))
+        log(f"  K3 over a graph of {GRAPH_LAUNCHES} launches: "
+            f"{row['graph_ms']:.4f} ms, grid_sample "
+            f"{row['library_graph_ms']:.4f} ms")
     log_rows([row])
     return row
 
@@ -1057,13 +1112,15 @@ def check_pillar_bwd_general(dev):
 
 
 def hold_warp_bwd(g3, theta, where):
-    """K3b against its plain version, and two of its launches against each
-    other bit for bit; returns the error."""
+    """K3b on its route for this map against its plain version, and two of
+    its launches against each other bit for bit; on the pixel route also
+    against the warp route, bit for bit. Returns the error."""
     import torch
     from gencomm_tpu_torch.ops.warp import (
-        warp_affine_bwd, warp_affine_bwd_plain,
+        backward_route, warp_affine_bwd, warp_affine_bwd_plain,
     )
 
+    route = backward_route(g3.shape[-1])
     got = warp_affine_bwd(g3, theta)
     again = warp_affine_bwd(g3, theta)
     want = warp_affine_bwd_plain(g3, theta)
@@ -1072,7 +1129,7 @@ def hold_warp_bwd(g3, theta, where):
     twice = torch.equal(got, again)
     h3, w3 = g3.shape[1], g3.shape[2]
     tol = 16.0 * max(h3, w3) * 2.0 ** -23 * float(g3.abs().max())
-    log(f"K3b warp_affine_bwd ({where}) g{tuple(g3.shape)}: "
+    log(f"K3b warp_affine_bwd ({where}) g{tuple(g3.shape)}, route {route}: "
         f"max|kernel-plain| "
         f"{err:.3e} (tol {tol:.3e}: a one-ulp difference of the sampling "
         f"coordinate times the cotangent, over up to 16 contributions), two "
@@ -1081,6 +1138,12 @@ def hold_warp_bwd(g3, theta, where):
         raise AssertionError(f"K3b disagrees with its plain version: {err}")
     if not twice:
         raise AssertionError("K3b gave different bits on a second launch")
+    if route != "warp":
+        same = torch.equal(got, warp_affine_bwd(g3, theta, "warp"))
+        log(f"  K3b route {route} gives the warp route's bits: {same}")
+        if not same:
+            raise AssertionError(f"K3b's {route} route differs from its "
+                                 f"warp route ({where})")
     return err
 
 
@@ -1088,14 +1151,15 @@ def check_warp_bwd_general(dev):
     """K3b on thetas that no path of the system builds (every one it builds
     is rigid): a zero theta (a singular map: every source pixel searches the
     whole map), a 4x zoom, a nearly singular shear and a rotation with
-    scale, at 128 and at 6 channels. Returns the error for the kernels JSON
-    line."""
+    scale, at 128 channels (the warp route) and at 6, 3, 2 and 1 (the
+    pixel route, also held to the warp route's bits). Returns the error
+    for the kernels JSON line."""
     import torch
 
     thetas = torch.tensor(GENERAL_THETAS, dtype=torch.float32, device=dev)
     gen = torch.Generator().manual_seed(7)
     err = 0.0
-    for c in (128, 6):
+    for c in (128, 6, 3, 2, 1):
         g3 = torch.randn((len(thetas),) + GENERAL_WARP_MAP + (c,),
                          generator=gen).to(dev)
         err = max(err, hold_warp_bwd(g3, thetas, f"general thetas, {c} "
@@ -1103,13 +1167,15 @@ def check_warp_bwd_general(dev):
     return {"warp_affine_bwd": err}
 
 
-def check_warp_bwd(inputs, where):
+def check_warp_bwd(inputs, where, graph=False):
     """K3b (affine warp backward) against its plain version on the
-    arguments the train step ``where`` gives it; returns its row."""
+    arguments the train step ``where`` gives it; returns its row. With
+    ``graph`` the row also has device times over CUDA graphs (``graph_ms``)
+    of K3b on its route, on the warp route and of the library call."""
     import torch
     import torch.nn.functional as F
     from gencomm_tpu_torch.ops.warp import (
-        warp_affine_bwd, warp_affine_bwd_plain,
+        backward_route, warp_affine_bwd, warp_affine_bwd_plain,
     )
 
     g3, theta = inputs["warp_affine_bwd"]
@@ -1135,7 +1201,23 @@ def check_warp_bwd(inputs, where):
         plain_ms=time_ms(lambda: warp_affine_bwd_plain(g3, theta)),
         bound_ms=nbytes(g3, theta, g3) / PEAK_BYTES * 1e3, bound_by="bytes",
         library_ms=time_ms(library),
-        library_device_ms=device_time(library)["device_ms"])
+        library_device_ms=device_time(library)["device_ms"],
+        path_route=backward_route(g3.shape[-1]))
+    if graph:
+        n, h, w, c = g3.shape
+        zeros = torch.zeros(n, c, h, w, device=g3.device)
+        row.update(
+            graph_ms=graph_ms(lambda: warp_affine_bwd(g3, theta)),
+            warp_route_graph_ms=graph_ms(
+                lambda: warp_affine_bwd(g3, theta, "warp")),
+            library_graph_ms=graph_ms(
+                lambda: torch.ops.aten.grid_sampler_2d_backward(
+                    g_nchw, zeros, grid, 0, 0, False, [True, False])))
+        log(f"  K3b over a graph of {GRAPH_LAUNCHES} launches: route "
+            f"{row['path_route']} {row['graph_ms']:.4f} ms, route warp "
+            f"{row['warp_route_graph_ms']:.4f} ms, autograd of grid_sample "
+            f"(aten::grid_sampler_2d_backward) {row['library_graph_ms']:.4f} "
+            f"ms")
     log_rows([row])
     return row
 
@@ -1689,8 +1771,10 @@ def hold_step(cell, exact_zero=()):
 def nms_cases(dev):
     """N1's inputs besides the paths': car-sized boxes at random (a few
     overlaps a box, 10% invalid) and a suppression chain K boxes deep (box j
-    overlaps box j + 1 only), at each K of NMS_KS; {label: (overlap,
-    valid)}."""
+    overlaps box j + 1 only), at each K of NMS_KS; at NMS_DENSE_K a random
+    upper-triangular matrix at the density of the largest random case (its
+    true entries over its pairs; 10% invalid) and a chain; {label:
+    (overlap, valid)}."""
     import torch
     from gencomm_tpu_torch.ops.nms import overlap_matrix
     from gencomm_tpu_torch.utils.box_utils import boxes_to_corners_3d
@@ -1710,11 +1794,26 @@ def nms_cases(dev):
         quads = boxes_to_corners_3d(boxes, "hwl")[:, :4, :2].to(dev)
         cases[f"random K={k}"] = (overlap_matrix(quads, 0.15),
                                   (torch.rand(k, generator=gen) > 0.1).to(dev))
-        chain = torch.zeros(k, k, dtype=torch.bool)
-        chain[torch.arange(k - 1), torch.arange(1, k)] = True
-        cases[f"chain K={k}"] = (chain.to(dev),
-                                 torch.ones(k, dtype=torch.bool, device=dev))
+        cases[f"chain K={k}"] = nms_chain(k, dev)
+    over, _ = cases[f"random K={NMS_KS[-1]}"]
+    k = NMS_DENSE_K
+    density = float(over.sum()) / (over.shape[0] * (over.shape[0] - 1) / 2)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    cases[f"random K={k}"] = (
+        torch.triu(torch.rand(k, k, generator=gen, device=dev) < density, 1),
+        torch.rand(k, generator=gen, device=dev) > 0.1)
+    cases[f"chain K={k}"] = nms_chain(k, dev)
     return cases
+
+
+def nms_chain(k, dev):
+    """(overlap, valid) of a suppression chain k boxes deep, all valid."""
+    import torch
+
+    chain = torch.zeros(k, k, dtype=torch.bool, device=dev)
+    idx = torch.arange(k - 1, device=dev)
+    chain[idx, idx + 1] = True
+    return chain, torch.ones(k, dtype=torch.bool, device=dev)
 
 
 def nms_bound(keep):
@@ -1753,19 +1852,24 @@ def hold_nms(overlap, valid, label):
 def check_nms(overlap, valid, where, cases):
     """N1 held against its plain version on the path's own overlap matrix
     (``where``) and on ``cases``, and timed on each: events, the profiler's
-    device time, the plain version's loop on the card (its host reads
-    included; no one PyTorch call computes the closure, so no library
-    yardstick) and the bound. Returns the row of the path's matrix, with the
-    other cases under ``cases``."""
-    from gencomm_tpu_torch.ops.nms import nms_closure, nms_closure_plain
+    device time, the device time over a CUDA graph (``graph_ms``), the
+    plain version's loop on the card (its host reads included; no one
+    PyTorch call computes the closure, so no library yardstick) and the
+    bound. Returns the row of the path's matrix, with the other cases under
+    ``cases``."""
+    from gencomm_tpu_torch.ops.nms import (
+        nms_closure, nms_closure_plain, storage_route,
+    )
 
     def numbers(over, val, label):
         differ, keep = hold_nms(over, val, label)
         bound_ms, bound_by = nms_bound(keep)
         return dict(
             max_abs_err=differ, kept=int(keep.sum()), k=int(val.numel()),
+            storage=storage_route(val.numel()),
             ms=time_ms(lambda: nms_closure(over, val)),
             **device_time(lambda: nms_closure(over, val)),
+            graph_ms=graph_ms(lambda: nms_closure(over, val)),
             plain_ms=time_ms(lambda: nms_closure_plain(over, val), iters=5,
                              warmup=1),
             bound_ms=bound_ms, bound_by=bound_by)
@@ -1779,7 +1883,8 @@ def check_nms(overlap, valid, where, cases):
                     for label, (o, v) in cases.items()}
     for label, r in [(where, row)] + list(row["cases"].items()):
         log(f"  N1 {label}: {r['ms']:.4f} ms by events, {r['device_ms']} ms "
-            f"on the device, the plain loop {r['plain_ms']:.4f} ms, bound "
+            f"on the device, {r['graph_ms']:.4f} ms over a graph (storage "
+            f"{r['storage']}), the plain loop {r['plain_ms']:.4f} ms, bound "
             f"{r['bound_ms']:.6f} ms ({r['bound_by']}), {r['kept']} of "
             f"{r['k']} kept")
     return row
@@ -2327,7 +2432,8 @@ def pyramid_checks(smi, pyr, kernel_rows):
         for (src, theta), what in ((feat, "feature"), (score, "score")):
             where = (f"pyramid eval, level {level} {what}, {src.shape[-1]} "
                      "channels")
-            row = check_warp({"warp_affine": (src, theta)}, where)
+            row = check_warp({"warp_affine": (src, theta)}, where,
+                             graph=True)
             row["launches"] = cell.launches["warp_affine"]
             if what == "score":
                 row.update(split_warp(feat[0], src, theta))
@@ -2352,12 +2458,23 @@ def pyramid_checks(smi, pyr, kernel_rows):
     if sorted(g.shape[-1] for g, _ in grads) != sorted(PYRAMID_WARP_WIDTHS):
         raise AssertionError(f"pyramid step: K3b widths "
                              f"{[g.shape[-1] for g, _ in grads]}")
+    # the timed steps took K3b's pixel route on every one-channel score
+    routes = train.routes["warp_affine_bwd"]
+    steps = train.launches["warp_affine_bwd"] // len(PYRAMID_WARP_WIDTHS)
+    narrow = sum(warp.backward_route(c) == "pixel"
+                 for c in PYRAMID_WARP_WIDTHS)
+    log(f"pyramid step: K3b launches by route {routes} over {steps} steps")
+    if steps < 1 or routes["pixel"] != narrow * steps:
+        raise AssertionError(f"pyramid step: K3b's pixel route expected "
+                             f"{narrow} times a step, launches {routes}")
 
     def check(inputs):
         for i, (g3, theta) in enumerate(grads):
             where = f"pyramid train step, {g3.shape[-1]} channels ({i})"
-            row = check_warp_bwd({"warp_affine_bwd": (g3, theta)}, where)
+            row = check_warp_bwd({"warp_affine_bwd": (g3, theta)}, where,
+                                 graph=g3.shape[-1] == 1)
             row["launches"] = train.launches["warp_affine_bwd"]
+            row["route_launches"] = train.routes["warp_affine_bwd"]
             add_rows(kernel_rows, where, [row])
         return [check_pillar(inputs, "pyramid train step"),
                 check_pillar_bwd(inputs, "pyramid train step")]
@@ -2369,7 +2486,8 @@ def pyramid_checks(smi, pyr, kernel_rows):
                         "streamed_ms": round(cell.stream_ms, 3),
                         "launches": cell.launches},
                "train_ms_per_step": round(train.ms, 3),
-               "step_launches": {k: v for k, v in train.launches.items() if v}}
+               "step_launches": {k: v for k, v in train.launches.items() if v},
+               "step_k3b_routes": routes}
     log(f"pyramid: {json.dumps(summary)}")
     phase_done("HEAL pyramid, checks", t_phase)
     return summary

@@ -26,16 +26,29 @@
 // PyTorch mirror). M^-1 and the margins are worked out once a block per
 // sample, in double (`sample_box`); a singular M takes the whole map, so
 // any theta is right and only a rigid one (every theta the system builds:
-// 6-16 candidates) is fast. One warp owns four neighbouring source
-// pixels: a group of 8 lanes tests 8 of its pixel's candidates at a time by
-// recomputing (x, y) exactly as K3 does (the same non-contracting
-// intrinsics), keeps a candidate only if floor(x) is ix-1 or ix and
-// floor(y) is iy-1 or iy, and takes that corner's weight; an over-wide
-// window costs time, never correctness. Then the whole warp sums each
-// pixel's kept candidates in raster order, every lane holding one 4-channel
-// vector (C % 4 == 0) or one channel of the four pixels' rows, with two
-// loads of each pixel in flight (eight a lane); one or two pixels a warp
-// were slower on an H100.
+// 6-16 candidates) is fast. Each candidate is tested by recomputing (x, y)
+// exactly as K3 does (`corner_weight`: the same non-contracting
+// intrinsics), kept only if floor(x) is ix-1 or ix and floor(y) is iy-1 or
+// iy, with that corner's weight; an over-wide window costs time, never
+// correctness. Each channel's sum is fmaf over the kept candidates in
+// raster order, from 0, on either route, so the two routes give the same
+// bits. Two routes, chosen by the caller (ops/warp.py:backward_route):
+//  * `warp` (wide maps): one warp owns four neighbouring source pixels: a
+//    group of 8 lanes tests 8 of its pixel's candidates at a time, then the
+//    whole warp sums each pixel's kept candidates, every lane holding one
+//    4-channel vector (C % 4 == 0) or one channel of the four pixels' rows,
+//    with two loads of each pixel in flight (eight a lane); one or two
+//    pixels a warp were slower on an H100.
+//  * `pixel` (narrow maps, C <= PIXEL_MAX_CHANNELS): one thread owns one
+//    source pixel, walks its own window in raster order and keeps its C
+//    sums in registers, one store a channel; a block works out the
+//    sampling coordinate of every output column and row once, into shared
+//    memory, so a candidate costs no division. On a one-channel map the warp
+//    route keeps one lane in 32 busy and pays two shuffles a kept
+//    candidate, and its window search costs what a 128-channel map's does;
+//    here every lane works and nothing crosses lanes. A one-channel map is
+//    a few hundred KB, so the launch and the coordinate arithmetic, not
+//    the bytes, bound this route.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -114,6 +127,32 @@ __device__ Window source_window(const SampleBox& box, int h, int w, int ix,
     return win;
 }
 
+// The sampling coordinate of output column (or row) o on a map of `size`
+// pixels, rounded step by step exactly as in K3
+__device__ __forceinline__ float grid_coord(int o, float size) {
+    return __fsub_rn(__fdiv_rn(__fadd_rn(2.0f * o, 1.0f), size), 1.0f);
+}
+
+// Whether source pixel (ix, iy) is a corner of the sample of the output
+// pixel at grid coordinates (gx, gy), and that corner's bilinear weight:
+// K3's coordinate chain, rounded step by step as there
+__device__ __forceinline__ bool corner_weight(const float* th, float gx, float gy,
+                                              float fw, float fh, int ix, int iy,
+                                              float& wt) {
+    const float sx = __fadd_rn(__fadd_rn(__fmul_rn(th[0], gx), __fmul_rn(th[1], gy)), th[2]);
+    const float sy = __fadd_rn(__fadd_rn(__fmul_rn(th[3], gx), __fmul_rn(th[4], gy)), th[5]);
+    // K3 divides by 2: a multiply by 0.5 gives the same bits
+    const float x = __fsub_rn(__fmul_rn(__fmul_rn(__fadd_rn(sx, 1.0f), fw), 0.5f), 0.5f);
+    const float y = __fsub_rn(__fmul_rn(__fmul_rn(__fadd_rn(sy, 1.0f), fh), 0.5f), 0.5f);
+    const float x0 = floorf(x), y0 = floorf(y);
+    const int kx = ix - (int)x0, ky = iy - (int)y0;
+    if (!((kx == 0 || kx == 1) && (ky == 0 || ky == 1))) return false;
+    const float wx1 = __fsub_rn(x, x0), wy1 = __fsub_rn(y, y0);
+    const float wx0 = __fsub_rn(1.0f, wx1), wy0 = __fsub_rn(1.0f, wy1);
+    wt = __fmul_rn(kx ? wx1 : wx0, ky ? wy1 : wy0);
+    return true;
+}
+
 constexpr int PER_WARP = 4;                     // source pixels a warp
 constexpr int GROUP = 32 / PER_WARP;            // lanes that test one pixel's candidates
 constexpr int THREADS = 256;
@@ -176,20 +215,8 @@ warp_affine_bwd_kernel(const float* __restrict__ g,
             int opix = 0;
             if (k < ncand) {
                 const int xo = win.x0 + k % bw, yo = win.y0 + k / bw;
-                // the coordinate, rounded step by step exactly as in K3
-                const float gx = __fsub_rn(__fdiv_rn(__fadd_rn(2.0f * xo, 1.0f), fw), 1.0f);
-                const float gy = __fsub_rn(__fdiv_rn(__fadd_rn(2.0f * yo, 1.0f), fh), 1.0f);
-                const float sx = __fadd_rn(__fadd_rn(__fmul_rn(th[0], gx), __fmul_rn(th[1], gy)), th[2]);
-                const float sy = __fadd_rn(__fadd_rn(__fmul_rn(th[3], gx), __fmul_rn(th[4], gy)), th[5]);
-                // K3 divides by 2: a multiply by 0.5 gives the same bits
-                const float x = __fsub_rn(__fmul_rn(__fmul_rn(__fadd_rn(sx, 1.0f), fw), 0.5f), 0.5f);
-                const float y = __fsub_rn(__fmul_rn(__fmul_rn(__fadd_rn(sy, 1.0f), fh), 0.5f), 0.5f);
-                const float x0 = floorf(x), y0 = floorf(y);
-                const int kx = ix - (int)x0, ky = iy - (int)y0;
-                if ((kx == 0 || kx == 1) && (ky == 0 || ky == 1)) {
-                    const float wx1 = __fsub_rn(x, x0), wy1 = __fsub_rn(y, y0);
-                    const float wx0 = __fsub_rn(1.0f, wx1), wy0 = __fsub_rn(1.0f, wy1);
-                    wt = __fmul_rn(kx ? wx1 : wx0, ky ? wy1 : wy0);
+                if (corner_weight(th, grid_coord(xo, fw), grid_coord(yo, fh), fw, fh,
+                                  ix, iy, wt)) {
                     member = true;
                     opix = yo * w + xo;
                 }
@@ -243,24 +270,102 @@ warp_affine_bwd_kernel(const float* __restrict__ g,
     }
 }
 
+constexpr int PIXEL_THREADS = 256;      // source pixels a block, one a thread
+constexpr int PIXEL_MAX_CHANNELS = 8;  // the widest map the pixel route takes
+// the sampling coordinates of every output column and row, worked out
+// once a block into shared memory, for maps with w + h up to this
+constexpr int COORD_TABLE = 4096;
+
+template <int C>
+__global__ void __launch_bounds__(PIXEL_THREADS)
+warp_affine_bwd_pixel_kernel(const float* __restrict__ g,
+                             const float* __restrict__ theta,
+                             float* __restrict__ dsrc, int n, int h, int w) {
+    // the samples of this block's pixels (at most PIXEL_THREADS), once a
+    // block, and grid_coord of each output column (then row)
+    __shared__ SampleBox boxes[PIXEL_THREADS];
+    __shared__ float coords[COORD_TABLE];
+    const int64_t hw = (int64_t)h * w, total = (int64_t)n * hw;
+    const int64_t first = (int64_t)blockIdx.x * PIXEL_THREADS;
+    const int b0 = (int)(first / hw);
+    const int64_t last = min(first + PIXEL_THREADS, total) - 1;
+    if (b0 + (int)threadIdx.x <= (int)(last / hw))
+        boxes[threadIdx.x] = sample_box(theta + (b0 + threadIdx.x) * 6, h, w);
+    const float fw = (float)w, fh = (float)h;
+    const bool table = w + h <= COORD_TABLE;
+    if (table)
+        for (int i = threadIdx.x; i < w + h; i += PIXEL_THREADS)
+            coords[i] = i < w ? grid_coord(i, fw) : grid_coord(i - w, fh);
+    __syncthreads();
+    const int64_t pix = first + threadIdx.x;
+    if (pix >= total) return;
+    const int ix = (int)(pix % w), iy = (int)((pix / w) % h), b = (int)(pix / hw);
+    const Window win = source_window(boxes[b - b0], h, w, ix, iy);
+    float th[6];
+#pragma unroll
+    for (int i = 0; i < 6; ++i) th[i] = theta[b * 6 + i];
+    const float* gp = g + (int64_t)b * hw * C;
+    float acc[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[c] = 0.f;
+    for (int yo = win.y0; yo <= win.y1; ++yo) {
+        const float gy = table ? coords[w + yo] : grid_coord(yo, fh);
+        for (int xo = win.x0; xo <= win.x1; ++xo) {
+            const float gx = table ? coords[xo] : grid_coord(xo, fw);
+            float wt;
+            if (corner_weight(th, gx, gy, fw, fh, ix, iy, wt)) {
+                const float* v = gp + ((int64_t)yo * w + xo) * C;
+#pragma unroll
+                for (int c = 0; c < C; ++c) acc[c] = fmaf(wt, v[c], acc[c]);
+            }
+        }
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c) dsrc[pix * C + c] = acc[c];
+}
+
+template <int C>
+void launch_pixel(const void* g, const void* theta, void* dsrc, int n, int h,
+                  int w, long long pixels, cudaStream_t s) {
+    const unsigned blocks = (unsigned)((pixels + PIXEL_THREADS - 1) / PIXEL_THREADS);
+    warp_affine_bwd_pixel_kernel<C><<<blocks, PIXEL_THREADS, 0, s>>>(
+        static_cast<const float*>(g), static_cast<const float*>(theta),
+        static_cast<float*>(dsrc), n, h, w);
+}
+
 }  // namespace
 
+// route 0: `warp`, any channel count; route 1: `pixel`, at most
+// PIXEL_MAX_CHANNELS channels (ops/warp.py mirrors both)
 extern "C" int warp_affine_bwd_f32(const void* g, const void* theta, void* dsrc,
-                                   int n, int h, int w, int channels,
+                                   int n, int h, int w, int channels, int route,
                                    void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const int threads = THREADS;
     const long long pixels = (long long)n * h * w;
-    if (pixels > 0 && channels > 0) {
-        const unsigned blocks = (unsigned)((pixels + PIXELS - 1) / PIXELS);
-        if (channels % 4 == 0)
-            warp_affine_bwd_kernel<4><<<blocks, threads, 0, s>>>(
-                static_cast<const float*>(g), static_cast<const float*>(theta),
-                static_cast<float*>(dsrc), n, h, w, channels);
-        else
-            warp_affine_bwd_kernel<1><<<blocks, threads, 0, s>>>(
-                static_cast<const float*>(g), static_cast<const float*>(theta),
-                static_cast<float*>(dsrc), n, h, w, channels);
+    if (route != 0 && route != 1) return (int)cudaErrorInvalidValue;
+    if (route == 1 && channels > PIXEL_MAX_CHANNELS) return (int)cudaErrorInvalidValue;
+    if (pixels <= 0 || channels <= 0) return (int)cudaGetLastError();
+    if (route == 1) {
+        switch (channels) {
+            case 1: launch_pixel<1>(g, theta, dsrc, n, h, w, pixels, s); break;
+            case 2: launch_pixel<2>(g, theta, dsrc, n, h, w, pixels, s); break;
+            case 3: launch_pixel<3>(g, theta, dsrc, n, h, w, pixels, s); break;
+            case 4: launch_pixel<4>(g, theta, dsrc, n, h, w, pixels, s); break;
+            case 5: launch_pixel<5>(g, theta, dsrc, n, h, w, pixels, s); break;
+            case 6: launch_pixel<6>(g, theta, dsrc, n, h, w, pixels, s); break;
+            case 7: launch_pixel<7>(g, theta, dsrc, n, h, w, pixels, s); break;
+            default: launch_pixel<8>(g, theta, dsrc, n, h, w, pixels, s); break;
+        }
+        return (int)cudaGetLastError();
     }
+    const unsigned blocks = (unsigned)((pixels + PIXELS - 1) / PIXELS);
+    if (channels % 4 == 0)
+        warp_affine_bwd_kernel<4><<<blocks, THREADS, 0, s>>>(
+            static_cast<const float*>(g), static_cast<const float*>(theta),
+            static_cast<float*>(dsrc), n, h, w, channels);
+    else
+        warp_affine_bwd_kernel<1><<<blocks, THREADS, 0, s>>>(
+            static_cast<const float*>(g), static_cast<const float*>(theta),
+            static_cast<float*>(dsrc), n, h, w, channels);
     return (int)cudaGetLastError();
 }

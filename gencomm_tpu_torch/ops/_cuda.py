@@ -43,7 +43,8 @@ SIGNATURES = {
                          _I, _I, _P]),
     "pillar_canvas_bwd": ("pillar_canvas_bwd_bf16",
                           [_P, _P, _P, _P, _P, _P, _L, _L, _I, _I, _I, _P]),
-    "warp_affine_bwd": ("warp_affine_bwd_f32", [_P, _P, _P, _I, _I, _I, _I, _P]),
+    "warp_affine_bwd": ("warp_affine_bwd_f32",
+                        [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "splat_topk": ("splat_topk_f32",
                    [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P]),
     "splat_topk_bwd": ("splat_topk_bwd_f32",

@@ -3,9 +3,10 @@
 Counterpart of ``gencomm_tpu/ops/nms.py``: one K x K rotated IoU matrix in
 PyTorch, then the exact greedy keep-set. On the device the keep-set is one
 launch of ``csrc/nms_closure.cu`` (N1, the counterpart of the JAX package's
-``lax.while_loop``), which reads nothing back to the host, so a CUDA graph
-can capture it; its plain version, the round-parallel closure in Python,
-reads a flag on the host every round and serves CPU tensors.
+``lax.while_loop``; a cooperative launch) for K up to 262,112 (on the
+card's tests up to 25,000), which reads nothing back to the host, so a
+CUDA graph can capture it; its plain version, the round-parallel closure
+in Python, reads a flag on the host every round and serves CPU tensors.
 """
 
 from __future__ import annotations
@@ -15,17 +16,30 @@ import torch
 from gencomm_tpu_torch.ops import _cuda
 from gencomm_tpu_torch.ops.rotated_iou import quad_iou_pairwise
 
-# csrc/nms_closure.cu: MAX_K (four bit words a lane of one warp) and the
-# size up to which the packed K x ceil(K / 32) words stay in shared memory
-NMS_MAX_K = 4096
-SMEM_MASK_BYTES = 200 * 1024
+# csrc/nms_closure.cu: the size up to which the packed columns (64 W
+# (W + 1) bytes, W = ceil(K / 32)) are copied into the walking block's
+# shared memory (route "smem", else "l2")
+TRIANGLE_SMEM_BYTES = 210 * 1024
+
+
+def _words(k: int) -> int:
+    return -(-k // 32)
+
+
+def storage_route(k: int) -> str:
+    """Where N1's decider reads the packed columns of ``k`` boxes: "smem"
+    while they fit in shared memory (K <= 1,824), else "l2"."""
+    w = _words(k)
+    return "smem" if 64 * w * (w + 1) <= TRIANGLE_SMEM_BYTES else "l2"
 
 
 def scratch_words(k: int) -> int:
-    """uint32 words of global scratch N1 needs for ``k`` boxes: none while
-    the packed rows fit in shared memory."""
-    words = k * (-(-k // 32))
-    return words if 4 * words > SMEM_MASK_BYTES else 0
+    """uint32 words of global scratch N1 needs for ``k`` boxes: the packed
+    upper triangle twice, as rows and as columns (for each 32-box word u,
+    32 (W - u) words each), which the packing pass writes on either
+    route."""
+    w = _words(k)
+    return 32 * w * (w + 1)
 
 
 def nms_closure_plain(overlap: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -48,24 +62,23 @@ def nms_closure_plain(overlap: torch.Tensor, valid: torch.Tensor) -> torch.Tenso
 
 def nms_closure(overlap: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """The greedy keep mask: the plain version for a CPU tensor, kernel N1
-    for a CUDA tensor (at most ``NMS_MAX_K`` boxes)."""
+    (one kernel launch) for a CUDA tensor, K up to 262,112."""
     if not overlap.is_cuda:
         return nms_closure_plain(overlap, valid)
     k = valid.shape[0]
-    if k > NMS_MAX_K:
-        raise ValueError(f"the NMS kernel takes at most {NMS_MAX_K} boxes, "
-                         f"got {k}")
     _cuda.check_cuda_tensor(overlap, "overlap", torch.bool, (k, k))
     _cuda.check_cuda_tensor(valid, "valid", torch.bool, (k,))
+    if scratch_words(k) >= 2 ** 31:
+        # the kernel's refusal: K above 262,112 (a 68.7 GB overlap matrix)
+        raise ValueError(f"the NMS kernel takes K with 32 W (W + 1) < 2^31 "
+                         f"(W = ceil(K / 32)), K <= 262,112; got {k}")
     keep = torch.empty(k, dtype=torch.bool, device=valid.device)
     if k == 0:
         return keep
-    n_scratch = scratch_words(k)
-    scratch = (torch.empty(n_scratch, dtype=torch.int32, device=valid.device)
-               if n_scratch else None)
+    scratch = torch.empty(scratch_words(k), dtype=torch.int32,
+                          device=valid.device)
     _cuda.launch("nms_closure", overlap.data_ptr(), valid.data_ptr(),
-                 keep.data_ptr(),
-                 scratch.data_ptr() if scratch is not None else None, k)
+                 keep.data_ptr(), scratch.data_ptr(), k)
     _cuda.LAUNCHES["nms_closure"] += 1
     return keep
 

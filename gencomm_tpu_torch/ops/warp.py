@@ -17,6 +17,13 @@ instantiation of K3 (C entry ``warp_affine_bf16``, launches counted under
 rounds its lerp weights and products to bf16 instead. The backward takes
 fp32 only; a backward through a bf16 forward raises (bf16 training is not
 ported).
+
+K3b has two routes (``backward_route``, the C entry's ``route`` argument):
+``"warp"``, a warp for four source pixels with its lanes over the channels,
+for wide maps, and ``"pixel"``, a thread for each source pixel, for maps of
+at most ``PIXEL_MAX_CHANNELS`` channels (the pyramid's one-channel
+occupancy scores). Both sum each channel in the same order, so they give
+the same bits.
 """
 
 from __future__ import annotations
@@ -24,6 +31,18 @@ from __future__ import annotations
 import torch
 
 from gencomm_tpu_torch.ops import _cuda
+
+ROUTES = {"warp": 0, "pixel": 1}  # the `route` argument of K3b's C entry
+# csrc/warp_affine_bwd.cu: the widest map the pixel route takes; on an H100
+# it beat the warp route at every width up to this one (PERF.md section 6)
+PIXEL_MAX_CHANNELS = 8
+# K3b's launches by route, counted where the wrapper launches
+ROUTE_LAUNCHES = {"warp": 0, "pixel": 0}
+
+
+def backward_route(channels: int) -> str:
+    """The route K3b takes for a map of ``channels`` channels."""
+    return "pixel" if channels <= PIXEL_MAX_CHANNELS else "warp"
 
 
 def _sample_grid(theta: torch.Tensor, n: int, h: int, w: int):
@@ -147,16 +166,26 @@ def warp_affine_fwd(src: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def warp_affine_bwd(g: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
+def warp_affine_bwd(g: torch.Tensor, theta: torch.Tensor,
+                    route: str | None = None) -> torch.Tensor:
     """d src for the cotangent g: the plain version for a CPU tensor,
-    kernel K3b for a CUDA tensor."""
+    kernel K3b for a CUDA tensor, on ``route`` (default
+    ``backward_route(C)``)."""
     if not g.is_cuda:
         return warp_affine_bwd_plain(g, theta)
     n, h, w, c = _check_args(g, theta, "g")
+    route = route or backward_route(c)
+    if route not in ROUTES:
+        raise ValueError(f"K3b has no route {route!r}; routes: "
+                         f"{sorted(ROUTES)}")
+    if route == "pixel" and c > PIXEL_MAX_CHANNELS:
+        raise ValueError(f"K3b's pixel route takes at most "
+                         f"{PIXEL_MAX_CHANNELS} channels, got {c}")
     dsrc = torch.empty_like(g)
     _cuda.launch("warp_affine_bwd", g.data_ptr(), theta.data_ptr(),
-                 dsrc.data_ptr(), n, h, w, c)
+                 dsrc.data_ptr(), n, h, w, c, ROUTES[route])
     _cuda.LAUNCHES["warp_affine_bwd"] += 1
+    ROUTE_LAUNCHES[route] += 1
     return dsrc
 
 

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Times the port's top-K depth splat K4, pillar canvas K2, pillar-canvas
-backward K2b, BEV warp K3 and warp backward K3b on one NVIDIA GPU, on the
-arguments the port's own paths give them.
+backward K2b, BEV warp K3, warp backward K3b and the rotated NMS's greedy
+keep-set N1 on one NVIDIA GPU, on the arguments the port's own paths give
+them.
 
     python3 scripts/bench_splat_canvas_torch.py [--old-csrc DIR]
-        [--variant NAME=DIR ...] [--cases K4,K2,K2b,K3b,K3] [--out FILE]
+        [--variant NAME=DIR ...] [--cases K4,K2,K2b,K3b,K3bn,K3,N1]
+        [--out FILE]
 
 The arguments are recorded from the port's models at random weights (seed 0)
 on the synthetic sampler's scenes (seed 0), as ``chip_smoke.py`` records
@@ -17,34 +19,54 @@ the lidar train step (g (4, 64, 128, 128) fp32) and the camera train step
 (g (4, 64, 64, 128)); K3 on the four eval frames (lidar and camera, fp32
 and bf16: src (2, 64, 128, 128) and (2, 64, 64, 128), the bf16 maps from
 the ``half=True`` models), where the bf16 instantiation must also give the
-fp32 kernel's bits on the widened map, rounded once. For each it
+fp32 kernel's bits on the widened map, rounded once. ``K3bn`` is K3b on
+narrow maps: the HEAL pyramid step's one-channel occupancy-score
+cotangents (``heal/stage1/m1_pyramid.yaml`` at full width, one forward and
+backward) and, on the same thetas, seeded cotangents of 2, 3, 4, 6 and 8
+channels, which place the crossover of its ``pixel`` and ``warp`` routes.
+N1 runs on ``chip_smoke.py:nms_cases`` (car-sized boxes at random and
+suppression chains K deep, K = 512 to 8,192) and on the lidar flagship's
+own eval frame (K = 512, recorded from ``InferencePipeline.run``). For
+each it
   * holds the kernel against its plain PyTorch version (K2 and K2b bit for
     bit; K4 within an fp32 sum-order tolerance, its order equal to a stable
-    sort's; K3b within chip_smoke.py's tolerance) and, K2b aside, two of its
+    sort's; K3b within chip_smoke.py's tolerance, its pixel route bit for
+    bit against its warp route; N1 bit for bit) and, K2b aside, two of its
     launches against each other, bit for bit;
   * times the wrapper with CUDA events, warm (back-to-back launches) and
     cold (a buffer larger than the L2 cache is written between launches),
-    beside the one-call PyTorch yardstick (``torch.index_add``;
-    ``scatter_reduce`` amax and its autograd; ``F.grid_sample`` and its
-    autograd);
+    and, for K3b and N1, over replays of a CUDA graph of 200 captured
+    launches (``chip_smoke.graph_ms``: device time, no host work between
+    launches), beside the one-call PyTorch yardstick (``torch.index_add``;
+    ``scatter_reduce`` amax and its autograd; ``F.grid_sample`` and
+    ``aten::grid_sampler_2d_backward``, the op autograd of ``grid_sample``
+    runs for its input; N1 has none);
   * splits the device time per launch over its kernels, copies and memsets
-    by name with torch.profiler;
+    by name with torch.profiler (for N1 and K3b's pixel route, the
+    package's kernel alone);
   * prints what ptxas reports for the sources (registers, shared memory).
 With ``--old-csrc DIR`` (a directory that holds any of ``splat_topk.cu``,
-``pillar_canvas_bwd.cu``, ``pillar_canvas.cu``, ``warp_affine_bwd.cu`` and
-``warp_affine.cu``,
-e.g. written there by ``git show <commit>:<path>``) that version is built
+``pillar_canvas_bwd.cu``, ``pillar_canvas.cu``, ``warp_affine_bwd.cu``,
+``warp_affine.cu`` and ``nms_closure.cu``, e.g. written there by ``git
+show <commit>:<path>``) that version is built
 beside the package's and the two are timed in turns in this one process:
 old, new, new, old. ``splat_topk.cu`` and ``pillar_canvas_bwd.cu`` there
 must have the C interface of the port's first version of those kernels;
 the old K4 includes the index preparation its wrapper did in PyTorch
-(``torch.where`` and a stable ``torch.sort``). ``pillar_canvas.cu``,
-``warp_affine_bwd.cu`` and ``warp_affine.cu`` have kept their C interface
-and run through the package's wrappers; K3's old version must give the
-package's bits, fp32 and bf16. ``--variant NAME=DIR`` (repeatable) builds another
-version of any of the four sources that has the package's current C
-interface and times it through the package's wrappers in the same turns,
-between the two "new" turns; it is held to the same checks. One JSON object
+(``torch.where`` and a stable ``torch.sort``). ``pillar_canvas.cu`` and
+``warp_affine.cu`` have kept their C interface and run through the
+package's wrappers; K3's old version must give the package's bits, fp32
+and bf16. ``warp_affine_bwd.cu`` there must have the C interface before
+its ``route`` argument (any commit before the pixel route): it runs
+through the package's wrapper with the route dropped, so on its one route.
+``nms_closure.cu`` there must be the first version's (PRs 8-12): its
+wrapper's scratch rule (none up to 1,280 boxes, K ceil(K / 32) words
+above) is the old version's, and it takes at most 4,096 boxes, so larger
+cases time the package's alone. ``--variant NAME=DIR`` (repeatable) builds
+another version of any of the sources that has the package's current C
+interface and times it
+through the package's wrappers in the same turns, between the two "new"
+turns; it is held to the same checks. One JSON object
 goes to standard output last and, with ``--out``, to FILE.
 """
 
@@ -61,10 +83,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 L2_FLUSH_BYTES = 128 << 20
 SPLAT_TOL = 1e-5  # fp32 sums of a cell's rows in another order
-# the sources this script times; the first two changed their C interface
-# after the port's first version, the last two did not
+# the sources this script times; splat_topk, pillar_canvas_bwd, nms_closure
+# (its scratch) and warp_affine_bwd (its route) changed their C interface
+# after the port's first version, the others did not
 SOURCES = ("splat_topk", "pillar_canvas_bwd", "pillar_canvas", "warp_affine_bwd",
-           "warp_affine")
+           "warp_affine", "nms_closure")
+# K3bn's widths: the pyramid's one-channel scores and seeded wider maps
+NARROW_WIDTHS = (1, 2, 3, 4, 6, 8)
 # the C entries of a source besides its own name
 EXTRA_ENTRIES = {"warp_affine": ("warp_affine_bf16",)}
 
@@ -135,8 +160,9 @@ def build_old(torch, _cuda, csrc):
             "pillar_canvas_bwd": ("pillar_canvas_bwd_bf16",
                                   [P] * 6 + [L, L, I, I, P]),
             "pillar_canvas": _cuda.SIGNATURES["pillar_canvas"],
-            "warp_affine_bwd": _cuda.SIGNATURES["warp_affine_bwd"],
-            "warp_affine": _cuda.SIGNATURES["warp_affine"]}
+            "warp_affine_bwd": ("warp_affine_bwd_f32", [P] * 3 + [I] * 4 + [P]),
+            "warp_affine": _cuda.SIGNATURES["warp_affine"],
+            "nms_closure": ("nms_closure", [P] * 4 + [I, P])}
     fns, logs, extra = {}, {}, {}
     for name, (sym, argtypes) in sigs.items():
         if not os.path.exists(os.path.join(csrc, f"{name}.cu")):
@@ -187,13 +213,33 @@ def build_old(torch, _cuda, csrc):
         assert err == 0, err
         return drows
 
+    def nms_closure(overlap, valid):
+        k = valid.numel()
+        keep = torch.empty(k, dtype=torch.bool, device=valid.device)
+        scratch = (torch.empty(k * -(-k // 32), dtype=torch.int32,
+                               device=valid.device)
+                   if 4 * k * -(-k // 32) > 200 * 1024 else None)
+        err = fns["nms_closure"](
+            overlap.data_ptr(), valid.data_ptr(), keep.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None, k, stream())
+        assert err == 0, err
+        return keep
+
+    def without_route(fn):
+        # the package's K3b call (..., channels, route, stream) on the old
+        # entry (..., channels, stream)
+        return lambda *args: fn(*args[:7], args[-1])
+
     def wrapped(name, wrapper):
         # the package's wrapper with the old library bound while it runs
-        entries = {name: fns[name], **{e: extra[e] for e in
-                                       EXTRA_ENTRIES.get(name, ())}}
+        entry = (without_route(fns[name]) if name == "warp_affine_bwd"
+                 else fns[name])
+        entries = {name: entry, **{e: extra[e] for e in
+                                   EXTRA_ENTRIES.get(name, ())}}
         return through(_cuda, entries, wrapper)
 
-    olds = {"splat_topk": splat, "pillar_canvas_bwd": canvas_bwd}
+    olds = {"splat_topk": splat, "pillar_canvas_bwd": canvas_bwd,
+            "nms_closure": nms_closure}
     for name, wrapper in (("pillar_canvas", pc.pillar_canvas_fwd),
                           ("warp_affine_bwd", warp.warp_affine_bwd),
                           ("warp_affine", warp.warp_affine_fwd)):
@@ -244,8 +290,10 @@ def path_arguments(torch, dev, cases):
     recorded from one forward (and backward) of each model: ``splat_topk``
     on the camera eval frame and train step, ``pillar_canvas`` on the lidar
     eval frame and train step, ``pillar_canvas_bwd`` on the lidar train
-    step, ``warp_affine_bwd`` on the lidar and camera train steps,
-    ``warp_affine`` on the four eval frames (fp32 and bf16).
+    step, ``warp_affine_bwd`` on the lidar and camera train steps and
+    (K3bn) the pyramid train step's score cotangents, ``warp_affine`` on
+    the four eval frames (fp32 and bf16), ``nms_closure`` on the lidar
+    flagship's eval frame and on ``chip_smoke.nms_cases``.
     Returns {path: {kernel name: arguments}}."""
     import chip_smoke as cs
     from gencomm_tpu_torch.data.bucketing import trim_agent_slots
@@ -330,6 +378,45 @@ def path_arguments(torch, dev, cases):
              (pillar_canvas, "pillar_canvas_bwd"), (warp, "warp_affine_bwd")],
             lambda: criterion(model(batch, noises=nz),
                               batch)["total_loss"].backward())
+    if "K3bn" in cases:
+        from gencomm_tpu_torch.loss import create_loss
+        from gencomm_tpu_torch.models.heter_pyramid import HeterPyramidModel
+        from gencomm_tpu_torch.tools import train as train_cli
+
+        pscenes = train_cli.build_dataset(cs.PYRAMID_HYPES, True, "synthetic")
+        host = train_cli.Adapt(cs.PYRAMID_HYPES)(
+            pscenes.sample(cs.TRAIN_SEED * 10000, cs.TRAIN_BATCH))
+        model = HeterPyramidModel(**cs.PYRAMID, device=dev)
+        model.load_state_dict(random_state_dict(model, seed=0))
+        model.train()
+        criterion, batch = create_loss(cs.PYRAMID_HYPES), batch_to_device(host, dev)
+        seen = cs.record_all(warp, "warp_affine_bwd", lambda: criterion(
+            model(batch), batch)["total_loss"].backward())
+        gen = torch.Generator(device=dev).manual_seed(13)
+        for g, theta in seen:
+            if g.shape[-1] != 1:
+                continue
+            for c in NARROW_WIDTHS:
+                gc = g if c == 1 else torch.randn(g.shape[:3] + (c,),
+                                                  generator=gen, device=dev)
+                out[f"pyramid step {g.shape[1]}x{g.shape[2]}, {c} ch"] = {
+                    "warp_affine_bwd": (gc, theta)}
+    if "N1" in cases:
+        from gencomm_tpu_torch.bench import POSTPROCESS, build_flagship
+        from gencomm_tpu_torch.ops import nms
+        from gencomm_tpu_torch.pipeline import InferencePipeline
+
+        fscenes, model, _ = build_flagship(half=False, device=dev)
+        model.load_state_dict(random_state_dict(model, seed=0))
+        pipe = InferencePipeline(model, fscenes.anchors, POSTPROCESS, device=dev)
+        host = trim_agent_slots(fscenes.sample(seed=0, batch_size=1),
+                                buckets=(2, 3, 5))
+        batch = batch_to_device(pipe.decorate(host), dev)
+        out["lidar eval frame"] = cs.record_calls(
+            [(nms, "nms_closure")], lambda: pipe.run(batch, seed=0))
+        pipe = None
+        for label, args in cs.nms_cases(dev).items():
+            out[label] = {"nms_closure": args}
     model = batch = nz = None
     torch.cuda.empty_cache()
     return out
@@ -345,14 +432,18 @@ def run_stats(torch, keys):
             "sum_of_squares": float((c * c).sum())}
 
 
-def turns(torch, runs, order, iters, flush):
+def turns(torch, runs, order, iters, flush, graph=False):
     """{which_mode_ms: [ms per turn]} for the callables of ``runs`` taken in
-    ``order``, warm and cold."""
+    ``order``, warm and cold and, with ``graph``, over a CUDA graph."""
+    import chip_smoke as cs
+
     out = {}
     for mode, fl in (("warm", None), ("cold", flush)):
         for which in order:
             out.setdefault(f"{which}_{mode}_ms", []).append(
                 time_ms(torch, runs[which], iters, flush=fl))
+    for which in order if graph else ():
+        out.setdefault(f"{which}_graph_ms", []).append(cs.graph_ms(runs[which]))
     return out
 
 
@@ -523,38 +614,79 @@ def bench_warp_bwd(torch, label, args, old, variants, iters, flush):
 
     g, theta = args
     n, h, w, c = g.shape
+    route = warp.backward_route(c)
     want = warp.warp_affine_bwd_plain(g, theta)
     got = warp.warp_affine_bwd(g, theta)
     again = warp.warp_affine_bwd(g, theta)
     torch.cuda.synchronize()
     tol = 16.0 * max(h, w) * 2.0 ** -23 * float(g.abs().max())
     row = {"g": [n, h, w, c], "theta": theta.reshape(n, 6).tolist(),
-           "max_abs_err": float((got - want).abs().max()), "tol": tol,
-           "bit_equal_twice": bool(torch.equal(got, again))}
-    src_req = torch.zeros(n, c, h, w, device=g.device).requires_grad_()
+           "route": route, "max_abs_err": float((got - want).abs().max()),
+           "tol": tol, "bit_equal_twice": bool(torch.equal(got, again))}
+    src = torch.zeros(n, c, h, w, device=g.device)
     grid = F.affine_grid(theta, [n, c, h, w], align_corners=False)
-    lib_out = F.grid_sample(src_req, grid, mode="bilinear",
-                            padding_mode="zeros", align_corners=False)
     g_nchw = g.permute(0, 3, 1, 2).contiguous()
     row["bound_ms"] = (2 * g.numel() * 4 + theta.numel() * 4) / 3.35e12 * 1e3
     runs = {"new": lambda: warp.warp_affine_bwd(g, theta),
-            "library": lambda: torch.autograd.grad(lib_out, src_req, g_nchw,
-                                                   retain_graph=True)}
+            "library": lambda: torch.ops.aten.grid_sampler_2d_backward(
+                g_nchw, src, grid, 0, 0, False, [True, False])[0]}
     order = ["new", "new", "library"]
+    ok = row["max_abs_err"] <= tol and row["bit_equal_twice"]
+    if route == "pixel":
+        runs["warp"] = lambda: warp.warp_affine_bwd(g, theta, "warp")
+        order = ["new", "warp", "warp", "new", "library"]
+        row["pixel_equals_warp_route"] = bool(torch.equal(runs["warp"](), got))
+        ok = ok and row["pixel_equals_warp_route"]
 
     def close(out):
         return float((out - want).abs().max()) <= tol
 
     if old:
         runs["old"] = lambda: old(g, theta)
-        order = ["old", "new", "new", "old", "library"]
+        order = ["old"] + order[:-1] + ["old", "library"]
         row["old_within_tol"] = close(runs["old"]())
     row["variant_within_tol"] = with_variants(
         _cuda, runs, order, variants, "warp_affine_bwd", close)
-    row.update(turns(torch, runs, order, iters, flush))
-    for which in runs:
+    row.update(turns(torch, runs, order, iters, flush, graph=True))
+    for which in runs if route == "warp" else ("new",):
         row[f"{which}_split_ms"] = split_by_launch(torch, runs[which])
-    row["ok"] = row["max_abs_err"] <= tol and row["bit_equal_twice"]
+    row["ok"] = bool(ok)
+    print(label, json.dumps(row), flush=True)
+    return row
+
+
+def bench_nms(torch, label, args, old, variants, iters, flush):
+    import chip_smoke as cs
+    from gencomm_tpu_torch.ops import _cuda, nms
+
+    over, valid = args
+    k = valid.numel()
+    want = nms.nms_closure_plain(over, valid)
+    got = nms.nms_closure(over, valid)
+    again = nms.nms_closure(over, valid)
+    torch.cuda.synchronize()
+    row = {"k": k, "valid": int(valid.sum()), "kept": int(want.sum()),
+           "storage_route": nms.storage_route(k),
+           "bound_ms": cs.nms_bound(want)[0],
+           "bit_exact": bool(torch.equal(got, want)),
+           "bit_equal_twice": bool(torch.equal(got, again))}
+    ok = row["bit_exact"] and row["bit_equal_twice"]
+    runs = {"new": lambda: nms.nms_closure(over, valid)}
+    order = ["new", "new"]
+    if old and k <= 4096:
+        runs["old"] = lambda: old(over, valid)
+        order = ["old", "new", "new", "old"]
+        row["old_equals_new_bits"] = bool(torch.equal(runs["old"](), got))
+        ok = ok and row["old_equals_new_bits"]
+    row["variant_equals_new_bits"] = with_variants(
+        _cuda, runs, order, variants, "nms_closure",
+        lambda out: bool(torch.equal(out, got)))
+    ok = ok and all(row["variant_equals_new_bits"].values())
+    row.update(turns(torch, runs, order, iters, flush, graph=True))
+    row["plain_ms"] = time_ms(torch, lambda: nms.nms_closure_plain(over, valid),
+                              iters=3, warmup=1)
+    row["new_split_ms"] = split_by_launch(torch, runs["new"])
+    row["ok"] = bool(ok)
     print(label, json.dumps(row), flush=True)
     return row
 
@@ -667,6 +799,10 @@ def main() -> int:
             ("K3", "lidar eval bf16", "warp_affine", bench_warp),
             ("K3", "camera eval", "warp_affine", bench_warp),
             ("K3", "camera eval bf16", "warp_affine", bench_warp)]
+    plan += [("K3bn", path, "warp_affine_bwd", bench_warp_bwd)
+             for path in paths if path.startswith("pyramid step")]
+    plan += [("N1", path, "nms_closure", bench_nms)
+             for path, seen in paths.items() if "nms_closure" in seen]
     for kernel, path, name, bench in plan:
         if kernel in cases:
             label = f"{kernel} {path}"

@@ -41,8 +41,8 @@ from gencomm_tpu_torch.ops.splat import (
     splat_topk_with_order,
 )
 from gencomm_tpu_torch.ops.warp import (
-    _corners, _source_window, warp_affine, warp_affine_bwd,
-    warp_affine_bwd_plain, warp_affine_plain,
+    ROUTE_LAUNCHES as WARP_ROUTE_LAUNCHES, _corners, _source_window,
+    warp_affine, warp_affine_bwd, warp_affine_bwd_plain, warp_affine_plain,
 )
 
 # rotations, a shear, a scale, translations pushing part of the map out of
@@ -864,6 +864,54 @@ def test_warp_bwd_plain_matches_jax_vjp_on_extra_thetas(jx, h, w, c):
     _close(got, jx.warp_mxu_vjp(src, EXTRA_THETAS, g), 1e-5, "mxu")
 
 
+def test_warp_bwd_plain_matches_jax_vjp_at_one_channel(jx):
+    """K3b's plain version on a one-channel map, as the pyramid's
+    occupancy scores (a level narrowed to 16 x 32), against JAX's VJPs."""
+    rng = np.random.RandomState(31)
+    thetas = THETAS[:4]
+    src = rng.randn(len(thetas), 16, 32, 1).astype(np.float32)
+    g = rng.randn(len(thetas), 16, 32, 1).astype(np.float32)
+    got = warp_affine_bwd_plain(_t(g), _t(thetas)).numpy()
+    # fp32 sums of up to 16 weighted terms in another order
+    _close(got, jx.warp_gather_vjp(src, thetas, g), 1e-5, "gather")
+    _close(got, jx.warp_mxu_vjp(src, thetas, g), 1e-5, "mxu")
+
+
+@pytest.mark.parametrize("c,route", [(1, "pixel"), (2, "pixel"), (3, "pixel"),
+                                     (4, "pixel"), (6, "pixel"), (64, "warp")])
+def test_warp_bwd_route_follows_channels(c, route):
+    """K3b's route by channel count: one thread a source pixel up to
+    PIXEL_MAX_CHANNELS (it beat the warp route at every width up to 8 on an
+    H100), a warp for four pixels beyond."""
+    from gencomm_tpu_torch.ops.warp import PIXEL_MAX_CHANNELS, backward_route
+
+    assert backward_route(c) == route
+    assert PIXEL_MAX_CHANNELS == 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 2, 3])
+def test_warp_bwd_pixel_route_matches_warp_route_on_card(cuda, c):
+    """K3b's pixel route on narrow maps: the warp route's bits, within the
+    plain version's tolerance, the same bits on two launches, on rigid,
+    sheared, zoomed and singular thetas."""
+    rng = np.random.RandomState(c + 40)
+    thetas = np.concatenate([THETAS, EXTRA_THETAS])
+    g = _t(rng.randn(len(thetas), 32, 48, c).astype(np.float32)).to(cuda)
+    th = _t(thetas).to(cuda)
+    before = dict(WARP_ROUTE_LAUNCHES)
+    pixel = warp_affine_bwd(g, th, "pixel")
+    again = warp_affine_bwd(g, th, "pixel")
+    wide = warp_affine_bwd(g, th, "warp")
+    torch.cuda.synchronize()
+    assert WARP_ROUTE_LAUNCHES["pixel"] == before["pixel"] + 2
+    assert WARP_ROUTE_LAUNCHES["warp"] == before["warp"] + 1
+    assert torch.equal(pixel, wide) and torch.equal(pixel, again)
+    np.testing.assert_allclose(pixel.cpu().numpy(),
+                               warp_affine_bwd_plain(g, th).cpu().numpy(),
+                               rtol=0, atol=_warp_bwd_tolerance(g, 48))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("c", [128, 6])
 def test_warp_bwd_kernel_matches_plain_on_extra_thetas_on_card(cuda, c):
@@ -1111,14 +1159,37 @@ def _nms_case(kind, k, seed=0, device="cpu"):
     return overlap_matrix(quads.to(device), 0.15), valid.to(device)
 
 
-def test_nms_scratch_only_where_shared_memory_is_too_small():
-    from gencomm_tpu_torch.ops.nms import SMEM_MASK_BYTES, scratch_words
+def banded_nms_case(k, seed=0, band=48, density=0.06, device="cpu"):
+    """(overlap (k, k) bool, valid (k,) bool): box j overlaps box i with
+    probability ``density`` where j < i <= j + ``band``, 10% invalid; a few
+    overlaps a box at any k, without the K^2 pairwise IoU of boxes."""
+    rng = np.random.RandomState(seed)
+    over = np.zeros((k, k), bool)
+    for d in range(1, band + 1):
+        idx = np.arange(k - d)
+        over[idx, idx + d] = rng.uniform(0, 1, k - d) < density
+    valid = rng.uniform(0, 1, k) > 0.1
+    return (torch.from_numpy(over).to(device),
+            torch.from_numpy(valid).to(device))
 
-    # K x ceil(K / 32) packed words: in shared memory up to 1,280 boxes
-    assert scratch_words(512) == 0 and scratch_words(1280) == 0
-    assert 4 * 1280 * 40 <= SMEM_MASK_BYTES < 4 * 1281 * 41
-    assert scratch_words(1281) == 1281 * 41
-    assert scratch_words(2560) == 2560 * 80
+
+@pytest.mark.parametrize("k,route,words", [
+    (1, "smem", 1), (512, "smem", 16), (1824, "smem", 57),
+    (1825, "l2", 58), (2560, "l2", 80), (5120, "l2", 160),
+    (8192, "l2", 256)])
+def test_nms_storage_route_and_scratch_follow_k(k, route, words):
+    """N1's storage rule (``csrc/nms_closure.cu``): the packed columns, 64
+    W (W + 1) bytes, stay in the walking block's shared memory up to
+    TRIANGLE_SMEM_BYTES (W <= 57, K <= 1,824), else its decider reads them
+    from the L2; the global scratch holds the rows and the columns, 32 W
+    (W + 1) words, on either route."""
+    from gencomm_tpu_torch.ops.nms import (
+        TRIANGLE_SMEM_BYTES, scratch_words, storage_route,
+    )
+
+    assert storage_route(k) == route
+    assert scratch_words(k) == 32 * words * (words + 1)
+    assert 64 * 57 * 58 <= TRIANGLE_SMEM_BYTES < 64 * 58 * 59
 
 
 def test_nms_wrapper_takes_plain_version_on_cpu():
@@ -1137,9 +1208,9 @@ def test_nms_wrapper_takes_plain_version_on_cpu():
 @pytest.mark.parametrize("k", [512, 1024, 2560, 37])
 def test_nms_kernel_matches_plain_on_card(cuda, kind, k):
     """N1 gives its plain version's keep mask bit for bit: K = 512 (eval,
-    nms_topk), 1,024 and 2,560 (late fusion over 2 and 5 agents; 2,560
-    through global scratch) and a ragged K, on random sets and on a chain
-    K boxes deep."""
+    nms_topk), 1,024 and 2,560 (late fusion over 2 and 5 agents; 2,560 on
+    storage route l2) and a ragged K, on random sets and on a chain K boxes
+    deep."""
     from gencomm_tpu_torch.ops.nms import nms_closure, nms_closure_plain
 
     over, valid = _nms_case(kind, k, seed=k, device=cuda)
@@ -1157,13 +1228,68 @@ def test_nms_kernel_matches_plain_on_card(cuda, kind, k):
 
 
 @pytest.mark.cuda
-def test_nms_kernel_refuses_more_than_its_limit(cuda):
-    from gencomm_tpu_torch.ops.nms import NMS_MAX_K, nms_closure
+@pytest.mark.parametrize("k", [4097, 5120, 8192])
+def test_nms_kernel_matches_plain_past_4096_boxes_on_card(cuda, k):
+    """N1 takes K past the 4,096 boxes its parent refused: banded random
+    overlaps, bit for bit against the plain version and on two launches."""
+    from gencomm_tpu_torch.ops.nms import nms_closure, nms_closure_plain
 
-    k = NMS_MAX_K + 1
-    with pytest.raises(ValueError, match=f"at most {NMS_MAX_K} boxes"):
-        nms_closure(torch.zeros(k, k, dtype=torch.bool, device=cuda),
-                    torch.ones(k, dtype=torch.bool, device=cuda))
+    over, valid = banded_nms_case(k, seed=k, device=cuda)
+    got = nms_closure(over, valid)
+    again = nms_closure(over, valid)
+    torch.cuda.synchronize()
+    want = nms_closure_plain(over, valid)
+    assert torch.equal(got, want) and torch.equal(got, again)
+    assert 0 < int(got.sum()) < int(valid.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,split,blocks_a_worker", [
+    (12000, 2, 1), (12300, 1, 1), (25000, 1, 2)])
+def test_nms_kernel_matches_plain_at_every_worker_layout_on_card(
+        cuda, k, split, blocks_a_worker):
+    """N1 past the layouts of K <= 8,192: two workers, then one, for each 32
+    removed words, and at K = 25,000 (782 words in 25 blocks of 32, 24
+    workers) a worker that walks two blocks of 32 words in turn. Banded
+    random overlaps built on the card, bit for bit against the plain version
+    and on two launches."""
+    from gencomm_tpu_torch.ops.nms import nms_closure, nms_closure_plain
+
+    words, workers = -(-k // 32), 24
+    nblk = -(-words // 32)
+    assert max(1, min(4, workers // nblk)) == split
+    assert -(-nblk // (workers // split)) == blocks_a_worker
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    over = (torch.rand(k, k, generator=gen, device=cuda) < 0.06).triu(1).tril(48)
+    valid = torch.rand(k, generator=gen, device=cuda) > 0.1
+    got = nms_closure(over, valid)
+    again = nms_closure(over, valid)
+    torch.cuda.synchronize()
+    want = nms_closure_plain(over, valid)
+    assert torch.equal(got, want) and torch.equal(got, again)
+    assert 0 < int(got.sum()) < int(valid.sum())
+
+
+@pytest.mark.cuda
+def test_nms_kernel_on_two_streams_at_once_on_card(cuda):
+    """Two N1 calls in flight at once, on two streams, share no state: each
+    gives its plain version's keep mask, call after call."""
+    from gencomm_tpu_torch.ops.nms import nms_closure, nms_closure_plain
+
+    cases = [_nms_case("random", 2560, seed=5, device=cuda),
+             banded_nms_case(5120, seed=6, device=cuda)]
+    wants = [nms_closure_plain(over, valid) for over, valid in cases]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    gots = [[], []]
+    for _ in range(8):
+        for i, ((over, valid), s) in enumerate(zip(cases, streams)):
+            with torch.cuda.stream(s):
+                gots[i].append(nms_closure(over, valid))
+    torch.cuda.synchronize()
+    for want, got in zip(wants, gots):
+        assert all(torch.equal(g, want) for g in got)
 
 
 @pytest.mark.cuda

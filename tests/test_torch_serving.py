@@ -251,6 +251,25 @@ def test_nms_closure_plain_is_sequential_greedy():
         assert np.array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("k", [4097, 5120])
+def test_nms_closure_plain_is_sequential_greedy_past_4096(k):
+    """The round-parallel closure against greedy NMS as a loop over the
+    sorted boxes at K past kernel N1's old 4,096-box limit, on banded random
+    overlap matrices (a few overlaps a box)."""
+    from tests.test_torch_kernels import banded_nms_case
+
+    over, valid = banded_nms_case(k, seed=k)
+    o, v = over.numpy(), valid.numpy()
+    band = 48
+    want = np.zeros(k, bool)
+    for i in range(k):
+        lo = max(0, i - band)
+        want[i] = v[i] and not (o[lo:i, i] & want[lo:i]).any()
+    got = nms_closure_plain(over, valid)
+    assert np.array_equal(got.numpy(), want)
+    assert 0 < int(want.sum()) < int(v.sum())
+
+
 def test_overlap_matrix_is_upper_triangular():
     corners, _, _ = _random_set(5, 60)
     over = overlap_matrix(torch.from_numpy(corners), 0.15).numpy()
