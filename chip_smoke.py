@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Builds the port's nine CUDA kernel sources from ``gencomm_tpu_torch/csrc``
-(eleven entries: K1 and K3 also in bf16; N1, the rotated NMS's keep-set)
+(twelve entries: K1 and K3 also in bf16, K3's pair entry; N1, the rotated
+NMS's keep-set)
 with nvcc (sm_90a) into ``build/``, then drives the port's paths through its
 entry points (SyntheticScenes, trim_agent_slots, host decoration for lidar,
 HeterModel, InferencePipeline.run and run_stream,
@@ -28,7 +29,10 @@ Phases, each of which raises on failure:
      no path builds (zero, a 4x zoom, a nearly singular shear, a scaled
      rotation; 128 channels on its warp route, 6, 3, 2 and 1 on its pixel
      route, which must also give the warp route's bits) against their
-     plain versions;
+     plain versions, and K3 on the same thetas on each of its routes (rows
+     at 8 and 128 channels, pixel at 1, 3 and at 4 off a 16-byte boundary,
+     scalar at 5, 17, 65 and at 128 off a 16-byte boundary; each map off
+     the boundary with the bits of its rows route);
   3. every path counted and timed, before the process's first
      torch.profiler session (a finished session left later launches slower,
      ROADMAP p1): lidar eval fp32 and bf16, lidar training, camera eval fp32
@@ -159,19 +163,23 @@ Phases, each of which raises on failure:
      point_pillar_<fusion>.yaml's blocks), each 1 + 5 eval frames and 1 + 3
      train steps (m1_att.yaml's optimizer and loss), card against CPU on a
      frame and a step as in (a); V2VNet's K3 launches a forward must be 2 L
-     num_iteration, and K3 is held on a non-ego theta for its 128-channel
-     and its 1-channel map of ones, K3b on the latter; then one
+     num_iteration, half of them on K3's rows route (the node stack) and half
+     on its pixel route (the map of ones), and K3 is held on a non-ego
+     theta for its 128-channel and its 1-channel map of ones, K3b on the
+     latter; then one
      make_kd_train_step step (DiscoNet, the teacher on the student's
      weights), card against CPU;
  13. the HEAL pyramid (configs/opv2v/heal/stage1/m1_pyramid.yaml at full
      width on the train CLI's sampler and host adaptation, fp32, random
      weights from seed 0): (a) eval timed with the other paths in phase 3,
      1 + 30 frames looped and streamed (bit for bit), then K3 on each map
-     the path warps (each level's feature at 64 / 128 / 256 channels and
-     its 1-channel score: two launches a level, timed against one launch on
-     the 65 / 129 / 257 channels concatenated, the JAX package's form, with
-     the same bits; each map's device time also over a CUDA graph of 200
-     launches, beside grid_sample's), K2 and N1 held and timed, the
+     the path warps (each level's feature at 64 / 128 / 256 channels on the
+     rows route and its 1-channel score on the pixel route, warped together
+     in one pair launch a level, which must give the bits of the two maps'
+     own launches and of one launch on the 65 / 129 / 257 channels
+     concatenated, the JAX package's form, and is timed against both; each
+     map's device time also over a CUDA graph of 200 launches, beside
+     grid_sample's), K2 and N1 held and timed, the
      profiles, heads card against CPU (max and relative L2); (b) 1 + 10
      train steps (batch 2, its Adam and point_pillar_pyramid_loss with the
      occupancy pass; K3b's pixel route launched for every 1-channel score,
@@ -354,8 +362,9 @@ EXACT_ZERO_GRADS = {
 # full width (PointPillars m1 on a 512 x 256 grid, the ResNet backbone and
 # the ResNeXt pyramid 64 / 128 / 256 at 3 / 5 / 8 blocks, heads at stride
 # 2), its Adam and point_pillar_pyramid_loss with the occupancy pass; K3
-# warps each level's feature and its 1-channel score in two launches (one
-# launch on the C + 1 channels, the JAX package's form, is timed beside)
+# warps each level's feature and its 1-channel score in one pair launch
+# (the two maps' own launches and one launch on the C + 1 channels, the
+# JAX package's form, are timed beside), K3b each in its own launch
 HEAL_CONFIGS = os.path.join(os.path.dirname(GENCOMM_CONFIGS), "heal")
 PYRAMID_HYPES = load_yaml(os.path.join(HEAL_CONFIGS, "stage1",
                                        "m1_pyramid.yaml"))
@@ -629,6 +638,7 @@ def route_launches():
 
     return {**deform_conv.ROUTE_LAUNCHES, **deform_conv.HALF_ROUTE_LAUNCHES,
             "pillar_canvas_bwd": pillar_canvas.ROUTE_LAUNCHES,
+            "warp_affine": warp.FORWARD_ROUTE_LAUNCHES,
             "warp_affine_bwd": warp.ROUTE_LAUNCHES}
 
 
@@ -897,17 +907,21 @@ def check_warp(inputs, where, graph=False):
     graphs (``graph_ms``, ``library_graph_ms``)."""
     import torch
     import torch.nn.functional as F
-    from gencomm_tpu_torch.ops.warp import warp_affine, warp_affine_plain
+    from gencomm_tpu_torch.ops.warp import (
+        forward_route, warp_affine, warp_affine_plain,
+    )
 
     src, theta = inputs["warp_affine"]
     half = src.dtype == torch.bfloat16
+    route = forward_route(src.shape[-1], src.data_ptr() % 16 == 0,
+                          8 if half else 4)
     got, want = warp_affine(src, theta), warp_affine_plain(src, theta)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
     tol = warp_tolerance(src.float()) + (
         2.0 ** -7 * float(src.float().abs().max()) if half else 0.0)
-    log(f"K3 warp_affine ({where}, {src.dtype}) src{tuple(src.shape)}: "
-        f"max|kernel-plain| {err:.3e} "
+    log(f"K3 warp_affine ({where}, {src.dtype}) src{tuple(src.shape)}, "
+        f"route {route}: max|kernel-plain| {err:.3e} "
         f"(tol {tol:.3e}: a one-ulp difference of the sampling coordinate "
         f"times the largest neighbour step"
         + (", then one bf16 rounding)" if half else ")"))
@@ -945,7 +959,7 @@ def check_warp(inputs, where, graph=False):
         f"(torch.profiler): K3 {k3_dev} ms, grid_sample {lib_dev} ms")
     row = dict(
         name="warp_affine_bf16" if half else "warp_affine", route="cuda",
-        dtype="bf16" if half else "fp32",
+        dtype="bf16" if half else "fp32", path_route=route,
         source="gencomm_tpu_torch/csrc/warp_affine.cu",
         replaces="gencomm_tpu/ops/warp_pallas.py:43",
         max_abs_err=err,
@@ -1165,6 +1179,54 @@ def check_warp_bwd_general(dev):
         err = max(err, hold_warp_bwd(g3, thetas, f"general thetas, {c} "
                                                  f"channels"))
     return {"warp_affine_bwd": err}
+
+
+def check_warp_general(dev):
+    """K3 on the thetas of ``check_warp_bwd_general`` on each of its
+    routes: rows (8 and 128 channels), pixel (1, 3, and 4 off a 16-byte
+    boundary), scalar (5, 17, 65, and 128 off a 16-byte boundary), against its
+    plain version and twice for the same bits; each map off the boundary
+    also with its rows route's bits. Returns the error for the kernels
+    JSON line."""
+    import torch
+    from gencomm_tpu_torch.ops.warp import (
+        FORWARD_ROUTE_LAUNCHES, forward_route, warp_affine, warp_affine_plain,
+    )
+
+    thetas = torch.tensor(GENERAL_THETAS, dtype=torch.float32, device=dev)
+    gen = torch.Generator().manual_seed(8)
+    err = 0.0
+    for c, offset in ((8, False), (128, False), (1, False), (3, False),
+                      (4, True), (5, False), (17, False), (65, False),
+                      (128, True)):
+        src = torch.randn((len(thetas),) + GENERAL_WARP_MAP + (c,),
+                          generator=gen).to(dev)
+        rows = warp_affine(src, thetas) if offset else None
+        if offset:  # a copy 4 bytes past a 16-byte boundary
+            buf = torch.empty(src.numel() + 1, device=dev)
+            buf[1:].copy_(src.reshape(-1))
+            src = buf[1:].view(src.shape)
+        route = forward_route(c, not offset)
+        before = dict(FORWARD_ROUTE_LAUNCHES)
+        got, again = warp_affine(src, thetas), warp_affine(src, thetas)
+        want = warp_affine_plain(src, thetas)
+        torch.cuda.synchronize()
+        e = float((got - want).abs().max())
+        tol = warp_tolerance(src)
+        same = torch.equal(got, again) and (rows is None
+                                            or torch.equal(got, rows))
+        log(f"K3 general thetas, {c} channels{' off 16 bytes' if offset else ''}"
+            f": route {route}, max|kernel-plain| {e:.3e} (tol {tol:.3e}), "
+            f"same bits twice{' and as its rows route' if offset else ''}: "
+            f"{same}")
+        if FORWARD_ROUTE_LAUNCHES[route] != before[route] + 2:
+            raise AssertionError(f"K3 at {c} channels: route {route} "
+                                 f"expected, launches {FORWARD_ROUTE_LAUNCHES}")
+        if not (e <= tol and same):
+            raise AssertionError(f"K3's {route} route at {c} channels: error "
+                                 f"{e}, same bits {same}")
+        err = max(err, e)
+    return {"warp_affine": err}
 
 
 def check_warp_bwd(inputs, where, graph=False):
@@ -2099,7 +2161,7 @@ def fusion_cell(smi, dev, method, scenes, host, hosts):
     import torch
     from gencomm_tpu_torch.models.fuse import fusion
     from gencomm_tpu_torch.models.heter_baseline import HeterModel
-    from gencomm_tpu_torch.ops import _cuda
+    from gencomm_tpu_torch.ops import _cuda, warp
     from gencomm_tpu_torch.pipeline import batch_to_device
 
     t_phase = time.perf_counter()
@@ -2133,13 +2195,22 @@ def fusion_cell(smi, dev, method, scenes, host, hosts):
     reset_launch_counts()
     warps = record_all(fusion, "warp_affine", forward)
     k3 = _cuda.LAUNCHES["warp_affine"]
+    k3_routes = dict(warp.FORWARD_ROUTE_LAUNCHES)
     want_k3 = 1
+    want_routes = {"rows": 1, "pixel": 0, "scalar": 0}
     if method == "v2vnet":
         want_k3 = 2 * l * kw["fusion_args"]["v2vnet"].get("num_iteration", 2)
+        # the node stack on rows, the map of ones on the pixel route
+        want_routes = {"rows": want_k3 // 2, "pixel": want_k3 // 2,
+                       "scalar": 0}
     log(f"fusion {method}: K3 launches in one forward {k3} (expected "
-        f"{want_k3}), maps {[tuple(w[0].shape) for w in warps]}")
+        f"{want_k3}), by route {k3_routes} (expected {want_routes}), maps "
+        f"{[tuple(w[0].shape) for w in warps]}")
     if k3 != want_k3 or len(warps) != want_k3:
         raise AssertionError(f"{method}: {k3} K3 launches, {want_k3} expected")
+    if k3_routes != want_routes:
+        raise AssertionError(f"{method}: K3 by route {k3_routes}, "
+                             f"{want_routes} expected")
     k3_rows = {}
     if method == "v2vnet":
         # the first iteration's warps into agent 1's frame: the node stack
@@ -2362,47 +2433,60 @@ def pyramid_timed(smi, dev):
     return pyr
 
 
-def split_warp(feat, score, theta):
-    """K3 on a pyramid level's feature and occupancy score warped apart
-    (C channels on the vector route and 1, the model's two launches)
-    against the two concatenated (one launch on C + 1 channels, on the
-    scalar route: the JAX package's form): the same bits, and both timed,
+def pair_warp(feat, score, theta):
+    """K3's pair launch on a pyramid level's feature and occupancy score
+    (the model's one launch) against the two maps' own launches (rows
+    route, pixel route) and against one launch on the C + 1 channels
+    concatenated (the JAX package's form, scalar route): the same bits,
+    and the three timed by events, by the profiler and over CUDA graphs,
     the one launch with the concatenation it needs."""
     import torch
-    from gencomm_tpu_torch.ops.warp import warp_affine
+    from gencomm_tpu_torch.ops.warp import warp_affine, warp_affine_pair
 
-    src = torch.cat([feat, score], dim=-1)
-    both = warp_affine(src, theta)
-    same = (torch.equal(both[..., :-1], warp_affine(feat, theta))
-            and torch.equal(both[..., -1:], warp_affine(score, theta)))
+    got, got_s = warp_affine_pair(feat, score, theta)
+    two = warp_affine(feat, theta), warp_affine(score, theta)
+    cat = warp_affine(torch.cat([feat, score], dim=-1), theta)
+    c = feat.shape[-1]
+    same = (torch.equal(got, two[0]) and torch.equal(got_s, two[1])
+            and torch.equal(cat[..., :c], two[0])
+            and torch.equal(cat[..., c:], two[1]))
 
-    def one_launch():
-        return warp_affine(torch.cat([feat, score], dim=-1), theta)
+    def pair():
+        return warp_affine_pair(feat, score, theta)
 
     def two_launches():
         return warp_affine(feat, theta), warp_affine(score, theta)
 
-    out = {"split_same_bits": same,
-           "one_launch_ms": time_ms(one_launch, iters=K3_TURN_LAUNCHES),
-           "two_launch_ms": time_ms(two_launches, iters=K3_TURN_LAUNCHES),
-           "one_launch_device_ms": device_time(one_launch)["device_ms"],
-           "two_launch_device_ms": device_time(two_launches)["device_ms"]}
-    log(f"  K3 at {src.shape[-1]} channels, one launch (cat + warp) against "
-        f"two (feature, score): same bits {same}; events "
-        f"{out['one_launch_ms']:.4f} / {out['two_launch_ms']:.4f} ms, device "
-        f"{out['one_launch_device_ms']} / {out['two_launch_device_ms']} ms")
+    def one_launch():
+        return warp_affine(torch.cat([feat, score], dim=-1), theta)
+
+    out = {"pair_same_bits": same}
+    for key, fn in (("pair", pair), ("two_launch", two_launches),
+                    ("one_launch", one_launch)):
+        out[f"{key}_ms"] = time_ms(fn, iters=K3_TURN_LAUNCHES)
+        out[f"{key}_device_ms"] = device_time(fn)["device_ms"]
+        out[f"{key}_graph_ms"] = graph_ms(fn)
+    log(f"  K3 at {c} + {score.shape[-1]} channels: one pair launch, two "
+        f"launches (feature, score) and one on the concatenation: the same "
+        f"bits {same}; events {out['pair_ms']:.4f} / "
+        f"{out['two_launch_ms']:.4f} / {out['one_launch_ms']:.4f} ms, device "
+        f"{out['pair_device_ms']} / {out['two_launch_device_ms']} / "
+        f"{out['one_launch_device_ms']} ms, over graphs "
+        f"{out['pair_graph_ms']:.4f} / {out['two_launch_graph_ms']:.4f} / "
+        f"{out['one_launch_graph_ms']:.4f} ms")
     if not same:
-        raise AssertionError("K3 on the concatenated map differs from the "
-                             "feature and score warped apart")
+        raise AssertionError("K3's pair launch, the two launches and the "
+                             "concatenated map disagree")
     return out
 
 
 def pyramid_checks(smi, pyr, kernel_rows):
     """Phase 13's checks, after every path is timed. Eval: K3 on every map
     the path warps (each level's feature, 64 / 128 / 256 channels, and its
-    1-channel score) held and timed with the grid_sample yardstick, and
-    each level's two launches against one on the 65 / 129 / 257 channels
-    concatenated; K2 and N1 on the path's arguments, the profiles, card
+    1-channel score, which the model warps in one pair launch a level) held
+    and timed with the grid_sample yardstick, and each level's pair launch
+    against the two maps' own launches and one on the 65 / 129 / 257
+    channels concatenated; K2 and N1 on the path's arguments, the profiles, card
     against CPU (``check_eval``). Training: K3b on every map, twice for the
     same bits (``check_warp_bwd``), the step's profile, the loss falling on
     one batch, one step card against CPU (``check_train``); K2 and K2b on
@@ -2420,23 +2504,28 @@ def pyramid_checks(smi, pyr, kernel_rows):
             cell.model(cell.batch)
 
     reset_launch_counts()
-    warps = record_all(fusion, "warp_affine", forward)
-    widths = [src.shape[-1] for src, _ in warps]
-    log(f"pyramid eval: K3 launches in one forward {_cuda.LAUNCHES['warp_affine']}"
-        f", maps {[tuple(src.shape) for src, _ in warps]}")
-    if widths != PYRAMID_WARP_WIDTHS or \
-            _cuda.LAUNCHES["warp_affine"] != len(PYRAMID_WARP_WIDTHS):
+    pairs = record_all(fusion, "warp_affine_pair", forward)
+    widths = [c for feat, score, _ in pairs
+              for c in (feat.shape[-1], score.shape[-1])]
+    k3, routes = _cuda.LAUNCHES["warp_affine"], dict(warp.FORWARD_ROUTE_LAUNCHES)
+    log(f"pyramid eval: K3 launches in one forward {k3}, by route {routes}"
+        f", maps {[(tuple(f.shape), tuple(s.shape)) for f, s, _ in pairs]}")
+    # one pair launch a level, on the feature's rows route
+    if widths != PYRAMID_WARP_WIDTHS or k3 != len(PYRAMID_WARP_WIDTHS) // 2 \
+            or routes != {"rows": k3, "pixel": 0, "scalar": 0}:
         raise AssertionError(f"pyramid: K3 widths {widths}, "
-                             f"{PYRAMID_WARP_WIDTHS} expected")
-    for level, (feat, score) in enumerate(zip(warps[::2], warps[1::2])):
-        for (src, theta), what in ((feat, "feature"), (score, "score")):
+                             f"{PYRAMID_WARP_WIDTHS} expected in "
+                             f"{len(PYRAMID_WARP_WIDTHS) // 2} pair launches "
+                             f"on the rows route; launches {k3}, {routes}")
+    for level, (feat, score, theta) in enumerate(pairs):
+        for src, what in ((feat, "feature"), (score, "score")):
             where = (f"pyramid eval, level {level} {what}, {src.shape[-1]} "
                      "channels")
             row = check_warp({"warp_affine": (src, theta)}, where,
                              graph=True)
             row["launches"] = cell.launches["warp_affine"]
             if what == "score":
-                row.update(split_warp(feat[0], src, theta))
+                row.update(pair_warp(feat, src, theta))
             add_rows(kernel_rows, where, [row])
     add_rows(kernel_rows, "pyramid eval", check_eval(
         smi, cell, "pyramid", [(point_pillar, "pillar_canvas")],
@@ -3079,7 +3168,8 @@ def main() -> int:
 
     general_errs = {**check_deform_general(dev),
                     **check_pillar_bwd_general(dev),
-                    **check_warp_bwd_general(dev)}
+                    **check_warp_bwd_general(dev),
+                    **check_warp_general(dev)}
 
     # the frames and batches of every path, sampled (and decorated) on the
     # host
@@ -3249,7 +3339,8 @@ def main() -> int:
     general_cases = {"pillar_canvas_bwd": ("general_route", GENERAL_CANVAS),
                      "deform_conv3x3": ("general_route", GENERAL_SHAPE),
                      "deform_conv3x3_bwd": ("general_route", GENERAL_SHAPE),
-                     "warp_affine_bwd": ("general_thetas", GENERAL_WARP_MAP)}
+                     "warp_affine_bwd": ("general_thetas", GENERAL_WARP_MAP),
+                     "warp_affine": ("general_routes", GENERAL_WARP_MAP)}
     for row in kernel_rows:
         if row["name"] in general_errs:
             key, shape = general_cases[row["name"]]

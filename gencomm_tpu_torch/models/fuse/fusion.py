@@ -28,7 +28,7 @@ import torch
 from torch import nn
 
 from gencomm_tpu_torch.models.layers import Conv, ConvBNReLU, Dense, softmax
-from gencomm_tpu_torch.ops.warp import warp_affine
+from gencomm_tpu_torch.ops.warp import warp_affine, warp_affine_pair
 
 _NEG = -1e9
 
@@ -47,6 +47,18 @@ def warp_all_to(x: torch.Tensor, affine: torch.Tensor, target: int
     theta = affine[:, target].reshape(b * l, 2, 3).contiguous()
     out = warp_affine(x.reshape(b * l, h, w, c).contiguous(), theta)
     return out.reshape(b, l, h, w, c)
+
+
+def warp_pair_to_ego(x: torch.Tensor, s: torch.Tensor, affine: torch.Tensor):
+    """x (B, L, H, W, C) and s (B, L, H, W, C_s) warped into the ego frame
+    with ``affine[:, 0]`` in one K3 launch: ``(warp_to_ego(x, affine),
+    warp_to_ego(s, affine))`` bit for bit."""
+    b, l, h, w, c = x.shape
+    theta = affine[:, 0].reshape(b * l, 2, 3).contiguous()
+    out, out_s = warp_affine_pair(
+        x.reshape(b * l, h, w, c).contiguous(),
+        s.reshape((b * l, h, w) + s.shape[4:]).contiguous(), theta)
+    return out.reshape(x.shape), out_s.reshape(s.shape)
 
 
 def _masked(t: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

@@ -3,8 +3,8 @@
 Counterpart of ``gencomm_tpu/models/fuse/pyramid.py``:
 
 ``weighted_fuse``  one pyramid level: every agent's feature and its
-                   1-channel occupancy score warped into the ego frame (two
-                   K3 launches), a softmax of the warped scores over the
+                   1-channel occupancy score warped into the ego frame (one
+                   K3 launch), a softmax of the warped scores over the
                    agents where the score is positive and the agent present
                    (-1e9 elsewhere; a pixel with no valid agent gets weight
                    0), the weighted sum.
@@ -36,7 +36,7 @@ from gencomm_tpu_torch.models.backbones.resnet_bev import (
     BasicBlock, Bottleneck, add_deblocks, add_levels, decode_levels,
 )
 from gencomm_tpu_torch.models.fuse.fusion import (
-    AttFusion, MaxFusion, warp_to_ego,
+    AttFusion, MaxFusion, warp_pair_to_ego,
 )
 from gencomm_tpu_torch.models.layers import Conv
 
@@ -48,12 +48,11 @@ def weighted_fuse(feat: torch.Tensor, score: torch.Tensor,
                   ) -> torch.Tensor:
     """feat (B, L, H, W, C), score (B, L, H, W, 1) positive, affine (B, L,
     L, 2, 3), agent_mask (B, L) -> (B, H, W, C). The JAX package warps the
-    two concatenated in one launch; the warp is per channel, so warping
-    them apart gives the same bits, and on the H100 the C-channel map on
-    K3's vector route plus the 1-channel one take a third of the time of
-    the (C + 1)-channel map on its scalar route (PERF.md section 6)."""
-    warped = warp_to_ego(feat, affine)
-    warped_s = warp_to_ego(score, affine)
+    two concatenated in one launch; here ``warp_affine_pair`` warps them in
+    one launch without the concatenation (the feature on K3's rows route,
+    the score from the same samples), with the bits of the two warped apart:
+    the warp is per channel (PERF.md section 6)."""
+    warped, warped_s = warp_pair_to_ego(feat, score, affine)
     valid = (warped_s > 0) & agent_mask.bool()[:, :, None, None, None]
     logits = torch.where(valid, warped_s, torch.full_like(warped_s, _NEG))
     attn = torch.softmax(logits, dim=1)

@@ -38,6 +38,9 @@ SIGNATURES = {
     "warp_affine": ("warp_affine_f32", [_P, _P, _P, _I, _I, _I, _I, _P]),
     "warp_affine_bf16": ("warp_affine_bf16", [_P, _P, _P, _I, _I, _I, _I, _P],
                          "warp_affine"),
+    "warp_affine_pair": ("warp_affine_pair_f32",
+                         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+                         "warp_affine"),
     "deform_conv_bwd": ("deform_conv3x3_bwd_f32",
                         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _I, _P]),

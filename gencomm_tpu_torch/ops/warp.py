@@ -18,6 +18,19 @@ rounds its lerp weights and products to bf16 instead. The backward takes
 fp32 only; a backward through a bf16 forward raises (bf16 training is not
 ported).
 
+K3 has three routes, chosen by its C entries from the width and the
+alignment and mirrored by ``forward_route`` for the launch counts
+(``FORWARD_ROUTE_LAUNCHES``): ``"rows"``, 16-byte vectors (C a multiple of
+4 in fp32, of 8 in bf16, both maps 16-byte aligned) over lanes sized from
+C; ``"pixel"``, a thread a pixel, for the maps of at most
+``FORWARD_PIXEL_MAX_CHANNELS`` channels that ``rows`` does not take (the
+one-channel occupancy scores); ``"scalar"``, single channels over 2 to 32
+lanes a pixel, for wider maps ``rows`` does not take (C % 4 != 0, or a view
+off 16 bytes). All give the same bits. ``warp_affine_pair`` warps two fp32
+maps under one theta in one launch (C entry ``warp_affine_pair_f32``): the
+HEAL pyramid's level feature, on its route, and its one-channel score,
+blended from the same samples, each with the bits of its own launch.
+
 K3b has two routes (``backward_route``, the C entry's ``route`` argument):
 ``"warp"``, a warp for four source pixels with its lanes over the channels,
 for wide maps, and ``"pixel"``, a thread for each source pixel, for maps of
@@ -32,12 +45,31 @@ import torch
 
 from gencomm_tpu_torch.ops import _cuda
 
+# csrc/warp_affine.cu:plan_for: the widest map K3's pixel route takes (where
+# rows does not); two lanes a pixel beat it at 5 and 6 channels on an H100
+FORWARD_PIXEL_MAX_CHANNELS = 4
+# fp32 K3's launches by route (warp_affine_pair's by its first map's),
+# counted where the wrappers launch
+FORWARD_ROUTE_LAUNCHES = {"rows": 0, "pixel": 0, "scalar": 0}
 ROUTES = {"warp": 0, "pixel": 1}  # the `route` argument of K3b's C entry
 # csrc/warp_affine_bwd.cu: the widest map the pixel route takes; on an H100
 # it beat the warp route at every width up to this one (PERF.md section 6)
 PIXEL_MAX_CHANNELS = 8
 # K3b's launches by route, counted where the wrapper launches
 ROUTE_LAUNCHES = {"warp": 0, "pixel": 0}
+
+
+def forward_route(channels: int, aligned: bool, vector: int = 4) -> str:
+    """The route K3 takes for a map of ``channels`` channels whose input
+    and output are (``aligned``) or are not both 16-byte aligned; ``vector``
+    channels a 16-byte load (4 in fp32, 8 in bf16)."""
+    if channels % vector == 0 and aligned:
+        return "rows"
+    return "pixel" if channels <= FORWARD_PIXEL_MAX_CHANNELS else "scalar"
+
+
+def _aligned(*ts) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in ts)
 
 
 def backward_route(channels: int) -> str:
@@ -157,13 +189,39 @@ def warp_affine_fwd(src: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
         return warp_affine_plain(src, theta)
     n, h, w, c = _check_args(src, theta, "src",
                              (torch.float32, torch.bfloat16))
-    name = ("warp_affine_bf16" if src.dtype == torch.bfloat16
-            else "warp_affine")
+    half = src.dtype == torch.bfloat16
+    name = "warp_affine_bf16" if half else "warp_affine"
     out = torch.empty_like(src)
     _cuda.launch(name, src.data_ptr(), theta.data_ptr(), out.data_ptr(), n,
                  h, w, c)
     _cuda.LAUNCHES[name] += 1
+    if not half:
+        FORWARD_ROUTE_LAUNCHES[forward_route(c, _aligned(src, out))] += 1
     return out
+
+
+def warp_affine_pair_fwd(feat: torch.Tensor, score: torch.Tensor,
+                         theta: torch.Tensor):
+    """``(warp_affine_fwd(feat, theta), warp_affine_fwd(score, theta))``
+    without autograd: the plain version for CPU tensors, one K3 launch for
+    CUDA tensors (fp32; ``feat`` (N, H, W, C), ``score`` (N, H, W, C_b),
+    each output with the bits of its own launch)."""
+    if not feat.is_cuda:
+        return warp_affine_plain(feat, theta), warp_affine_plain(score, theta)
+    n, h, w, c = _check_args(feat, theta, "feat")
+    _cuda.check_cuda_tensor(score, "score", torch.float32)
+    if score.dim() != 4 or tuple(score.shape[:3]) != (n, h, w) or \
+            not (c and score.shape[3]):
+        raise ValueError(f"feat {tuple(feat.shape)} and score "
+                         f"{tuple(score.shape)} must be (N, H, W, C) maps "
+                         "of one N, H, W, each of at least one channel")
+    out, out_s = torch.empty_like(feat), torch.empty_like(score)
+    _cuda.launch("warp_affine_pair", feat.data_ptr(), score.data_ptr(),
+                 theta.data_ptr(), out.data_ptr(), out_s.data_ptr(), n, h, w,
+                 c, score.shape[3])
+    _cuda.LAUNCHES["warp_affine"] += 1
+    FORWARD_ROUTE_LAUNCHES[forward_route(c, _aligned(feat, out))] += 1
+    return out, out_s
 
 
 def warp_affine_bwd(g: torch.Tensor, theta: torch.Tensor,
@@ -203,6 +261,31 @@ class _WarpAffine(torch.autograd.Function):
                 "bf16 training (half=True) is not ported: the warp's "
                 "backward takes fp32 only")
         return warp_affine_bwd(g.contiguous(), theta), None
+
+
+class _WarpAffinePair(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, feat, score, theta):
+        ctx.save_for_backward(theta)
+        return warp_affine_pair_fwd(feat, score, theta)
+
+    @staticmethod
+    def backward(ctx, g, g_score):
+        (theta,) = ctx.saved_tensors
+        return (warp_affine_bwd(g.contiguous(), theta),
+                warp_affine_bwd(g_score.contiguous(), theta), None)
+
+
+def warp_affine_pair(feat: torch.Tensor, score: torch.Tensor,
+                     theta: torch.Tensor):
+    """Two fp32 maps warped under one theta, ``(warp_affine(feat, theta),
+    warp_affine(score, theta))`` bit for bit: on the card one K3 launch
+    forward and two K3b launches (each on its route) backward. theta must
+    not require a gradient."""
+    if theta.requires_grad and torch.is_grad_enabled():
+        raise ValueError("warp_affine_pair gives theta no gradient; pass a "
+                         "theta that does not require one")
+    return _WarpAffinePair.apply(feat, score, theta)
 
 
 def warp_affine(src: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:

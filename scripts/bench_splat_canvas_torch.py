@@ -5,8 +5,8 @@ keep-set N1 on one NVIDIA GPU, on the arguments the port's own paths give
 them.
 
     python3 scripts/bench_splat_canvas_torch.py [--old-csrc DIR]
-        [--variant NAME=DIR ...] [--cases K4,K2,K2b,K3b,K3bn,K3,N1]
-        [--out FILE]
+        [--variant NAME=DIR ...]
+        [--cases K4,K2,K2b,K3b,K3bn,K3,K3p,K3v,K3n,N1] [--out FILE]
 
 The arguments are recorded from the port's models at random weights (seed 0)
 on the synthetic sampler's scenes (seed 0), as ``chip_smoke.py`` records
@@ -19,7 +19,22 @@ the lidar train step (g (4, 64, 128, 128) fp32) and the camera train step
 (g (4, 64, 64, 128)); K3 on the four eval frames (lidar and camera, fp32
 and bf16: src (2, 64, 128, 128) and (2, 64, 64, 128), the bf16 maps from
 the ``half=True`` models), where the bf16 instantiation must also give the
-fp32 kernel's bits on the widened map, rounded once. ``K3bn`` is K3b on
+fp32 kernel's bits on the widened map, rounded once. ``K3p`` is K3 on the
+HEAL pyramid's eval forward (``heal/stage1/m1_pyramid.yaml`` at full width,
+seed 0): each level's feature (2, 128, 256, 64) / (2, 64, 128, 128) /
+(2, 32, 64, 256) and its one-channel occupancy score alone, and the two in
+one ``warp_affine_pair`` launch, timed against their two launches and the
+JAX package's form (the two concatenated, one launch), all with the bits
+of the two launches. ``K3v`` is K3 on V2VNet's eval forward
+(``point_pillar_v2vnet.yaml``'s block on the flagship) on a non-ego theta:
+its 128-channel node stack and its one-channel map of ones (2, 64, 128, 1).
+``K3n`` is K3 on the pyramid levels' thetas at seeded widths (2, 3, 5, 6,
+8, 12, 17, 33 channels) and on each level's concatenated map (65 / 129 /
+257 channels): its routes and the crossover of its pixel and scalar
+routes. Every fp32 K3 case on the rows route is also held bit for bit
+against a copy of its map 4 bytes off a 16-byte boundary (the pixel or
+scalar route). With any K3 case, an empty kernel is timed over a CUDA
+graph of 200 launches: the floor a launch reaches. ``K3bn`` is K3b on
 narrow maps: the HEAL pyramid step's one-channel occupancy-score
 cotangents (``heal/stage1/m1_pyramid.yaml`` at full width, one forward and
 backward) and, on the same thetas, seeded cotangents of 2, 3, 4, 6 and 8
@@ -35,7 +50,7 @@ each it
     launches against each other, bit for bit;
   * times the wrapper with CUDA events, warm (back-to-back launches) and
     cold (a buffer larger than the L2 cache is written between launches),
-    and, for K3b and N1, over replays of a CUDA graph of 200 captured
+    and, for K3, K3b and N1, over replays of a CUDA graph of 200 captured
     launches (``chip_smoke.graph_ms``: device time, no host work between
     launches), beside the one-call PyTorch yardstick (``torch.index_add``;
     ``scatter_reduce`` amax and its autograd; ``F.grid_sample`` and
@@ -56,7 +71,8 @@ the old K4 includes the index preparation its wrapper did in PyTorch
 (``torch.where`` and a stable ``torch.sort``). ``pillar_canvas.cu`` and
 ``warp_affine.cu`` have kept their C interface and run through the
 package's wrappers; K3's old version must give the package's bits, fp32
-and bf16. ``warp_affine_bwd.cu`` there must have the C interface before
+and bf16 (an old ``warp_affine.cu`` has no pair entry: its pair case
+times its two launches). ``warp_affine_bwd.cu`` there must have the C interface before
 its ``route`` argument (any commit before the pixel route): it runs
 through the package's wrapper with the route dropped, so on its one route.
 ``nms_closure.cu`` there must be the first version's (PRs 8-12): its
@@ -90,8 +106,21 @@ SOURCES = ("splat_topk", "pillar_canvas_bwd", "pillar_canvas", "warp_affine_bwd"
            "warp_affine", "nms_closure")
 # K3bn's widths: the pyramid's one-channel scores and seeded wider maps
 NARROW_WIDTHS = (1, 2, 3, 4, 6, 8)
-# the C entries of a source besides its own name
-EXTRA_ENTRIES = {"warp_affine": ("warp_affine_bf16",)}
+# K3n's seeded widths on the pyramid levels' thetas: K3's routes and the
+# crossover of its pixel and scalar routes
+FORWARD_WIDTHS = (2, 3, 5, 6, 8, 12, 17, 33)
+# the C entries of a source besides its own name (an older source may lack
+# some: warp_affine_pair came after the others)
+EXTRA_ENTRIES = {"warp_affine": ("warp_affine_bf16", "warp_affine_pair")}
+# an empty kernel, timed over a CUDA graph as the floor of a launch
+EMPTY_KERNEL = """
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(void* stream) {
+    empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+    return (int)cudaGetLastError();
+}
+"""
 
 
 def time_ms(torch, fn, iters=50, warmup=5, flush=None):
@@ -178,6 +207,8 @@ def build_old(torch, _cuda, csrc):
         fns[name] = fn
         for entry in EXTRA_ENTRIES.get(name, ()):
             esym, eargs = _cuda.SIGNATURES[entry][:2]
+            if not hasattr(lib, esym):
+                continue
             extra[entry] = getattr(lib, esym)
             extra[entry].argtypes, extra[entry].restype = eargs, I
 
@@ -235,7 +266,7 @@ def build_old(torch, _cuda, csrc):
         entry = (without_route(fns[name]) if name == "warp_affine_bwd"
                  else fns[name])
         entries = {name: entry, **{e: extra[e] for e in
-                                   EXTRA_ENTRIES.get(name, ())}}
+                                   EXTRA_ENTRIES.get(name, ()) if e in extra}}
         return through(_cuda, entries, wrapper)
 
     olds = {"splat_topk": splat, "pillar_canvas_bwd": canvas_bwd,
@@ -266,6 +297,8 @@ def build_variant(_cuda, tag, csrc):
         lib = ctypes.CDLL(so)
         for entry in (name, *EXTRA_ENTRIES.get(name, ())):
             sym, argtypes = _cuda.SIGNATURES[entry][:2]
+            if not hasattr(lib, sym):
+                continue
             fn = getattr(lib, sym)
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
             fns[entry] = fn
@@ -321,7 +354,7 @@ def path_arguments(torch, dev, cases):
     out = {}
     def eval_forward(model, batch, nz):
         with torch.inference_mode():
-            model(batch, noises=nz)
+            model(batch, noises=nz) if nz is not None else model(batch)
 
     if {"K4", "K3b", "K3"} & cases:
         cam_scenes = SyntheticScenes(SyntheticConfig(
@@ -351,21 +384,22 @@ def path_arguments(torch, dev, cases):
             [(lss, "splat_topk"), (warp, "warp_affine_bwd")],
             lambda: criterion(model(batch, noises=nz),
                               batch)["total_loss"].backward())
-    if {"K2", "K2b", "K3b", "K3"} & cases:
+    if {"K2", "K2b", "K3b", "K3", "K3v"} & cases:
         scenes = SyntheticScenes(SyntheticConfig(
             lidar_range=cs.LIDAR_RANGE, max_cav=5, num_agents=2,
             points_per_agent=30000, num_vehicles=12, points_per_vehicle=300))
         voxelizer = PillarVoxelizer(cs.LIDAR_RANGE, cs.VOXEL)
-    if {"K2", "K3"} & cases:
-        host = decorate_modality(trim_agent_slots(
+    if {"K2", "K3", "K3v"} & cases:
+        host_lidar = decorate_modality(trim_agent_slots(
             scenes.sample(seed=0, batch_size=1), buckets=(2, 3, 5)), voxelizer)
-        batch = batch_to_device(host, dev)
-        nz = noises(host["agent_mask"].size, cs.FEATURE_SHAPE, 1)
+        batch_lidar = batch_to_device(host_lidar, dev)
+        nz_lidar = noises(host_lidar["agent_mask"].size, cs.FEATURE_SHAPE, 1)
+    if {"K2", "K3"} & cases:
         for half in (False, True) if "K3" in cases else (False,):
             model = model_on(dict(cs.FLAGSHIP, half=half), False)
             out["lidar eval bf16" if half else "lidar eval"] = cs.record_calls(
                 [(point_pillar, "pillar_canvas"), (fusion, "warp_affine")],
-                lambda: eval_forward(model, batch, nz))
+                lambda: eval_forward(model, batch_lidar, nz_lidar))
     if {"K2", "K2b", "K3b"} & cases:
         host = decorate_modality(trim_agent_slots(
             scenes.sample(cs.TRAIN_SEED * 10000, cs.TRAIN_BATCH),
@@ -378,6 +412,40 @@ def path_arguments(torch, dev, cases):
              (pillar_canvas, "pillar_canvas_bwd"), (warp, "warp_affine_bwd")],
             lambda: criterion(model(batch, noises=nz),
                               batch)["total_loss"].backward())
+    if {"K3p", "K3n"} & cases:
+        from gencomm_tpu_torch.models.heter_pyramid import HeterPyramidModel
+        from gencomm_tpu_torch.tools import train as train_cli
+
+        pscenes = train_cli.build_dataset(cs.PYRAMID_HYPES, True, "synthetic")
+        host = train_cli.Adapt(cs.PYRAMID_HYPES)(pscenes.sample(0, 1))
+        model = HeterPyramidModel(**cs.PYRAMID, device=dev)
+        model.load_state_dict(random_state_dict(model, seed=0))
+        batch = batch_to_device(host, dev)
+        seen = cs.record_all(fusion, "warp_affine_pair",
+                             lambda: eval_forward(model, batch, None))
+        gen = torch.Generator(device=dev).manual_seed(14)
+        for level, (feat, score, theta) in enumerate(seen):
+            where = f"pyramid eval level {level}"
+            out[f"{where} feature"] = {"warp_affine": (feat, theta)}
+            out[f"{where} score"] = {"warp_affine": (score, theta)}
+            out[f"{where} pair"] = {"warp_affine_pair": (feat, score, theta)}
+            for c in FORWARD_WIDTHS:
+                src = torch.randn(feat.shape[:3] + (c,), generator=gen,
+                                  device=dev)
+                out[f"{where}, {c} ch"] = {"warp_affine": (src, theta)}
+            # the JAX package's form: the feature and score concatenated
+            out[f"{where}, concatenated"] = {"warp_affine": (
+                torch.cat([feat, score], dim=-1), theta)}
+    if "K3v" in cases:
+        l = host_lidar["agent_mask"].shape[1]
+        model = model_on(cs.fusion_kwargs("v2vnet", l), False)
+        seen = cs.record_all(fusion, "warp_affine", lambda: eval_forward(
+            model, batch_lidar, nz_lidar))
+        # the first iteration's warps into agent 1's frame: the node stack
+        # and the map of ones
+        for src, theta in seen[2:4]:
+            out[f"v2vnet eval, non-ego theta, {src.shape[-1]} ch"] = {
+                "warp_affine": (src, theta)}
     if "K3bn" in cases:
         from gencomm_tpu_torch.loss import create_loss
         from gencomm_tpu_torch.models.heter_pyramid import HeterPyramidModel
@@ -417,7 +485,7 @@ def path_arguments(torch, dev, cases):
         pipe = None
         for label, args in cs.nms_cases(dev).items():
             out[label] = {"nms_closure": args}
-    model = batch = nz = None
+    model = batch = nz = batch_lidar = None
     torch.cuda.empty_cache()
     return out
 
@@ -455,7 +523,8 @@ def with_variants(_cuda, runs, order, variants, kernel, check):
     for tag, fns in variants.items():
         if kernel in fns:
             runs[tag] = through(_cuda, {e: fns[e] for e in (
-                kernel, *EXTRA_ENTRIES.get(kernel, ()))}, runs["new"])
+                kernel, *EXTRA_ENTRIES.get(kernel, ())) if e in fns},
+                runs["new"])
             order.insert(at, tag)
             at += 1
             checks[tag] = check(runs[tag]())
@@ -691,6 +760,15 @@ def bench_nms(torch, label, args, old, variants, iters, flush):
     return row
 
 
+def offset_copy(torch, t):
+    """A contiguous copy of ``t`` that starts 4 bytes past a 16-byte
+    boundary: K3 takes it off its rows route."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 def bench_warp(torch, label, args, old, variants, iters, flush):
     import torch.nn.functional as F
     import chip_smoke as cs
@@ -705,7 +783,9 @@ def bench_warp(torch, label, args, old, variants, iters, flush):
     torch.cuda.synchronize()
     scale = float(src.float().abs().max())
     tol = cs.warp_tolerance(src.float()) + (2.0 ** -7 * scale if half else 0.0)
+    aligned = src.data_ptr() % 16 == 0
     row = {"src": [n, h, w, c], "dtype": "bf16" if half else "fp32",
+           "route": warp.forward_route(c, aligned, 8 if half else 4),
            "theta": theta.reshape(n, 6).tolist(),
            "max_abs_err": float((got.float() - want.float()).abs().max()),
            "tol": tol, "bit_equal_twice": bool(torch.equal(got, again))}
@@ -714,6 +794,13 @@ def bench_warp(torch, label, args, old, variants, iters, flush):
         row["equals_fp32_kernel_rounded"] = bool(torch.equal(
             got, warp.warp_affine_fwd(src.float(), theta).to(torch.bfloat16)))
         ok = ok and row["equals_fp32_kernel_rounded"]
+    if row["route"] == "rows":
+        # the same map 4 bytes off a 16-byte boundary: pixel or scalar
+        off = offset_copy(torch, src)
+        other = warp.forward_route(c, False, 8 if half else 4)
+        row[f"equals_{other}_route"] = bool(torch.equal(
+            warp.warp_affine_fwd(off, theta), got))
+        ok = ok and row[f"equals_{other}_route"]
     src_nchw = src.permute(0, 3, 1, 2).contiguous()
     grid = F.affine_grid(theta.to(src.dtype), list(src_nchw.shape),
                          align_corners=False)
@@ -733,13 +820,82 @@ def bench_warp(torch, label, args, old, variants, iters, flush):
     row["variant_equals_new_bits"] = with_variants(
         _cuda, runs, order, variants, "warp_affine",
         lambda out: bool(torch.equal(out, got)))
-    row.update(turns(torch, runs, order, iters, flush))
-    for which in runs:
+    ok = ok and all(row["variant_equals_new_bits"].values())
+    row.update(turns(torch, runs, order, iters, flush, graph=True))
+    for which in ("new", "library"):
         row[f"{which}_split_ms"] = split_by_launch(torch, runs[which])
     row["entry"] = name
     row["ok"] = bool(ok)
     print(label, json.dumps(row), flush=True)
     return row
+
+
+def bench_warp_pair(torch, label, args, old, variants, iters, flush):
+    """A pyramid level's feature and score: one pair launch against the two
+    launches (this package's and, with ``old``, the old source's) and the
+    JAX package's form (the two concatenated, one launch), all with the
+    bits of the two launches."""
+    from gencomm_tpu_torch.ops import _cuda, warp
+
+    feat, score, theta = args
+    n, h, w, c = feat.shape
+    got, got_s = warp.warp_affine_pair_fwd(feat, score, theta)
+    two = (warp.warp_affine_fwd(feat, theta), warp.warp_affine_fwd(score, theta))
+    cat = warp.warp_affine_fwd(torch.cat([feat, score], dim=-1), theta)
+    torch.cuda.synchronize()
+    row = {"feat": [n, h, w, c], "score": list(score.shape),
+           "route": warp.forward_route(c, feat.data_ptr() % 16 == 0),
+           "pair_equals_two_launches": bool(torch.equal(got, two[0])
+                                            and torch.equal(got_s, two[1])),
+           "cat_equals_two_launches": bool(
+               torch.equal(cat[..., :c], two[0])
+               and torch.equal(cat[..., c:], two[1]))}
+    ok = row["pair_equals_two_launches"] and row["cat_equals_two_launches"]
+    row["bound_ms"] = (2 * (feat.numel() + score.numel()) * 4
+                       + theta.numel() * 4) / 3.35e12 * 1e3
+    runs = {"new": lambda: warp.warp_affine_pair_fwd(feat, score, theta),
+            "two": lambda: (warp.warp_affine_fwd(feat, theta),
+                            warp.warp_affine_fwd(score, theta)),
+            "cat": lambda: warp.warp_affine_fwd(
+                torch.cat([feat, score], dim=-1), theta)}
+    order = ["two", "new", "new", "two", "cat"]
+    if old:
+        runs["old"] = lambda: (old(feat, theta), old(score, theta))
+        order = ["old"] + order + ["old"]
+        ob = runs["old"]()
+        row["old_two_equal_pair"] = bool(torch.equal(ob[0], got)
+                                         and torch.equal(ob[1], got_s))
+        ok = ok and row["old_two_equal_pair"]
+    row["variant_equals_new_bits"] = with_variants(
+        _cuda, runs, order, variants, "warp_affine",
+        lambda out: bool(torch.equal(out[0], got) and torch.equal(out[1], got_s)))
+    ok = ok and all(row["variant_equals_new_bits"].values())
+    row.update(turns(torch, runs, order, iters, flush, graph=True))
+    row["new_split_ms"] = split_by_launch(torch, runs["new"])
+    row["ok"] = bool(ok)
+    print(label, json.dumps(row), flush=True)
+    return row
+
+
+def empty_kernel_graph_ms(torch, _cuda):
+    """An empty kernel's device ms a launch over a CUDA graph of
+    ``chip_smoke.GRAPH_LAUNCHES`` launches: the floor a launch reaches."""
+    import chip_smoke as cs
+
+    out_dir = os.path.join(os.path.dirname(_cuda.BUILD_DIR), "kernels_empty")
+    os.makedirs(out_dir, exist_ok=True)
+    src, so = (os.path.join(out_dir, f) for f in ("empty.cu", "libempty.so"))
+    with open(src, "w") as f:
+        f.write(EMPTY_KERNEL)
+    subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", so, src],
+                   check=True, capture_output=True, text=True)
+    fn = ctypes.CDLL(so).empty_launch
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+
+    def launch():
+        assert fn(torch.cuda.current_stream().cuda_stream) == 0
+
+    return [cs.graph_ms(launch) for _ in range(3)]
 
 
 def main() -> int:
@@ -788,6 +944,10 @@ def main() -> int:
     olds = old[0] if old else {}
 
     result = {"card": smi, "cases": {}}
+    if {"K3", "K3p", "K3v", "K3n"} & cases:
+        result["empty_kernel_graph_ms"] = empty_kernel_graph_ms(torch, _cuda)
+        print(f"empty kernel over a CUDA graph: "
+              f"{result['empty_kernel_graph_ms']} ms a launch", flush=True)
     plan = [("K4", "camera eval", "splat_topk", bench_splat),
             ("K4", "camera step", "splat_topk", bench_splat),
             ("K2", "lidar eval", "pillar_canvas", bench_canvas),
@@ -799,6 +959,17 @@ def main() -> int:
             ("K3", "lidar eval bf16", "warp_affine", bench_warp),
             ("K3", "camera eval", "warp_affine", bench_warp),
             ("K3", "camera eval bf16", "warp_affine", bench_warp)]
+    plan += [("K3v", path, "warp_affine", bench_warp)
+             for path in paths if path.startswith("v2vnet eval")]
+    plan += [("K3p", path, name, bench)
+             for path, seen in paths.items() if path.startswith("pyramid eval")
+             and ", " not in path
+             for name, bench in (("warp_affine", bench_warp),
+                                 ("warp_affine_pair", bench_warp_pair))
+             if name in seen]
+    plan += [("K3n", path, "warp_affine", bench_warp)
+             for path in paths if path.startswith("pyramid eval")
+             and ", " in path]
     plan += [("K3bn", path, "warp_affine_bwd", bench_warp_bwd)
              for path in paths if path.startswith("pyramid step")]
     plan += [("N1", path, "nms_closure", bench_nms)

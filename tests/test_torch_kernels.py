@@ -41,8 +41,10 @@ from gencomm_tpu_torch.ops.splat import (
     splat_topk_with_order,
 )
 from gencomm_tpu_torch.ops.warp import (
+    FORWARD_PIXEL_MAX_CHANNELS, FORWARD_ROUTE_LAUNCHES,
     ROUTE_LAUNCHES as WARP_ROUTE_LAUNCHES, _corners, _source_window,
-    warp_affine, warp_affine_bwd, warp_affine_bwd_plain, warp_affine_plain,
+    forward_route, warp_affine, warp_affine_bwd, warp_affine_bwd_plain,
+    warp_affine_pair, warp_affine_plain,
 )
 
 # rotations, a shear, a scale, translations pushing part of the map out of
@@ -568,6 +570,189 @@ def test_warp_bf16_backward_is_refused_on_card(cuda):
     g = torch.zeros(len(THETAS), 8, 8, 16, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="g must be torch.float32"):
         warp_affine_bwd(g, torch.from_numpy(THETAS).to(cuda))
+
+
+# K3's routes and its pair launch
+@pytest.mark.parametrize("c,aligned,route", [
+    (1, True, "pixel"), (2, True, "pixel"), (3, False, "pixel"),
+    (4, True, "rows"), (4, False, "pixel"), (5, True, "scalar"),
+    (8, True, "rows"), (8, False, "scalar"), (17, True, "scalar"),
+    (64, True, "rows"), (65, True, "scalar"), (128, True, "rows"),
+    (128, False, "scalar"), (256, True, "rows"), (257, True, "scalar")])
+def test_warp_forward_route_follows_width_and_alignment(c, aligned, route):
+    """K3's route (csrc/warp_affine.cu:plan_for, mirrored for the counts):
+    16-byte vectors where C is a multiple of 4 and the maps are aligned, a
+    thread a pixel up to FORWARD_PIXEL_MAX_CHANNELS channels otherwise,
+    single channels over lanes beyond."""
+    assert forward_route(c, aligned) == route
+    assert FORWARD_PIXEL_MAX_CHANNELS == 4
+
+
+@pytest.mark.parametrize("c,vector,route", [(8, 8, "rows"), (4, 8, "pixel"),
+                                            (12, 8, "scalar"), (24, 8, "rows"),
+                                            (20, 8, "scalar")])
+def test_warp_forward_route_of_bf16_maps(c, vector, route):
+    """bf16 maps take 8-channel vectors on the rows route."""
+    assert forward_route(c, True, vector) == route
+
+
+def _pair_inputs(seed, n=len(THETAS), h=12, w=20, c=6, cs=1):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(n, h, w, c).astype(np.float32),
+            rng.uniform(0.05, 1.0, (n, h, w, cs)).astype(np.float32),
+            np.resize(THETAS, (n, 2, 3)))
+
+
+@pytest.mark.parametrize("c,cs", [(6, 1), (8, 1), (5, 2)])
+def test_warp_pair_on_cpu_equals_two_warps_and_jax(jx, c, cs):
+    """warp_affine_pair on the CPU: the plain version twice, bit for bit,
+    no kernel launch, and JAX's gather warp of the two concatenated (the
+    JAX pyramid's form) within the 1e-5 of test_warp_plain_matches_jax."""
+    feat, score, th = _pair_inputs(c + cs, c=c, cs=cs)
+    tf, ts, tt = (torch.from_numpy(a) for a in (feat, score, th))
+    before = LAUNCHES["warp_affine"]
+    got, got_s = warp_affine_pair(tf, ts, tt)
+    assert LAUNCHES["warp_affine"] == before
+    assert torch.equal(got, warp_affine_plain(tf, tt))
+    assert torch.equal(got_s, warp_affine_plain(ts, tt))
+    want = jx.warp_gather(np.concatenate([feat, score], -1), th)
+    np.testing.assert_allclose(got.numpy(), want[..., :c], rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(got_s.numpy(), want[..., c:], rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_warp_pair_gradients_on_cpu_equal_two_warps():
+    """The pair's backward is the two maps' own: K3b (its plain version
+    here) on each cotangent, bit for bit; theta gets none."""
+    feat, score, th = _pair_inputs(3)
+    tt = torch.from_numpy(th)
+    f1, s1 = (torch.from_numpy(a).requires_grad_(True) for a in (feat, score))
+    f2, s2 = (torch.from_numpy(a).requires_grad_(True) for a in (feat, score))
+    r = torch.from_numpy(np.random.RandomState(4).randn(*feat.shape)
+                         .astype(np.float32))
+    a, b = warp_affine_pair(f1, s1, tt)
+    ((a * r).sum() + (b * 3.0).sum()).backward()
+    ((warp_affine(f2, tt) * r).sum() + (warp_affine(s2, tt) * 3.0).sum()
+     ).backward()
+    assert torch.equal(f1.grad, f2.grad) and torch.equal(s1.grad, s2.grad)
+    with pytest.raises(ValueError, match="no gradient"):
+        warp_affine_pair(f1, s1, tt.clone().requires_grad_(True))
+
+
+def _offset(t):
+    """A contiguous copy of ``t`` 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _warp_tol(src):
+    # test_warp_kernel_matches_plain_on_card's tolerance
+    return 4.0 * max(src.shape[1:3]) * 2.0 ** -23 * float(src.abs().max())
+
+
+def _warp_on_card(src, th, route):
+    before = dict(FORWARD_ROUTE_LAUNCHES)
+    got = warp_affine(src, th)
+    torch.cuda.synchronize()
+    assert FORWARD_ROUTE_LAUNCHES[route] == before[route] + 1
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("c", [1, 2, 3, 4, 5, 8, 64, 65, 128, 256])
+def test_warp_routes_match_plain_on_card(cuda, c, offset):
+    """Every route of K3 against its plain version: the width picks it, a
+    view 4 bytes off a 16-byte boundary takes it off rows; W = 37 is no
+    multiple of a block's run of pixels on any route."""
+    src = torch.from_numpy(np.random.RandomState(c).randn(
+        len(THETAS), 24, 37, c).astype(np.float32)).to(cuda)
+    if offset:
+        src = _offset(src)
+    assert (src.data_ptr() % 16 == 0) != offset
+    th = torch.from_numpy(THETAS).to(cuda)
+    route = forward_route(c, not offset)
+    got = _warp_on_card(src, th, route)
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               warp_affine_plain(src, th).cpu().numpy(),
+                               rtol=0, atol=_warp_tol(src))
+    assert torch.equal(got, warp_affine(src, th))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [4, 8, 12, 16, 64, 128, 256])
+def test_warp_rows_route_bit_equal_to_the_others_on_card(cuda, c):
+    """The rows route and the one the same map takes 4 bytes off a 16-byte
+    boundary (pixel up to FORWARD_PIXEL_MAX_CHANNELS channels, scalar
+    beyond): the same bits."""
+    src = torch.from_numpy(np.random.RandomState(c + 7).randn(
+        len(THETAS), 20, 29, c).astype(np.float32)).to(cuda)
+    th = torch.from_numpy(THETAS).to(cuda)
+    rows = _warp_on_card(src, th, "rows")
+    other = _warp_on_card(_offset(src), th, forward_route(c, False))
+    assert torch.equal(rows, other)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(0, 8, 8, 64), (2, 0, 8, 64), (2, 8, 0, 64),
+                                   (0, 8, 8, 1), (2, 8, 0, 1)])
+def test_warp_empty_maps_on_card(cuda, shape):
+    """A map with no pixel launches nothing and returns an empty map."""
+    src = torch.zeros(shape, device=cuda)
+    th = torch.from_numpy(np.resize(THETAS, (shape[0], 2, 3))).to(cuda)
+    got = warp_affine(src, th)
+    torch.cuda.synchronize()
+    assert got.shape == shape
+    if shape[0]:
+        g, gs = warp_affine_pair(src, src[..., :1].contiguous(), th)
+        torch.cuda.synchronize()
+        assert g.shape == shape and gs.shape == shape[:3] + (1,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,cs,offset", [
+    (64, 1, False), (128, 1, False), (256, 1, False), (5, 2, False),
+    (128, 3, True), (1, 1, False)])
+def test_warp_pair_bit_equal_to_two_launches_on_card(cuda, c, cs, offset):
+    """One pair launch against the two maps' own launches: the same bits,
+    one K3 launch, counted on the first map's route; the backward is their
+    two K3b launches."""
+    feat, score, th = _pair_inputs(c * 10 + cs, h=24, w=37, c=c, cs=cs)
+    feat, score, th = (torch.from_numpy(a).to(cuda)
+                       for a in (feat, score, th))
+    if offset:
+        feat = _offset(feat)
+    route = forward_route(c, not offset)
+    before, routes = LAUNCHES["warp_affine"], dict(FORWARD_ROUTE_LAUNCHES)
+    got, got_s = warp_affine_pair(feat, score, th)
+    torch.cuda.synchronize()
+    assert LAUNCHES["warp_affine"] == before + 1
+    assert FORWARD_ROUTE_LAUNCHES[route] == routes[route] + 1
+    assert torch.equal(got, warp_affine(feat, th))
+    assert torch.equal(got_s, warp_affine(score, th))
+    f1, s1 = (t.clone().requires_grad_(True) for t in (feat, score))
+    before = LAUNCHES["warp_affine_bwd"]
+    a, b = warp_affine_pair(f1, s1, th)
+    (a.sum() + (b * 2.0).sum()).backward()
+    assert LAUNCHES["warp_affine_bwd"] == before + 2
+    assert torch.equal(f1.grad, warp_affine_bwd(torch.ones_like(feat), th))
+    assert torch.equal(s1.grad, warp_affine_bwd(
+        torch.full_like(score, 2.0), th))
+
+
+@pytest.mark.cuda
+def test_warp_pair_refuses_mismatched_maps_on_card(cuda):
+    th = torch.from_numpy(THETAS).to(cuda)
+    feat = torch.zeros(len(THETAS), 8, 8, 4, device=cuda)
+    with pytest.raises(ValueError, match="one N, H, W"):
+        warp_affine_pair(feat, torch.zeros(len(THETAS), 8, 9, 1,
+                                           device=cuda), th)
+    with pytest.raises(ValueError, match="score must be torch.float32"):
+        warp_affine_pair(feat, torch.zeros(len(THETAS), 8, 8, 1, device=cuda,
+                                           dtype=torch.bfloat16), th)
 
 
 # ---------------------------------------------------------------- backward
