@@ -38,9 +38,9 @@ Phases, each of which raises on failure:
      ROADMAP p1): lidar eval fp32 and bf16, lidar training, camera eval fp32
      and bf16, camera training, phase 12's paths (V2X-ViT eval fp32
      and bf16 and training; every other fusion's frames and steps, which
-     take no profiler session) and phase 13's (the HEAL pyramid's eval and
-     training). An eval path runs 1 warm-up + 30 frames
-     looped (InferencePipeline.run) and the same 30 frames and seeds
+     take no profiler session), phase 13's (the HEAL pyramid's eval and
+     training) and phase 14's (SECOND's). An eval path runs 1 warm-up + 30
+     frames looped (InferencePipeline.run) and the same 30 frames and seeds
      streamed (InferencePipeline.run_stream: one frame captured in a CUDA
      graph, replayed per frame), each streamed frame bit for bit equal to
      its looped frame; a training path 1 warm-up + 10 steps (CUDA events).
@@ -198,6 +198,40 @@ Phases, each of which raises on failure:
      config (heads card against CPU) and of an anchor-box copy on a
      51.2 x 25.6 m range (AP at IoU 0.3 above 0), inference_heter_in_order
      over 2 frames; K2, K3, K4, K2b, K3b, K4b and N1 each launched.
+ 14. SECOND, the third agent type (configs/opv2v/gencomm/stage1/m3_att.yaml's
+     model at full width, fp32 with TF32 off, random weights from seed 0:
+     0.1 m voxels over 204.8 x 102.4 x 4 m, 32,000 an agent slot,
+     VoxelBackBone8x on the sparse convolution of ops/sparse.py to a
+     256-channel 128 x 256 BEV, the pillar neck, heads at 32 x 64), on the
+     flagship's scenes with raw points on the card and anchors and labels
+     at feature_stride 8, the heads' grid (reference fault n): (a) eval fp32
+     and bf16 (the encoder stays fp32) timed with the other paths in phase
+     3, 1 + 30 frames looped and streamed (bit for bit), and 1 + 10 train
+     steps at batch 2 x 2 agents with its Adam, multistep schedule and
+     point_pillar_gencomm_loss (K1, K3, N1 and, in training, K1b and K3b
+     launched, peak memory logged); (b) each sparse op the encoder calls,
+     re-run on the card and on the port's CPU with the path's own
+     arguments (integer outputs equal, features within 1e-5 x max(1,
+     max|cpu|)), timed, the voxels each list holds against its capacity,
+     the voxel means (a segment sum in point order) the same bits on a
+     second run; the encoder's BEV card against CPU; K1 and K3 (fp32 and
+     bf16) on the (2, 32, 64, 128) maps and N1 held and timed, heads card
+     against CPU (check_eval); the encoder's share of the frame's device
+     time (profiles of the frame and of the encoder alone) and its
+     operators by their own device time, those over 2% of the streamed
+     frame named; K1b and K3b on the step's arguments, the profile, 4
+     steps on one batch (the loss must fall), one step card against CPU as
+     in phase 6, the jitter keeping every point in its voxel
+     (jitter_within_voxels), each parameter's gap against its own spread
+     logged, and where the offset gradients part (offset_gap: sampling
+     taps whose floor differs, K1b against its plain version, the gap over
+     the taps that agree; logged); the encoder's share of the step's
+     device time; (c) in the workflow process stage1/m3_att.yaml (a copy in
+     its run's directory with only feature_stride 8) trained for 1 epoch
+     of 12 steps and evaluated over 4 frames on the card and with --device
+     cpu (the same APs; a copy refreshed on its last batch, heads within
+     1e-3 and the same kept boxes; an anchor-box copy, AP at IoU 0.3 above
+     0); K1, K3, K1b, K3b and N1 each launched.
 Each phase prints its wall time, and each profile the convolution operators
 by the shapes of their arguments. The last line is {"ok": true, "device":
 {...}}; before it come the card's nvidia-smi line and one JSON line with
@@ -375,6 +409,28 @@ PYRAMID_WARP_WIDTHS = [c for f in PYRAMID["fusion_backbone"]["num_filters"]
 HEAL_KERNELS = ("pillar_canvas", "warp_affine", "splat_topk",
                 "pillar_canvas_bwd", "warp_affine_bwd", "splat_topk_bwd",
                 "nms_closure")
+
+# phase 14, SECOND (modality m3): configs/opv2v/gencomm/stage1/m3_att.yaml's
+# model at full width (0.1 m voxels over 204.8 x 102.4 x 4 m, 32,000 an
+# agent slot; VoxelBackBone8x to a 256-channel 128 x 256 BEV; the pillar
+# neck; heads at 32 x 64) on the flagship's scenes, with its Adam,
+# multistep schedule and point_pillar_gencomm_loss. Its anchors and labels
+# sit at feature_stride 8, the heads' grid: the yaml's 4 gives anchors of
+# 64 x 128 (reference fault n)
+SECOND_YAML = os.path.join(GENCOMM_CONFIGS, "stage1", "m3_att.yaml")
+SECOND_STRIDE = 8
+SECOND_HYPES = load_yaml(SECOND_YAML)
+SECOND_HYPES["postprocess"]["anchor_args"]["feature_stride"] = SECOND_STRIDE
+SECOND = model_kwargs(SECOND_HYPES)
+SECOND_FEATURE_SHAPE = (32, 64, 128)
+# the sparse ops of ops/sparse.py that the encoder calls, card against CPU:
+# integer outputs equal, features within SPARSE_TOL x max(1, max|cpu|)
+SPARSE_OPS = ("voxelize_mean", "subm_conv3d", "spconv3d_downsample",
+              "scatter_to_dense")
+SPARSE_TOL = 1e-5
+# an operation of the frame's profile above this share of the streamed
+# frame's device time queues a hand-written sparse kernel (ROADMAP section 2)
+SPARSE_KERNEL_SHARE = 0.02
 
 
 def log(*a):
@@ -584,19 +640,22 @@ def log_rows(rows):
             f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
 
 
-def record_calls(targets, run):
+def record_all(targets, run):
     """Calls ``run()`` with each wrapper ``(module, name)`` of ``targets``
-    replaced by one that records the arguments of its last call (tensors
-    detached and cloned); returns {name: arguments}."""
+    replaced by one that records its arguments (tensors detached and
+    cloned); returns [(name, args, kwargs)] of every call, in order."""
     import torch
+    from torch.utils._pytree import tree_map
 
-    seen = {}
+    seen = []
+
+    def clone(a):
+        return a.detach().clone() if torch.is_tensor(a) else a
 
     def recorder(name, fn):
-        def wrapped(*args):
-            seen[name] = tuple(a.detach().clone() if torch.is_tensor(a) else a
-                               for a in args)
-            return fn(*args)
+        def wrapped(*args, **kwargs):
+            seen.append((name, tree_map(clone, args), tree_map(clone, kwargs)))
+            return fn(*args, **kwargs)
         return wrapped
 
     saved = [getattr(mod, attr) for mod, attr in targets]
@@ -608,6 +667,12 @@ def record_calls(targets, run):
         for (mod, attr), fn in zip(targets, saved):
             setattr(mod, attr, fn)
     return seen
+
+
+def record_calls(targets, run):
+    """``record_all``'s arguments of each wrapper's last call: {name:
+    args}."""
+    return {name: args for name, args, _ in record_all(targets, run)}
 
 
 def add_rows(kernel_rows, path, rows):
@@ -683,10 +748,12 @@ def phase_done(label, t0):
     log(f"phase wall time, {label}: {time.perf_counter() - t0:.1f} s")
 
 
-def profile_device(run, period_ms, n, unit):
+def profile_device(run, period_ms, n, unit, operators=False):
     """Device busy time per ``unit`` and the kernels that take it, from
     torch.profiler over ``n`` calls of ``run(i)``; the idle share is against
-    the CUDA-event time ``period_ms`` per unit."""
+    the CUDA-event time ``period_ms`` per unit, where one is given. Returns
+    the busy ms and the launches per unit and {operator: the device ms per
+    unit of the kernels it launched itself}, which ``operators`` logs."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -696,24 +763,34 @@ def profile_device(run, period_ms, n, unit):
         for i in range(n):
             run(i)
         torch.cuda.synchronize()
+    avg = prof.key_averages()
     # kernel-level events only: the aten ops above them, and annotations
     # such as the optimizer's step range, carry the same device time again
     rows = [(ev.self_device_time_total / n / 1e3, ev.count / n, ev.key)
-            for ev in prof.key_averages()
+            for ev in avg
             if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
             and not getattr(ev, "is_user_annotation", False)
             and not ev.key.startswith("Optimizer.")]
+    ops = {ev.key: ev.self_device_time_total / n / 1e3 for ev in avg
+           if ev.device_type == DeviceType.CPU
+           and ev.self_device_time_total > 0}
     busy = sum(r[0] for r in rows)
     launches = sum(r[1] for r in rows)
     if busy <= 0:
         log("profile: the profiler saw no device time")
-        return 0.0, 0.0
-    log(f"profile: device busy {busy:.3f} ms/{unit} of {period_ms:.3f} ms "
-        f"(idle share {1 - busy / period_ms:.3f}), {launches:.0f} kernels "
-        f"and copies per {unit}; top by device time (ms/{unit}, "
+        return 0.0, 0.0, ops
+    idle = (f" of {period_ms:.3f} ms (idle share {1 - busy / period_ms:.3f})"
+            if period_ms else "")
+    log(f"profile: device busy {busy:.3f} ms/{unit}{idle}, {launches:.0f} "
+        f"kernels and copies per {unit}; top by device time (ms/{unit}, "
         f"calls/{unit}):")
     for dev_ms, calls, key in sorted(rows, reverse=True)[:15]:
         log(f"  {dev_ms:8.4f} {calls:6.0f}  {key[:90]}")
+    if operators:
+        log(f"profile: operators by the device time of their own kernels "
+            f"(ms/{unit}):")
+        for key, v in sorted(ops.items(), key=lambda kv: -kv[1])[:12]:
+            log(f"  {v:8.4f}  {key}")
     # which layers the convolution kernels belong to: the operators that
     # launch them, by the shapes of their arguments
     convs = [(ev.self_device_time_total / n / 1e3, ev.count / n, ev.key,
@@ -730,7 +807,7 @@ def profile_device(run, period_ms, n, unit):
     fft = [r for r in rows if "fft" in r[2].lower() or "complex" in r[2]]
     log(f"profile: FFT convolution kernels {sum(r[0] for r in fft):.3f} "
         f"ms/{unit} in {len(fft)} kernels")
-    return busy, launches
+    return busy, launches, ops
 
 
 def check_deform(inputs, where):
@@ -1284,23 +1361,26 @@ def check_warp_bwd(inputs, where, graph=False):
     return row
 
 
-def log_grad_errors(label, model, ref_model, names=None):
-    """Per parameter (of ``names``, default all), max|g - g_ref| /
-    max|g_ref| and |g - g_ref| / |g_ref| (L2) of the gradients; logs the
-    worst five and returns the worst L2."""
+def grad_errors(model, ref_model, names=None):
+    """Per parameter (of ``names``, default all): (|g - g_ref| / |g_ref|
+    (L2), max|g - g_ref| / max|g_ref|) of the gradients."""
     ref = dict(ref_model.named_parameters())
-    errs = []
+    errs = {}
     for name, p in model.named_parameters():
         if names is not None and name not in names:
             continue
         want = ref[name].grad.double()
         diff = p.grad.detach().cpu().double() - want
-        errs.append((float(diff.norm() / want.norm()),
-                     float(diff.abs().max() / want.abs().max()), name))
-    errs.sort()
+        errs[name] = (float(diff.norm() / want.norm()),
+                      float(diff.abs().max() / want.abs().max()))
+    return errs
+
+
+def log_grad_errors(label, errs):
+    """Logs the worst five of ``grad_errors``' by L2."""
+    worst = sorted((l2, mx, n) for n, (l2, mx) in errs.items())[-5:]
     log(f"{label}, gradients of {len(errs)} parameters, worst five by L2: "
-        + ", ".join(f"{n} {l2:.2e} (max {mx:.2e})" for l2, mx, n in errs[-5:]))
-    return errs[-1][0]
+        + ", ".join(f"{n} {l2:.2e} (max {mx:.2e})" for l2, mx, n in worst))
 
 
 def check_splat(inputs, where):
@@ -1590,8 +1670,9 @@ def check_eval(smi, cell, label, targets, check, fp32_cell=None,
 
     rows = check(record_calls(targets, forward))
     fill_launches(rows, cell.launches, cell.routes, f"{label} eval {dtype}")
-    profile_device(lambda i: cell.pipe.run(cell.batch, seed=100 + i),
-                   cell.ms, 3, "frame")
+    cell.busy = profile_device(
+        lambda i: cell.pipe.run(cell.batch, seed=100 + i), cell.ms, 3,
+        "frame")[0]
     # the captured frame's replays, one frame a call, against the streamed
     # frame time; then the graph and its memory pool go
     profile_device(lambda i: cell.pipe.run_stream(
@@ -1665,6 +1746,11 @@ def check_eval(smi, cell, label, targets, check, fp32_cell=None,
     return rows
 
 
+def scale_jitter(x, noise):
+    """hold_step's default input jitter: x * (1 + noise)."""
+    return x * (1.0 + noise)
+
+
 def time_train(smi, dev, label, model_kw, hypes, feature_shape, hosts,
                expected, jitter_key, build=None, supervise_single=False):
     """A training path counted and timed before the process's first
@@ -1672,7 +1758,7 @@ def time_train(smi, dev, label, model_kw, hypes, feature_shape, hosts,
     len(hosts) - 1 steps (CUDA events), the counts read just after. The
     model is ``build``'s (default ``HeterModel``); ``supervise_single``
     goes to the train step. Returns the cell for ``check_train`` and
-    ``hold_step``."""
+    ``hold_step``, which jitters the input ``jitter_key``."""
     import torch
     from types import SimpleNamespace
     from gencomm_tpu_torch.loss import create_loss
@@ -1743,12 +1829,14 @@ def time_train(smi, dev, label, model_kw, hypes, feature_shape, hosts,
     return cell
 
 
-def check_train(cell, targets, check, exact_zero=()):
+def check_train(cell, targets, check, exact_zero=(), jitter=scale_jitter,
+                explain_offsets=False):
     """A training path's checks, after every path is timed: the kernels
     named by ``targets`` on the arguments the train step gives them
-    (``check``), the step's profile, the loss falling on one batch, and one
-    step on the card against the CPU (``hold_step``). Returns the kernels'
-    rows."""
+    (``check``), the step's profile (its busy ms in ``cell.busy``), the
+    loss falling on one batch, and one step on the card against the CPU
+    (``hold_step``, with ``exact_zero``, ``jitter`` and
+    ``explain_offsets``). Returns the kernels' rows."""
     t_phase = time.perf_counter()
     model, batches, noises_dev = cell.model, cell.batches, cell.noises_dev
 
@@ -1762,8 +1850,9 @@ def check_train(cell, targets, check, exact_zero=()):
     model.zero_grad(set_to_none=True)
     rows = check(inputs)
     fill_launches(rows, cell.launches, cell.routes, f"{cell.label} training")
-    profile_device(lambda i: cell.step(batches[i], generator=cell.dgen),
-                   cell.ms, 2, "step")
+    cell.busy = profile_device(
+        lambda i: cell.step(batches[i], generator=cell.dgen), cell.ms, 2,
+        "step")[0]
 
     # the loss falls over 4 steps on one repeated batch
     model, step = cell.fresh(cell.dev)
@@ -1772,30 +1861,44 @@ def check_train(cell, targets, check, exact_zero=()):
     log(f"4 steps on one batch: total_loss {totals}")
     if not totals[-1] < totals[0]:
         raise AssertionError(f"the loss did not fall: {totals}")
-    hold_step(cell, exact_zero)
+    hold_step(cell, exact_zero, jitter, explain_offsets)
     phase_done(f"{cell.label} training, checks", t_phase)
     return rows
 
 
-def hold_step(cell, exact_zero=()):
+def hold_step(cell, exact_zero=(), jitter=scale_jitter,
+              explain_offsets=False):
     """One step on the card and on the port's CPU from ``cell.fresh``: the
     losses within LOSS_TOL, the gradients within GRAD_FACTOR x the CPU's own
     spread, the CPU step once more with its input (``jitter_key``) jittered
-    by JITTER (relative), which measures how far the gradients move with the
-    last bits of the inputs. The fusion's parameters named by a suffix in
-    ``exact_zero`` (``EXACT_ZERO_GRADS``) are logged, not held: their
-    gradients are zero in exact arithmetic and what is left is the noise
-    of cancelling terms."""
+    by ``jitter(x, noise)``, noise JITTER (relative) normal draws, which
+    measures how far the gradients move with the last bits of the inputs.
+    Each parameter's gap against its own spread is logged, the worst
+    first. The fusion's parameters named by a suffix in ``exact_zero``
+    (``EXACT_ZERO_GRADS``) are logged, not held: their gradients are zero in
+    exact arithmetic and what is left is the noise of cancelling terms.
+    With ``explain_offsets``, the step's K1b arguments on both sides go to
+    ``offset_gap`` (logged, not held)."""
     import torch
+    from gencomm_tpu_torch.ops import deform_conv
     from gencomm_tpu_torch.pipeline import batch_to_device
 
+    k1b = [(deform_conv, "deform_conv3x3_bwd")] if explain_offsets else []
+    out = {}
+
+    def run(side, step, batch, noises):
+        out[side] = step(batch, noises=noises)
+
     model, step = cell.fresh(cell.dev)
-    card = step(cell.batches[0], noises=cell.noises_dev)
+    card_k1b = record_calls(k1b, lambda: run(
+        "card", step, cell.batches[0], cell.noises_dev))
     cpu_batch = batch_to_device(cell.hosts[0], "cpu")
     cpu_model, cpu_step = cell.fresh("cpu")
     t0 = time.perf_counter()
-    cpu = cpu_step(cpu_batch, noises=cell.noises)
+    cpu_k1b = record_calls(k1b, lambda: run("cpu", cpu_step, cpu_batch,
+                                            cell.noises))
     cpu_s = time.perf_counter() - t0
+    card, cpu = out["card"], out["cpu"]
     for k, v in cpu.items():
         a, b = float(card[k]), float(v)
         log(f"card vs CPU {k}: {a:.7f} vs {b:.7f}")
@@ -1804,9 +1907,10 @@ def hold_step(cell, exact_zero=()):
     jit_model, jit_step = cell.fresh("cpu")
     jgen = torch.Generator().manual_seed(4)
     pts = cpu_batch[cell.jitter_key]
-    jit_step({**cpu_batch, cell.jitter_key: pts * (
-        1.0 + JITTER * torch.randn(pts.shape, generator=jgen))},
-        noises=cell.noises)
+    noise = JITTER * torch.randn(pts.shape, generator=jgen)
+    jit_k1b = record_calls(k1b, lambda: jit_step(
+        {**cpu_batch, cell.jitter_key: jitter(pts, noise)},
+        noises=cell.noises))
     log(f"CPU step took {cpu_s:.1f} s")
     names = None
     if exact_zero:
@@ -1815,19 +1919,85 @@ def hold_step(cell, exact_zero=()):
                          and n.endswith(tuple(exact_zero)))}
         noise = [n for n, _ in cpu_model.named_parameters() if n not in names]
         log_grad_errors("zero in exact arithmetic (logged, not held): CPU "
-                        f"vs CPU with a {JITTER:.0e} input jitter", jit_model,
-                        cpu_model, set(noise))
+                        f"vs CPU with a {JITTER:.0e} input jitter",
+                        grad_errors(jit_model, cpu_model, set(noise)))
         log_grad_errors("zero in exact arithmetic (logged, not held): card "
-                        "vs CPU", model, cpu_model, set(noise))
-    sensitivity = log_grad_errors(f"CPU vs CPU with a {JITTER:.0e} input jitter",
-                                  jit_model, cpu_model, names)
-    worst = log_grad_errors("card vs CPU", model, cpu_model, names)
+                        "vs CPU", grad_errors(model, cpu_model, set(noise)))
+    spread = grad_errors(jit_model, cpu_model, names)
+    gap = grad_errors(model, cpu_model, names)
+    log_grad_errors(f"CPU vs CPU with a {JITTER:.0e} input jitter", spread)
+    log_grad_errors("card vs CPU", gap)
+    ratios = sorted(((gap[n][0] / max(spread[n][0], 1e-30), n)
+                     for n in gap), reverse=True)
+    log("card vs CPU, each parameter against its own spread (logged, not "
+        "held), worst five: " + ", ".join(
+            f"{n} {gap[n][0]:.2e} / {spread[n][0]:.2e} = {r:.1f}"
+            for r, n in ratios[:5]))
+    worst = max(v[0] for v in gap.values())
+    sensitivity = max(v[0] for v in spread.values())
     tol = GRAD_FACTOR * sensitivity + GRAD_FLOOR
     log(f"card vs CPU gradients: worst |card-cpu|/|cpu| (L2) {worst:.3e}, "
         f"tol {GRAD_FACTOR} x {sensitivity:.3e} + {GRAD_FLOOR:.0e}")
+    if explain_offsets:
+        for label, args, errs in (("card", card_k1b, gap),
+                                  ("jittered CPU", jit_k1b, spread)):
+            offset_gap(label, args["deform_conv3x3_bwd"],
+                       cpu_k1b["deform_conv3x3_bwd"], errs, cpu_model)
     if not worst <= tol:
         raise AssertionError(f"gradients disagree: {worst} > {tol}")
     return card, cpu
+
+
+def offset_gap(label, args, cpu_args, errs, cpu_model):
+    """Logs where the offset gradients of a step (``label``: the card's, or
+    the jittered CPU step's) part from the CPU step's, from K1b's arguments
+    in each (x, offsets, weight, cotangent): the sampling taps whose floor
+    differs between the two sides' offsets (the offset gradient, a
+    difference of corners, jumps there), K1b's offset gradient against its
+    plain version on the step's own arguments, and the step's against the
+    CPU's, over every tap and over the taps whose floors agree, elementwise
+    and summed over the pixels (the offset conv's bias gradient), beside
+    the step's gaps ``errs`` (``grad_errors``) of the offset conv's weight
+    and bias."""
+    from gencomm_tpu_torch.ops.deform_conv import (
+        MAX_OFFSET, _geometry, deform_conv3x3_bwd, deform_conv3x3_bwd_plain,
+    )
+
+    def rel(a, ref):
+        return float((a.double() - ref.double()).norm()
+                     / ref.double().norm().clamp_min(1e-30))
+
+    def pixels(d, m):  # summed over the pixels: the bias gradient
+        return (d.double() * m).sum((0, 1, 2))
+
+    off, off_cpu = args[1].cpu(), cpu_args[1]
+    b, h, w, _ = off_cpu.shape
+    y0, x0 = _geometry(off, b, h, w)[:2]
+    y0_cpu, x0_cpu = _geometry(off_cpu, b, h, w)[:2]
+    flipped = (y0 != y0_cpu) | (x0 != x0_cpu)  # (B, H, W, 9)
+    agree = (~flipped)[..., None].expand(b, h, w, 9, 2).reshape(b, h, w, 18)
+    # the clamp passes the gradient of an offset inside its bound
+    inside = (off.abs() < MAX_OFFSET) & (off_cpu.abs() < MAX_OFFSET)
+    both = inside & agree
+    got = deform_conv3x3_bwd(*args)[1].cpu()
+    plain = deform_conv3x3_bwd_plain(*(t.cpu() for t in args))[1]
+    want = deform_conv3x3_bwd_plain(*cpu_args)[1]
+    (bias_name, bias), = ((n, p.grad) for n, p in cpu_model.named_parameters()
+                          if n.endswith("offset.bias"))
+    log(f"offset gradient, {label} vs CPU: {int(flipped.sum())} of "
+        f"{flipped.numel()} sampling taps take another floor (offsets: "
+        f"relative L2 {rel(off, off_cpu):.2e}, max |d| "
+        f"{float((off - off_cpu).abs().max()):.2e}); K1b's offset gradient "
+        f"vs its plain version on the same arguments {rel(got, plain):.2e}; "
+        f"{label} vs CPU over every tap {rel(got * inside, want * inside):.2e}"
+        f", over the taps whose floors agree "
+        f"{rel(got * both, want * both):.2e}; summed over the pixels "
+        f"{rel(pixels(got, inside), pixels(want, inside)):.2e} and "
+        f"{rel(pixels(got, both), pixels(want, both)):.2e} (the CPU's sum vs "
+        f"its {bias_name} gradient {rel(pixels(want, inside), bias):.2e}); "
+        "the step's gaps: " + ", ".join(
+            f"{n} {v[0]:.2e}" for n, v in errs.items()
+            if n.endswith(("offset.weight", "offset.bias"))))
 
 
 def nms_cases(dev):
@@ -2193,7 +2363,8 @@ def fusion_cell(smi, dev, method, scenes, host, hosts):
             return cell.model(cell.batch, noises=cell.noises_dev)
 
     reset_launch_counts()
-    warps = record_all(fusion, "warp_affine", forward)
+    warps = [a for _, a, _ in record_all([(fusion, "warp_affine")],
+                                              forward)]
     k3 = _cuda.LAUNCHES["warp_affine"]
     k3_routes = dict(warp.FORWARD_ROUTE_LAUNCHES)
     want_k3 = 1
@@ -2376,26 +2547,6 @@ def fusion_checks(smi, fam, kernel_rows):
     return summary
 
 
-def record_all(module, attr, run):
-    """The arguments (tensors detached and cloned) of every call of
-    ``module.attr`` during ``run()``."""
-    import torch
-
-    seen, real = [], getattr(module, attr)
-
-    def recorder(*args):
-        seen.append(tuple(a.detach().clone() if torch.is_tensor(a) else a
-                          for a in args))
-        return real(*args)
-
-    setattr(module, attr, recorder)
-    try:
-        run()
-    finally:
-        setattr(module, attr, real)
-    return seen
-
-
 def pyramid_timed(smi, dev):
     """Phase 13 (a) and (b), timed with the other paths before the
     process's first profiler session: stage1/m1_pyramid.yaml's model at
@@ -2504,7 +2655,8 @@ def pyramid_checks(smi, pyr, kernel_rows):
             cell.model(cell.batch)
 
     reset_launch_counts()
-    pairs = record_all(fusion, "warp_affine_pair", forward)
+    pairs = [a for _, a, _ in record_all(
+        [(fusion, "warp_affine_pair")], forward)]
     widths = [c for feat, score, _ in pairs
               for c in (feat.shape[-1], score.shape[-1])]
     k3, routes = _cuda.LAUNCHES["warp_affine"], dict(warp.FORWARD_ROUTE_LAUNCHES)
@@ -2542,7 +2694,8 @@ def pyramid_checks(smi, pyr, kernel_rows):
         train.criterion(train.model(train.batches[0]),
                         train.batches[0])["total_loss"].backward()
 
-    grads = record_all(warp, "warp_affine_bwd", forward_backward)
+    grads = [a for _, a, _ in record_all([(warp, "warp_affine_bwd")],
+                                          forward_backward)]
     train.model.zero_grad(set_to_none=True)
     if sorted(g.shape[-1] for g, _ in grads) != sorted(PYRAMID_WARP_WIDTHS):
         raise AssertionError(f"pyramid step: K3b widths "
@@ -2582,6 +2735,288 @@ def pyramid_checks(smi, pyr, kernel_rows):
     return summary
 
 
+def second_timed(smi, dev):
+    """Phase 14 (a), timed with the other paths before the process's first
+    profiler session: m3_att.yaml's model at full width on the flagship's
+    scenes (2 agents trimmed from 5, raw points to the card), eval fp32 and
+    bf16 looped and streamed (``time_eval``), and 1 + 10 train steps at
+    batch 2 x 2 agents with its optimizer and loss (``time_train``)."""
+    import dataclasses
+    from types import SimpleNamespace
+    import torch
+    from gencomm_tpu_torch.data.bucketing import trim_agent_slots
+    from gencomm_tpu_torch.data.synthetic import SyntheticScenes
+
+    t0 = time.perf_counter()
+    scenes = SyntheticScenes(dataclasses.replace(
+        scenes_config(), feature_stride=SECOND_STRIDE))
+    host = trim_agent_slots(scenes.sample(seed=0, batch_size=1),
+                            buckets=(2, 3, 5))
+    hosts = [trim_agent_slots(scenes.sample(TRAIN_SEED * 10000 + i,
+                                            TRAIN_BATCH), buckets=(2, 3, 5))
+             for i in range(1 + TIMED_STEPS)]
+    log(f"second frame and {len(hosts)} train batches sampled and labelled "
+        f"on the host in {time.perf_counter() - t0:.3f} s (raw points "
+        f"{host['points_m1'].shape}, no decoration); anchors "
+        f"{scenes.anchors.shape}, labels {hosts[0]['pos_equal_one'].shape}; "
+        f"{int(hosts[0]['pos_equal_one'].sum())} positive anchors in the "
+        "first batch")
+    sec = SimpleNamespace(scenes=scenes)
+    sec.eval = setup_eval(dev, SECOND, SECOND_FEATURE_SHAPE, scenes, host)
+    if "points_m1" not in sec.eval.batch or "decorated_m1" in sec.eval.batch:
+        raise AssertionError("the SECOND frame does not carry raw points")
+    time_eval(smi, sec.eval, "second", ("deform_conv3x3", "warp_affine",
+                                        "nms_closure"))
+    sec.eval16 = setup_eval(dev, SECOND, SECOND_FEATURE_SHAPE, scenes, host,
+                            half=True, state=sec.eval.state)
+    time_eval(smi, sec.eval16, "second", ("deform_conv3x3_bf16",
+                                          "warp_affine_bf16", "nms_closure"))
+    # the step's peak above what the process held before (the other
+    # paths' cells), its model and optimizer state included
+    held = torch.cuda.memory_allocated()
+    sec.train = time_train(
+        smi, dev, "second", SECOND, SECOND_HYPES, SECOND_FEATURE_SHAPE, hosts,
+        ("deform_conv3x3", "warp_affine", "deform_conv3x3_bwd",
+         "warp_affine_bwd"), "points_m1")
+    sec.train_peak_gib = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    log(f"second train path: peak memory {sec.train_peak_gib:.2f} GiB above "
+        f"the {held / 2 ** 30:.2f} GiB the process held before it")
+    return sec
+
+
+def jitter_within_voxels(points, noise):
+    """SECOND's points times (1 + noise), each point whose jitter would take
+    it to another voxel left where it was. hold_step's yardstick is the
+    gradients' move under rounding-sized changes of the inputs, as the
+    decorated fields' jitter is for the pillar paths; a point that changes
+    voxel changes the sparse lists themselves, which moved the CPU's own
+    gradients of the full-width step by up to 1.12 of their norm."""
+    import torch
+    from gencomm_tpu_torch.ops.sparse import voxel_index
+
+    enc = SECOND["modality_args"]["m1"]["encoder_args"]
+    moved = points * (1.0 + noise)
+    same = torch.ones(points.shape[:-1], dtype=torch.bool)
+    for ax in range(3):
+        lo, size = enc["lidar_range"][ax], enc["voxel_size"][ax]
+        same &= (voxel_index(moved[..., ax], lo, size)
+                 == voxel_index(points[..., ax], lo, size))
+    return torch.where(same[..., None], moved, points)
+
+
+def hold_sparse_ops(calls):
+    """Each recorded sparse op on the card against the port's CPU on its
+    own arguments: integer and boolean outputs equal, features within
+    SPARSE_TOL x max(1, max|cpu|); its time on the card (CUDA events); the
+    voxels each list holds against its capacity and the sites proposed,
+    by agent. The voxel means must give the same bits on a second run.
+    Returns {op: summed ms} and the lists' fill."""
+    import torch
+    from torch.utils._pytree import tree_map
+    from gencomm_tpu_torch.ops import sparse
+
+    def to_cpu(a):
+        return a.cpu() if torch.is_tensor(a) else a
+
+    ms, fill, n_agents = {}, [], 1
+    for i, (name, args, kwargs) in enumerate(calls):
+        fn = getattr(sparse, name)
+        card = fn(*args, **kwargs)
+        cpu = fn(*tree_map(to_cpu, args), **tree_map(to_cpu, kwargs))
+        card = card if isinstance(card, tuple) else (card,)
+        cpu = cpu if isinstance(cpu, tuple) else (cpu,)
+        worst = 0.0
+        for a, b in zip(card, cpu):
+            if not torch.is_tensor(b):
+                if a != b:
+                    raise AssertionError(f"{name} ({i}): {a} != {b}")
+                continue
+            a = a.cpu()
+            if b.is_floating_point():
+                err = float((a - b).abs().max()) if b.numel() else 0.0
+                scale = max(1.0, float(b.abs().max()) if b.numel() else 0.0)
+                worst = max(worst, err / scale)
+                if not err <= SPARSE_TOL * scale:
+                    raise AssertionError(f"{name} ({i}): card and CPU differ "
+                                         f"by {err} (scale {scale})")
+            elif not torch.equal(a, b):
+                raise AssertionError(f"{name} ({i}): card and CPU integer "
+                                     "outputs differ")
+        t = time_ms(lambda: fn(*args, **kwargs), iters=10, warmup=2)
+        ms[name] = ms.get(name, 0.0) + t
+        extra = ""
+        if name == "voxelize_mean":
+            again = fn(*args, **kwargs)
+            same = all(torch.equal(x, y) for x, y in zip(card, again))
+            bits_cpu = torch.equal(card[0].cpu(), cpu[0])
+            points, mask, _, _, grid, capacity = args
+            n_agents = points.shape[0]
+            keys = sparse.linear_key(torch.stack([
+                torch.arange(points.shape[0], device=points.device,
+                             dtype=torch.int32)[:, None].expand(
+                                 points.shape[:2])]
+                + [sparse.voxel_index(points[..., ax], args[2][ax],
+                                      args[3][ax]) for ax in (2, 1, 0)],
+                -1), grid, mask.bool())
+            distinct = int(torch.unique(keys[keys != sparse.INVALID_KEY])
+                           .numel())
+            held = int(card[2].sum())
+            per_agent = torch.bincount(card[1][card[2]][:, 0].long(),
+                                       minlength=points.shape[0]).tolist()
+            fill.append({"op": name, "held": held, "capacity": capacity,
+                         "distinct": distinct, "per_agent": per_agent})
+            extra = (f"; {held} voxels held of {capacity} ({distinct} "
+                     f"distinct, by agent {per_agent}); the same bits on a "
+                     f"second run {same}, bit-equal to the CPU {bits_cpu}")
+            if not same:
+                raise AssertionError("the voxel means differ between two "
+                                     "runs on the card")
+        elif name == "spconv3d_downsample":
+            held, capacity = int(card[2].sum()), args[7]
+            # every site the strided conv proposes: the list at a capacity
+            # of 8 a voxel, which holds them all
+            uncapped = fn(*args[:7], 8 * args[0].shape[0])
+            distinct = int(uncapped[2].sum())
+            per_agent = torch.bincount(card[1][card[2]][:, 0].long(),
+                                       minlength=n_agents).tolist()
+            fill.append({"op": name, "held": held, "capacity": capacity,
+                         "distinct": distinct, "per_agent": per_agent,
+                         "grid": list(card[3])})
+            extra = (f"; {held} sites held of {capacity} ({distinct} "
+                     f"proposed, held by agent {per_agent}), grid {card[3]}")
+        log(f"  {name} ({i}): card vs CPU worst {worst:.2e} of max(1, "
+            f"max|cpu|) (tol {SPARSE_TOL:.0e}), integers equal; {t:.4f} ms "
+            f"on the card{extra}")
+    return ms, fill
+
+
+def second_checks(smi, sec, kernel_rows):
+    """Phase 14's checks, after every path is timed. Eval: each sparse op
+    of the encoder on the card against the CPU on the path's own arguments
+    (``hold_sparse_ops``), the encoder's BEV card against CPU, K1 and K3
+    (fp32 and bf16) and N1 on the path's arguments, the profiles with the
+    encoder's share of the frame's device time and its operators, the
+    heads card against CPU (``check_eval``). Training: K1b and K3b on the
+    step's arguments, the step's profile and the encoder's share, the loss
+    falling on one batch, one step card against CPU (``check_train``)."""
+    import copy
+    import torch
+    from gencomm_tpu_torch.models.fuse import fusion
+    from gencomm_tpu_torch.ops import deform_conv, nms, sparse, warp
+
+    t_phase = time.perf_counter()
+    cell = sec.eval
+    enc = cell.model.branch_m1.encoder
+    points, mask = cell.batch["points_m1"], cell.batch["point_mask_m1"]
+
+    def encode():
+        with torch.inference_mode():
+            return enc(points, mask)
+
+    calls = record_all([(sparse, name) for name in SPARSE_OPS], encode)
+    log(f"second eval: the encoder's sparse op calls "
+        f"{[name for name, _, _ in calls]}")
+    op_ms, fill = hold_sparse_ops(calls)
+    enc_ms = time_ms(encode, iters=10, warmup=2)
+    bev = encode()
+    enc_cpu = copy.deepcopy(enc).cpu()
+    with torch.inference_mode():
+        bev_cpu = enc_cpu(points.cpu(), mask.cpu())
+    err = float((bev.cpu() - bev_cpu).abs().max())
+    scale = max(1.0, float(bev_cpu.abs().max()))
+    rel = float((bev.cpu() - bev_cpu).norm() / bev_cpu.norm().clamp_min(1e-30))
+    log(f"second encoder: BEV {tuple(bev.shape)} card vs CPU max |d| "
+        f"{err:.3e} (tol {CPU_TOL:.0e} x {scale:.3e}), relative L2 {rel:.3e}"
+        f"; {enc_ms:.3f} ms a call on the card (events; sparse ops "
+        f"{ {k: round(v, 4) for k, v in op_ms.items()} })")
+    if not (err <= CPU_TOL * scale and rel <= CPU_TOL):
+        raise AssertionError(f"the SECOND encoder's BEV: card and CPU "
+                             f"disagree ({err}, {rel})")
+    # 41 z planes -> 2 of 128 channels at 1/8 of the 2048 x 1024 grid
+    if tuple(bev.shape[2:]) != enc.bev_grid[1:] + (enc.out_channels,):
+        raise AssertionError(f"the SECOND BEV is {tuple(bev.shape)}")
+
+    # K1 and K3 on this path's (2, 32, 64, 128) maps, fp32 and bf16
+    add_rows(kernel_rows, "second eval", check_eval(
+        smi, cell, "second",
+        [(deform_conv, "deform_conv3x3"), (fusion, "warp_affine")],
+        lambda inputs: [check_deform(inputs, "second eval"),
+                        check_warp(inputs, "second eval")]))
+    add_rows(kernel_rows, "second eval bf16", check_eval(
+        smi, sec.eval16, "second",
+        [(deform_conv, "deform_conv3x3"), (fusion, "warp_affine")],
+        lambda inputs: [check_deform(inputs, "second eval bf16"),
+                        check_warp(inputs, "second eval bf16")],
+        fp32_cell=cell))
+    seen = record_calls([(nms, "nms_closure")],
+                        lambda: cell.pipe.run(cell.batch, seed=0))
+    n1 = check_nms(*seen["nms_closure"], "second eval", {})
+    n1["launches"] = cell.launches["nms_closure"]
+    add_rows(kernel_rows, "second eval", [n1])
+
+    # the encoder's share of the looped frame's device time (check_eval's
+    # profile), and its operators
+    enc_busy, _, enc_ops = profile_device(lambda i: encode(), enc_ms, 3,
+                                          "call", operators=True)
+    share = enc_busy / cell.busy if cell.busy else float("nan")
+    big = {k: round(v / cell.stream_ms, 4) for k, v in enc_ops.items()
+           if v > SPARSE_KERNEL_SHARE * cell.stream_ms}
+    log(f"second eval: the encoder takes {enc_busy:.3f} of the frame's "
+        f"{cell.busy:.3f} device ms ({share:.3f}); operators over "
+        f"{SPARSE_KERNEL_SHARE} of the streamed frame ({cell.stream_ms:.3f} "
+        f"ms): {big}")
+
+    train = sec.train
+    tmodel = train.model
+    tenc = tmodel.branch_m1.encoder
+    tpoints = train.batches[0]["points_m1"]
+    tmask = train.batches[0]["point_mask_m1"]
+    gen = torch.Generator(device=train.dev).manual_seed(5)
+    with torch.no_grad():
+        probe = tenc(tpoints, tmask)
+    cot = torch.randn(probe.shape, generator=gen, device=train.dev)
+
+    def enc_step(i):
+        tenc(tpoints, tmask).backward(cot)
+
+    add_rows(kernel_rows, "second train step", check_train(
+        train,
+        [(deform_conv, "deform_conv3x3_bwd"), (warp, "warp_affine_bwd")],
+        lambda inputs: [check_deform_bwd(inputs, "second train step"),
+                        check_warp_bwd(inputs, "second train step")],
+        jitter=jitter_within_voxels, explain_offsets=True))
+    enc_step_busy, _, _ = profile_device(enc_step, None, 2, "step",
+                                         operators=True)
+    tmodel.zero_grad(set_to_none=True)
+    step_share = enc_step_busy / train.busy if train.busy else float("nan")
+    log(f"second train: the encoder's forward and backward take "
+        f"{enc_step_busy:.3f} of the step's {train.busy:.3f} device ms "
+        f"({step_share:.3f}); the timed steps' peak memory "
+        f"{sec.train_peak_gib:.2f} GiB above the other paths' cells")
+    summary = {
+        "eval_fp32": {"looped_ms": round(cell.ms, 3),
+                      "streamed_ms": round(cell.stream_ms, 3),
+                      "launches": {k: v for k, v in cell.launches.items()
+                                   if v}},
+        "eval_bf16": {"looped_ms": round(sec.eval16.ms, 3),
+                      "streamed_ms": round(sec.eval16.stream_ms, 3)},
+        "train_ms_per_step": round(train.ms, 3),
+        "train_peak_gib": round(sec.train_peak_gib, 3),
+        "step_launches": {k: v for k, v in train.launches.items() if v},
+        "frame_busy_ms": round(cell.busy, 3),
+        "encoder_busy_ms": round(enc_busy, 3),
+        "encoder_share": round(share, 3),
+        "encoder_ms": round(enc_ms, 3),
+        "sparse_ops_ms": {k: round(v, 4) for k, v in op_ms.items()},
+        "ops_over_share": big, "lists": fill,
+        "step_busy_ms": round(train.busy, 3),
+        "encoder_step_busy_ms": round(enc_step_busy, 3),
+        "encoder_step_share": round(step_share, 3)}
+    log(f"second: {json.dumps(summary)}")
+    phase_done("SECOND, checks", t_phase)
+    return summary
+
+
 def run_bench():
     """One run of ``python -m gencomm_tpu_torch.bench`` (bf16 flagship); its
     JSON line echoed; streamed must equal looped."""
@@ -2608,6 +3043,10 @@ WORKFLOW_KERNELS = ("deform_conv3x3", "pillar_canvas", "warp_affine",
                     "splat_topk", "deform_conv3x3_bwd", "pillar_canvas_bwd",
                     "warp_affine_bwd", "splat_topk_bwd", "nms_closure")
 WORKFLOW_POOL = 4  # --batch_pool of the runs with a camera modality
+# the kernels SECOND's training run and inference (phase 14 (c)) must launch
+SECOND_WORKFLOW_KERNELS = ("deform_conv3x3", "warp_affine",
+                           "deform_conv3x3_bwd", "warp_affine_bwd",
+                           "nms_closure")
 # the anchor-box evaluation: the first ANCHOR_TOPK of the 16,384 anchors by
 # score into N1; scores by anchor type (yaw 0, yaw 90)
 ANCHOR_TOPK = 2048
@@ -2636,9 +3075,10 @@ class _Tee:
 
 
 def workflow(root: str) -> dict:
-    """Phases 11, 12 (c) and 13 (c), in their own process: the GenComm
-    two-stage workflow and HEAL's through the tools' main(argv) on the
-    card; raises on any failed check and returns the phase's numbers."""
+    """Phases 11, 12 (c), 13 (c) and 14 (c), in their own process: the
+    GenComm two-stage workflow, HEAL's and SECOND's stage 1 through the
+    tools' main(argv) on the card; raises on any failed check and returns
+    the phase's numbers."""
     import ast
     import contextlib
     import io
@@ -2681,6 +3121,16 @@ def workflow(root: str) -> dict:
         yaml_of[key] = os.path.join(HEAL_CONFIGS, rel + ".yaml")
     heal_final = os.path.join(root, "heal_final_m1m2")
     heal_final_yaml = os.path.join(HEAL_CONFIGS, "final_infer", "m1m2.yaml")
+    # phase 14 (c): SECOND's stage 1 on a copy of m3_att.yaml in its run's
+    # directory, with only its anchors' feature_stride changed (fault n)
+    run["stage1_m3"] = os.path.join(root, "stage1_m3")
+    yaml_of["stage1_m3"] = os.path.join(run["stage1_m3"], "m3_att.yaml")
+    os.makedirs(run["stage1_m3"])
+    with open(SECOND_YAML) as f:
+        m3_raw = yaml.safe_load(f)
+    m3_raw["postprocess"]["anchor_args"]["feature_stride"] = SECOND_STRIDE
+    with open(yaml_of["stage1_m3"], "w") as f:
+        yaml.safe_dump(m3_raw, f)
 
     # every model the tools build and every batch they step, on the card
     models = []
@@ -2818,6 +3268,20 @@ def workflow(root: str) -> dict:
         "--model_dir", run["stage1_v2xvit"], "--dataset", "synthetic",
         "--frames", str(V2XVIT_FRAMES), "--device", "cuda"])
     GenCommDiffusion.draw_noises = real_draw
+    # phase 14 (c): SECOND's stage 1, one epoch, and its evaluation
+    m3_index = len(last_calls)
+    tool("train stage1 m3_att", train.main, train_argv("stage1_m3", 1))
+    GenCommDiffusion.draw_noises = host_drawn
+    tool("inference m3_att", inference.main, [
+        "--model_dir", run["stage1_m3"], "--dataset", "synthetic",
+        "--frames", str(EVAL_FRAMES), "--device", "cuda"])
+    GenCommDiffusion.draw_noises = real_draw
+    m3_launches = {k: by_tool["train stage1 m3_att"].get(k, 0)
+                   + by_tool["inference m3_att"].get(k, 0)
+                   for k in SECOND_WORKFLOW_KERNELS}
+    log(f"workflow: SECOND kernel launches {m3_launches}")
+    if not all(m3_launches.values()):
+        raise AssertionError(f"the SECOND runs launched {m3_launches}")
     launches = {k: _cuda.LAUNCHES[k] for k in WORKFLOW_KERNELS}
     log(f"workflow: GenComm kernel launches {launches}")
     missing = [k for k, n in launches.items() if n <= 0]
@@ -2965,8 +3429,9 @@ def workflow(root: str) -> dict:
             anchor_state[f"heads.{head}.weight"].zero_()
             anchor_state[f"heads.{head}.bias"].zero_()
         anchor_state["heads.cls_head.bias"].copy_(torch.tensor(ANCHOR_LOGITS))
-        checkpoint.save_checkpoint(os.path.join(root, f"{name}_anchor_boxes"),
-                                   anchor_state, 0, epoch=0)
+        checkpoint.save_checkpoint(
+            os.path.join(root, f"{name}_anchor_boxes"), anchor_state, 0,
+            epoch=0)
         GenCommDiffusion.draw_noises = host_drawn
         tool(f"{card_label} on the CPU", inference.main, [
             "--model_dir", run_dir, "--dataset", "synthetic",
@@ -3051,6 +3516,17 @@ def workflow(root: str) -> dict:
     vx_aps, vx_kept, vx_trained_err, vx_head_err = evaluate_run(
         "v2xvit", run["stage1_v2xvit"], V2XVIT_FRAMES,
         last_calls[stage2_index + 1][1][0][0], "inference m1_v2xvit")
+    # phase 14 (c): SECOND's stage 1, its trained checkpoint, its copy
+    # refreshed on its run's last batch and its anchor-box copy (heads on a
+    # 3.2 m lattice, twice the flagship's: 17 of the 48 GT at IoU 0.3 on
+    # the CPU, scripts/anchor_box_ap_torch.py on the run's yaml)
+    m3_aps, m3_kept, m3_trained_err, m3_head_err = evaluate_run(
+        "m3", run["stage1_m3"], EVAL_FRAMES, last_calls[m3_index][1][0][0],
+        "inference m3_att")
+    result["m3"] = {"aps": m3_aps, "kept_per_frame": m3_kept,
+                    "card_vs_cpu_heads_refreshed": m3_head_err,
+                    "card_vs_cpu_heads_trained": m3_trained_err,
+                    "launches": m3_launches}
     result.update(
         aps=aps, kept_per_frame=kept, comm=comm_report("inference"),
         card_vs_cpu_heads_refreshed=head_err,
@@ -3091,7 +3567,7 @@ def workflow(root: str) -> dict:
         sa, skw = call
         log(f"workflow: {label}, 2 steps on its last batch under the "
             "profiler")
-        busy, n_launches = profile_device(
+        busy, n_launches, _ = profile_device(
             lambda i: step(*sa, **skw), ms_per_step_events[label][-1], 2,
             "step")
         device_ms_per_step[label] = {"busy_ms": round(busy, 3),
@@ -3104,8 +3580,9 @@ def workflow(root: str) -> dict:
 
 
 def run_workflow():
-    """Phases 11, 12 (c) and 13 (c) in their own process (``chip_smoke.py
-    --workflow DIR``); its last line is the phases' JSON, echoed here."""
+    """Phases 11, 12 (c), 13 (c) and 14 (c) in their own process
+    (``chip_smoke.py --workflow DIR``); its last line is the phases' JSON,
+    echoed here."""
     t_phase = time.perf_counter()
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         "workflow")
@@ -3250,10 +3727,13 @@ def main() -> int:
     # the paths above
     fam = fusion_timed(smi, dev, scenes, host, hosts)
     pyr = pyramid_timed(smi, dev)
+    # phase 14: SECOND, timed with the paths above
+    sec = second_timed(smi, dev)
     for cell, label in ((lidar, "lidar fp32"), (lidar16, "lidar bf16"),
                         (camera, "camera fp32"), (camera16, "camera bf16"),
                         (fam.vx, "v2xvit fp32"), (fam.vx16, "v2xvit bf16"),
-                        (pyr.eval, "pyramid fp32")):
+                        (pyr.eval, "pyramid fp32"), (sec.eval, "second fp32"),
+                        (sec.eval16, "second bf16")):
         log(f"eval {label}: looped {cell.ms:.3f} ms/frame "
             f"({1000.0 / cell.ms:.2f} frames/s), streamed {cell.stream_ms:.3f}"
             f" ms/frame ({1000.0 / cell.stream_ms:.2f} frames/s) on {smi} "
@@ -3335,6 +3815,8 @@ def main() -> int:
     del fam, hosts
     pyramid_checks(smi, pyr, kernel_rows)
     del pyr
+    second_checks(smi, sec, kernel_rows)
+    del sec
 
     general_cases = {"pillar_canvas_bwd": ("general_route", GENERAL_CANVAS),
                      "deform_conv3x3": ("general_route", GENERAL_SHAPE),

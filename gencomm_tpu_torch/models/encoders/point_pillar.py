@@ -68,6 +68,9 @@ class PFNLayer(nn.Module):
 
 
 class PointPillarEncoder(nn.Module):
+    # it takes the host decoration's fields, not raw points
+    takes_raw_points = False
+
     def __init__(self, voxel_size: Tuple[float, float, float],
                  lidar_range: Tuple[float, ...], num_filters: Sequence[int] = (64,),
                  use_norm: bool = True, dtype=None):

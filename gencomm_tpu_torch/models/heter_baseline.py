@@ -1,9 +1,10 @@
 """Heterogeneous collaboration model, GenComm stage 1, eval and training.
 
 Counterpart of ``gencomm_tpu/models/heter_baseline.py`` (``ModalityBranch``,
-``HeterModel.__call__``) restricted to: host-decorated point_pillar and
-lift_splat_shoot camera modalities, ``use_gencomm`` (message extractor +
-conditional DDPM), ``use_enhancer``, ``supervise_single`` (per-agent heads),
+``HeterModel.__call__``) restricted to: host-decorated point_pillar,
+SECOND (raw points) and lift_splat_shoot camera modalities, ``use_gencomm``
+(message extractor + conditional DDPM), ``use_enhancer``,
+``supervise_single`` (per-agent heads),
 the two stage-2 switches ``missing_message_rate`` and ``gencomm_trick``,
 Where2comm's communication mask (``use_comm_mask``) and the intermediate
 fusions of ``models/fuse`` other than ``pyramid``, with fp32
@@ -17,7 +18,8 @@ whose other train-time branches are off there. Every other branch raises
 541, 547, 562``): parameters stay fp32, so one ``state_dict`` serves both
 graphs. Each modality's PFN, neck and shrinker run in bf16 (a camera
 encoder also takes ``trunk_bf16`` and ``splat_bf16`` unless its arguments
-set them), the feature leaves the branch in bf16 and stays so through the
+set them; SECOND's encoder stays fp32, as the JAX one has no dtype), the
+feature leaves the branch in bf16 and stays so through the
 message extractor's deformable conv (its other layers promote to fp32, as
 flax's do), generation and the Enhancer; the fusion returns fp32 and the
 heads run in fp32 (``v2xvit`` takes ``half`` itself; the other fusions
@@ -45,6 +47,7 @@ from gencomm_tpu_torch.models.encoders.lss import (
     LSSEncoder, center_crop_or_pad,
 )
 from gencomm_tpu_torch.models.encoders.point_pillar import PointPillarEncoder
+from gencomm_tpu_torch.models.encoders.second import SECONDEncoder
 from gencomm_tpu_torch.models.fuse.fusion import build_fusion
 from gencomm_tpu_torch.models.fuse.where2comm import Communication
 from gencomm_tpu_torch.models.gencomm.diffusion import GenCommDiffusion
@@ -57,9 +60,9 @@ from gencomm_tpu_torch.utils.transformation_utils import normalize_pairwise_tfm
 
 class ModalityBranch(nn.Module):
     """encoder -> backbone -> shrinker for one modality; ``core_method``
-    selects the encoder, ``point_pillar`` or ``lift_splat_shoot``. With
-    ``encode_only`` (the HEAL pyramid models) the branch is the encoder
-    alone and returns its canvas."""
+    selects the encoder, ``point_pillar``, ``second`` or
+    ``lift_splat_shoot``. With ``encode_only`` (the HEAL pyramid models)
+    the branch is the encoder alone and returns its canvas."""
 
     def __init__(self, encoder_args: Dict[str, Any],
                  backbone_args: Dict[str, Any] | None,
@@ -88,6 +91,14 @@ class ModalityBranch(nn.Module):
                 num_filters=tuple(encoder_args["pillar_vfe"]["num_filters"]),
                 use_norm=encoder_args["pillar_vfe"].get("use_norm", True),
                 dtype=dtype)
+        elif core_method == "second":
+            # fp32 whatever ``dtype``: the JAX encoder has none
+            self.encoder = SECONDEncoder(
+                voxel_size=tuple(encoder_args["voxel_size"]),
+                lidar_range=tuple(encoder_args["lidar_range"]),
+                voxel_capacity_per_agent=encoder_args.get("max_voxels", 32000),
+                out_ch=encoder_args.get("spconv", {}).get(
+                    "num_features_out", 128))
         else:
             raise NotImplementedError(
                 f"encoder {core_method!r} is not ported yet (ROADMAP item 18)")
@@ -114,6 +125,8 @@ class ModalityBranch(nn.Module):
         depth_logits = None
         if self.core_method == "lift_splat_shoot":
             canvas, depth_logits = self.encoder(inputs)  # fp32
+        elif self.core_method == "second":
+            canvas = self.encoder(inputs["points"], inputs["point_mask"])
         else:
             canvas = self.encoder(inputs["decorated"], inputs["gids"],
                                   inputs["dvalid"])  # (B, L, ny, nx, C) bf16
@@ -121,11 +134,29 @@ class ModalityBranch(nn.Module):
             return canvas, depth_logits
         b, l = canvas.shape[:2]
         flat = canvas.reshape((b * l,) + canvas.shape[2:])
-        # in fp32 the neck runs on the bf16 canvas values, as flax promotes;
-        # under half its first conv casts a camera's fp32 canvas to bf16
+        # in fp32 the neck runs on the bf16 pillar canvas values, as flax
+        # promotes; under half its first conv casts a camera's or SECOND's
+        # fp32 canvas to bf16
         feat = self.shrinker(self.backbone(
             flat.float() if self.dtype is None else flat))
         return feat.reshape((b, l) + feat.shape[1:]), depth_logits
+
+
+def lidar_inputs(branch: ModalityBranch, batch, mname: str):
+    """A lidar branch's inputs from the batch: raw points and their mask
+    for an encoder that ``takes_raw_points`` (SECOND), else the decorated
+    fields (PointPillars; its raw-point path raises)."""
+    if branch.encoder.takes_raw_points:
+        return {"points": batch[f"points_{mname}"],
+                "point_mask": batch[f"point_mask_{mname}"]}
+    if f"decorated_{mname}" not in batch:
+        raise NotImplementedError(
+            "raw-point input to a point_pillar encoder is not ported yet "
+            "(ROADMAP item 18); decorate the points on the host "
+            "(gencomm_tpu_torch.data.decorate)")
+    return {"decorated": batch[f"decorated_{mname}"],
+            "gids": batch[f"gids_{mname}"],
+            "dvalid": batch[f"dvalid_{mname}"].bool()}
 
 
 class HeterModel(nn.Module):
@@ -217,9 +248,10 @@ class HeterModel(nn.Module):
     def device(self) -> torch.device:
         return self.heads.cls_head.weight.device
 
-    def lidar_encoder(self, mname: str) -> PointPillarEncoder:
-        """The pillar encoder of lidar modality ``mname`` (its grid is the
-        host decoration's)."""
+    def lidar_encoder(self, mname: str):
+        """The encoder of lidar modality ``mname``: a ``PointPillarEncoder``,
+        whose grid the host decoration takes, or a ``SECONDEncoder``, which
+        takes the raw points."""
         return getattr(self, f"branch_{mname}").encoder
 
     def camera_bev_shape(self, mname: str, h: int, w: int) -> Tuple[int, int]:
@@ -234,9 +266,10 @@ class HeterModel(nn.Module):
     def forward(self, batch: Dict[str, torch.Tensor], noises=None,
                 generator: torch.Generator | None = None) -> Dict[str, Any]:
         """batch: tensors on the model's device (``agent_mask``,
-        ``pairwise_t_matrix``, ``modality_mask_<m>`` and, for a lidar
+        ``pairwise_t_matrix``, ``modality_mask_<m>`` and, for a pillar
         modality, the decorated fields ``decorated_<m>``, ``gids_<m>``,
-        ``dvalid_<m>``; for a camera modality ``imgs_<m>``, ``rots_<m>``,
+        ``dvalid_<m>``; for a SECOND modality the raw ``points_<m>`` and
+        ``point_mask_<m>``; for a camera modality ``imgs_<m>``, ``rots_<m>``,
         ``trans_<m>``, ``intrins_<m>``, ``post_rots_<m>``,
         ``post_trans_<m>`` and optionally ``depths_<m>``). ``noises`` or
         ``generator`` feed the diffusion (see GenCommDiffusion); with a
@@ -266,14 +299,9 @@ class HeterModel(nn.Module):
                     "post_trans")}
                 if f"depths_{mname}" in batch:
                     inputs["depths"] = batch[f"depths_{mname}"]
-            elif f"decorated_{mname}" in batch:
-                inputs = {"decorated": batch[f"decorated_{mname}"],
-                          "gids": batch[f"gids_{mname}"],
-                          "dvalid": batch[f"dvalid_{mname}"].bool()}
             else:
-                raise NotImplementedError(
-                    "raw-point input is not ported; decorate the points on "
-                    "the host (gencomm_tpu_torch.data.decorate)")
+                inputs = lidar_inputs(getattr(self, f"branch_{mname}"),
+                                      batch, mname)
             feat, depth_logits = getattr(self, f"branch_{mname}")(inputs)
             if mname in self.camera_extent:
                 # align the camera's BEV extent to the lidar range by a

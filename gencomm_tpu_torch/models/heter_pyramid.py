@@ -46,10 +46,11 @@ from gencomm_tpu_torch.models.backbones.resnet_bev import ResNetBEVBackbone
 from gencomm_tpu_torch.models.encoders.lss import (
     LSSEncoder, center_crop_or_pad,
 )
-from gencomm_tpu_torch.models.encoders.point_pillar import PointPillarEncoder
 from gencomm_tpu_torch.models.fuse.pyramid import MsFusion, PyramidFusion
 from gencomm_tpu_torch.models.heads import DetectionHeads
-from gencomm_tpu_torch.models.heter_baseline import ModalityBranch
+from gencomm_tpu_torch.models.heter_baseline import (
+    ModalityBranch, lidar_inputs,
+)
 from gencomm_tpu_torch.models.layers import DownsampleConv, NaiveCompressor
 from gencomm_tpu_torch.utils.transformation_utils import normalize_pairwise_tfm
 
@@ -116,7 +117,7 @@ class _HeterBranches(nn.Module):
     def device(self) -> torch.device:
         return self.heads.cls_head.weight.device
 
-    def lidar_encoder(self, mname: str) -> PointPillarEncoder:
+    def lidar_encoder(self, mname: str):
         return getattr(self, f"enc_branch_{mname}").encoder
 
     def _is_camera(self, mname: str) -> bool:
@@ -142,18 +143,12 @@ class _HeterBranches(nn.Module):
                 out[f"depth_items_{m}"] = (logits, gt_idx, wt)
             elif depth_logits is not None:
                 out[f"depth_items_{m}"] = depth_logits
-        elif f"decorated_{m}" in batch:
-            canvas, _ = getattr(self, f"enc_branch_{m}")({
-                "decorated": batch[f"decorated_{m}"],
-                "gids": batch[f"gids_{m}"],
-                "dvalid": batch[f"dvalid_{m}"].bool()})
         else:
-            raise NotImplementedError(
-                "raw-point input is not ported; decorate the points on the "
-                "host (gencomm_tpu_torch.data.decorate)")
+            branch = getattr(self, f"enc_branch_{m}")
+            canvas, _ = branch(lidar_inputs(branch, batch, m))
         b, l = canvas.shape[:2]
         # the bf16 pillar canvas promotes to fp32 at the first conv, as in
-        # flax
+        # flax (SECOND's is fp32)
         flat = canvas.reshape((b * l,) + canvas.shape[2:]).float()
         feat = getattr(self, f"aligner_{m}")(getattr(self, f"backbone_{m}")(
             flat))

@@ -42,12 +42,12 @@ MODES = ("intermediate", "late", "no")
 
 
 def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
-    """numpy arrays / tensors -> tensors on ``device``; raw points are left
-    out (the model takes the host-decorated fields)."""
+    """numpy arrays / tensors -> tensors on ``device``. The host decoration
+    has already replaced a pillar modality's raw points; a SECOND
+    modality's are kept for its encoder."""
     return {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v,
                                device=device)
-            for k, v in batch.items()
-            if not k.startswith(("points_", "point_mask_"))}
+            for k, v in batch.items()}
 
 
 class FrameGraph:
@@ -217,14 +217,17 @@ class InferencePipeline:
             return Detections(*stacked)
 
     def decorate(self, host: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-        """A sampled batch with every lidar modality's raw points replaced by
-        the host decoration on its encoder's grid (data/decorate.py)."""
+        """A sampled batch with every pillar modality's raw points replaced
+        by the host decoration on its encoder's grid (data/decorate.py); a
+        SECOND modality keeps its raw points."""
         for m in self.model.modalities:
             if f"points_{m}" not in host:
                 continue
             vox = self._voxelizers.get(m)
             if vox is None:
                 enc = self.model.lidar_encoder(m)
+                if enc.takes_raw_points:
+                    continue
                 vox = self._voxelizers[m] = PillarVoxelizer(enc.lidar_range,
                                                             enc.voxel_size)
             host = decorate_modality(host, vox, m)

@@ -11,7 +11,8 @@ Counterpart of ``gencomm_tpu/tools/inference.py``:
 The run's ``config.yaml`` builds the model; the checkpoint is ``--ckpt``,
 else the run's bestval, else its latest. Frame f is
 ``sample(1000 + f, 1)``, its agents capped at ``--use_cav``, trimmed to the
-agent buckets (2, 3, 5) and decorated on the host, then
+agent buckets (2, 3, 5) and its pillar modalities decorated on the host (a
+SECOND modality's raw points go to the device), then
 ``InferencePipeline.run`` with diffusion seed f. Writes ``eval.yaml`` and
 ``eval_global_sort.yaml`` (suffixed ``_<infer_info>``) into the run dir.
 ``--report_comm`` prints the GenComm message's payload of the last frame.

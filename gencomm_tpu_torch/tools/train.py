@@ -22,7 +22,8 @@ train step runs the criterion's "_single" pass. ``--trainer kd`` distils
 ``--teacher_ckpt`` runs frozen beside the student, and a plain detection
 criterion is upgraded to ``point_pillar_disconet_loss``. Each epoch: the host
 pipeline (sampling, labels, agent-slot trimming, the C++ pillar
-decoration) on a producer thread or ``--workers`` processes, the steps on
+decoration; a SECOND modality keeps its raw points) on a producer thread
+or ``--workers`` processes, the steps on
 the device, ``step_<epoch>`` every ``save_freq`` epochs, and the
 validation loss on held-out scenes with one rolling ``bestval_at_<epoch>``
 whose loss ``bestval.json`` keeps across resumes. Runs on ``cuda`` unless
@@ -211,7 +212,9 @@ def parse_args(argv=None):
     parser.add_argument("--half", action="store_true",
                         help="bf16 training: not ported")
     parser.add_argument("--no_host_decorate", action="store_true",
-                        help="raw points to the device: not ported")
+                        help="raw points to a pillar encoder: not ported "
+                             "(a SECOND modality takes its raw points "
+                             "without it)")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
     return parser.parse_args(argv)
@@ -230,7 +233,8 @@ def main(argv=None):
             "bf16 K1b and K3b)")
     if args.no_host_decorate:
         raise NotImplementedError(
-            "raw-point input is not ported yet (ROADMAP item 18)")
+            "raw-point input to a point_pillar encoder (ops/voxel.py) is not "
+            "ported yet (ROADMAP item 18)")
     device = resolve_device(args.device)
 
     hypes = load_yaml(args.hypes_yaml, args.model_dir)

@@ -66,12 +66,19 @@ def _ccw(poly: np.ndarray) -> np.ndarray:
 
 
 def polygon_iou(quad_a: np.ndarray, quads_b: np.ndarray) -> np.ndarray:
-    """IoU of one quad (4, 2) against many (M, 4, 2)."""
+    """IoU of one quad (4, 2) against many (M, 4, 2). A quad whose bounding
+    box lies apart from ``quad_a``'s shares no area with it: its IoU stays
+    0 without the clip."""
     a = _ccw(np.asarray(quad_a, np.float64))
+    quads_b = np.asarray(quads_b, np.float64)
     ious = np.zeros(len(quads_b))
+    if not len(quads_b):
+        return ious
     area_a = _area(a)
-    for i, qb in enumerate(quads_b):
-        b = _ccw(np.asarray(qb, np.float64))
+    near = np.all((quads_b.min(axis=1) <= a.max(axis=0))
+                  & (quads_b.max(axis=1) >= a.min(axis=0)), axis=1)
+    for i in np.flatnonzero(near):
+        b = _ccw(quads_b[i])
         inter = _area(_clip_polygon(a, b))
         union = area_a + _area(b) - inter
         ious[i] = inter / union if union > 0 else 0.0

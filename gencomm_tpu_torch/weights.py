@@ -10,9 +10,11 @@ the torch key ``a.b.Conv_0.weight``. Layouts:
   ConvTranspose  (kh, kw, I, O)  -> (I, O, kh, kw), flipped spatially
   Dense          (I, O)          -> (O, I)
   norm layers    scale, bias     -> weight, bias; batch_stats mean, var ->
-                                    running_mean, running_var
-  raw parameters keep their layout: dcn_kernel, dcn_bias; the fusions'
-                 flax layouts, TypedDense / DenseGeneral kernel and bias,
+                                    running_mean, running_var (the masked
+                                    norms of PFN and SECOND too)
+  raw parameters keep their layout: dcn_kernel, dcn_bias; SECOND's sparse
+                 conv kernels (kz, ky, kx, I, O); the fusions' flax
+                 layouts, TypedDense / DenseGeneral kernel and bias,
                  relation_att / relation_msg, rel_pos, rel_pos_bias.
 
 ``random_state_dict`` makes seeded random weights for runs without a

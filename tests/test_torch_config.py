@@ -6,12 +6,13 @@ slice.
   package's dict (the same keys and values, numpy arrays by value), and the
   port's ``create_model`` / ``create_loss`` either build or raise
   ``NotImplementedError``, nothing else.
-- The eleven GenComm configs the port builds (``stage1/m1_att``,
-  ``m2_att``, ``m4_att``, ``stage2/m1m2_att``, ``m1m4_att`` and the V2X-ViT
-  rows ``stage1/m1_v2xvit``, ``m2_v2xvit``, ``m4_v2xvit``,
-  ``stage2/m1m2_v2xvit``, ``m1m4_v2xvit`` and DAIR-V2X's
-  ``stage1/m1_v2xvit``): the port's model has the parameter names and
-  shapes of ``jax.eval_shape`` of the JAX model's init, mapped through
+- Fourteen GenComm configs the port builds (``stage1/m1_att``,
+  ``m2_att``, ``m3_att``, ``m4_att``, ``stage2/m1m2_att``, ``m1m4_att``
+  and the V2X-ViT rows ``stage1/m1_v2xvit``, ``m2_v2xvit``,
+  ``m3_v2xvit``, ``m4_v2xvit``, ``stage2/m1m2_v2xvit``, ``m1m4_v2xvit``
+  and DAIR-V2X's ``stage1/m1_v2xvit`` and ``m3_v2xvit``) and the HEAL
+  configs of ``HEAL``: the port's model has the parameter names and shapes
+  of ``jax.eval_shape`` of the JAX model's init, mapped through
   ``weights.py``.
 - Narrowed copies of ``stage1/m1_att`` and ``stage2/m1m2_att`` (a 32 x 16 m
   range, narrow widths; the same hypes dict into both packages): heads with
@@ -63,13 +64,17 @@ GENCOMM = ["configs/opv2v/gencomm/stage1/m1_att.yaml",
            "configs/opv2v/gencomm/stage1/m4_v2xvit.yaml",
            "configs/opv2v/gencomm/stage2/m1m2_v2xvit.yaml",
            "configs/opv2v/gencomm/stage2/m1m4_v2xvit.yaml",
-           "configs/dairv2x/gencomm/stage1/m1_v2xvit.yaml"]
-# the opv2v HEAL configs without a SECOND modality: stage 1, the stage-2
-# single models and the final m1 + m2 inference
+           "configs/dairv2x/gencomm/stage1/m1_v2xvit.yaml",
+           "configs/opv2v/gencomm/stage1/m3_att.yaml",
+           "configs/opv2v/gencomm/stage1/m3_v2xvit.yaml",
+           "configs/dairv2x/gencomm/stage1/m3_v2xvit.yaml"]
+# the opv2v HEAL configs: stage 1, the stage-2 single models and the final
+# m1 + m2 inference
 HEAL = [f"configs/opv2v/heal/{p}.yaml" for p in (
-    "stage1/m1_pyramid", "stage1/m2_pyramid", "stage1/m4_pyramid",
-    "stage2/m1_single_pyramid", "stage2/m2_single_pyramid",
-    "stage2/m4_single_pyramid", "final_infer/m1m2")]
+    "stage1/m1_pyramid", "stage1/m2_pyramid", "stage1/m3_pyramid",
+    "stage1/m4_pyramid", "stage2/m1_single_pyramid",
+    "stage2/m2_single_pyramid", "stage2/m4_single_pyramid",
+    "final_infer/m1m2")]
 SMALL_RANGE = [-16.0, -8.0, -3.0, 16.0, 8.0, 1.0]
 
 
@@ -171,9 +176,9 @@ def test_build_count_and_the_roadmap_items_named(capsys):
     with capsys.disabled():
         print(f"\n{len(built)} of {len(outcomes)} configs build in the port")
     assert all(c in built for c in GENCOMM + HEAL)
-    # 98 before the HEAL pyramid slice, + 22 pyramid cores (the 6 with a
-    # SECOND modality raise item 18) + 14 supervise_single configs
-    assert len(built) >= 134
+    # 98 before the HEAL pyramid slice, + 22 pyramid cores + 14
+    # supervise_single configs = 134, + 43 with a SECOND modality
+    assert len(built) >= 177
     # each refusal names the ROADMAP item that ports what is missing
     for c, o in outcomes.items():
         assert o == "built" or "ROADMAP item" in o, (c, o)
@@ -181,7 +186,8 @@ def test_build_count_and_the_roadmap_items_named(capsys):
 
 def _shape_batch(hypes, points=1000):
     """ShapeDtypeStructs of a 1-sample, 2-agent batch of the hypes'
-    modalities (decorated lidar fields, camera arrays)."""
+    modalities (decorated pillar fields, SECOND's raw points, camera
+    arrays)."""
     s = jax.ShapeDtypeStruct
     b = {"agent_mask": s((1, 2), jnp.bool_),
          "pairwise_t_matrix": s((1, 2, 2, 4, 4), jnp.float32)}
@@ -197,6 +203,9 @@ def _shape_batch(hypes, points=1000):
                             ("post_rots", (3, 3)), ("trans", (3,)),
                             ("post_trans", (3,))):
                 b[f"{k}_{m}"] = s((1, 2, n) + tail, jnp.float32)
+        elif mc.get("core_method") == "second":
+            b[f"points_{m}"] = s((1, 2, points, 4), jnp.float32)
+            b[f"point_mask_{m}"] = s((1, 2, points), jnp.bool_)
         else:
             b[f"decorated_{m}"] = s((1, 2, points, 10), jnp.float32)
             b[f"gids_{m}"] = s((1, 2, points), jnp.int32)
@@ -204,12 +213,14 @@ def _shape_batch(hypes, points=1000):
     return b
 
 
-# DAIR-V2X's range gives a 50 x 126 fused map, which V2X-ViT's windows of 4,
-# 8 and 16 do not divide: the JAX model cannot even be initialised on it
-# (suspected reference fault k, test_torch_fusion.py). Parameter shapes do
-# not depend on the map, so that config's are taken on a 64 x 128 one.
-WINDOWED_RANGE = {"configs/dairv2x/gencomm/stage1/m1_v2xvit.yaml":
-                  [-102.4, -51.2, -3.5, 102.4, 51.2, 1.5]}
+# DAIR-V2X's range gives fused maps (50 x 126 for PointPillars) which
+# V2X-ViT's windows of 4, 8 and 16 do not divide: the JAX model cannot even
+# be initialised on them (suspected reference fault k, test_torch_fusion.py).
+# Parameter shapes do not depend on the map (nor, for SECOND, on x and y),
+# so those configs' are taken on the 204.8 x 102.4 m range.
+WINDOWED_RANGE = {c: [-102.4, -51.2, -3.5, 102.4, 51.2, 1.5] for c in (
+    "configs/dairv2x/gencomm/stage1/m1_v2xvit.yaml",
+    "configs/dairv2x/gencomm/stage1/m3_v2xvit.yaml")}
 
 
 def _load_both(config):
