@@ -39,11 +39,12 @@ Phases, each of which raises on failure:
      and bf16, camera training, phase 12's paths (V2X-ViT eval fp32
      and bf16 and training; every other fusion's frames and steps, which
      take no profiler session), phase 13's (the HEAL pyramid's eval and
-     training) and phase 14's (SECOND's). An eval path runs 1 warm-up + 30
-     frames looped (InferencePipeline.run) and the same 30 frames and seeds
+     training), phase 14's (SECOND's) and phase 15 (the baselines). An eval
+     path runs 1 warm-up + 10 frames looped (InferencePipeline.run) and the
+     same 10 frames and seeds
      streamed (InferencePipeline.run_stream: one frame captured in a CUDA
      graph, replayed per frame), each streamed frame bit for bit equal to
-     its looped frame; a training path 1 warm-up + 10 steps (CUDA events).
+     its looped frame; a training path 1 warm-up + 5 steps (CUDA events).
      Every launch count is set to 0 just before a run and read just after
      (each of the path's kernels must be > 0; a graph's kernels count as
      captured launches x replays): frames/s looped and streamed, detections,
@@ -99,9 +100,9 @@ Phases, each of which raises on failure:
      arguments the train step gives them, held against their plain versions
      (K2 and K2b bit-exact; K3b also twice for the same bits) and timed; a
      2-step profile; 4 steps on one repeated batch, whose loss must fall;
-     one step on the card and on the port's CPU, whose losses must agree and
-     whose gradients must differ no more than the CPU's own under a 1e-7
-     input jitter;
+     one step on the card and on the port's CPU (the first batch), whose
+     losses must agree and whose gradients must differ no
+     more than the CPU's own under a 1e-7 input jitter;
   7. the camera eval path: K4 (top-K depth splat) on the arguments the path
      gives it, held against its plain version (fp32 sum-order tolerance; K4
      itself gives the same bits on every run), once more with bf16 rows,
@@ -129,13 +130,13 @@ Phases, each of which raises on failure:
      (the camera runs cycle a pool of 4 batches, --batch_pool: the host
      renders a camera batch slower than the card steps it, its time
      logged), heal_tools merge, stage2/m1m2_att.yaml from the merge for 1
-     epoch, inference of the stage-2 run over 4 frames with the payload
+     epoch, inference of the stage-2 run over 2 frames with the payload
      report, inference_heter_in_order over 2 frames and 1-2 agents. Held:
      every model's parameters and every training batch on the card; K1-K4,
      K1b-K4b and N1 each launched; stage 2 left every parameter and running
      statistic outside message_extractor_m2 bit for bit and changed
      message_extractor_m2; every logged loss finite; inference again with
-     --device cpu on the same 4 frames (both runs draw the diffusion noise
+     --device cpu on the same 2 frames (both runs draw the diffusion noise
      of a frame's seed from the host generator, so that they share it) gives
      the card's APs within 1e-6 for the stage-2 checkpoint, for a copy with
      its running statistics refreshed (trainer.refresh_batch_stats; its
@@ -154,13 +155,13 @@ Phases, each of which raises on failure:
      random weights from seed 0, the same frames and batches): (a) the
      V2X-ViT GenComm model (stage1/m1_v2xvit.yaml's fusion block and, for
      its step, optimizer and loss) timed as the lidar paths are, eval fp32
-     and bf16 looped and streamed (bit for bit) and 1 + 10 train steps, then
+     and bf16 looped and streamed (bit for bit) and 1 + 5 train steps, then
      K3 (fp32 and bf16) and K3b held on its arguments, its profiles, card
      against CPU (heads; bf16 by phase 5's statistics; the step's losses
      and gradients as phase 6, gradients of cancellation noise logged, not
      held); (b) CoBEVT, Where2comm with its communication mask (comm_rate
      logged), V2VNet, max, DiscoNet and Who2com (configs/opv2v/
-     point_pillar_<fusion>.yaml's blocks), each 1 + 5 eval frames and 1 + 3
+     point_pillar_<fusion>.yaml's blocks), each 1 + 2 eval frames and 1 + 2
      train steps (m1_att.yaml's optimizer and loss), card against CPU on a
      frame and a step as in (a); V2VNet's K3 launches a forward must be 2 L
      num_iteration, half of them on K3's rows route (the node stack) and half
@@ -172,7 +173,7 @@ Phases, each of which raises on failure:
  13. the HEAL pyramid (configs/opv2v/heal/stage1/m1_pyramid.yaml at full
      width on the train CLI's sampler and host adaptation, fp32, random
      weights from seed 0): (a) eval timed with the other paths in phase 3,
-     1 + 30 frames looped and streamed (bit for bit), then K3 on each map
+     1 + 10 frames looped and streamed (bit for bit), then K3 on each map
      the path warps (each level's feature at 64 / 128 / 256 channels on the
      rows route and its 1-channel score on the pixel route, warped together
      in one pair launch a level, which must give the bits of the two maps'
@@ -180,7 +181,7 @@ Phases, each of which raises on failure:
      concatenated, the JAX package's form, and is timed against both; each
      map's device time also over a CUDA graph of 200 launches, beside
      grid_sample's), K2 and N1 held and timed, the
-     profiles, heads card against CPU (max and relative L2); (b) 1 + 10
+     profiles, heads card against CPU (max and relative L2); (b) 1 + 5
      train steps (batch 2, its Adam and point_pillar_pyramid_loss with the
      occupancy pass; K3b's pixel route launched for every 1-channel score,
      its warp route for every feature), K3b on each map twice for the same
@@ -193,7 +194,7 @@ Phases, each of which raises on failure:
      stage2/m2_single_pyramid.yaml from it (--init_from) for 1 epoch on 4
      pooled camera batches (every pyramid and head tensor bit for bit, the
      camera branch moved), heal_tools merge, inference of
-     final_infer/m1m2.yaml over 4 frames on the card and the CPU (the same
+     final_infer/m1m2.yaml over 2 frames on the card and the CPU (the same
      APs; the payload report), of its copy refreshed on one batch of that
      config (heads card against CPU) and of an anchor-box copy on a
      51.2 x 25.6 m range (AP at IoU 0.3 above 0), inference_heter_in_order
@@ -206,7 +207,7 @@ Phases, each of which raises on failure:
      flagship's scenes with raw points on the card and anchors and labels
      at feature_stride 8, the heads' grid (reference fault n): (a) eval fp32
      and bf16 (the encoder stays fp32) timed with the other paths in phase
-     3, 1 + 30 frames looped and streamed (bit for bit), and 1 + 10 train
+     3, 1 + 10 frames looped and streamed (bit for bit), and 1 + 5 train
      steps at batch 2 x 2 agents with its Adam, multistep schedule and
      point_pillar_gencomm_loss (K1, K3, N1 and, in training, K1b and K3b
      launched, peak memory logged); (b) each sparse op the encoder calls,
@@ -231,7 +232,38 @@ Phases, each of which raises on failure:
      of 12 steps and evaluated over 4 frames on the card and with --device
      cpu (the same APs; a copy refreshed on its last batch, heads within
      1e-3 and the same kept boxes; an anchor-box copy, AP at IoU 0.3 above
-     0); K1, K3, K1b, K3b and N1 each launched.
+     0); K1, K3, K1b, K3b and N1 each launched. ROADMAP p6
+     (hold_repeat_step): no index_add_ runs in the step, the encoder's
+     backward twice gives every gradient the same bits, and the whole step
+     twice with cudnn.deterministic every gradient outside the modality
+     branch (the branch's arrive through K1b's atomic input gradient, p8,
+     so the whole step is not yet the same bits twice: p6 stays open);
+ 15. the paper's heterogeneous baselines at full width (fp32, TF32 off,
+     random weights from seed 0, the train CLI's sampler and host
+     adaptation): BackAlign, CodeFilling and MPDA on
+     configs/opv2v/baselines/stage2/<method>/m1m2_att.yaml, STAMP on
+     stamp/m0m2_att.yaml (the camera m2 the protocol space, m0's pillar
+     feature through its ConvNeXt adapter). (a) Timed with the other
+     paths, no profiler session: 1 + 5 eval frames looped and streamed
+     (bit for bit; K2, K3, K4 and N1 launched), 1 + 3 train steps with the
+     method's loss and the train CLI's freeze (K3b where the loss reaches
+     the fusion, K4b where the camera branch trains, K2b nowhere); every
+     frozen tensor keeps its bits and every trainable one moves; heads
+     card against CPU (max and relative L2 within 1e-3), CodeFilling's
+     codes equal but at most 4 rounding-level near-ties; one step card
+     against CPU as in phase 6, every floating input jittered, the card
+     and the jittered CPU step on the CPU step's discrete choices
+     (cpu_choices: top-K depth picks, straight-through codes; at most 16 a
+     call differ from a side's own, each a near-tie); (b) in the workflow process
+     (baseline_workflow, alone: chip_smoke.py --baseline-workflow DIR):
+     CodeFilling trained 4 steps and evaluated over 2 frames on the card
+     and the CPU with --report_comm (the same APs, heads within 1e-3, the
+     same kept boxes, the code bytes per stage), STAMP trained 4 steps,
+     merged by heal_tools merge-final with its own checkpoint without the
+     adapters (heal_tools remove) and the merge evaluated on the card;
+     each run moved only its schedule's tensors.
+A profile's device busy time is the union of its kernels' intervals, the
+sum logged beside it (ROADMAP p7).
 Each phase prints its wall time, and each profile the convolution operators
 by the shapes of their arguments. The last line is {"ok": true, "device":
 {...}}; before it come the card's nvidia-smi line and one JSON line with
@@ -243,6 +275,7 @@ Exits non-zero, printing no result, without a CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
@@ -285,7 +318,7 @@ CAMERA_DIM = tuple(_CAMERA_ENC["data_aug_conf"]["final_dim"])
 CAMERA_NCAM = _CAMERA_ENC["data_aug_conf"]["Ncams"]
 CAMERA_GRID = _CAMERA_ENC["grid_conf"]
 CAMERA_FEATURE_SHAPE = (64, 64, 128)
-TIMED_FRAMES = 30  # eval frames, looped and streamed, after one warm-up
+TIMED_FRAMES = 10  # eval frames, looped and streamed, after one warm-up
 # N1's sizes: nms_topk (intermediate and no-fusion modes), the late union
 # over 2 and 5 agent slots, and over 5 slots at an nms_topk of 1,024; and a
 # K past the parent kernel's 4,096 boxes whose pairwise IoU would cost too
@@ -323,7 +356,7 @@ CPU_TOL = 1e-3
 
 TRAIN_BATCH = 2
 TRAIN_SEED = 0  # tools/train.py batches(): sample(seed * 10000 + step, 2)
-TIMED_STEPS = 10
+TIMED_STEPS = 5
 # K1b vs its plain version: fp32 sums of up to 32,768 random-sign terms
 # (dW over the pixels, dx by atomics in a run-dependent order) taken in
 # other orders; each term rounds at ~6e-8 relative, and the cancellation
@@ -338,6 +371,17 @@ K1B_TOL = 1e-3
 JITTER = 1e-7
 GRAD_FACTOR = 3.0
 GRAD_FLOOR = 1e-4
+# the most pixels (or code vectors) of one call whose own discrete choice
+# may differ from the CPU step's where a step takes the CPU's choices
+# (cpu_choices; each must be a near-tie besides): scripts/lss_choices_torch.py
+# saw the top-K picks part at 1-8 entries a camera slot, and a batch of 2
+# holds 2 camera slots
+CHOICE_FLIPS = 16
+# CodeFilling's eval codes, card against CPU: at most CODE_FLIPS differ, each
+# where the two codes' CPU distances lie within CODE_TIE x max(1, d), a
+# rounding-level gap (the card has read one flip, at an exact tie)
+CODE_FLIPS = 4
+CODE_TIE = 1e-6
 LOSS_TOL = 1e-3  # relative, the losses of the same step
 # K4 / K4b vs their plain versions: fp32 sums (a cell's rows; 128 products
 # and K rows) taken in another order, relative to the output's largest value
@@ -380,8 +424,8 @@ def flagship_with_fusion(hypes, num_agents=None):
 V2XVIT = flagship_with_fusion(V2XVIT_HYPES)
 FUSION_FAMILY = ("cobevt", "where2comm", "v2vnet", "max", "disconet",
                  "who2com")
-FUSION_FRAMES = 5  # a fusion's eval frames after one warm-up
-FUSION_STEPS = 3   # and its train steps
+FUSION_FRAMES = 2  # a fusion's eval frames after one warm-up
+FUSION_STEPS = 2   # and its train steps
 # parameters whose gradient is zero in exact arithmetic: a bias that shifts
 # every agent's score alike before a softmax over agents. Their gradients
 # are the noise of cancelling terms, which a 1e-7 input jitter moved by up
@@ -750,10 +794,12 @@ def phase_done(label, t0):
 
 def profile_device(run, period_ms, n, unit, operators=False):
     """Device busy time per ``unit`` and the kernels that take it, from
-    torch.profiler over ``n`` calls of ``run(i)``; the idle share is against
-    the CUDA-event time ``period_ms`` per unit, where one is given. Returns
-    the busy ms and the launches per unit and {operator: the device ms per
-    unit of the kernels it launched itself}, which ``operators`` logs."""
+    torch.profiler over ``n`` calls of ``run(i)``; the busy time is the
+    union of the kernels' intervals (the sum of their times logged beside
+    it); the idle share is against the CUDA-event time ``period_ms`` per
+    unit, where one is given. Returns the busy ms and the launches per unit
+    and {operator: the device ms per unit of the kernels it launched
+    itself}, which ``operators`` logs."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -774,16 +820,38 @@ def profile_device(run, period_ms, n, unit, operators=False):
     ops = {ev.key: ev.self_device_time_total / n / 1e3 for ev in avg
            if ev.device_type == DeviceType.CPU
            and ev.self_device_time_total > 0}
-    busy = sum(r[0] for r in rows)
+    busy_sum = sum(r[0] for r in rows)
     launches = sum(r[1] for r in rows)
-    if busy <= 0:
+    if busy_sum <= 0:
         log("profile: the profiler saw no device time")
         return 0.0, 0.0, ops
+    # ROADMAP p7: the busy time is the union of the kernels' intervals on
+    # the device's clock, so that kernels that overlap (two streams, a
+    # cooperative launch beside a copy) count once; the sum beside it
+    spans = sorted((ev.time_range.start, ev.time_range.end)
+                   for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA
+                   and not getattr(ev, "is_user_annotation", False)
+                   and not ev.key.startswith("Optimizer.")
+                   and ev.time_range.end > ev.time_range.start)
+    union, end = 0.0, None
+    for lo, hi in spans:
+        if end is None or lo >= end:
+            union += hi - lo
+            end = hi
+        elif hi > end:
+            union += hi - end
+            end = hi
+    busy = union / n / 1e3 if spans else busy_sum
+    union_text = (f"union of {len(spans)} kernel intervals; their sum "
+                  f"{busy_sum:.3f}" if spans else
+                  f"sum of kernel times (the union not measured: no "
+                  f"intervals)")
     idle = (f" of {period_ms:.3f} ms (idle share {1 - busy / period_ms:.3f})"
             if period_ms else "")
-    log(f"profile: device busy {busy:.3f} ms/{unit}{idle}, {launches:.0f} "
-        f"kernels and copies per {unit}; top by device time (ms/{unit}, "
-        f"calls/{unit}):")
+    log(f"profile: device busy {busy:.3f} ms/{unit}{idle} ({union_text}), "
+        f"{launches:.0f} kernels and copies per {unit}; top by device time "
+        f"(ms/{unit}, calls/{unit}):")
     for dev_ms, calls, key in sorted(rows, reverse=True)[:15]:
         log(f"  {dev_ms:8.4f} {calls:6.0f}  {key[:90]}")
     if operators:
@@ -1565,7 +1633,7 @@ def setup_eval(dev, model_kw, feature_shape, scenes, host, half=False,
                                device=dev))
 
 
-def time_eval(smi, cell, label, expected):
+def time_eval(smi, cell, label, expected, frames=None):
     """An eval path counted and timed, looped and streamed, before the
     process's first profiler session (ROADMAP p1). Looped: every launch
     count to 0, then 1 warm-up + TIMED_FRAMES frames through
@@ -1576,15 +1644,16 @@ def time_eval(smi, cell, label, expected):
     just after; a replay launches the captured kernels without counting
     them, so the streamed path's launches are the graph's captured
     launches x its replays. Every streamed frame must equal its looped
-    frame bit for bit."""
+    frame bit for bit. ``frames`` (default TIMED_FRAMES) sets N."""
     import torch
     from gencomm_tpu_torch.ops import _cuda
 
     t_phase = time.perf_counter()
+    n_frames = frames or TIMED_FRAMES
     reset_launch_counts()
     cell.pipe.run(cell.batch, seed=0)  # warm-up
     torch.cuda.synchronize()
-    seeds = list(range(1, TIMED_FRAMES + 1))
+    seeds = list(range(1, n_frames + 1))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -1592,10 +1661,10 @@ def time_eval(smi, cell, label, expected):
     end.record()
     end.synchronize()
     cell.launches, cell.routes = dict(_cuda.LAUNCHES), route_counts()
-    cell.ms = start.elapsed_time(end) / TIMED_FRAMES
+    cell.ms = start.elapsed_time(end) / n_frames
     dets = looped[-1]
     dtype = "bf16" if cell.half else "fp32"
-    log(f"{label} eval path ({dtype}), looped: {1 + TIMED_FRAMES} frames, "
+    log(f"{label} eval path ({dtype}), looped: {1 + n_frames} frames, "
         f"{cell.ms:.3f} ms/frame, {1000.0 / cell.ms:.2f} frames/s (batch 1, "
         f"{cell.n} agents) on {smi}; {int(dets.valid.sum())} detections "
         f"kept in the last frame; launches {cell.launches}")
@@ -1609,7 +1678,7 @@ def time_eval(smi, cell, label, expected):
             raise AssertionError(f"kernel {name} was not launched on the "
                                  f"{label} {dtype} eval path")
 
-    cell.frames = {k: v.expand((TIMED_FRAMES,) + tuple(v.shape))
+    cell.frames = {k: v.expand((n_frames,) + tuple(v.shape))
                    for k, v in cell.batch.items()}
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -1620,18 +1689,18 @@ def time_eval(smi, cell, label, expected):
     streamed = cell.pipe.run_stream(cell.frames, seeds)
     end.record()
     end.synchronize()
-    cell.stream_ms = start.elapsed_time(end) / TIMED_FRAMES
+    cell.stream_ms = start.elapsed_time(end) / n_frames
     (graph,) = cell.pipe.graphs.values()
     eager = {k: v for k, v in _cuda.LAUNCHES.items() if v}
     cell.stream_launches = {k: v * graph.replays
                             for k, v in graph.launches.items()}
-    differ = [f for f in range(TIMED_FRAMES) if not all(
+    differ = [f for f in range(n_frames) if not all(
         torch.equal(v[f], getattr(looped[f], name))
         for name, v in streamed._asdict().items())]
-    log(f"{label} eval path ({dtype}), streamed: {TIMED_FRAMES} frames, "
+    log(f"{label} eval path ({dtype}), streamed: {n_frames} frames, "
         f"{cell.stream_ms:.3f} ms/frame, {1000.0 / cell.stream_ms:.2f} "
         f"frames/s ({cell.ms / cell.stream_ms:.2f}x the looped rate); the "
-        f"first call (warm-up, capture, {TIMED_FRAMES} replays) "
+        f"first call (warm-up, capture, {n_frames} replays) "
         f"{capture_s:.2f} s; the graph holds {graph.launches} and was "
         f"replayed {graph.replays} times: kernel launches {cell.stream_launches}"
         f" (eager, warm-up and capture: {eager}); frames not bit-equal to "
@@ -1674,10 +1743,15 @@ def check_eval(smi, cell, label, targets, check, fp32_cell=None,
         lambda i: cell.pipe.run(cell.batch, seed=100 + i), cell.ms, 3,
         "frame")[0]
     # the captured frame's replays, one frame a call, against the streamed
-    # frame time; then the graph and its memory pool go
-    profile_device(lambda i: cell.pipe.run_stream(
-        {k: v[:1] for k, v in cell.frames.items()}, [100 + i]),
-        cell.stream_ms, 3, "streamed frame")
+    # frame time; then the graph and its memory pool go. The frame is
+    # captured anew first, outside the profiler: replaying SECOND bf16's
+    # graph from the timed phase, minutes and many profiler sessions later,
+    # crashed in cudaGraphLaunch under the profiler (ROADMAP p9)
+    first = {k: v[:1] for k, v in cell.frames.items()}
+    cell.pipe.graphs.clear()
+    cell.pipe.run_stream(first, [99])
+    profile_device(lambda i: cell.pipe.run_stream(first, [100 + i]),
+                   cell.stream_ms, 3, "streamed frame")
     cell.pipe.graphs.clear()
 
     with torch.inference_mode():
@@ -1752,12 +1826,14 @@ def scale_jitter(x, noise):
 
 
 def time_train(smi, dev, label, model_kw, hypes, feature_shape, hosts,
-               expected, jitter_key, build=None, supervise_single=False):
+               expected, jitter_key, build=None, supervise_single=False,
+               frozen=None):
     """A training path counted and timed before the process's first
     profiler session (ROADMAP p1): every launch count to 0, 1 warm-up +
     len(hosts) - 1 steps (CUDA events), the counts read just after. The
     model is ``build``'s (default ``HeterModel``); ``supervise_single``
-    goes to the train step. Returns the cell for ``check_train`` and
+    goes to the train step, and ``frozen`` (a freeze schedule's predicate)
+    to the optimizer and the step. Returns the cell for ``check_train`` and
     ``hold_step``, which jitters the input ``jitter_key``."""
     import torch
     from types import SimpleNamespace
@@ -1779,9 +1855,11 @@ def time_train(smi, dev, label, model_kw, hypes, feature_shape, hosts,
         model = build(**model_kw, device=device)
         model.load_state_dict(cell.state)
         model.train()
-        opt, sched = make_optimizer(hypes, model.named_parameters())
+        opt, sched = make_optimizer(hypes, model.named_parameters(), 1,
+                                    frozen)
         return model, make_train_step(model, cell.criterion, opt, sched,
-                                      supervise_single=supervise_single)
+                                      supervise_single=supervise_single,
+                                      frozen_predicate=frozen)
 
     cell.fresh = fresh
     cell.state = random_state_dict(build(**model_kw, device=dev), seed=0)
@@ -1866,19 +1944,98 @@ def check_train(cell, targets, check, exact_zero=(), jitter=scale_jitter,
     return rows
 
 
+class cpu_choices:
+    """Within it, the discrete choices of a step are recorded into
+    ``store`` call by call, with the values each was made from
+    (``replay=False``), or taken from it in the same order
+    (``replay=True``): the LSS encoders' top-K depth picks
+    (``LSSEncoder.topk_picks``, from the depth probabilities) and the
+    codebook's straight-through codes (``codebook.hard_index``, from the
+    soft sample). In replay, ``flips`` counts call by call the pixels (or
+    vectors) whose own choice differs from the one taken, and ``loose``
+    those of them that are not a near-tie: at each rank where the two
+    choices part, the side's own values at its choice and at the taken
+    one must lie within twice the largest gap between the side's values
+    and the recorded ones (an order statistic moves no further than the
+    values do), so a flip is one that the values' own deviation explains.
+    ``hold`` fails the run when a call flips more than CHOICE_FLIPS or any
+    flip is loose."""
+
+    def __init__(self, store, replay=False):
+        self.store, self.replay = store, replay
+        self.flips, self.loose, self.worst = [], 0, 0.0
+
+    def take(self, own, values):
+        values = values.detach()
+        if not self.replay:
+            self.store.append((own.cpu(), values.cpu()))
+            return own
+        chosen, ref = (t.to(own.device)
+                       for t in self.store[len(self.flips)])
+        differ = (chosen != own).any(-1)
+        self.flips.append(int(differ.sum()))
+        if self.flips[-1]:
+            gap = (values.gather(-1, own)
+                   - values.gather(-1, chosen)).abs().amax(-1)[differ]
+            moved = (values - ref).abs().amax(-1)[differ]
+            self.loose += int((gap > 2 * (1 + 1e-6) * moved).sum())
+            self.worst = max(self.worst, float(gap.max()))
+        return chosen
+
+    def hold(self, label):
+        log(f"{label} on the CPU step's discrete choices: {len(self.flips)} "
+            f"calls taken, pixels or vectors whose own choice differs "
+            f"{self.flips} (at most {CHOICE_FLIPS} a call), {self.loose} of "
+            f"them not a near-tie, the widest own-value gap {self.worst:.3e}")
+        if max(self.flips, default=0) > CHOICE_FLIPS or self.loose:
+            raise AssertionError(f"{label}: discrete choices differ from the "
+                                 f"CPU step's beyond near-ties: {self.flips}, "
+                                 f"{self.loose} not near-ties")
+
+    def __enter__(self):
+        from gencomm_tpu_torch.models import codebook
+        from gencomm_tpu_torch.models.encoders import lss
+
+        self.real = lss.LSSEncoder.topk_picks, codebook.hard_index
+        picks, index = self.real
+        lss.LSSEncoder.topk_picks = (
+            lambda enc, depth: self.take(picks(enc, depth), depth))
+        codebook.hard_index = (
+            lambda soft: self.take(index(soft)[..., None], soft)[..., 0])
+        return self
+
+    def __exit__(self, *exc):
+        from gencomm_tpu_torch.models import codebook
+        from gencomm_tpu_torch.models.encoders import lss
+
+        lss.LSSEncoder.topk_picks, codebook.hard_index = self.real
+        return False
+
+
 def hold_step(cell, exact_zero=(), jitter=scale_jitter,
-              explain_offsets=False):
-    """One step on the card and on the port's CPU from ``cell.fresh``: the
-    losses within LOSS_TOL, the gradients within GRAD_FACTOR x the CPU's own
-    spread, the CPU step once more with its input (``jitter_key``) jittered
-    by ``jitter(x, noise)``, noise JITTER (relative) normal draws, which
-    measures how far the gradients move with the last bits of the inputs.
-    Each parameter's gap against its own spread is logged, the worst
-    first. The fusion's parameters named by a suffix in ``exact_zero``
-    (``EXACT_ZERO_GRADS``) are logged, not held: their gradients are zero in
-    exact arithmetic and what is left is the noise of cancelling terms.
-    With ``explain_offsets``, the step's K1b arguments on both sides go to
-    ``offset_gap`` (logged, not held)."""
+              explain_offsets=False, same_choices=False):
+    """One step on the card and on the port's CPU from ``cell.fresh``, on
+    the path's first batch: the losses within LOSS_TOL, the gradients
+    within GRAD_FACTOR x the CPU's own spread, the CPU step once more with
+    its input (``jitter_key``, a key or a tuple of keys, each jittered)
+    jittered by ``jitter(x, noise)``, noise JITTER (relative) normal draws,
+    which measures how far the gradients move with the last bits of the
+    inputs. Each parameter's gap against its own spread is logged, the
+    worst first. Only the trainable parameters are held (a freeze
+    schedule's have no gradient). The parameters named by a suffix in
+    ``exact_zero`` (``EXACT_ZERO_GRADS``) are logged, not held: their
+    gradients are zero in exact arithmetic and what is left is the noise
+    of cancelling terms. With ``explain_offsets``, the step's K1b arguments
+    on both sides go to ``offset_gap`` (logged, not held). With
+    ``same_choices`` the CPU step runs first, and the card step and the
+    jittered CPU step both take its discrete choices (``cpu_choices``: the
+    top-K depth picks, the codebook's straight-through codes; the choices
+    of either that differ from its own are held to near-ties and to
+    CHOICE_FLIPS a call): a choice at a near-tie is one that the card's
+    fp32 sums in another order (cuDNN's) can flip, as can a 1e-7 input
+    jitter, and a flipped choice moves the gradients by more than rounding
+    does, on either side of the comparison."""
+    import contextlib
     import torch
     from gencomm_tpu_torch.ops import deform_conv
     from gencomm_tpu_torch.pipeline import batch_to_device
@@ -1889,15 +2046,24 @@ def hold_step(cell, exact_zero=(), jitter=scale_jitter,
     def run(side, step, batch, noises):
         out[side] = step(batch, noises=noises)
 
-    model, step = cell.fresh(cell.dev)
-    card_k1b = record_calls(k1b, lambda: run(
-        "card", step, cell.batches[0], cell.noises_dev))
+    def choices(replay):
+        return (cpu_choices(store, replay) if same_choices
+                else contextlib.nullcontext())
+
+    store = []
     cpu_batch = batch_to_device(cell.hosts[0], "cpu")
     cpu_model, cpu_step = cell.fresh("cpu")
     t0 = time.perf_counter()
-    cpu_k1b = record_calls(k1b, lambda: run("cpu", cpu_step, cpu_batch,
-                                            cell.noises))
+    with choices(False):
+        cpu_k1b = record_calls(k1b, lambda: run("cpu", cpu_step, cpu_batch,
+                                                cell.noises))
     cpu_s = time.perf_counter() - t0
+    model, step = cell.fresh(cell.dev)
+    with choices(True) as replay:
+        card_k1b = record_calls(k1b, lambda: run(
+            "card", step, cell.batches[0], cell.noises_dev))
+    if same_choices:
+        replay.hold("card step")
     card, cpu = out["card"], out["cpu"]
     for k, v in cpu.items():
         a, b = float(card[k]), float(v)
@@ -1906,18 +2072,25 @@ def hold_step(cell, exact_zero=(), jitter=scale_jitter,
             raise AssertionError(f"{k}: card and CPU disagree ({a} vs {b})")
     jit_model, jit_step = cell.fresh("cpu")
     jgen = torch.Generator().manual_seed(4)
-    pts = cpu_batch[cell.jitter_key]
-    noise = JITTER * torch.randn(pts.shape, generator=jgen)
-    jit_k1b = record_calls(k1b, lambda: jit_step(
-        {**cpu_batch, cell.jitter_key: jitter(pts, noise)},
-        noises=cell.noises))
+    jittered = dict(cpu_batch)
+    keys = ((cell.jitter_key,) if isinstance(cell.jitter_key, str)
+            else cell.jitter_key)
+    for key in keys:
+        noise = JITTER * torch.randn(cpu_batch[key].shape, generator=jgen)
+        jittered[key] = jitter(cpu_batch[key], noise)
+    with choices(True) as replay:
+        jit_k1b = record_calls(k1b, lambda: jit_step(jittered,
+                                                     noises=cell.noises))
+    if same_choices:
+        replay.hold("jittered CPU step")
     log(f"CPU step took {cpu_s:.1f} s")
-    names = None
+    # the trainable parameters (a freeze schedule leaves the others without
+    # a gradient)
+    names = {n for n, p in cpu_model.named_parameters() if p.requires_grad
+             and not n.endswith(tuple(exact_zero))}
     if exact_zero:
-        names = {n for n, _ in cpu_model.named_parameters()
-                 if not (n.startswith("fusion_net.")
-                         and n.endswith(tuple(exact_zero)))}
-        noise = [n for n, _ in cpu_model.named_parameters() if n not in names]
+        noise = [n for n, p in cpu_model.named_parameters()
+                 if p.requires_grad and n not in names]
         log_grad_errors("zero in exact arithmetic (logged, not held): CPU "
                         f"vs CPU with a {JITTER:.0e} input jitter",
                         grad_errors(jit_model, cpu_model, set(noise)))
@@ -2890,6 +3063,84 @@ def hold_sparse_ops(calls):
     return ms, fill
 
 
+def hold_repeat_step(train):
+    """ROADMAP p6, on SECOND's step from one state (the same weights, batch
+    and diffusion noise). Held: no ``index_add_`` (an add by atomics)
+    among the step's operators under torch.profiler; the encoder's forward
+    and backward twice on the step's points with one fixed cotangent give
+    every encoder gradient the same bits (the sparse convs' backward,
+    ``ops/sparse.py:gather_matmul``); the whole step twice with
+    cudnn.deterministic leaves the same bits in every gradient outside the
+    modality branch. The branch's gradients are logged: they arrive through
+    K1b's input gradient, which adds by float4 atomics
+    (``csrc/deform_conv_bwd.cu``; ROADMAP p8), and the whole step twice
+    with cuDNN's default algorithms is logged too. Returns the numbers."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    model, step = train.fresh(train.dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(train.batches[0], noises=train.noises_dev)
+        torch.cuda.synchronize()
+    ops = sorted({ev.key for ev in prof.key_averages()})
+    atomic = [k for k in ops if "index_add" in k]
+    log(f"p6: the step's operators holding index_add: {atomic} (of "
+        f"{len(ops)} operators)")
+    if atomic:
+        raise AssertionError(f"p6: the SECOND step still runs {atomic}")
+
+    points = train.batches[0]["points_m1"]
+    mask = train.batches[0]["point_mask_m1"]
+
+    def encoder_grads():
+        model, _ = train.fresh(train.dev)
+        enc = model.branch_m1.encoder
+        out = enc(points, mask)
+        cot = torch.randn(out.shape, device=train.dev,
+                          generator=torch.Generator(train.dev).manual_seed(6))
+        out.backward(cot)
+        torch.cuda.synchronize()
+        return {n: p.grad.clone() for n, p in enc.named_parameters()}
+
+    first, second = encoder_grads(), encoder_grads()
+    enc_differ = [n for n in first if not torch.equal(first[n], second[n])]
+    log(f"p6: the SECOND encoder's backward twice: {len(first)} gradients, "
+        f"{len(enc_differ)} differ {enc_differ[:5]}")
+    if enc_differ:
+        raise AssertionError(f"p6: the encoder's gradients differ between "
+                             f"two runs: {enc_differ[:5]}")
+
+    def step_grads():
+        model, step = train.fresh(train.dev)
+        step(train.batches[0], noises=train.noises_dev)
+        torch.cuda.synchronize()
+        return {n: p.grad.clone() for n, p in model.named_parameters()}
+
+    result = {"index_add_ops": atomic, "encoder_gradients": len(first),
+              "encoder_differ": 0}
+    saved = torch.backends.cudnn.deterministic
+    for label, deterministic in (("cuDNN default", False),
+                                 ("cudnn.deterministic", True)):
+        torch.backends.cudnn.deterministic = deterministic
+        try:
+            a, b = step_grads(), step_grads()
+        finally:
+            torch.backends.cudnn.deterministic = saved
+        differ = [n for n in a if not torch.equal(a[n], b[n])]
+        outside = [n for n in differ if not n.startswith("branch_m1.")]
+        log(f"p6: the whole step twice ({label}): {len(differ)} of {len(a)} "
+            f"gradients differ, {len(outside)} outside the modality branch "
+            f"{outside[:5]}")
+        result[label] = {"gradients": len(a), "differ": len(differ),
+                         "outside_branch": len(outside)}
+        if deterministic and outside:
+            raise AssertionError(f"p6: with cudnn.deterministic the step's "
+                                 f"gradients differ outside the branch: "
+                                 f"{outside[:5]}")
+    return result
+
+
 def second_checks(smi, sec, kernel_rows):
     """Phase 14's checks, after every path is timed. Eval: each sparse op
     of the encoder on the card against the CPU on the path's own arguments
@@ -2988,6 +3239,7 @@ def second_checks(smi, sec, kernel_rows):
     enc_step_busy, _, _ = profile_device(enc_step, None, 2, "step",
                                          operators=True)
     tmodel.zero_grad(set_to_none=True)
+    p6 = hold_repeat_step(train)
     step_share = enc_step_busy / train.busy if train.busy else float("nan")
     log(f"second train: the encoder's forward and backward take "
         f"{enc_step_busy:.3f} of the step's {train.busy:.3f} device ms "
@@ -3011,10 +3263,250 @@ def second_checks(smi, sec, kernel_rows):
         "ops_over_share": big, "lists": fill,
         "step_busy_ms": round(train.busy, 3),
         "encoder_step_busy_ms": round(enc_step_busy, 3),
-        "encoder_step_share": round(step_share, 3)}
+        "encoder_step_share": round(step_share, 3), "p6": p6}
     log(f"second: {json.dumps(summary)}")
     phase_done("SECOND, checks", t_phase)
     return summary
+
+
+# phase 15, the paper's heterogeneous baselines (ROADMAP item 16) at full
+# width, fp32 with TF32 off, random weights from seed 0, each on the train
+# CLI's sampler and host adaptation (tools/train.py: build_dataset, Adapt;
+# the ego slot takes the yaml's first modality, the other slot its second):
+# BackAlign, CodeFilling and MPDA on m1m2_att.yaml (PointPillars m1 and the
+# Lift-Splat-Shoot camera m2 of m2_att.yaml), STAMP on m0m2_att.yaml (the
+# camera m2 the protocol space, m0's pillar feature through its
+# adapterconvnext adapter). Each trains with its own loss and the train
+# CLI's freeze schedule (frozen_predicate)
+BASELINE_YAMLS = {
+    m: os.path.join(os.path.dirname(GENCOMM_CONFIGS), "baselines", "stage2",
+                    m, cfg + ".yaml")
+    for m, cfg in (("backalign", "m1m2_att"), ("codefilling", "m1m2_att"),
+                   ("mpda", "m1m2_att"), ("stamp", "m0m2_att"))}
+BASELINE_FRAMES = 5  # eval frames after one warm-up, looped and streamed
+BASELINE_STEPS = 3   # train steps after one warm-up
+# the kernels each path must launch, and those it must not: K2b in none,
+# since each schedule freezes the pillar branch; K4b where the camera
+# branch trains, BackAlign; K3b where the loss reaches the fusion
+BASELINE_EVAL_KERNELS = ("pillar_canvas", "warp_affine", "splat_topk",
+                         "nms_closure")
+BASELINE_TRAIN_KERNELS = {
+    "backalign": ("pillar_canvas", "warp_affine", "splat_topk",
+                  "warp_affine_bwd", "splat_topk_bwd"),
+    "codefilling": ("pillar_canvas", "warp_affine", "splat_topk",
+                    "warp_affine_bwd"),
+    "mpda": ("pillar_canvas", "warp_affine", "splat_topk",
+             "warp_affine_bwd"),
+    "stamp": ("pillar_canvas", "warp_affine", "splat_topk")}
+BASELINE_NOT_LAUNCHED = {
+    "backalign": ("pillar_canvas_bwd",),
+    "codefilling": ("pillar_canvas_bwd", "splat_topk_bwd"),
+    "mpda": ("pillar_canvas_bwd", "splat_topk_bwd"),
+    "stamp": ("pillar_canvas_bwd", "splat_topk_bwd", "warp_affine_bwd")}
+# the inputs each card-vs-CPU step jitters: every floating input the step
+# reads, the pillar modality's decorated points and the camera's images
+# (the trainable modules of CodeFilling, MPDA and STAMP read both slots'
+# features, BackAlign's camera branch the images)
+BASELINE_JITTER_KEY = {
+    "backalign": ("decorated_m1", "imgs_m2"),
+    "codefilling": ("decorated_m1", "imgs_m2"),
+    "mpda": ("decorated_m1", "imgs_m2"),
+    "stamp": ("decorated_m0", "imgs_m2")}
+# gradients zero in exact arithmetic (hold_step logs them): a shift of
+# every key of a query (MPDA's cross-attention) and a conv bias before a
+# train-mode batch norm (its resizer's residual blocks)
+BASELINE_EXACT_ZERO = {
+    "mpda": ("norm_k.bias", "to_k.bias") + tuple(
+        f"res_{i}.Conv_{j}.bias" for i in (0, 1) for j in (0, 1))}
+
+
+def hold_codes(method, card, cpu, dists, seg):
+    """CodeFilling's codes (B, L, stages, H W seg), card against CPU, as
+    integers: equal, but for at most CODE_FLIPS where the CPU's nearest
+    code and the card's lie within CODE_TIE x max(1, d) of each other in the
+    CPU's squared distance (``dists``: (n, seg, k) per stage), a near-tie
+    that the card's fp32 sums in another order may break the other way.
+    Returns the numbers."""
+    b, l, n_stages, per = card.shape
+    flips = (card != cpu).nonzero().tolist()
+    gaps = []
+    for bi, li, s, j in flips:
+        d = dists[s][(bi * l + li) * (per // seg) + j // seg, j % seg]
+        gaps.append(float((d[card[bi, li, s, j]] - d[cpu[bi, li, s, j]]).abs()
+                          / max(1.0, float(d[cpu[bi, li, s, j]]))))
+    out = {"shape": [b, l, n_stages, per], "differ": len(flips),
+           "worst_gap": max(gaps, default=0.0),
+           "distinct": int(card.unique().numel())}
+    log(f"{method}: codes card vs CPU {out} (at most {CODE_FLIPS} may differ, "
+        f"each within {CODE_TIE:.0e} x max(1, d) of the CPU's nearest)")
+    if len(flips) > CODE_FLIPS or any(g > CODE_TIE for g in gaps):
+        raise AssertionError(f"{method}: codes differ card against CPU beyond "
+                             f"near-ties ({gaps})")
+    return out
+
+
+@contextlib.contextmanager
+def host_gumbel():
+    """Within it, the codebook's Gumbel draw is each level's noise from a
+    CPU generator seeded by the level (the n-th call of a forward), moved
+    to the device, so that the card and the CPU draw the same noise."""
+    import torch
+    from gencomm_tpu_torch.models import codebook
+
+    calls, real = [0], codebook.gumbel
+
+    def draw(shape, generator, device):
+        g = torch.Generator().manual_seed(1000 + calls[0] % 3)
+        calls[0] += 1
+        u = torch.rand(tuple(shape), generator=g).clamp_min(
+            torch.finfo(torch.float32).tiny)
+        return (-torch.log(-torch.log(u))).to(device)
+
+    codebook.gumbel = draw
+    try:
+        yield
+    finally:
+        codebook.gumbel = real
+
+
+def baseline_cell(smi, dev, method):
+    """Phase 15 (a), one baseline, timed with the other paths before the
+    process's first profiler session: 1 + BASELINE_FRAMES eval frames
+    looped and streamed (``time_eval``: bit for bit, K2, K3, K4 and N1
+    launched), 1 + BASELINE_STEPS train steps with the method's loss and
+    freeze (``time_train``; the kernels of BASELINE_TRAIN_KERNELS launched,
+    those of BASELINE_NOT_LAUNCHED not); every frozen tensor keeps its bits
+    and every trainable one moves; the same frame, weights and inputs on
+    the CPU (heads within CPU_TOL x max(1, max|cpu|) and by relative L2
+    within CPU_TOL, CodeFilling's codes equal); one step card against CPU
+    (``hold_step``). Returns the cell's numbers."""
+    import argparse
+    import torch
+    from gencomm_tpu_torch.models import codebook
+    from gencomm_tpu_torch.models.heter_baseline import HeterModel
+    from gencomm_tpu_torch.pipeline import batch_to_device
+    from gencomm_tpu_torch.tools import train as train_cli
+
+    t_phase = time.perf_counter()
+    hypes = load_yaml(BASELINE_YAMLS[method])
+    kw = model_kwargs(hypes)
+    frozen = train_cli.frozen_predicate(
+        argparse.Namespace(freeze_prefixes=""), hypes)
+    ds = train_cli.build_dataset(hypes, True, "synthetic")
+    adapt = train_cli.Adapt(hypes)
+    t0 = time.perf_counter()
+    host = adapt(ds.sample(1000, 1))
+    batches = train_cli.batches(ds, hypes["train_params"]["batch_size"],
+                                TRAIN_SEED, "synthetic")
+    hosts = [adapt(next(batches)) for _ in range(1 + BASELINE_STEPS)]
+    log(f"{method}: a frame and {len(hosts)} train batches sampled and "
+        f"adapted on the host in {time.perf_counter() - t0:.3f} s; agent "
+        f"slots {host['agent_mask'].shape[1]}, modalities by slot "
+        + str({m: host[f'modality_mask_{m}'][0].tolist()
+               for m in kw["modality_args"]}))
+    cell = setup_eval(dev, kw, FEATURE_SHAPE, ds, host)
+    time_eval(smi, cell, method, BASELINE_EVAL_KERNELS,
+              frames=BASELINE_FRAMES)
+    train = time_train(
+        smi, dev, method, kw, hypes, FEATURE_SHAPE, hosts,
+        BASELINE_TRAIN_KERNELS[method], BASELINE_JITTER_KEY[method],
+        frozen=frozen)
+    idle = [k for k in BASELINE_NOT_LAUNCHED[method]
+            if train.launches[k] != 0]
+    if idle:
+        raise AssertionError(f"{method} training launched {idle}")
+    # the freeze: every frozen tensor (parameters and the frozen
+    # modules' running statistics) kept its bits over the steps; every
+    # trainable parameter moved
+    after = train.model.state_dict()
+    frozen_keys = [k for k in after if frozen(tuple(k.split(".")))]
+    trainable = [n for n, p in train.model.named_parameters()
+                 if p.requires_grad]
+    changed = [k for k in frozen_keys
+               if not torch.equal(after[k].cpu(), train.state[k].cpu())]
+    still = [n for n in trainable
+             if torch.equal(after[n].cpu(), train.state[n].cpu())]
+    modules = sorted({n.partition(".")[0] for n in trainable})
+    log(f"{method}: after {1 + BASELINE_STEPS} steps {len(frozen_keys)} "
+        f"frozen tensors, {len(changed)} changed; {len(trainable)} "
+        f"trainable parameters in {modules}, {len(still)} did not move")
+    if not frozen_keys or changed or not trainable or still:
+        raise AssertionError(f"{method}: frozen tensors changed "
+                             f"{changed[:5]}, trainable ones did not "
+                             f"move {still[:5]}")
+
+    # the same frame and weights on the CPU (the codebook's distances
+    # kept, level by level)
+    dists, real_distance = [], codebook.UMGMQuantizer._distance
+
+    def distance(self, x, table):
+        d = real_distance(self, x, table)
+        dists.append(d)
+        return d
+
+    with torch.inference_mode():
+        out_dev = cell.model(cell.batch)
+        cpu_model = HeterModel(**cell.model_kw, device="cpu")
+        cpu_model.load_state_dict(cell.state)
+        t0 = time.perf_counter()
+        codebook.UMGMQuantizer._distance = distance
+        try:
+            out_cpu = cpu_model(batch_to_device(host, "cpu"))
+        finally:
+            codebook.UMGMQuantizer._distance = real_distance
+        cpu_s = time.perf_counter() - t0
+    err = hold_heads(method, out_dev, out_cpu)
+    for key in ("cls_preds", "reg_preds", "dir_preds"):
+        a, b = out_dev[key].float().cpu(), out_cpu[key]
+        rel = float((a - b).norm() / b.norm().clamp_min(1e-30))
+        log(f"{method}: card vs CPU {key} relative L2 {rel:.3e} (tol "
+            f"{CPU_TOL:.0e})")
+        if not rel <= CPU_TOL:
+            raise AssertionError(f"{method} {key}: relative L2 {rel}")
+    codes = None
+    if "codebook_codes" in out_dev:
+        codes = hold_codes(method, out_dev["codebook_codes"].cpu(),
+                           out_cpu["codebook_codes"], dists,
+                           cpu_model.codebook.seg_num)
+        log(f"{method}: comm_rate card {float(out_dev['comm_rate']):.6f}"
+            f", CPU {float(out_cpu['comm_rate']):.6f}")
+    log(f"{method}: CPU forward took {cpu_s:.1f} s")
+    del cpu_model, out_cpu
+    # the CPU's Gumbel noise on both sides, for this step only: the timed
+    # steps draw theirs on the device from the step's generator
+    with host_gumbel():
+        card, cpu = hold_step(train, BASELINE_EXACT_ZERO.get(method, ()),
+                              same_choices=True)
+    phase_done(f"baseline {method}", t_phase)
+    return {"looped_ms": round(cell.ms, 3),
+            "streamed_ms": round(cell.stream_ms, 3),
+            "ms_per_step": round(train.ms, 3),
+            "eval_launches": {k: v for k, v in cell.launches.items() if v},
+            "stream_launches": cell.stream_launches,
+            "step_launches": {k: v for k, v in train.launches.items() if v},
+            "trainable_modules": modules, "frozen_tensors": len(frozen_keys),
+            "heads_err": err, "codes": codes,
+            "losses_card": {k: float(v) for k, v in card.items()},
+            "losses_cpu": {k: float(v) for k, v in cpu.items()}}
+
+
+def baselines(smi, dev):
+    """Phase 15 (a): the four baselines (``baseline_cell``), one at a time,
+    each model freed before the next; returns their numbers."""
+    import torch
+
+    t_phase = time.perf_counter()
+    out = {}
+    for method in BASELINE_YAMLS:
+        out[method] = baseline_cell(smi, dev, method)
+        torch.cuda.empty_cache()
+    log(f"baselines: {json.dumps(out)}")
+    for method, r in out.items():
+        log(f"eval {method} fp32: looped {r['looped_ms']:.3f} ms/frame, "
+            f"streamed {r['streamed_ms']:.3f} ms/frame; training "
+            f"{r['ms_per_step']:.3f} ms/step on {smi}")
+    phase_done("baselines", t_phase)
+    return out
 
 
 def run_bench():
@@ -3058,6 +3550,13 @@ ANCHOR_LOGITS = (1.0, 0.0)
 # 2,048 half of the map)
 HEAL_ANCHOR_RANGE = "-25.6,-12.8,-3,25.6,12.8,1"
 V2XVIT_FRAMES = 2  # phase 12 (c): m1_v2xvit's evaluation frames
+# the GenComm stage-2 and HEAL evaluations' frames (SECOND's read
+# EVAL_FRAMES: its anchor-box copy's AP30 > 0 was witnessed on 4)
+WORKFLOW_EVAL_FRAMES = 2
+# phase 15 (b): the baselines' training steps (one epoch) and evaluation
+# frames in the workflow process
+BASELINE_WORKFLOW_STEPS = 4
+BASELINE_WORKFLOW_FRAMES = 2
 
 
 class _Tee:
@@ -3256,7 +3755,7 @@ def workflow(root: str) -> dict:
     GenCommDiffusion.draw_noises = host_drawn
     card = tool("inference", inference.main, [
         "--model_dir", run["stage2_m1m2"], "--dataset", "synthetic",
-        "--frames", str(EVAL_FRAMES), "--report_comm", "--device", "cuda"])
+        "--frames", str(WORKFLOW_EVAL_FRAMES), "--report_comm", "--device", "cuda"])
     GenCommDiffusion.draw_noises = real_draw
     tool("inference_heter_in_order", inference_heter_in_order.main, [
         "--model_dir", run["stage2_m1m2"], "--dataset", "synthetic",
@@ -3299,7 +3798,7 @@ def workflow(root: str) -> dict:
     shutil.copy(heal_final_yaml, os.path.join(heal_final, "config.yaml"))
     heal_card = tool("inference heal m1m2", inference.main, [
         "--model_dir", heal_final, "--dataset", "synthetic",
-        "--frames", str(EVAL_FRAMES), "--report_comm", "--device", "cuda"])
+        "--frames", str(WORKFLOW_EVAL_FRAMES), "--report_comm", "--device", "cuda"])
     tool("inference_heter_in_order heal m1m2", inference_heter_in_order.main, [
         "--model_dir", heal_final, "--dataset", "synthetic", "--frames", "2",
         "--max_cav", "2", "--device", "cuda"])
@@ -3509,7 +4008,8 @@ def workflow(root: str) -> dict:
 
     stage2_batch = last_calls[stage2_index][1][0][0]
     aps, kept, trained_err, head_err = evaluate_run(
-        "stage2", run["stage2_m1m2"], EVAL_FRAMES, stage2_batch, "inference")
+        "stage2", run["stage2_m1m2"], WORKFLOW_EVAL_FRAMES, stage2_batch,
+        "inference")
     if card != aps["stage2 eval_global_sort"]["card"]:
         raise AssertionError(f"inference returned {card}")
     # phase 12 (c): V2X-ViT's stage 1 through the same tools and checks
@@ -3544,7 +4044,8 @@ def workflow(root: str) -> dict:
         train.build_dataset(final_hypes, True, "synthetic").sample(
             0, final_hypes["train_params"]["batch_size"])), "cuda")
     h_aps, h_kept, h_trained_err, h_head_err = evaluate_run(
-        "heal", heal_final, EVAL_FRAMES, final_batch, "inference heal m1m2",
+        "heal", heal_final, WORKFLOW_EVAL_FRAMES, final_batch,
+        "inference heal m1m2",
         anchor_range=HEAL_ANCHOR_RANGE)
     if heal_card != h_aps["heal eval_global_sort"]["card"]:
         raise AssertionError(f"inference returned {heal_card}")
@@ -3573,10 +4074,210 @@ def workflow(root: str) -> dict:
         device_ms_per_step[label] = {"busy_ms": round(busy, 3),
                                      "launches": round(n_launches)}
     log(f"workflow: device time per step {device_ms_per_step}")
+    # phase 15 (b), in this process after every check of the others
+    result["baselines"] = baseline_workflow(os.path.join(root, "baselines"))
     return dict(result, ms_per_step=ms_per_step,
                 ms_per_step_events=ms_per_step_events,
                 device_ms_per_step=device_ms_per_step, wall_s=walls,
                 launches_by_tool=by_tool, host_camera_batch_s=host_camera_s)
+
+
+def baseline_workflow(root: str) -> dict:
+    """Phase 15 (b), through the tools' main(argv) on the card: CodeFilling
+    (m1m2_att.yaml) trained for one epoch of BASELINE_WORKFLOW_STEPS steps
+    (the codebook only) and evaluated over BASELINE_WORKFLOW_FRAMES frames
+    with --report_comm on the card and with --device cpu (the same APs,
+    heads within CPU_TOL and the same kept boxes, the code bytes per stage
+    equal); STAMP (m0m2_att.yaml) trained likewise (the adapters and
+    reverters only), merged by heal_tools merge-final with a second run
+    dir (its own checkpoint without the adapters, made by heal_tools
+    remove), which must hold every tensor of the run, and the merged model
+    evaluated on the card. Each run's tensors that moved are held to its
+    freeze schedule, and each tool's kernel launches to the table of
+    BASELINE_TRAIN_KERNELS / BASELINE_EVAL_KERNELS. Raises on any failed
+    check; returns the phase's numbers."""
+    import ast
+    import contextlib
+    import io
+    import re
+    import shutil
+
+    import torch
+    import yaml
+    from gencomm_tpu_torch.ops import _cuda
+    from gencomm_tpu_torch.pipeline import InferencePipeline
+    from gencomm_tpu_torch.tools import heal_tools, inference, train
+    from gencomm_tpu_torch.train import checkpoint, trainer
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    run = {m: os.path.join(root, m) for m in ("codefilling", "stamp")}
+    # the state each training run starts from; each frame's heads and
+    # detections by tool
+    starts, heads, dets, current = [], {}, {}, [None]
+    real_make_step = trainer.make_train_step
+    real_detect, real_run = InferencePipeline._detect, InferencePipeline.run
+
+    def make_train_step(model, *a, **kw):
+        starts.append({k: v.detach().clone()
+                       for k, v in model.state_dict().items()})
+        return real_make_step(model, *a, **kw)
+
+    def recorded_detect(self, out, batch):
+        heads.setdefault(current[0], []).append(
+            {k: out[k].float().cpu() for k in ("cls_preds", "reg_preds",
+                                               "dir_preds")})
+        return real_detect(self, out, batch)
+
+    def recorded_run(self, *a, **kw):
+        out = real_run(self, *a, **kw)
+        dets.setdefault(current[0], []).append(out)
+        return out
+
+    texts, by_tool = {}, {}
+
+    def tool(label, main_fn, argv):
+        log(f"baselines workflow: {label}: {' '.join(argv)}")
+        buf = io.StringIO()
+        before = dict(_cuda.LAUNCHES)
+        current[0] = label
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(_Tee(buf, sys.stdout)):
+            result = main_fn(argv)
+        torch.cuda.synchronize()
+        texts[label] = buf.getvalue()
+        by_tool[label] = {k: v - before[k] for k, v in _cuda.LAUNCHES.items()
+                          if v != before[k]}
+        log(f"baselines workflow: {label} took "
+            f"{time.perf_counter() - t0:.3f} s; launches {by_tool[label]}")
+        return result
+
+    def train_argv(method):
+        return ["-y", BASELINE_YAMLS[method], "--model_dir", run[method],
+                "--dataset", "synthetic", "--device", "cuda", "--epochs", "1",
+                "--steps_per_epoch", str(BASELINE_WORKFLOW_STEPS),
+                "--val_steps", "1"]
+
+    def infer_argv(model_dir, device, info=None):
+        return ["--model_dir", model_dir, "--dataset", "synthetic",
+                "--frames", str(BASELINE_WORKFLOW_FRAMES),
+                "--device", device] + (["--infer_info", info] if info else [])
+
+    def latest(run_dir):
+        return checkpoint.load_checkpoint(
+            checkpoint.latest_checkpoint(run_dir))["state_dict"]
+
+    def comm_report(label):
+        return ast.literal_eval(re.search(r"comm report: (\{.*\})",
+                                          texts[label]).group(1))
+
+    trainer.make_train_step = make_train_step
+    InferencePipeline._detect = recorded_detect
+    InferencePipeline.run = recorded_run
+    try:
+        tool("train codefilling", train.main, train_argv("codefilling"))
+        for label, device, info in (
+                ("inference codefilling", "cuda", None),
+                ("inference codefilling on the CPU", "cpu", "cpu")):
+            tool(label, inference.main, infer_argv(
+                run["codefilling"], device, info) + ["--report_comm"])
+        tool("train stamp", train.main, train_argv("stamp"))
+        stamp_base = os.path.join(root, "stamp_without_adapters")
+        stamp_merged = os.path.join(root, "stamp_merged")
+        tool("heal_tools remove", heal_tools.main, [
+            "--device", "cuda", "remove", "--ckpt", run["stamp"], "--out",
+            stamp_base, "--prefix", "adapter_", "reverter_"])
+        tool("heal_tools merge-final", heal_tools.main, [
+            "--device", "cuda", "merge-final", "--ckpts", stamp_base,
+            run["stamp"], "--out", stamp_merged])
+        shutil.copy(os.path.join(run["stamp"], "config.yaml"),
+                    os.path.join(stamp_merged, "config.yaml"))
+        stamp_aps = tool("inference stamp merged", inference.main,
+                         infer_argv(stamp_merged, "cuda"))
+    finally:
+        trainer.make_train_step = real_make_step
+        InferencePipeline._detect = real_detect
+        InferencePipeline.run = real_run
+
+    # CodeFilling: the same APs, heads and kept boxes card against CPU, and
+    # the code bytes per stage on both
+    cf_aps = {}
+    for tag in ("eval", "eval_global_sort"):
+        with open(os.path.join(run["codefilling"], f"{tag}.yaml")) as f:
+            on_card = yaml.safe_load(f)
+        with open(os.path.join(run["codefilling"], f"{tag}_cpu.yaml")) as f:
+            on_cpu = yaml.safe_load(f)
+        cf_aps[tag] = {"card": on_card, "cpu": on_cpu}
+        if set(on_card) != set(on_cpu) or any(
+                abs(on_card[k] - on_cpu[k]) > AP_TOL for k in on_card):
+            raise AssertionError(f"codefilling {tag}: card {on_card} and CPU "
+                                 f"{on_cpu} disagree")
+    report = comm_report("inference codefilling")
+    report_cpu = comm_report("inference codefilling on the CPU")
+    stages = report.get("code_bytes_per_stage")
+    log(f"baselines workflow: codefilling APs card and CPU {cf_aps}; the "
+        f"card's report {report}")
+    if report.get("payload") != "codebook_codes" or not stages or \
+            len(stages) != 3 or stages != report_cpu.get(
+                "code_bytes_per_stage"):
+        raise AssertionError(f"codefilling's report: card {report}, CPU "
+                             f"{report_cpu}")
+    card_heads = heads["inference codefilling"]
+    cpu_heads = heads["inference codefilling on the CPU"]
+    if len(card_heads) != BASELINE_WORKFLOW_FRAMES or \
+            len(cpu_heads) != BASELINE_WORKFLOW_FRAMES:
+        raise AssertionError("codefilling: the frames' heads were not "
+                             "recorded")
+    heads_err = max(
+        float((a[k] - b[k]).abs().max()) / max(1.0, float(b[k].abs().max()))
+        for a, b in zip(card_heads, cpu_heads) for k in a)
+    log(f"baselines workflow: codefilling heads card vs CPU, max |d| / "
+        f"max(1, max|cpu|) {heads_err:.3e} (tol {CPU_TOL:.0e})")
+    if not heads_err <= CPU_TOL:
+        raise AssertionError(f"codefilling: card and CPU heads disagree "
+                             f"({heads_err})")
+    for f, (a, b) in enumerate(zip(dets["inference codefilling"],
+                                   dets["inference codefilling on the CPU"])):
+        match_dets(f"baselines workflow: codefilling, frame {f}, card vs CPU",
+                   a, b)
+    # each run moved the tensors of its schedule only; the merge holds
+    # every tensor of the STAMP run
+    moved_by = {}
+    for (method, prefixes), start in zip(
+            (("codefilling", ("codebook.",)),
+             ("stamp", ("adapter_", "reverter_"))), starts):
+        final = latest(run[method])
+        moved = [k for k in final
+                 if not torch.equal(final[k], start[k].cpu())]
+        moved_by[method] = len(moved)
+        log(f"baselines workflow: {method} moved {len(moved)} of "
+            f"{len(final)} tensors")
+        if not moved or any(not k.startswith(prefixes) for k in moved):
+            raise AssertionError(f"{method} moved {moved[:5]}")
+    merged, own = latest(stamp_merged), latest(run["stamp"])
+    base = latest(stamp_base)
+    if set(merged) != set(own) or not all(torch.equal(merged[k], own[k])
+                                          for k in own) or \
+            any(k.startswith(("adapter_", "reverter_")) for k in base):
+        raise AssertionError("merge-final: the merged checkpoint does not "
+                             "hold the STAMP run's tensors")
+    for label, names in (("train codefilling",
+                          BASELINE_TRAIN_KERNELS["codefilling"]),
+                         ("inference codefilling", BASELINE_EVAL_KERNELS),
+                         ("train stamp", BASELINE_TRAIN_KERNELS["stamp"]),
+                         ("inference stamp merged", BASELINE_EVAL_KERNELS)):
+        missing = [k for k in names if not by_tool[label].get(k)]
+        if missing:
+            raise AssertionError(f"{label} launched no {missing}")
+    phase_done("baselines workflow", t_phase)
+    return {"codefilling": {"aps": cf_aps, "report": report,
+                            "heads_err": heads_err,
+                            "moved": moved_by["codefilling"]},
+            "stamp": {"aps_card": stamp_aps, "moved": moved_by["stamp"],
+                      "merged_tensors": len(merged),
+                      "without_adapters": len(base)},
+            "launches": by_tool}
 
 
 def run_workflow():
@@ -3729,6 +4430,9 @@ def main() -> int:
     pyr = pyramid_timed(smi, dev)
     # phase 14: SECOND, timed with the paths above
     sec = second_timed(smi, dev)
+    # phase 15: the paper's heterogeneous baselines, timed with the paths
+    # above and checked (no profiler session)
+    baselines(smi, dev)
     for cell, label in ((lidar, "lidar fp32"), (lidar16, "lidar bf16"),
                         (camera, "camera fp32"), (camera16, "camera bf16"),
                         (fam.vx, "v2xvit fp32"), (fam.vx16, "v2xvit bf16"),
@@ -3848,7 +4552,26 @@ def finish(smi, t_all, kernel_rows) -> int:
 
 
 if __name__ == "__main__":
+    # a crash in native code (the profiler, a CUDA call) prints every
+    # thread's Python stack to stderr before the process dies
+    import faulthandler
+
+    faulthandler.enable()
     if sys.argv[1:2] == ["--workflow"]:
         print(json.dumps(workflow(sys.argv[2])), flush=True)
+        sys.exit(0)
+    if sys.argv[1:2] == ["--baseline-workflow"]:
+        # phase 15 (b) alone
+        import torch
+        from gencomm_tpu_torch.ops import _cuda
+
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device is available", file=sys.stderr)
+            sys.exit(1)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+        _cuda.build_all()
+        print(json.dumps(baseline_workflow(sys.argv[2])), flush=True)
         sys.exit(0)
     sys.exit(main())

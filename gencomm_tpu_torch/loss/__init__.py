@@ -3,9 +3,12 @@
 from __future__ import annotations
 
 from gencomm_tpu_torch.loss.point_pillar_loss import (
+    AdapterLoss,
+    PointPillarCodebookLoss,
     PointPillarDiscoNetLoss,
     PointPillarGenCommLoss,
     PointPillarLoss,
+    PointPillarMPDALoss,
 )
 from gencomm_tpu_torch.loss.pyramid_loss import (
     PointPillarDepthLoss,
@@ -18,6 +21,9 @@ LOSSES.register("point_pillar_gencomm_loss", PointPillarGenCommLoss)
 LOSSES.register("point_pillar_disconet_loss", PointPillarDiscoNetLoss)
 LOSSES.register("point_pillar_depth_loss", PointPillarDepthLoss)
 LOSSES.register("point_pillar_pyramid_loss", PointPillarPyramidLoss)
+LOSSES.register("point_pillar_codebook_loss", PointPillarCodebookLoss)
+LOSSES.register("point_pillar_mpda_loss", PointPillarMPDALoss)
+LOSSES.register("adapter_loss", AdapterLoss)
 
 
 def build_loss(loss_hypes: dict):

@@ -3,9 +3,12 @@
 Counterpart of ``gencomm_tpu/loss/point_pillar_loss.py``
 (``sigmoid_focal_loss``, ``weighted_smooth_l1``, ``add_sin_difference``,
 ``direction_targets``, ``PointPillarLoss``, ``PointPillarGenCommLoss``,
-``PointPillarDiscoNetLoss``): sigmoid focal classification, weighted
-smooth-L1 regression with the sin-difference yaw, softmax direction-bin
-cross entropy, the GenComm generation MSE and DiscoNet's distillation KL.
+``PointPillarDiscoNetLoss``, ``PointPillarCodebookLoss``,
+``PointPillarMPDALoss``, ``AdapterLoss``): sigmoid focal classification,
+weighted smooth-L1 regression with the sin-difference yaw, softmax
+direction-bin cross entropy, the GenComm generation MSE, DiscoNet's
+distillation KL, CodeFilling's codebook MSE, MPDA's domain BCE and STAMP's
+adapter cycle loss.
 Prediction maps are channel-last (B, H', W', C).
 """
 
@@ -192,4 +195,80 @@ class PointPillarDiscoNetLoss(PointPillarLoss):
                   ).mean() * self.kd_weight
             losses["kd_loss"] = kd
             losses["total_loss"] = losses["total_loss"] + kd
+        return losses
+
+
+class PointPillarCodebookLoss(PointPillarLoss):
+    """Detection loss plus CodeFilling's codebook reconstruction MSE
+    (``codebook_loss`` of the output), unit weight."""
+
+    def __call__(self, output: dict, target: dict,
+                 suffix: str = "") -> Dict[str, torch.Tensor]:
+        losses = super().__call__(output, target, suffix)
+        if "codebook_loss" in output:
+            losses["codebook_loss"] = output["codebook_loss"]
+            losses["total_loss"] = losses["total_loss"] + output["codebook_loss"]
+        return losses
+
+
+class PointPillarMPDALoss(PointPillarLoss):
+    """Detection loss plus MPDA's domain BCE on the per-pixel logits
+    ``da_feature`` (B, L, H, W, 1): target 1 on the ego's slot, 0 on the
+    collaborators', averaged over the valid slots (``agent_mask`` of the
+    target) times H * W, else over every entry. The gradient reversal in
+    ``DAImgHead`` makes it adversarial for the features."""
+
+    def __call__(self, output: dict, target: dict,
+                 suffix: str = "") -> Dict[str, torch.Tensor]:
+        losses = super().__call__(output, target, suffix)
+        if "da_feature" in output:
+            logits = output["da_feature"]
+            l = logits.shape[1]
+            labels = (torch.arange(l, device=logits.device) == 0).to(
+                logits.dtype)[None, :, None, None, None].expand(logits.shape)
+            bce = (logits.clamp_min(0) - logits * labels
+                   + torch.log1p(torch.exp(-logits.abs())))
+            mask = target.get("agent_mask")
+            if mask is not None:
+                m = mask[:, :, None, None, None].to(logits.dtype)
+                per_slot = int(np.prod(logits.shape[2:]))
+                da = (bce * m).sum() / (m.sum() * per_slot).clamp_min(1.0)
+            else:
+                da = bce.mean()
+            losses["da_loss"] = da
+            losses["total_loss"] = losses["total_loss"] + da
+        return losses
+
+
+class AdapterLoss:
+    """STAMP's cycle-consistency loss, summed over the non-ego modalities
+    m: alpha_P2M MSE(FM, P2M) + alpha_M2P2M MSE(FM, M2P2M) + alpha_M2P
+    MSE(FP, M2P), from the output's ``stamp_*`` tensors. The weights are
+    read as ``alpha_P2M`` / ``alpha_M2P2M`` / ``alpha_M2P`` (default 1), as
+    the JAX package reads them."""
+
+    def __init__(self, args: dict):
+        self.alpha_p2m = args.get("alpha_P2M", 1.0)
+        self.alpha_m2p2m = args.get("alpha_M2P2M", 1.0)
+        self.alpha_m2p = args.get("alpha_M2P", 1.0)
+
+    def __call__(self, output: dict, target: dict,
+                 suffix: str = "") -> Dict[str, torch.Tensor]:
+        fp = output["stamp_FP"]
+        total = 0.0
+        losses = {}
+        for key in output:
+            if not key.startswith("stamp_FM_"):
+                continue
+            m = key[len("stamp_FM_"):]
+            fm = output[key]
+            p2m = torch.mean((fm - output[f"stamp_P2M_{m}"]) ** 2)
+            m2p2m = torch.mean((fm - output[f"stamp_M2P2M_{m}"]) ** 2)
+            m2p = torch.mean((fp - output[f"stamp_M2P_{m}"]) ** 2)
+            losses[f"P2M_{m}"] = p2m
+            losses[f"M2P2M_{m}"] = m2p2m
+            losses[f"M2P_{m}"] = m2p
+            total = total + (self.alpha_p2m * p2m + self.alpha_m2p2m * m2p2m
+                             + self.alpha_m2p * m2p)
+        losses["total_loss"] = total
         return losses

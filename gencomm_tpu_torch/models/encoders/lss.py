@@ -227,18 +227,22 @@ class LSSEncoder(nn.Module):
         ``depth_topk == 0`` all D bins are kept as they are."""
         cell_px = cell.permute(0, 1, 3, 4, 2)
         inb_px = inb.permute(0, 1, 3, 4, 2)
-        d_bins = depth.shape[-1]
         if self.depth_topk <= 0:
             return depth, cell_px, inb_px
-        remaining, picks, dvals = depth, [], []
-        for _ in range(min(self.depth_topk, d_bins)):
-            idx = remaining.argmax(dim=-1, keepdim=True)
-            dvals.append(remaining.gather(-1, idx))
-            picks.append(idx)
-            remaining = remaining.scatter(-1, idx, float("-inf"))
-        dvals, picks = torch.cat(dvals, dim=-1), torch.cat(picks, dim=-1)
+        picks = self.topk_picks(depth)
+        dvals = depth.gather(-1, picks)
         dvals = dvals / dvals.sum(dim=-1, keepdim=True).clamp_min(1e-6)
         return dvals, cell_px.gather(-1, picks), inb_px.gather(-1, picks)
+
+    def topk_picks(self, depth):
+        """The bins ``select_topk`` keeps, (A, N, fH, fW, K) int64, most
+        probable first: K argmax passes, the first index on ties."""
+        remaining, picks = depth.detach(), []
+        for _ in range(min(self.depth_topk, depth.shape[-1])):
+            idx = remaining.argmax(dim=-1, keepdim=True)
+            picks.append(idx)
+            remaining = remaining.scatter(-1, idx, float("-inf"))
+        return torch.cat(picks, dim=-1)
 
     def splat(self, geom, depth, feats):
         """Categorical-depth splat: geometry (A, N, D, fH, fW, 3), depth

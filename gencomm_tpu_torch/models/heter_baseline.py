@@ -6,13 +6,22 @@ SECOND (raw points) and lift_splat_shoot camera modalities, ``use_gencomm``
 (message extractor + conditional DDPM), ``use_enhancer``,
 ``supervise_single`` (per-agent heads),
 the two stage-2 switches ``missing_message_rate`` and ``gencomm_trick``,
-Where2comm's communication mask (``use_comm_mask``) and the intermediate
-fusions of ``models/fuse`` other than ``pyramid``, with fp32
-activations or, with ``half=True``, bf16 ones at eval. The model is built in
-``eval()``; under ``train()`` only the batch norms change (batch
-statistics, running averages updated), as in stage 1 of the JAX model,
-whose other train-time branches are off there. Every other branch raises
-``NotImplementedError``.
+Where2comm's communication mask (``use_comm_mask``), the intermediate
+fusions of ``models/fuse`` other than ``pyramid``, and the paper's four
+heterogeneous baselines: BackAlign (``feature_missing_rate`` /
+``feature_noise_std``, its eval-time corruption; no generation),
+CodeFilling (``use_codebook``, ``models/codebook.py``), MPDA
+(``use_mpda``, ``models/mpda.py``) and STAMP (``use_stamp``, the adapters
+and reverters of ``models/stamp.py``), with fp32 activations or, with
+``half=True``, bf16 ones at eval. The order is the JAX model's: STAMP's
+combine in protocol space, BackAlign's corruption, ``heads_single``, MPDA,
+the codebook, the comm mask, GenComm, fusion, heads. The model is built in
+``eval()``; ``train()`` switches the batch norms to batch statistics, the
+codebook to its Gumbel sample, and STAMP's reverters on (the cycle
+tensors of its loss); BackAlign's corruption is eval-only. The random
+draws (the codebook's Gumbel noise, the corruption's and the message
+drop's) come from the caller's ``generator``. Every other branch raises
+``NotImplementedError`` (``seg_head_args``, the ``gmatch`` loss).
 
 ``half`` (``gencomm_tpu/models/heter_baseline.py:51-52, 70-75, 286, 517,
 541, 547, 562``): parameters stay fp32, so one ``state_dict`` serves both
@@ -43,6 +52,7 @@ from torch import nn
 from gencomm_tpu_torch import resolve_device
 from gencomm_tpu_torch.data.bucketing import AGENT_BUCKETS
 from gencomm_tpu_torch.models.backbones.bev_backbone import BEVBackbone
+from gencomm_tpu_torch.models.codebook import UMGMQuantizer
 from gencomm_tpu_torch.models.encoders.lss import (
     LSSEncoder, center_crop_or_pad,
 )
@@ -55,7 +65,21 @@ from gencomm_tpu_torch.models.gencomm.enhancer import Enhancer
 from gencomm_tpu_torch.models.gencomm.message_extractor import MessageExtractor
 from gencomm_tpu_torch.models.heads import DetectionHeads
 from gencomm_tpu_torch.models.layers import DownsampleConv
+from gencomm_tpu_torch.models.mpda import (
+    CrossDomainFusionEncoder, DAImgHead, LearnableResizer,
+)
+from gencomm_tpu_torch.models.stamp import StampAdapter
 from gencomm_tpu_torch.utils.transformation_utils import normalize_pairwise_tfm
+
+
+def uniform(shape, generator: torch.Generator, device) -> torch.Tensor:
+    """U[0, 1) draws of the eval-time drops, from ``generator``."""
+    return torch.rand(shape, generator=generator, device=device)
+
+
+def normal(shape, generator: torch.Generator, device) -> torch.Tensor:
+    """N(0, 1) draws of BackAlign's eval-time noise, from ``generator``."""
+    return torch.randn(shape, generator=generator, device=device)
 
 
 class ModalityBranch(nn.Module):
@@ -175,7 +199,16 @@ class HeterModel(nn.Module):
                  gencomm_trick: bool = False,
                  fusion_args: Dict[str, Any] | None = None,
                  num_agents: int | None = None, use_comm_mask: bool = False,
-                 comm_thre: float = 0.01, device=None):
+                 comm_thre: float = 0.01,
+                 feature_missing_rate: float = 0.0,
+                 feature_noise_std: float = 0.0,
+                 use_codebook: bool = False, codebook_seg: int = 2,
+                 codebook_dict_sizes: Sequence[int] = (64, 64, 64),
+                 use_mpda: bool = False, mpda_window_size: int = 8,
+                 mpda_depth: int = 1, use_stamp: bool = False,
+                 ego_modality: str = "m1",
+                 stamp_args: Dict[str, Dict[str, Any]] | None = None,
+                 device=None):
         super().__init__()
         if num_class != 1:
             raise NotImplementedError(
@@ -192,6 +225,11 @@ class HeterModel(nn.Module):
         # and the prediction masked where the true feature is zero
         self.missing_message_rate = float(missing_message_rate)
         self.gencomm_trick = gencomm_trick
+        # BackAlign: the eval-time drop and noise of the non-ego features
+        self.feature_missing_rate = float(feature_missing_rate)
+        self.feature_noise_std = float(feature_noise_std)
+        self.use_codebook, self.use_mpda = use_codebook, use_mpda
+        self.use_stamp, self.ego_modality = use_stamp, ego_modality
         self.modalities = list(modality_args)
         # camera modalities: name -> the (x, y) extent of their BEV grid
         self.camera_extent = {
@@ -210,6 +248,34 @@ class HeterModel(nn.Module):
             if use_gencomm:
                 self.add_module(f"message_extractor_{mname}",
                                 MessageExtractor(feat_ch, message_ch))
+        if use_stamp:
+            # each non-ego modality's adapter to the protocol space (the
+            # ego's feature space) and reverter back; the reverters run in
+            # training only, and are built for eval too so that one
+            # state_dict serves both
+            self.modality_range = {
+                m: tuple(a["encoder_args"].get("lidar_range", lidar_range))
+                for m, a in modality_args.items()}
+            for mname in self.modalities:
+                if mname == ego_modality:
+                    continue
+                cfgs = (stamp_args or {}).get(mname, {})
+                self.add_module(f"adapter_{mname}", StampAdapter.from_config(
+                    cfgs.get("adapter", {}), self.modality_range[mname],
+                    lidar_range))
+                self.add_module(f"reverter_{mname}", StampAdapter.from_config(
+                    cfgs.get("reverter", {}), lidar_range,
+                    self.modality_range[mname]))
+        if use_mpda:
+            self.resizer = LearnableResizer(feat_ch, feat_ch,
+                                            wg_depth=mpda_depth,
+                                            window_size=mpda_window_size)
+            self.cdt = CrossDomainFusionEncoder(feat_ch, depth=mpda_depth,
+                                                window_size=mpda_window_size)
+            self.classifier = DAImgHead(feat_ch)
+        if use_codebook:
+            self.codebook = UMGMQuantizer(feat_ch, codebook_seg,
+                                          codebook_dict_sizes)
         if use_gencomm:
             self.gencomm = GenCommDiffusion(
                 feat_ch=feat_ch, msg_ch=message_ch,
@@ -263,6 +329,51 @@ class HeterModel(nn.Module):
         return (int(round(h * (self.lidar_range[4] / ymax))),
                 int(round(w * (self.lidar_range[3] / xmax))))
 
+    def _stamp_combine(self, feats, batch, out):
+        """STAMP: the combined feature in protocol space, each non-ego
+        modality through its adapter; in training also the cycle tensors
+        of the adapter loss (FP, and per modality FM, M2P, M2P2M, P2M)."""
+        fp = feats[self.ego_modality]
+        out["stamp_FP"] = fp
+        feature = None
+        for mname in self.modalities:
+            f = feats[mname]
+            if mname == self.ego_modality:
+                proto = f
+            else:
+                b, l = f.shape[:2]
+                flat = f.reshape((b * l,) + f.shape[2:])
+                m2p = getattr(self, f"adapter_{mname}")(flat, fp.shape[2:4])
+                proto = m2p.reshape((b, l) + m2p.shape[1:])
+                if self.training:
+                    reverter = getattr(self, f"reverter_{mname}")
+                    out[f"stamp_FM_{mname}"] = f
+                    out[f"stamp_M2P_{mname}"] = proto
+                    out[f"stamp_M2P2M_{mname}"] = reverter(
+                        m2p, f.shape[2:4]).reshape(f.shape)
+                    out[f"stamp_P2M_{mname}"] = reverter(
+                        fp.reshape((b * l,) + fp.shape[2:]),
+                        f.shape[2:4]).reshape(f.shape)
+            mmask = batch[f"modality_mask_{mname}"].to(proto.dtype)[
+                ..., None, None, None]
+            contrib = proto * mmask
+            feature = contrib if feature is None else feature + contrib
+        return feature
+
+    def _mpda(self, feature, out):
+        """MPDA: the non-ego features resized and aligned to the ego's
+        domain, conditioned on the ego's feature; every slot's per-pixel
+        domain logits (``da_feature``) behind the gradient reversal."""
+        b, l, h, w, c = feature.shape
+        cavs = feature[:, 1:].reshape((b * (l - 1), h, w, c))
+        ego_rep = feature[:, 0:1].expand(b, l - 1, h, w, c).reshape(cavs.shape)
+        aligned = self.cdt(ego_rep, self.resizer(ego_rep, cavs))
+        feature = torch.cat([feature[:, :1],
+                             aligned.reshape((b, l - 1, h, w, c))], dim=1)
+        out["da_feature"] = self.classifier(
+            feature.reshape((b * l, h, w, c))).reshape((b, l, h, w, 1))
+        return feature
+
     def forward(self, batch: Dict[str, torch.Tensor], noises=None,
                 generator: torch.Generator | None = None) -> Dict[str, Any]:
         """batch: tensors on the model's device (``agent_mask``,
@@ -282,7 +393,11 @@ class HeterModel(nn.Module):
         agent slot's own heads, ``cls_preds_single``, ``reg_preds_single``
         and ``dir_preds_single`` over (B * L, H, W, .). With the
         communication mask it holds ``comm_rate``, the share of the
-        neighbours' cells sent."""
+        neighbours' cells sent. The baselines add ``da_feature`` (MPDA's
+        domain logits, (B, L, H, W, 1)), ``codebook_loss`` and
+        ``codebook_codes`` (B, L, stages, H * W * seg), and STAMP's
+        ``stamp_FP`` with, in training, ``stamp_FM_<m>``, ``stamp_M2P_<m>``,
+        ``stamp_M2P2M_<m>`` and ``stamp_P2M_<m>`` for its loss."""
         out: Dict[str, Any] = {}
         agent_mask = batch["agent_mask"].bool()
         b, l = agent_mask.shape
@@ -292,6 +407,7 @@ class HeterModel(nn.Module):
             batch["pairwise_t_matrix"].to(torch.float32), hm, wm, 1.0)
 
         feature = message = None
+        feats: Dict[str, torch.Tensor] = {}
         for mname in self.modalities:
             if mname in self.camera_extent:
                 inputs = {k: batch[f"{k}_{mname}"] for k in (
@@ -317,10 +433,13 @@ class HeterModel(nn.Module):
                     out[f"depth_items_{mname}"] = (logits, gt_idx, wt)
                 else:
                     out[f"depth_items_{mname}"] = depth_logits
+            feats[mname] = feat
             mmask = batch[f"modality_mask_{mname}"].to(feat.dtype)[
                 ..., None, None, None]
-            contrib = feat * mmask
-            feature = contrib if feature is None else feature + contrib
+            if not self.use_stamp:
+                # STAMP's modalities combine below, in protocol space
+                contrib = feat * mmask
+                feature = contrib if feature is None else feature + contrib
             if self.use_gencomm:
                 flat = feat.reshape((b * l,) + feat.shape[2:])
                 msg = getattr(self, f"message_extractor_{mname}")(flat)
@@ -328,12 +447,43 @@ class HeterModel(nn.Module):
                 mcontrib = msg * mmask
                 message = mcontrib if message is None else message + mcontrib
 
+        if self.use_stamp:
+            feature = self._stamp_combine(feats, batch, out)
         hw = tuple(feature.shape[2:4])
+        if not self.training and (self.feature_missing_rate > 0
+                                  or self.feature_noise_std > 0):
+            # BackAlign: each non-ego feature loses random pixels and takes
+            # Gaussian noise; the ego's stays intact
+            if generator is None:
+                raise ValueError("the feature corruption draws from a "
+                                 "generator; none was given")
+            keep = uniform((b, l) + hw + (1,), generator,
+                           feature.device) > self.feature_missing_rate
+            noise = normal(feature.shape, generator,
+                           feature.device) * self.feature_noise_std
+            corrupted = feature * keep + noise
+            is_ego = torch.arange(l, device=feature.device)[
+                None, :, None, None, None] == 0
+            feature = torch.where(is_ego, feature, corrupted)
         if self.heads_single is not None:
             cls_s, reg_s, dir_s = self.heads_single(
                 feature.reshape((b * l,) + feature.shape[2:]).to(torch.float32))
             out.update(cls_preds_single=cls_s, reg_preds_single=reg_s,
                        dir_preds_single=dir_s)
+        if self.use_mpda:
+            feature = self._mpda(feature, out)
+        if self.use_codebook:
+            # the transmitted features are quantized, the ego keeps its own
+            c = feature.shape[-1]
+            restored, codes, out["codebook_loss"] = self.codebook(
+                feature.reshape(-1, c), generator=generator)
+            is_ego = torch.arange(l, device=feature.device)[
+                None, :, None, None, None] == 0
+            feature = torch.where(is_ego, feature,
+                                  restored.reshape(feature.shape))
+            # the code indices are the payload, (B, L, stages, H * W * seg)
+            out["codebook_codes"] = torch.stack(
+                [q.reshape(b, l, -1) for q in codes], dim=2)
         if self.communication is not None:
             # Where2comm: cells of low confidence under the shared heads are
             # not sent (a hard threshold, no gradient), before generation
@@ -350,8 +500,8 @@ class HeterModel(nn.Module):
                 if generator is None:
                     raise ValueError("missing_message_rate draws its mask "
                                      "from a generator; none was given")
-                keep = torch.rand((b, l) + hw + (1,), generator=generator,
-                                  device=message.device) > self.missing_message_rate
+                keep = uniform((b, l) + hw + (1,), generator,
+                               message.device) > self.missing_message_rate
                 keep[:, 0] = True
                 message = message * keep
             out["message"] = message
@@ -379,25 +529,16 @@ class HeterModel(nn.Module):
         return out
 
 
-# model cores of the JAX package's heter family whose extra branches are
-# not ported, with the ROADMAP item that ports them
-_UNPORTED_CORES = {"backalign": 16, "codebook": 16, "mpda": 16, "stamp": 16}
-
-
 def model_kwargs(hypes: dict) -> Dict[str, Any]:
     """``HeterModel`` arguments from a hypes dict, as ``build_model`` of
     the JAX package reads its ``model.args`` block; raises
     ``NotImplementedError`` for a branch the port does not have."""
     args = hypes["model"]["args"]
     core = hypes["model"]["core_method"].lower()
-    for name, item in _UNPORTED_CORES.items():
-        if name in core:
-            raise NotImplementedError(
-                f"model {core!r} is not ported yet (ROADMAP item {item})")
-    for key, item in (("codebook", 16), ("seg_head_args", 16)):
-        if key in args:
-            raise NotImplementedError(
-                f"model.args.{key} is not ported yet (ROADMAP item {item})")
+    if "seg_head_args" in args:
+        raise NotImplementedError(
+            "model.args.seg_head_args (STAMP's BEV segmentation head) is not "
+            "ported yet (ROADMAP item 16)")
     if "gmatch" in hypes.get("loss", {}).get("core_method", ""):
         raise NotImplementedError(
             "the gradient-matching model branch is not ported yet (ROADMAP "
@@ -410,7 +551,18 @@ def model_kwargs(hypes: dict) -> Dict[str, Any]:
             enc.setdefault("lidar_range", args["lidar_range"])
             margs["encoder_args"] = enc
             modality_args[key] = margs
-    use_gencomm = "gencomm" in core or "gencomm" in args
+    # BackAlign never generates: its features, not messages, cross agents
+    use_gencomm = ("gencomm" in core or "gencomm" in args) \
+        and "backalign" not in core
+    # BackAlign's eval-time corruption, at the reference's fixed drop rate
+    # 0.05 and noise std 3.0
+    backalign_missing = "backalign" in core and bool(
+        args.get("missing_message", False))
+    codebook = args.get("codebook", {})
+    dict_size = codebook.get("dict_size", (64, 64, 64))
+    if isinstance(dict_size, int):
+        dict_size = (dict_size,) * 3  # three equal levels
+    use_stamp = "stamp" in core
     gencomm_cfg = args.get("gencomm", {})
     unet_cfg = gencomm_cfg.get("model", {})
     diff_cfg = gencomm_cfg.get("diffusion", {})
@@ -442,6 +594,19 @@ def model_kwargs(hypes: dict) -> Dict[str, Any]:
         missing_message_rate=(
             0.4 if use_gencomm and args.get("missing_message", False) else 0.0),
         gencomm_trick=bool(args.get("trick", False)),
+        feature_missing_rate=0.05 if backalign_missing else 0.0,
+        feature_noise_std=3.0 if backalign_missing else 0.0,
+        use_codebook="codebook" in args,
+        codebook_seg=codebook.get("seg_num", 2),
+        codebook_dict_sizes=tuple(dict_size),
+        use_mpda="mpda" in core,
+        mpda_window_size=args.get("cdt", {}).get("window_size", 8),
+        mpda_depth=args.get("cdt", {}).get("depth", 1),
+        use_stamp=use_stamp,
+        ego_modality=str(args.get("ego_modality", "m1")),
+        stamp_args={m: {"adapter": v.get("adapter", {}),
+                        "reverter": v.get("reverter", {})}
+                    for m, v in modality_args.items()} if use_stamp else None,
     )
 
 

@@ -24,6 +24,7 @@ from __future__ import annotations
 import math
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -324,3 +325,37 @@ class NaiveCompressor(nn.Module):
     def forward(self, x):
         x = self.ConvBNReLU_1(self.ConvBNReLU_0(x))
         return torch.relu(self.BatchNorm_0(self.Conv_0(x)))
+
+
+def _resize_weights(n_in: int, n_out: int) -> np.ndarray:
+    """(n_in, n_out) weights of ``jax.image.resize``'s "bilinear" along one
+    axis (``compute_weight_mat``, antialiased): a triangle kernel widened
+    by 1 / scale when the axis shrinks, each output's weights normalised,
+    in fp32 as JAX computes them."""
+    f32 = np.float32
+    inv_scale = f32(1.0) / f32(n_out / n_in)
+    kernel_scale = max(inv_scale, f32(1.0))
+    sample = (np.arange(n_out, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None]) \
+        / kernel_scale
+    w = np.maximum(f32(0.0), f32(1.0) - x).astype(f32)
+    total = w.sum(0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], w, f32(0.0)).astype(f32)
+
+
+def resize_bilinear(x: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.image.resize(x, shape, "bilinear")``: every axis whose size
+    changes is contracted with its weight matrix (``_resize_weights``);
+    unlike ``F.interpolate`` it antialiases where an axis shrinks. Axes
+    of equal size are left as they are."""
+    if len(shape) != x.dim():
+        raise ValueError(f"shape {tuple(shape)} does not match {tuple(x.shape)}")
+    for d, n in enumerate(shape):
+        if x.shape[d] != n:
+            w = torch.from_numpy(_resize_weights(x.shape[d], n)).to(
+                device=x.device, dtype=x.dtype)
+            x = torch.tensordot(x, w, dims=([d], [0])).movedim(-1, d)
+    return x

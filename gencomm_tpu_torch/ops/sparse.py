@@ -11,7 +11,8 @@ keep every shape static:
     sorts last;
   - a submanifold conv gathers each active voxel's 27 neighbours' rows (the
     list's zero row where there is none) and multiplies (K, 27 Cin) by
-    (27 Cin, Cout), chunk by chunk;
+    (27 Cin, Cout), chunk by chunk; its backward (``gather_matmul``) is the
+    same gather-product over the inverse index, with no atomics;
   - a strided conv proposes, per input voxel, the output sites whose
     receptive field covers it (at most 2 a dimension for kernel 3, stride
     <= 2), and deduplicates them by sort + first occurrence + ``cumsum`` +
@@ -126,7 +127,9 @@ def _chunked_gather_matmul(feats_padded: torch.Tensor, idx: torch.Tensor,
     time, so that no more than (chunk, N Cin) is gathered at once.
 
     feats_padded (K'+1, Cin) with a zero last row; idx (K, N) int32;
-    weight (N, Cin, Cout)."""
+    weight (N, Cin, Cout). The plain form: its backward is autograd's, whose
+    input gradient adds by ``index_add_`` (atomics on CUDA, so its bits vary
+    from run to run); ``gather_matmul`` is the form the convs take."""
     k, n = idx.shape
     wmat = weight.reshape(n * weight.shape[1], weight.shape[2])
     outs = []
@@ -137,12 +140,94 @@ def _chunked_gather_matmul(feats_padded: torch.Tensor, idx: torch.Tensor,
     return torch.cat(outs) if len(outs) > 1 else outs[0]
 
 
+def inverse_index(idx: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """inv (num_rows, N) int32: inv[j, n] is the row k with idx[k, n] == j,
+    or K (one past the end of idx's rows) where there is none.
+
+    ``idx`` (K, N) holds, per tap n, distinct values below ``num_rows``
+    apart from ``num_rows`` itself (a missing neighbour). That holds for
+    both convs: coord(k) + off(n) is injective in k, and so is s * o - p +
+    off(n) in o. So the scatter's targets are unique within a tap, and the
+    missing neighbours all land in a dump row that is dropped."""
+    k, n = idx.shape
+    inv = torch.full(((num_rows + 1) * n,), k, dtype=torch.int32,
+                     device=idx.device)
+    taps = torch.arange(n, dtype=torch.int64, device=idx.device)
+    rows = torch.arange(k, dtype=torch.int32, device=idx.device)
+    inv.scatter_(0, (idx.long() * n + taps).reshape(-1),
+                 rows[:, None].expand(k, n).reshape(-1))
+    return inv.reshape(num_rows + 1, n)[:num_rows]
+
+
+class _GatherMatmul(torch.autograd.Function):
+    """``_chunked_gather_matmul`` on the unpadded rows, with a backward that
+    adds nothing by atomics and sums in a fixed order: the input gradient
+    is the same chunked gather-product over ``inverse_index`` with the
+    weights transposed (d feats[j] = sum_n g[inv[j, n]] @ W[n]^T), and the
+    weight gradient is the sum over the chunks, in chunk order, of
+    gathered^T @ g."""
+
+    @staticmethod
+    def forward(ctx, feats, idx, weight, chunk):
+        feats_p = torch.cat([feats, feats.new_zeros((1, feats.shape[1]))])
+        ctx.save_for_backward(feats, idx, weight)
+        ctx.chunk = chunk
+        return _chunked_gather_matmul(feats_p, idx, weight, chunk)
+
+    @staticmethod
+    def backward(ctx, grad):
+        feats, idx, weight = ctx.saved_tensors
+        chunk = ctx.chunk
+        k, n = idx.shape
+        grad = grad.contiguous()
+        d_feats = d_weight = None
+        if ctx.needs_input_grad[0]:
+            grad_p = torch.cat([grad, grad.new_zeros((1, grad.shape[1]))])
+            inv = inverse_index(idx, feats.shape[0])
+            d_feats = _chunked_gather_matmul(
+                grad_p, inv, weight.transpose(1, 2), chunk)
+        if ctx.needs_input_grad[2]:
+            feats_p = torch.cat([feats, feats.new_zeros((1, feats.shape[1]))])
+            d_w = None
+            for s in range(0, k, chunk):
+                part = idx[s:s + chunk]
+                g = feats_p.index_select(0, part.reshape(-1)).reshape(
+                    part.shape[0], -1)
+                term = g.transpose(0, 1) @ grad[s:s + chunk]
+                d_w = term if d_w is None else d_w + term
+            d_weight = d_w.reshape(weight.shape)
+        return d_feats, None, d_weight, None
+
+
+def gather_matmul(feats: torch.Tensor, idx: torch.Tensor,
+                  weight: torch.Tensor, chunk: int = 8192) -> torch.Tensor:
+    """out[k] = sum_n feats[idx[k, n]] @ weight[n], with a zero row where
+    idx[k, n] == K' (feats (K', Cin)); idx (K, N) int32, at most one row
+    k a tap per feats row (``inverse_index``); weight (N, Cin, Cout).
+    Its backward has no atomics: two runs give the same bits."""
+    return _GatherMatmul.apply(feats, idx, weight, chunk)
+
+
 def _conv_rows(feats, idx, weight, chunk):
-    feats_p = torch.cat([feats, feats.new_zeros((1, feats.shape[1]))])
     kernel = tuple(weight.shape[:3])
     n = kernel[0] * kernel[1] * kernel[2]
-    return _chunked_gather_matmul(feats_p, idx,
-                                  weight.reshape(n, *weight.shape[3:]), chunk)
+    return gather_matmul(feats, idx, weight.reshape(n, *weight.shape[3:]),
+                         chunk)
+
+
+def subm_index(coords, valid, kernel: Grid, grid_dhw: Grid,
+               sorted_keys=None, sorted_idx=None) -> torch.Tensor:
+    """(K, kz * ky * kx) int32: each active site's neighbour at every
+    kernel offset, K (the list's zero row) where there is none or the site
+    is not valid."""
+    k = coords.shape[0]
+    if sorted_keys is None:
+        sorted_keys, sorted_idx = build_index(
+            linear_key(coords, grid_dhw, valid))
+    offs = _offsets(kernel, coords.device)
+    nkeys = linear_key(_neighbour_coords(coords, coords[:, 1:], offs),
+                       grid_dhw, valid[:, None].expand(k, offs.shape[0]))
+    return lookup(sorted_keys, sorted_idx, nkeys.reshape(-1)).reshape(k, -1)
 
 
 def subm_conv3d(feats, coords, valid, weight, grid_dhw: Grid,
@@ -152,25 +237,16 @@ def subm_conv3d(feats, coords, valid, weight, grid_dhw: Grid,
     feats (K, Cin); coords (K, 4) int32; valid (K,) bool; weight (kz, ky,
     kx, Cin, Cout). A prebuilt (sorted_keys, sorted_idx) of the same list
     saves the sort for every conv that shares it (spconv's indice_key)."""
-    k = feats.shape[0]
-    if sorted_keys is None:
-        sorted_keys, sorted_idx = build_index(
-            linear_key(coords, grid_dhw, valid))
-    offs = _offsets(tuple(weight.shape[:3]), coords.device)
-    nkeys = linear_key(_neighbour_coords(coords, coords[:, 1:], offs),
-                       grid_dhw, valid[:, None].expand(k, offs.shape[0]))
-    idx = lookup(sorted_keys, sorted_idx, nkeys.reshape(-1)).reshape(k, -1)
+    idx = subm_index(coords, valid, tuple(weight.shape[:3]), grid_dhw,
+                     sorted_keys, sorted_idx)
     return _conv_rows(feats, idx, weight, chunk) * valid[:, None]
 
 
-def spconv3d_downsample(feats, coords, valid, weight, grid_dhw: Grid,
-                        stride: Grid, padding: Grid, out_capacity: int,
-                        chunk: int = 8192):
-    """Strided ("regular") sparse conv with spconv's output-site dilation.
-
-    Returns (out_feats (K_out, Cout), out_coords (K_out, 4) int32,
-    out_valid (K_out,), out_grid_dhw)."""
-    kernel = tuple(weight.shape[:3])
+def downsample_index(coords, valid, kernel: Grid, grid_dhw: Grid,
+                     stride: Grid, padding: Grid, out_capacity: int):
+    """A strided conv's output sites and their inputs: (idx (K_out, kz * ky
+    * kx) int32 into the input list, K_in where an input is missing,
+    out_coords (K_out, 4) int32, out_valid (K_out,), out_grid_dhw)."""
     out_grid = tuple((grid_dhw[i] + 2 * padding[i] - kernel[i]) // stride[i]
                      + 1 for i in range(3))
     # the output sites covering an input voxel, per dimension: the integer o
@@ -203,6 +279,19 @@ def spconv3d_downsample(feats, coords, valid, weight, grid_dhw: Grid,
                        out_valid[:, None].expand(-1, offs.shape[0]))
     idx = lookup(sorted_keys, sorted_idx, nkeys.reshape(-1)).reshape(
         out_capacity, -1)
+    return idx, out_coords, out_valid, out_grid
+
+
+def spconv3d_downsample(feats, coords, valid, weight, grid_dhw: Grid,
+                        stride: Grid, padding: Grid, out_capacity: int,
+                        chunk: int = 8192):
+    """Strided ("regular") sparse conv with spconv's output-site dilation.
+
+    Returns (out_feats (K_out, Cout), out_coords (K_out, 4) int32,
+    out_valid (K_out,), out_grid_dhw)."""
+    idx, out_coords, out_valid, out_grid = downsample_index(
+        coords, valid, tuple(weight.shape[:3]), grid_dhw, stride, padding,
+        out_capacity)
     out = _conv_rows(feats, idx, weight, chunk)
     return out * out_valid[:, None], out_coords, out_valid, out_grid
 

@@ -14,10 +14,13 @@ sub-commands and flags:
         --out <dir> --map old=new [old=new ...]
     python -m gencomm_tpu_torch.tools.heal_tools remove --ckpt <dir> \
         --out <dir> --prefix <module prefix> [...]
+    python -m gencomm_tpu_torch.tools.heal_tools merge-final \
+        --ckpts <dir> [<dir> ...] --out <dir>
 
 ``merge`` writes the union of the two ``state_dict``s as ``<out>/step_0``;
 on a conflict the collaboration base's tensor wins unless
-``--prefer_new_agent``. A module is a key's first component (flax's
+``--prefer_new_agent``; ``merge-final`` writes the union of several,
+the later winning. A module is a key's first component (flax's
 top-level module). The tensors are loaded onto ``--device`` (default
 ``cuda``; ``cpu`` on a machine without a card), where ``merge`` compares
 the overlapping ones; the checkpoints written hold CPU tensors.
@@ -115,6 +118,19 @@ def remove(args):
     print("written to", checkpoint.save_checkpoint(args.out, sd, 0))
 
 
+def merge_final(args):
+    """The union of several run dirs' (or checkpoints') ``state_dict``s,
+    the later ones winning on a conflict (STAMP's final merge of the
+    aligned agents), written as ``<out>/step_0``."""
+    merged = {}
+    for d in args.ckpts:
+        merged = checkpoint.merge_params(
+            merged, _load(d, args.device)["state_dict"], prefer="new")
+    target = checkpoint.save_checkpoint(args.out, merged, 0)
+    print("written to", target)
+    return target
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--device", default="cuda",
@@ -149,11 +165,8 @@ def main(argv=None):
     cl.add_argument("--path", required=True)
     args = parser.parse_args(argv)
     args.device = resolve_device(args.device)
-    if args.cmd == "merge-final":
-        raise NotImplementedError(
-            "merge-final (STAMP) is not ported yet (ROADMAP item 16)")
     return {"merge": merge, "best": best, "rename": rename, "remove": remove,
-            "clean": clean}[args.cmd](args)
+            "merge-final": merge_final, "clean": clean}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -37,7 +37,7 @@ from gencomm_tpu_torch.pipeline import InferencePipeline, batch_to_device
 from gencomm_tpu_torch.tools.train import DATASETS, build_dataset
 from gencomm_tpu_torch.train import checkpoint
 from gencomm_tpu_torch.utils import box_utils, eval_utils
-from gencomm_tpu_torch.utils.misc_utils import cpm_size_bytes
+from gencomm_tpu_torch.utils.misc_utils import code_stream_bytes, cpm_size_bytes
 
 
 def parse_args(argv=None):
@@ -105,30 +105,55 @@ def cap_agents(host: dict, use_cav: int) -> dict:
     return host
 
 
-def comm_report(model, batch: dict) -> dict:
+def comm_report(model, batch: dict, hypes: dict | None = None) -> dict:
     """The payload the valid non-ego agents of ``batch`` send: GenComm's
-    2-channel message, else the BEV feature; fp16 bytes raw and deflated.
-    A model whose output has neither (the HEAL pyramid) reports zero-width
-    rows, 0 bytes, as the JAX package's report does (ROADMAP fault l)."""
+    2-channel message, else the per-agent BEV feature (``gt_feature``);
+    fp16 bytes raw and deflated. A model whose output has neither (the HEAL
+    pyramid, a model without generation) reports zero-width rows, 0 bytes,
+    as the JAX package's report does (ROADMAP fault l).
+    With the communication mask the share of cells sent (``comm_rate``).
+    A CodeFilling model sends its code indices: the code stream's bytes
+    per stage (packed, entropy bound, deflated; ``code_bytes_per_stage``)
+    and their sums, with each stage's dictionary size from the hypes'
+    ``codebook.dict_size`` (64 where it names none)."""
     with torch.inference_mode():
         out = model(batch, generator=torch.Generator(
             device=model.device).manual_seed(0))
     amask = batch["agent_mask"][0].cpu().numpy() > 0
     senders = np.nonzero(amask[1:])[0] + 1
+    report = {}
+    if "comm_rate" in out:
+        report["comm_rate"] = float(out["comm_rate"])
     if out.get("message") is not None:
         payload = "gencomm_message_2ch"
         per_agent = out["message"][0].float().cpu().numpy()[senders]
-    elif out.get("feature") is not None:
+    elif out.get("gt_feature") is not None:
         payload = "bev_feature"
-        per_agent = out["feature"].float().cpu().numpy().reshape(
+        per_agent = out["gt_feature"].float().cpu().numpy().reshape(
             (amask.shape[0], -1))[senders]
     else:
         payload = "bev_feature"
         per_agent = np.zeros((len(senders), 0), np.float16)
     sizes = cpm_size_bytes(per_agent)
-    return {"payload": payload, "n_senders": int(len(senders)),
-            "cpm_bytes_fp16_raw": sizes["raw_bytes"],
-            "cpm_bytes_fp16_deflate": sizes["compressed_bytes"]}
+    report.update(payload=payload, n_senders=int(len(senders)),
+                  cpm_bytes_fp16_raw=sizes["raw_bytes"],
+                  cpm_bytes_fp16_deflate=sizes["compressed_bytes"])
+    if out.get("codebook_codes") is not None:
+        dict_sizes = ((hypes or {}).get("model", {}).get("args", {})
+                      .get("codebook", {}).get("dict_size", [64, 64, 64]))
+        if not isinstance(dict_sizes, (list, tuple)):
+            dict_sizes = [dict_sizes]
+        codes = out["codebook_codes"][0].cpu().numpy()[senders]
+        per_stage = [code_stream_bytes(
+            codes[:, s], int(dict_sizes[min(s, len(dict_sizes) - 1)]))
+            for s in range(codes.shape[1])]
+        report["payload"] = "codebook_codes"
+        report["code_bytes_per_stage"] = per_stage
+        for key, part in (("packed", "raw_bytes"),
+                          ("entropy", "entropy_bytes"),
+                          ("deflate", "compressed_bytes")):
+            report[f"cpm_code_bytes_{key}"] = sum(s[part] for s in per_stage)
+    return report
 
 
 def main(argv=None):
@@ -188,7 +213,8 @@ def main(argv=None):
             eval_utils.calculate_tp_fp(corners, scores, gt, stat, t)
 
     if args.report_comm and host is not None:
-        print("comm report:", comm_report(model, batch_to_device(host, device)))
+        print("comm report:", comm_report(model, batch_to_device(host, device),
+                                          hypes))
 
     for global_sort in (False, True):
         res = eval_utils.eval_final_results(stat, global_sort)

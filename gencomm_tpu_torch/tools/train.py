@@ -10,7 +10,9 @@ Counterpart of ``gencomm_tpu/tools/train.py`` on the synthetic dataset:
 The hypes yaml builds the model (``create_model``) and its criterion
 (``create_loss``); ``config.yaml`` in ``--model_dir`` is authoritative and
 is written there. A ``stage2`` model trains only the new agents' message
-extractors, the rest frozen (``train.trainer``). A run resumes from the
+extractors, the rest frozen (``train.trainer``); the paper's baselines
+train with their own schedules (``frozen_predicate``: BackAlign, CodeFilling,
+STAMP, MPDA) and losses. A run resumes from the
 newest ``step_N`` in its model dir unless ``--init_from`` names a
 checkpoint to start from (non-strict: parameters and running statistics
 where names and shapes match, the rest reported). A
@@ -158,11 +160,14 @@ def epoch_batches(dataset, batch_size: int, dataset_kind: str, adapt,
 
 
 def frozen_predicate(args, hypes: dict):
-    """The freeze schedule: ``--freeze_prefixes``, else the stage-2
-    protocol's for a ``stage2`` model, HEAL's for ``heter_pyramid_single``
-    (the shared pyramid and the heads frozen: only the new agent's
-    encoder, backbone and aligner learn); None trains everything. The
-    BackAlign, codebook, STAMP and MPDA schedules raise."""
+    """The freeze schedule, in the JAX CLI's order: ``--freeze_prefixes``;
+    the stage-2 protocol's for a ``stage2`` model; BackAlign's (the fusion,
+    the shared heads and the ego's branch, by exact name); HEAL's for
+    ``heter_pyramid_single`` (the shared pyramid and the heads frozen: only
+    the new agent's encoder, backbone and aligner learn); CodeFilling's
+    (only the ``codebook`` trains); STAMP's (only the adapters and
+    reverters); MPDA's (the modality branches frozen). None trains
+    everything."""
     core = hypes["model"]["core_method"].lower()
     if args.freeze_prefixes:
         return trainer.freeze_by_prefixes(args.freeze_prefixes.split(","))
@@ -170,14 +175,22 @@ def frozen_predicate(args, hypes: dict):
         trainable = trainer.stage2_trainable_prefixes(hypes)
         print("stage-2 freeze: training only", trainable)
         return trainer.freeze_all_except(trainable)
-    for name in ("backalign", "codebook", "stamp", "mpda"):
-        if name in core:
-            raise NotImplementedError(
-                f"the {name} freeze schedule is not ported yet (ROADMAP "
-                "item 16)")
+    if "backalign" in core:
+        frozen = trainer.backalign_frozen_modules(hypes)
+        print("backalign freeze:", frozen)
+        return trainer.freeze_exact(frozen)
     if core == "heter_pyramid_single":
         print("pyramid-single freeze: ['pyramid_backbone', 'heads']")
         return trainer.freeze_by_prefixes(["pyramid_backbone", "heads"])
+    if "codebook" in core:
+        print("codebook freeze: training only ['codebook']")
+        return trainer.freeze_all_except(["codebook"])
+    if "stamp" in core:
+        print("stamp freeze: training only adapters/reverters")
+        return trainer.freeze_all_except(["adapter_", "reverter_"])
+    if "mpda" in core:
+        print("mpda freeze: branches frozen")
+        return trainer.freeze_by_prefixes(["branch_"])
     return None
 
 

@@ -167,9 +167,11 @@ def freeze_exact(names: Sequence[str]) -> Callable[[tuple], bool]:
 
 
 def backalign_frozen_modules(hypes: dict) -> list[str]:
-    """HEAL BackAlign's freeze schedule (trainer.py:126-135): not ported."""
-    raise NotImplementedError(
-        "the BackAlign freeze schedule is not ported yet (ROADMAP item 16)")
+    """BackAlign's freeze schedule, for ``freeze_exact``: the fusion, the
+    shared heads and the ego modality's whole branch are fixed; the new
+    agents' branches train to align backwards."""
+    ego = str(hypes["model"]["args"].get("ego_modality", "m1"))
+    return ["fusion_net", "heads", f"branch_{ego}"]
 
 
 def _running_stats(model) -> Dict[str, torch.Tensor]:

@@ -15,7 +15,13 @@ the torch key ``a.b.Conv_0.weight``. Layouts:
   raw parameters keep their layout: dcn_kernel, dcn_bias; SECOND's sparse
                  conv kernels (kz, ky, kx, I, O); the fusions' flax
                  layouts, TypedDense / DenseGeneral kernel and bias,
-                 relation_att / relation_msg, rel_pos, rel_pos_bias.
+                 relation_att / relation_msg, rel_pos, rel_pos_bias
+                 (MPDA's window attention: ((2 ws - 1)^2, heads));
+                 CodeFilling's codebook_<i> (seg, k, d) and
+                 temperature_<i> (seg, 1); ConvNeXt's layer scale gamma
+                 (dim,). The baselines' Dense and Conv leaves (MPDA,
+                 the codebook's heads, STAMP's adapters and reverters,
+                 ConvNeXt's depthwise conv) follow the rows above.
 
 ``random_state_dict`` makes seeded random weights for runs without a
 trained checkpoint.
@@ -130,7 +136,8 @@ def random_state_dict(model: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
     """Seeded random weights (drawn on the CPU, so every device gets the
     same values): He-scaled conv/linear weights (a raw parameter in flax's
     layout over the axes its module's ``FAN_IN_AXES`` names, a table at its
-    module's ``PARAM_STD``), norm scales near 1, small biases and running
+    module's ``PARAM_STD``), norm scales and the parameters a module lists
+    in ``PARAM_NEAR_ONE`` (a temperature) near 1, small biases and running
     statistics near (0, 1)."""
     gen = torch.Generator().manual_seed(seed)
     modules = dict(model.named_modules())
@@ -147,6 +154,8 @@ def random_state_dict(model: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
             sd[key] = 0.01 * n
         elif name in getattr(mod, "PARAM_STD", {}):
             sd[key] = mod.PARAM_STD[name] * n
+        elif name in getattr(mod, "PARAM_NEAR_ONE", ()):
+            sd[key] = 1.0 + 0.1 * n
         else:
             axes = getattr(mod, "FAN_IN_AXES", {}).get(name)
             if axes is not None:

@@ -75,6 +75,10 @@ HEAL = [f"configs/opv2v/heal/{p}.yaml" for p in (
     "stage1/m4_pyramid", "stage2/m1_single_pyramid",
     "stage2/m2_single_pyramid", "stage2/m4_single_pyramid",
     "final_infer/m1m2")]
+# one config of each of the paper's heterogeneous baselines
+BASELINES = [f"configs/opv2v/baselines/stage2/{p}.yaml" for p in (
+    "backalign/m1m2_att", "codefilling/m1m2_att", "mpda/m1m2_att",
+    "stamp/m0m2_att")]
 SMALL_RANGE = [-16.0, -8.0, -3.0, 16.0, 8.0, 1.0]
 
 
@@ -175,10 +179,12 @@ def test_build_count_and_the_roadmap_items_named(capsys):
     built = sorted(c for c, o in outcomes.items() if o == "built")
     with capsys.disabled():
         print(f"\n{len(built)} of {len(outcomes)} configs build in the port")
-    assert all(c in built for c in GENCOMM + HEAL)
+    assert all(c in built for c in GENCOMM + HEAL + BASELINES)
     # 98 before the HEAL pyramid slice, + 22 pyramid cores + 14
-    # supervise_single configs = 134, + 43 with a SECOND modality
-    assert len(built) >= 177
+    # supervise_single configs = 134, + 43 with a SECOND modality = 177,
+    # + 40 of the heterogeneous baselines (OPV2V's and DAIR-V2X's; V2X-Real's
+    # 13 name item 19, multi-class heads)
+    assert len(built) >= 217
     # each refusal names the ROADMAP item that ports what is missing
     for c, o in outcomes.items():
         assert o == "built" or "ROADMAP item" in o, (c, o)
@@ -240,13 +246,14 @@ def _load_both(config):
     return out
 
 
-@pytest.mark.parametrize("config", GENCOMM + HEAL)
+@pytest.mark.parametrize("config", GENCOMM + HEAL + BASELINES)
 def test_gencomm_config_has_jax_parameter_names_and_shapes(config):
     hypes, jhypes = _load_both(config)
     jmodel = jax_create_model(jhypes)
     shapes = jax.eval_shape(lambda b: jmodel.init(
-        {"params": jax.random.PRNGKey(0), "diffusion": jax.random.PRNGKey(1)},
-        b, train=False), _shape_batch(hypes))
+        {"params": jax.random.PRNGKey(0), "diffusion": jax.random.PRNGKey(1),
+         "dropout": jax.random.PRNGKey(2)}, b, train=False),
+        _shape_batch(hypes))
     with torch.device("meta"):
         model = create_model(hypes, device="meta")
     # flax_to_state_dict raises on a flax variable without a counterpart,

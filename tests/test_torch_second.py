@@ -25,6 +25,10 @@ flax's variables) go through both packages:
   ``decorate``, ``HostDecoration``) and ``run_stream`` equal to ``run``;
   the train and inference CLIs on the narrowed yaml, and a JAX checkpoint
   of it through ``scripts/jax_checkpoint_to_torch.py``;
+- the sparse convs' gather-product backward (``gather_matmul``, no
+  atomics) against autograd of its plain form and ``jax.grad``, its
+  inverse index unique within each tap and, for a submanifold conv, the
+  tap-reversed index; on the card, two backward runs give the same bits;
 - reference fault n: SECOND's heads are half the anchor grid of its yamls;
   fault o: its strided convs' lists keep the first agent's sites only.
 
@@ -254,6 +258,102 @@ def test_spconv3d_downsample_matches_jax(jx, kernel, stride, padding, cap):
     _close(got[0], want[0], OP_TOL, "out_feats")
     n_valid = int(got[2].sum())
     assert (n_valid == cap) == (cap == 150)
+
+
+def _plain_conv_grads(feats, idx, weight, g):
+    """Autograd of the plain gather-product (``_chunked_gather_matmul``,
+    whose input gradient is ``index_add_``) at the output gradient g."""
+    f = feats.clone().requires_grad_(True)
+    w = weight.clone().requires_grad_(True)
+    fp = torch.cat([f, f.new_zeros((1, f.shape[1]))])
+    out = sp._chunked_gather_matmul(fp, idx, w, chunk=64)
+    return torch.autograd.grad(out, (f, w), g)
+
+
+def _p6_case(kind):
+    """(feats, idx, weight (N, Cin, Cout), jax conv args) of a submanifold
+    conv on voxel means, or of a strided conv whose list overflows (a
+    capacity-dropped site) on an active set with missing neighbours."""
+    if kind == "subm":
+        pts, mask = smoke_points(2)
+        grid = smoke_grid()
+        f, c, v = sp.voxelize_mean(_t(pts), _t(mask), SMOKE_RANGE, VOXEL,
+                                   grid, 1200)
+        w = np.random.RandomState(3).randn(3, 3, 3, 4, 8).astype(np.float32)
+        idx = sp.subm_index(c, v, (3, 3, 3), grid)
+        return f, idx, _t(w), (c, v, grid)
+    grid = (7, 9, 11)
+    f, c, v = (_t(a) for a in active_set(4, grid))
+    w = np.random.RandomState(5).randn(3, 3, 3, 3, 6).astype(np.float32)
+    idx = sp.downsample_index(c, v, (3, 3, 3), grid, (2, 2, 2), (1, 1, 1),
+                              150)[0]
+    return f, idx, _t(w), (c, v, grid)
+
+
+@pytest.mark.parametrize("kind", ["subm", "strided"])
+def test_gather_matmul_backward_matches_autograd_and_jax(jx, kind):
+    """The atomic-free backward of the sparse convs' gather-product against
+    autograd of the plain form (index_add_) and against jax.grad of the JAX
+    package's conv, for a submanifold conv and a strided conv with missing
+    neighbours and an overflowing list."""
+    f, idx, w, (c, v, grid) = _p6_case(kind)
+    n = idx.shape[1]
+    wn = w.reshape(n, *w.shape[3:])
+    missing = idx == f.shape[0]
+    assert missing.any() and (~missing).any()
+    rng = np.random.RandomState(17)
+    g = _t(rng.randn(idx.shape[0], wn.shape[2]).astype(np.float32))
+    fr, wr = f.clone().requires_grad_(True), wn.clone().requires_grad_(True)
+    got = torch.autograd.grad(sp.gather_matmul(fr, idx, wr, chunk=64),
+                              (fr, wr), g)
+    plain = _plain_conv_grads(f, idx, wn, g)
+    for a, b, what in zip(got, plain, ("d feats", "d weight")):
+        _close(a, b, OP_TOL, what)
+    # the JAX package's conv, its gradient by jax.grad
+    jnp, jax = jx.jnp, jx.jax
+    if kind == "subm":
+        def conv(fj, wj):
+            return jx.jsp.subm_conv3d(fj, c.numpy(), v.numpy(), wj, grid)
+        out_valid = v
+    else:
+        def conv(fj, wj):
+            return jx.jsp.spconv3d_downsample(
+                fj, c.numpy(), v.numpy(), wj, grid, (2, 2, 2), (1, 1, 1),
+                150)[0]
+        out_valid = sp.downsample_index(c, v, (3, 3, 3), grid, (2, 2, 2),
+                                        (1, 1, 1), 150)[2]
+    gm = (g * out_valid[:, None]).numpy()
+    jf, jw = jax.jit(jax.grad(lambda fj, wj: jnp.sum(conv(fj, wj) * gm),
+                              argnums=(0, 1)))(f.numpy(), w.numpy())
+    gf, gw = torch.autograd.grad(
+        sp.gather_matmul(fr, idx, wr, chunk=64) * out_valid[:, None],
+        (fr, wr), g)
+    _close(gf, jf, OP_TOL, "d feats vs jax")
+    _close(gw.reshape(w.shape), jw, OP_TOL, "d weight vs jax")
+
+
+@pytest.mark.parametrize("kind", ["subm", "strided"])
+def test_inverse_index_is_unique_within_each_tap(kind):
+    f, idx, _, _ = _p6_case(kind)
+    k_in, (k, n) = f.shape[0], idx.shape
+    inv = sp.inverse_index(idx, k_in)
+    assert inv.shape == (k_in, n) and inv.dtype == torch.int32
+    for tap in range(n):
+        col = idx[:, tap]
+        hit = col[col < k_in].long()
+        # no feats row is taken twice by one tap, and inv points back
+        assert hit.unique().numel() == hit.numel(), tap
+        rows = inv[:, tap]
+        found = rows < k
+        assert torch.equal(idx[rows[found].long(), tap],
+                           torch.arange(k_in, dtype=torch.int32)[found])
+        assert int(found.sum()) == hit.numel()
+
+
+def test_subm_inverse_index_is_the_tap_reversed_index():
+    f, idx, _, (c, v, grid) = _p6_case("subm")
+    inv = sp.inverse_index(idx, f.shape[0])
+    assert torch.equal(inv, idx.flip(1))
 
 
 def test_scatter_to_dense_matches_jax(jx):
@@ -799,6 +899,28 @@ def test_segment_sum_on_card_gives_the_same_bits_twice(cuda):
     assert torch.equal(first, second)
     assert torch.equal(first.cpu(), sp.segment_sum_sorted(
         vals.cpu(), seg.cpu(), 5001))
+
+
+@pytest.mark.cuda
+def test_gather_matmul_backward_on_card_gives_the_same_bits_twice(cuda):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for kind in ("subm", "strided"):
+        f, idx, w, _ = _p6_case(kind)
+        wn = w.reshape(idx.shape[1], *w.shape[3:]).to(cuda)
+        f, idx = f.to(cuda), idx.to(cuda)
+        g = torch.randn(idx.shape[0], wn.shape[2], device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(3))
+        runs = []
+        for _ in range(2):
+            fr = f.clone().requires_grad_(True)
+            wr = wn.clone().requires_grad_(True)
+            runs.append(torch.autograd.grad(
+                sp.gather_matmul(fr, idx, wr, chunk=64), (fr, wr), g))
+        for a, b in zip(*runs):
+            assert torch.equal(a, b), kind
+        plain = _plain_conv_grads(f.cpu(), idx.cpu(), wn.cpu(), g.cpu())
+        for a, b in zip(runs[0], plain):
+            _close(a.cpu(), b, OP_TOL, kind)
 
 
 @pytest.mark.cuda

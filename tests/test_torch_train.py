@@ -377,8 +377,10 @@ def test_gencomm_loss_matches_jax():
     for k in want:  # fp32 sums over ~1e3 anchors in another order
         np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-5,
                                    err_msg=k)
+    # the codebook loss is ported (tests/test_torch_baselines.py); the
+    # gradient-matching criterion is not
     with pytest.raises(NotImplementedError):
-        build_loss({"core_method": "point_pillar_codebook_loss", "args": {}})
+        build_loss({"core_method": "point_pillar_gmatch_loss", "args": {}})
 
 
 # ---------------------------------------------------------------- norms
@@ -506,8 +508,10 @@ def test_unported_training_options_raise():
     # freezing (a frozen predicate) is ported: tests/test_torch_workflow.py
     # so is supervise_single: tests/test_torch_pyramid.py
     model = HeterModel(**MODEL_KW, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        backalign_frozen_modules(HYPES)
+    # BackAlign's freeze is ported (tests/test_torch_baselines.py)
+    assert backalign_frozen_modules(
+        {"model": {"args": {"ego_modality": "m2"}}}) == [
+            "fusion_net", "heads", "branch_m2"]
     # distillation is ported: tests/test_torch_fusion.py
     with pytest.raises(NotImplementedError):
         make_gmatch_train_step(model)

@@ -200,11 +200,18 @@ def test_unported_flags_and_cores_raise(runs, tmp_path):
         with pytest.raises(NotImplementedError, match="item 21"):
             inference.main(["--model_dir", runs.m1.pdir, "--dataset",
                             "synthetic", "--device", "cpu"] + extra)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        heal_tools.main(["--device", "cpu", "merge-final", "--ckpts", "a",
-                         "--out", "b"])
-    with pytest.raises(NotImplementedError, match="item 16"):
-        trainer.backalign_frozen_modules(runs.m1.ph)
+    # STAMP's merge-final and BackAlign's freeze are ported
+    # (tests/test_torch_baselines.py): the merge of one run is its newest
+    # checkpoint
+    merged = heal_tools.main(["--device", "cpu", "merge-final", "--ckpts",
+                              runs.m1.pdir, "--out", str(tmp_path / "mf")])
+    own = checkpoint.load_checkpoint(checkpoint.latest_checkpoint(
+        runs.m1.pdir))["state_dict"]
+    got = checkpoint.load_checkpoint(merged)["state_dict"]
+    assert set(got) == set(own) and all(torch.equal(got[k], own[k])
+                                        for k in own)
+    assert trainer.backalign_frozen_modules(runs.m1.ph) == [
+        "fusion_net", "heads", "branch_m1"]
     late = copy.deepcopy(runs.m1.ph)
     late["fusion"] = {"core_method": "late"}
     with pytest.raises(NotImplementedError, match="item 21"):
