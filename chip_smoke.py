@@ -40,8 +40,8 @@ Phases, each of which raises on failure:
      and bf16 and training; every other fusion's frames and steps, which
      take no profiler session), phase 13's (the HEAL pyramid's eval and
      training), phase 14's (SECOND's) and phase 15 (the baselines). An eval
-     path runs 1 warm-up + 10 frames looped (InferencePipeline.run) and the
-     same 10 frames and seeds
+     path runs 1 warm-up + 6 frames looped (InferencePipeline.run) and the
+     same 6 frames and seeds
      streamed (InferencePipeline.run_stream: one frame captured in a CUDA
      graph, replayed per frame), each streamed frame bit for bit equal to
      its looped frame; a training path 1 warm-up + 5 steps (CUDA events).
@@ -130,13 +130,13 @@ Phases, each of which raises on failure:
      (the camera runs cycle a pool of 4 batches, --batch_pool: the host
      renders a camera batch slower than the card steps it, its time
      logged), heal_tools merge, stage2/m1m2_att.yaml from the merge for 1
-     epoch, inference of the stage-2 run over 2 frames with the payload
+     epoch, inference of the stage-2 run over 1 frame with the payload
      report, inference_heter_in_order over 2 frames and 1-2 agents. Held:
      every model's parameters and every training batch on the card; K1-K4,
      K1b-K4b and N1 each launched; stage 2 left every parameter and running
      statistic outside message_extractor_m2 bit for bit and changed
      message_extractor_m2; every logged loss finite; inference again with
-     --device cpu on the same 2 frames (both runs draw the diffusion noise
+     --device cpu on the same frame (both runs draw the diffusion noise
      of a frame's seed from the host generator, so that they share it) gives
      the card's APs within 1e-6 for the stage-2 checkpoint, for a copy with
      its running statistics refreshed (trainer.refresh_batch_stats; its
@@ -149,7 +149,7 @@ Phases, each of which raises on failure:
      events over the same steps, its device busy ms/step, each tool's wall
      seconds and kernel launches, the APs, the payload report and the
      kernel counts. Phase 12 (c) adds stage1/m1_v2xvit.yaml: trained for 1
-     epoch of 12 steps, then inference over 2 frames on the card and with
+     epoch of 12 steps, then inference over 1 frame on the card and with
      --device cpu, its refreshed and anchor-box copies held as stage 2's;
  12. the intermediate-fusion family on the flagship (fp32 unless said,
      random weights from seed 0, the same frames and batches): (a) the
@@ -161,7 +161,7 @@ Phases, each of which raises on failure:
      and gradients as phase 6, gradients of cancellation noise logged, not
      held); (b) CoBEVT, Where2comm with its communication mask (comm_rate
      logged), V2VNet, max, DiscoNet and Who2com (configs/opv2v/
-     point_pillar_<fusion>.yaml's blocks), each 1 + 2 eval frames and 1 + 2
+     point_pillar_<fusion>.yaml's blocks), each 1 + 2 eval frames and 1 + 1
      train steps (m1_att.yaml's optimizer and loss), card against CPU on a
      frame and a step as in (a); V2VNet's K3 launches a forward must be 2 L
      num_iteration, half of them on K3's rows route (the node stack) and half
@@ -173,7 +173,7 @@ Phases, each of which raises on failure:
  13. the HEAL pyramid (configs/opv2v/heal/stage1/m1_pyramid.yaml at full
      width on the train CLI's sampler and host adaptation, fp32, random
      weights from seed 0): (a) eval timed with the other paths in phase 3,
-     1 + 10 frames looped and streamed (bit for bit), then K3 on each map
+     1 + 6 frames looped and streamed (bit for bit), then K3 on each map
      the path warps (each level's feature at 64 / 128 / 256 channels on the
      rows route and its 1-channel score on the pixel route, warped together
      in one pair launch a level, which must give the bits of the two maps'
@@ -194,7 +194,7 @@ Phases, each of which raises on failure:
      stage2/m2_single_pyramid.yaml from it (--init_from) for 1 epoch on 4
      pooled camera batches (every pyramid and head tensor bit for bit, the
      camera branch moved), heal_tools merge, inference of
-     final_infer/m1m2.yaml over 2 frames on the card and the CPU (the same
+     final_infer/m1m2.yaml over 1 frame on the card and the CPU (the same
      APs; the payload report), of its copy refreshed on one batch of that
      config (heads card against CPU) and of an anchor-box copy on a
      51.2 x 25.6 m range (AP at IoU 0.3 above 0), inference_heter_in_order
@@ -207,7 +207,7 @@ Phases, each of which raises on failure:
      flagship's scenes with raw points on the card and anchors and labels
      at feature_stride 8, the heads' grid (reference fault n): (a) eval fp32
      and bf16 (the encoder stays fp32) timed with the other paths in phase
-     3, 1 + 10 frames looped and streamed (bit for bit), and 1 + 5 train
+     3, 1 + 6 frames looped and streamed (bit for bit), and 1 + 5 train
      steps at batch 2 x 2 agents with its Adam, multistep schedule and
      point_pillar_gencomm_loss (K1, K3, N1 and, in training, K1b and K3b
      launched, peak memory logged); (b) each sparse op the encoder calls,
@@ -229,23 +229,23 @@ Phases, each of which raises on failure:
      the taps that agree; logged); the encoder's share of the step's
      device time; (c) in the workflow process stage1/m3_att.yaml (a copy in
      its run's directory with only feature_stride 8) trained for 1 epoch
-     of 12 steps and evaluated over 4 frames on the card and with --device
+     of 12 steps and evaluated over 1 frame on the card and with --device
      cpu (the same APs; a copy refreshed on its last batch, heads within
      1e-3 and the same kept boxes; an anchor-box copy, AP at IoU 0.3 above
      0); K1, K3, K1b, K3b and N1 each launched. ROADMAP p6
      (hold_repeat_step): no index_add_ runs in the step, the encoder's
      backward twice gives every gradient the same bits, and the whole step
-     twice with cudnn.deterministic every gradient outside the modality
-     branch (the branch's arrive through K1b's atomic input gradient, p8,
-     so the whole step is not yet the same bits twice: p6 stays open);
+     twice with cudnn.deterministic every gradient (K1b sums its input
+     gradient in a fixed order, p8); the lidar and camera steps (phases 6
+     and 9) are held alike;
  15. the paper's heterogeneous baselines at full width (fp32, TF32 off,
      random weights from seed 0, the train CLI's sampler and host
      adaptation): BackAlign, CodeFilling and MPDA on
      configs/opv2v/baselines/stage2/<method>/m1m2_att.yaml, STAMP on
      stamp/m0m2_att.yaml (the camera m2 the protocol space, m0's pillar
      feature through its ConvNeXt adapter). (a) Timed with the other
-     paths, no profiler session: 1 + 5 eval frames looped and streamed
-     (bit for bit; K2, K3, K4 and N1 launched), 1 + 3 train steps with the
+     paths, no profiler session: 1 + 3 eval frames looped and streamed
+     (bit for bit; K2, K3, K4 and N1 launched), 1 + 2 train steps with the
      method's loss and the train CLI's freeze (K3b where the loss reaches
      the fusion, K4b where the camera branch trains, K2b nowhere); every
      frozen tensor keeps its bits and every trainable one moves; heads
@@ -261,7 +261,28 @@ Phases, each of which raises on failure:
      same kept boxes, the code bytes per stage), STAMP trained 4 steps,
      merged by heal_tools merge-final with its own checkpoint without the
      adapters (heal_tools remove) and the merge evaluated on the card;
-     each run moved only its schedule's tensors.
+     each run moved only its schedule's tensors;
+ 16. the robustness evaluation and late, no and early fusion training, in
+     the workflow process after phase 13 (c): (a) the m1_att run's copy
+     with its running statistics refreshed on its last batch through
+     inference_w_noise (levels 0 and 0.4, and 0.4 Laplace) and
+     inference_w_delay (0 and 200 ms), 2 frames a level, on the card and
+     with --device cpu (the frames' diffusion noise from the host): every
+     frame's kept boxes and scores card against CPU within 1e-3, every
+     level's APs within 1e-6, and the anchor-box copy at level 0 on one
+     frame (AP30 above 0); (b) K3 and K3b against their plain versions on the thetas the card
+     took at noise 0.4, which must differ from level 0's (their numbers
+     under "other_paths" of the K3 and K3b rows); (c) single/m1_pretrain.yaml
+     (late fusion: the ego slot) and point_pillar_early_fusion.yaml (the
+     clouds merged into the ego frame) at full width through the train CLI,
+     1 + 3 steps each, then from each run's starting state 4 steps on the
+     CLI's first batch (the loss must fall) and one step card against CPU
+     as in phase 6; (d) CoAlign's pose refinement card against CPU on a
+     chain of three agents with injected pose errors (within 1e-4, each
+     error recovered) and tools/pose_graph.py evaluated on the card (the
+     refinement must lower the position error at every noise level).
+K1b's row counts the launches of its dx sum ("dx_sum_launches") and
+carries the repeat-step counts ("repeat_step").
 A profile's device busy time is the union of its kernels' intervals, the
 sum logged beside it (ROADMAP p7).
 Each phase prints its wall time, and each profile the convolution operators
@@ -318,7 +339,7 @@ CAMERA_DIM = tuple(_CAMERA_ENC["data_aug_conf"]["final_dim"])
 CAMERA_NCAM = _CAMERA_ENC["data_aug_conf"]["Ncams"]
 CAMERA_GRID = _CAMERA_ENC["grid_conf"]
 CAMERA_FEATURE_SHAPE = (64, 64, 128)
-TIMED_FRAMES = 10  # eval frames, looped and streamed, after one warm-up
+TIMED_FRAMES = 6  # eval frames, looped and streamed, after one warm-up
 # N1's sizes: nms_topk (intermediate and no-fusion modes), the late union
 # over 2 and 5 agent slots, and over 5 slots at an nms_topk of 1,024; and a
 # K past the parent kernel's 4,096 boxes whose pairwise IoU would cost too
@@ -358,15 +379,15 @@ TRAIN_BATCH = 2
 TRAIN_SEED = 0  # tools/train.py batches(): sample(seed * 10000 + step, 2)
 TIMED_STEPS = 5
 # K1b vs its plain version: fp32 sums of up to 32,768 random-sign terms
-# (dW over the pixels, dx by atomics in a run-dependent order) taken in
-# other orders; each term rounds at ~6e-8 relative, and the cancellation
-# between terms is bounded well inside 1e-3 of the output's largest value
+# (dW over the pixels, dx over each pixel's records) taken in other orders;
+# each term rounds at ~6e-8 relative, and the cancellation between terms is
+# bounded well inside 1e-3 of the output's largest value
 K1B_TOL = 1e-3
 # card vs CPU gradients. At the random-weight flagship point they move with
 # the last bits of the inputs: a 1e-7 relative jitter of the CPU step's
 # input points moves them by up to ~4e-2 (L2, the deep backbone levels),
-# and two card runs differ by ~1e-4 (atomics). So the card's gradients are
-# held to GRAD_FACTOR x the CPU's own jitter sensitivity, measured in the
+# and two card runs differ by ~1e-4 (cuDNN's default algorithms). So the
+# card's gradients are held to GRAD_FACTOR x the CPU's own jitter sensitivity, measured in the
 # same run, per worst parameter (L2 norm of the difference over the norm)
 JITTER = 1e-7
 GRAD_FACTOR = 3.0
@@ -425,7 +446,7 @@ V2XVIT = flagship_with_fusion(V2XVIT_HYPES)
 FUSION_FAMILY = ("cobevt", "where2comm", "v2vnet", "max", "disconet",
                  "who2com")
 FUSION_FRAMES = 2  # a fusion's eval frames after one warm-up
-FUSION_STEPS = 2   # and its train steps
+FUSION_STEPS = 1   # and its train steps
 # parameters whose gradient is zero in exact arithmetic: a bias that shifts
 # every agent's score alike before a softmax over agents. Their gradients
 # are the noise of cancelling terms, which a 1e-7 input jitter moved by up
@@ -607,8 +628,9 @@ def split_ms(label, fn, one_launch):
     ``one_launch`` the call must launch one kernel and nothing else (no
     memset, no copy)."""
     # the profiler may drop a call's records (ROADMAP p3), now and then all
-    # of them: profile again before reading an empty split
-    for _ in range(3):
+    # of them, three sessions in a row once: profile again, up to six
+    # sessions, before reading an empty split
+    for _ in range(6):
         split, counted = device_launches(fn)
         if split:
             break
@@ -737,7 +759,8 @@ def add_rows(kernel_rows, path, rows):
                                     "turns_ms", "device_ms", "dtype",
                                     "library_device_ms", "records_short",
                                     "differ_from_fp32_kernel", "graph_ms",
-                                    "library_graph_ms", "warp_route_graph_ms")
+                                    "library_graph_ms", "warp_route_graph_ms",
+                                    "dx_sum_launches", "same_bits_twice")
                 if k in row}
 
 
@@ -774,6 +797,9 @@ def fill_launches(rows, launches, by_kernel, path):
     timed."""
     for row in rows:
         row["launches"] = launches[row["name"]]
+        if row["name"] == "deform_conv3x3_bwd":
+            # the input gradient's sum, one launch of K4's kernels a call
+            row["dx_sum_launches"] = launches["deform_conv3x3_bwd_dx"]
         by_route = by_kernel.get(row["name"])
         if by_route is not None:
             row["route_launches"] = dict(by_route)
@@ -1140,9 +1166,12 @@ def check_deform_bwd(inputs, where):
     again = deform_conv3x3_bwd(x, off, wt, g)
     want = deform_conv3x3_bwd_plain(x, off, wt, g)
     torch.cuda.synchronize()
-    # dweight and doffsets are summed in a fixed order; dx by atomics
-    if not (torch.equal(got[2], again[2]) and torch.equal(got[1], again[1])):
-        raise AssertionError("K1b dweight / doffsets differ between two runs")
+    # every gradient is summed in a fixed order, dx by K4's kernels
+    twice = {n: torch.equal(a, c) for n, a, c in zip(
+        ("dx", "doffsets", "dweight"), got, again)}
+    log(f"K1b ({where}): two launches bit-equal {twice}")
+    if not all(twice.values()):
+        raise AssertionError(f"K1b differs between two runs: {twice}")
     err = 0.0
     for name, gv, wv in zip(("dx", "doffsets", "dweight"), got, want):
         e = float((gv - wv).abs().max())
@@ -1163,7 +1192,7 @@ def check_deform_bwd(inputs, where):
         name="deform_conv3x3_bwd", route="cuda",
         source="gencomm_tpu_torch/csrc/deform_conv_bwd.cu",
         replaces="gencomm_tpu/ops/deform_pallas.py:93",
-        max_abs_err=err,
+        max_abs_err=err, same_bits_twice=all(twice.values()),
         ms=time_ms(lambda: deform_conv3x3_bwd(x, off, wt, g)),
         **device_time(lambda: deform_conv3x3_bwd(x, off, wt, g)),
         cold_ms=time_ms(lambda: deform_conv3x3_bwd(x, off, wt, g), cold=True),
@@ -2671,8 +2700,8 @@ def fusion_timed(smi, dev, scenes, host, hosts):
     fam.train = time_train(
         smi, dev, "v2xvit", V2XVIT, V2XVIT_HYPES, FEATURE_SHAPE, hosts,
         ("deform_conv3x3", "pillar_canvas", "warp_affine",
-         "deform_conv3x3_bwd", "pillar_canvas_bwd", "warp_affine_bwd"),
-        "decorated_m1")
+         "deform_conv3x3_bwd", "deform_conv3x3_bwd_dx", "pillar_canvas_bwd",
+         "warp_affine_bwd"), "decorated_m1")
     fam.cells, fam.k3_rows = {}, {}
     for method in FUSION_FAMILY:
         fam.cells[method], rows = fusion_cell(smi, dev, method, scenes, host,
@@ -2950,7 +2979,7 @@ def second_timed(smi, dev):
     sec.train = time_train(
         smi, dev, "second", SECOND, SECOND_HYPES, SECOND_FEATURE_SHAPE, hosts,
         ("deform_conv3x3", "warp_affine", "deform_conv3x3_bwd",
-         "warp_affine_bwd"), "points_m1")
+         "deform_conv3x3_bwd_dx", "warp_affine_bwd"), "points_m1")
     sec.train_peak_gib = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
     log(f"second train path: peak memory {sec.train_peak_gib:.2f} GiB above "
         f"the {held / 2 ** 30:.2f} GiB the process held before it")
@@ -3063,62 +3092,72 @@ def hold_sparse_ops(calls):
     return ms, fill
 
 
-def hold_repeat_step(train):
-    """ROADMAP p6, on SECOND's step from one state (the same weights, batch
-    and diffusion noise). Held: no ``index_add_`` (an add by atomics)
-    among the step's operators under torch.profiler; the encoder's forward
-    and backward twice on the step's points with one fixed cotangent give
-    every encoder gradient the same bits (the sparse convs' backward,
-    ``ops/sparse.py:gather_matmul``); the whole step twice with
-    cudnn.deterministic leaves the same bits in every gradient outside the
-    modality branch. The branch's gradients are logged: they arrive through
-    K1b's input gradient, which adds by float4 atomics
-    (``csrc/deform_conv_bwd.cu``; ROADMAP p8), and the whole step twice
-    with cuDNN's default algorithms is logged too. Returns the numbers."""
+def hold_repeat_step(train, sparse=False):
+    """ROADMAP p6 and p8, on a training cell's step from one state (the same
+    weights, batch and diffusion noise). Held: the whole step twice with
+    cudnn.deterministic gives every gradient the same bits (K1b sums its
+    input gradient in a fixed order). Logged: how many differ
+    twice with cuDNN's default algorithms, and the operators that PyTorch
+    still calls nondeterministic in one step under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)``, with
+    every warning caught in the step as it came, those of two operators
+    that PyTorch flags (histc, kthvalue: the capture's control) and those
+    of a cuBLAS product. With
+    ``sparse`` (SECOND) also held: no ``index_add_`` (an add by atomics)
+    among the step's operators under torch.profiler, and the encoder's
+    forward and backward twice on the step's points with one fixed
+    cotangent gives every encoder gradient the same bits (the sparse
+    convs' backward, ``ops/sparse.py:gather_matmul``). Returns the
+    numbers."""
+    import warnings
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    model, step = train.fresh(train.dev)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step(train.batches[0], noises=train.noises_dev)
-        torch.cuda.synchronize()
-    ops = sorted({ev.key for ev in prof.key_averages()})
-    atomic = [k for k in ops if "index_add" in k]
-    log(f"p6: the step's operators holding index_add: {atomic} (of "
-        f"{len(ops)} operators)")
-    if atomic:
-        raise AssertionError(f"p6: the SECOND step still runs {atomic}")
+    result = {}
+    if sparse:
+        model, step = train.fresh(train.dev)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(train.batches[0], noises=train.noises_dev)
+            torch.cuda.synchronize()
+        ops = sorted({ev.key for ev in prof.key_averages()})
+        atomic = [k for k in ops if "index_add" in k]
+        log(f"p6: the step's operators holding index_add: {atomic} (of "
+            f"{len(ops)} operators)")
+        if atomic:
+            raise AssertionError(f"p6: the SECOND step still runs {atomic}")
+        points = train.batches[0]["points_m1"]
+        mask = train.batches[0]["point_mask_m1"]
 
-    points = train.batches[0]["points_m1"]
-    mask = train.batches[0]["point_mask_m1"]
+        def encoder_grads():
+            model, _ = train.fresh(train.dev)
+            enc = model.branch_m1.encoder
+            out = enc(points, mask)
+            cot = torch.randn(out.shape, device=train.dev,
+                              generator=torch.Generator(
+                                  train.dev).manual_seed(6))
+            out.backward(cot)
+            torch.cuda.synchronize()
+            return {n: p.grad.clone() for n, p in enc.named_parameters()}
 
-    def encoder_grads():
-        model, _ = train.fresh(train.dev)
-        enc = model.branch_m1.encoder
-        out = enc(points, mask)
-        cot = torch.randn(out.shape, device=train.dev,
-                          generator=torch.Generator(train.dev).manual_seed(6))
-        out.backward(cot)
-        torch.cuda.synchronize()
-        return {n: p.grad.clone() for n, p in enc.named_parameters()}
-
-    first, second = encoder_grads(), encoder_grads()
-    enc_differ = [n for n in first if not torch.equal(first[n], second[n])]
-    log(f"p6: the SECOND encoder's backward twice: {len(first)} gradients, "
-        f"{len(enc_differ)} differ {enc_differ[:5]}")
-    if enc_differ:
-        raise AssertionError(f"p6: the encoder's gradients differ between "
-                             f"two runs: {enc_differ[:5]}")
+        first, second = encoder_grads(), encoder_grads()
+        enc_differ = [n for n in first
+                      if not torch.equal(first[n], second[n])]
+        log(f"p6: the SECOND encoder's backward twice: {len(first)} "
+            f"gradients, {len(enc_differ)} differ {enc_differ[:5]}")
+        if enc_differ:
+            raise AssertionError(f"p6: the encoder's gradients differ "
+                                 f"between two runs: {enc_differ[:5]}")
+        result.update(index_add_ops=atomic, encoder_gradients=len(first),
+                      encoder_differ=0)
 
     def step_grads():
         model, step = train.fresh(train.dev)
         step(train.batches[0], noises=train.noises_dev)
         torch.cuda.synchronize()
-        return {n: p.grad.clone() for n, p in model.named_parameters()}
+        return {n: p.grad.clone() for n, p in model.named_parameters()
+                if p.grad is not None}
 
-    result = {"index_add_ops": atomic, "encoder_gradients": len(first),
-              "encoder_differ": 0}
     saved = torch.backends.cudnn.deterministic
     for label, deterministic in (("cuDNN default", False),
                                  ("cudnn.deterministic", True)):
@@ -3128,16 +3167,46 @@ def hold_repeat_step(train):
         finally:
             torch.backends.cudnn.deterministic = saved
         differ = [n for n in a if not torch.equal(a[n], b[n])]
-        outside = [n for n in differ if not n.startswith("branch_m1.")]
-        log(f"p6: the whole step twice ({label}): {len(differ)} of {len(a)} "
-            f"gradients differ, {len(outside)} outside the modality branch "
-            f"{outside[:5]}")
-        result[label] = {"gradients": len(a), "differ": len(differ),
-                         "outside_branch": len(outside)}
-        if deterministic and outside:
-            raise AssertionError(f"p6: with cudnn.deterministic the step's "
-                                 f"gradients differ outside the branch: "
-                                 f"{outside[:5]}")
+        log(f"p6 / p8, {train.label}: the whole step twice ({label}): "
+            f"{len(differ)} of {len(a)} gradients differ {differ[:5]}")
+        result[label] = {"gradients": len(a), "differ": len(differ)}
+        if deterministic and differ:
+            raise AssertionError(f"p8: with cudnn.deterministic the "
+                                 f"{train.label} step's gradients differ "
+                                 f"between two runs: {differ[:5]}")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            step_grads()
+            in_step = len(caught)
+            # controls: histc and kthvalue on the card, which PyTorch's
+            # documentation lists as nondeterministic (a warning here shows
+            # that the capture sees such alerts), then a cuBLAS product (no
+            # CUBLAS_WORKSPACE_CONFIG is set)
+            ones = torch.ones(8, 8, device=train.dev)
+            torch.histc(ones, bins=4)
+            torch.kthvalue(ones, 2, dim=0)
+            in_controls = len(caught)
+            ones @ ones
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    raw = [f"{w.category.__name__}: {str(w.message)[:200]}" for w in caught]
+    log(f"p8, {train.label}: {in_step} warnings caught in the step under "
+        f"use_deterministic_algorithms(warn_only), raw: "
+        f"{sorted(set(raw[:in_step]))}")
+    log(f"p8, {train.label}: the controls' warnings, histc and kthvalue: "
+        f"{sorted(set(raw[in_step:in_controls]))}; a cuBLAS product: "
+        f"{sorted(set(raw[in_controls:]))}")
+    flagged = sorted({str(w.message).split(".")[0][:160]
+                      for w in caught[:in_step]
+                      if "deterministic" in str(w.message)})
+    log(f"p8, {train.label}: operators flagged nondeterministic in one step "
+        f"under use_deterministic_algorithms(warn_only): {flagged}")
+    result.update(flagged_nondeterministic=flagged, warnings_in_step=in_step,
+                  control_warnings=in_controls - in_step,
+                  cublas_warnings=len(caught) - in_controls)
     return result
 
 
@@ -3239,7 +3308,9 @@ def second_checks(smi, sec, kernel_rows):
     enc_step_busy, _, _ = profile_device(enc_step, None, 2, "step",
                                          operators=True)
     tmodel.zero_grad(set_to_none=True)
-    p6 = hold_repeat_step(train)
+    p6 = hold_repeat_step(train, sparse=True)
+    next(r for r in kernel_rows if r["name"] == "deform_conv3x3_bwd").setdefault(
+        "repeat_step", {})["second"] = p6
     step_share = enc_step_busy / train.busy if train.busy else float("nan")
     log(f"second train: the encoder's forward and backward take "
         f"{enc_step_busy:.3f} of the step's {train.busy:.3f} device ms "
@@ -3283,8 +3354,8 @@ BASELINE_YAMLS = {
                     m, cfg + ".yaml")
     for m, cfg in (("backalign", "m1m2_att"), ("codefilling", "m1m2_att"),
                    ("mpda", "m1m2_att"), ("stamp", "m0m2_att"))}
-BASELINE_FRAMES = 5  # eval frames after one warm-up, looped and streamed
-BASELINE_STEPS = 3   # train steps after one warm-up
+BASELINE_FRAMES = 3  # eval frames after one warm-up, looped and streamed
+BASELINE_STEPS = 2   # train steps after one warm-up
 # the kernels each path must launch, and those it must not: K2b in none,
 # since each schedule freezes the pillar branch; K4b where the camera
 # branch trains, BackAlign; K3b where the loss reaches the fusion
@@ -3532,13 +3603,14 @@ def run_bench():
 
 WORKFLOW_STEPS = 12  # steps per epoch of each training run
 WORKFLOW_KERNELS = ("deform_conv3x3", "pillar_canvas", "warp_affine",
-                    "splat_topk", "deform_conv3x3_bwd", "pillar_canvas_bwd",
-                    "warp_affine_bwd", "splat_topk_bwd", "nms_closure")
+                    "splat_topk", "deform_conv3x3_bwd", "deform_conv3x3_bwd_dx",
+                    "pillar_canvas_bwd", "warp_affine_bwd", "splat_topk_bwd",
+                    "nms_closure")
 WORKFLOW_POOL = 4  # --batch_pool of the runs with a camera modality
 # the kernels SECOND's training run and inference (phase 14 (c)) must launch
 SECOND_WORKFLOW_KERNELS = ("deform_conv3x3", "warp_affine",
-                           "deform_conv3x3_bwd", "warp_affine_bwd",
-                           "nms_closure")
+                           "deform_conv3x3_bwd", "deform_conv3x3_bwd_dx",
+                           "warp_affine_bwd", "nms_closure")
 # the anchor-box evaluation: the first ANCHOR_TOPK of the 16,384 anchors by
 # score into N1; scores by anchor type (yaw 0, yaw 90)
 ANCHOR_TOPK = 2048
@@ -3549,10 +3621,13 @@ ANCHOR_LOGITS = (1.0, 0.0)
 # evaluated on a 51.2 x 25.6 m range (--range: 4,096 anchors, the first
 # 2,048 half of the map)
 HEAL_ANCHOR_RANGE = "-25.6,-12.8,-3,25.6,12.8,1"
-V2XVIT_FRAMES = 2  # phase 12 (c): m1_v2xvit's evaluation frames
-# the GenComm stage-2 and HEAL evaluations' frames (SECOND's read
-# EVAL_FRAMES: its anchor-box copy's AP30 > 0 was witnessed on 4)
-WORKFLOW_EVAL_FRAMES = 2
+# phase 12 (c): m1_v2xvit's evaluation frames, and the GenComm stage-2,
+# HEAL and SECOND evaluations' (phases 11, 13 (c), 14 (c)). On its first
+# frame each anchor-box copy reaches GT at IoU 0.3 on the CPU
+# (scripts/anchor_box_ap_torch.py --frames 1 on the run's yaml: stage 2
+# and V2X-ViT 2, SECOND 3, HEAL on its range 4), so AP30 > 0 holds on one
+V2XVIT_FRAMES = 1
+WORKFLOW_EVAL_FRAMES = 1
 # phase 15 (b): the baselines' training steps (one epoch) and evaluation
 # frames in the workflow process
 BASELINE_WORKFLOW_STEPS = 4
@@ -3574,10 +3649,11 @@ class _Tee:
 
 
 def workflow(root: str) -> dict:
-    """Phases 11, 12 (c), 13 (c) and 14 (c), in their own process: the
-    GenComm two-stage workflow, HEAL's and SECOND's stage 1 through the
+    """Phases 11, 12 (c), 13 (c), 14 (c), 16 and 15 (b), in their own
+    process: the GenComm two-stage workflow, HEAL's and SECOND's stage 1,
+    the robustness sweeps and late and early fusion training through the
     tools' main(argv) on the card; raises on any failed check and returns
-    the phase's numbers."""
+    the phases' numbers."""
     import ast
     import contextlib
     import io
@@ -3773,7 +3849,7 @@ def workflow(root: str) -> dict:
     GenCommDiffusion.draw_noises = host_drawn
     tool("inference m3_att", inference.main, [
         "--model_dir", run["stage1_m3"], "--dataset", "synthetic",
-        "--frames", str(EVAL_FRAMES), "--device", "cuda"])
+        "--frames", str(WORKFLOW_EVAL_FRAMES), "--device", "cuda"])
     GenCommDiffusion.draw_noises = real_draw
     m3_launches = {k: by_tool["train stage1 m3_att"].get(k, 0)
                    + by_tool["inference m3_att"].get(k, 0)
@@ -4021,7 +4097,8 @@ def workflow(root: str) -> dict:
     # 3.2 m lattice, twice the flagship's: 17 of the 48 GT at IoU 0.3 on
     # the CPU, scripts/anchor_box_ap_torch.py on the run's yaml)
     m3_aps, m3_kept, m3_trained_err, m3_head_err = evaluate_run(
-        "m3", run["stage1_m3"], EVAL_FRAMES, last_calls[m3_index][1][0][0],
+        "m3", run["stage1_m3"], WORKFLOW_EVAL_FRAMES,
+        last_calls[m3_index][1][0][0],
         "inference m3_att")
     result["m3"] = {"aps": m3_aps, "kept_per_frame": m3_kept,
                     "card_vs_cpu_heads_refreshed": m3_head_err,
@@ -4053,8 +4130,27 @@ def workflow(root: str) -> dict:
                           card_vs_cpu_heads_refreshed=h_head_err,
                           card_vs_cpu_heads_trained=h_trained_err,
                           comm=comm_report("inference heal m1m2"))
+    # phase 16: the robustness sweeps on the m1_att run, late and early
+    # fusion through the train CLI, CoAlign
+    @contextlib.contextmanager
+    def host_noise():
+        GenCommDiffusion.draw_noises = host_drawn
+        try:
+            yield
+        finally:
+            GenCommDiffusion.draw_noises = real_draw
+
+    t16 = time.perf_counter()
+    m1_index = [k for k in texts if k.startswith("train")].index(
+        "train stage1 m1_att, resumed")
+    result["robustness"], result["robustness_rows"] = robustness_sweeps(
+        root, tool, dets, heads, run["stage1_m1"],
+        last_calls[m1_index][1][0][0], host_noise)
     InferencePipeline._detect = real_detect
     InferencePipeline.run = real_run
+    result["late_early"] = late_early_training(root, tool, starts)
+    result["coalign"] = coalign_card(root)
+    phase_done("phase 16, all", t16)
 
     # device time per step of each training run, from torch.profiler over 2
     # more steps on its last batch, after every timing of the phase: what
@@ -4080,6 +4176,352 @@ def workflow(root: str) -> dict:
                 ms_per_step_events=ms_per_step_events,
                 device_ms_per_step=device_ms_per_step, wall_s=walls,
                 launches_by_tool=by_tool, host_camera_batch_s=host_camera_s)
+
+
+# phase 16, the robustness evaluation (ROADMAP item 21): the sweeps' frames
+# a level (the anchor-box copy's first frame reaches 2 GT at IoU 0.3 on the
+# CPU, as above, so it takes one), their levels, and the configs the train
+# CLI now trains in late, no and early fusion
+ROBUST_FRAMES = 2
+ROBUST_ANCHOR_FRAMES = 1
+NOISE_LEVELS, LAPLACE_LEVEL, DELAYS = "0,0.4", "0.4", "0,200"
+# the refreshed m1_att copy keeps no box at the yaml's score threshold (0.2),
+# so its threshold is set into the widest gap of its own scores that leaves
+# each frame at least ROBUST_KEPT kept boxes and at most ROBUST_MOST anchors
+# above it (card and CPU scores part by ~1e-5; score_gap)
+ROBUST_KEPT, ROBUST_MOST = 3, 200
+LATE_EARLY_YAMLS = {"m1_pretrain": "configs/opv2v/single/m1_pretrain.yaml",
+                    "early_fusion": "configs/opv2v/point_pillar_early_fusion.yaml"}
+LATE_EARLY_STEPS = 4  # 1 + 3 steps through the CLI, one epoch
+# CoAlign card against CPU: fp32 Gauss-Newton, the normal equations' sums in
+# another order (the CPU against JAX read up to 1.1e-6, tests/test_torch_
+# coalign.py)
+COALIGN_TOL = 1e-4
+
+
+def score_gap(probs, kept, n_keep=ROBUST_KEPT, most=ROBUST_MOST):
+    """(threshold, gap): the midpoint of the widest gap between neighbouring
+    scores of ``probs`` (every anchor's score, a tensor a frame) that leaves
+    at least ``n_keep`` of each frame's ``kept`` scores (the boxes a run at
+    threshold 0 kept) and at most ``most`` of each frame's anchors above it.
+    The boxes kept above a threshold are then the ones kept at 0 above it:
+    N1 suppresses a box only by higher-scored ones."""
+    import torch
+
+    if min(k.numel() for k in kept) < n_keep:
+        raise AssertionError(f"a frame keeps fewer than {n_keep} boxes at "
+                             f"threshold 0: {[k.numel() for k in kept]}")
+    hi = min(float(torch.sort(k, descending=True).values[n_keep - 1])
+             for k in kept)
+    lo = max(float(p.flatten().topk(most + 1).values[-1]) for p in probs)
+    vals = torch.unique(torch.cat([p.flatten() for p in probs]))
+    vals = vals[vals >= lo].double()
+    mids, gaps = (vals[1:] + vals[:-1]) / 2, vals[1:] - vals[:-1]
+    gaps = torch.where(mids < hi, gaps, torch.zeros_like(gaps))
+    if not gaps.numel() or float(gaps.max()) <= 0:
+        raise AssertionError(f"no score gap between {lo} and {hi}")
+    i = int(gaps.argmax())
+    return float(mids[i]), float(gaps[i])
+
+
+def robustness_sweeps(root, tool, dets, heads, m1_run, m1_batch,
+                      noise_draws):
+    """Phase 16 (a) and (b), in the workflow process: the m1_att run's copy
+    with its running statistics refreshed on its last batch, through
+    inference_w_noise (NOISE_LEVELS, and LAPLACE_LEVEL Laplace) and
+    inference_w_delay (DELAYS) on the card and on the CPU (each side its own
+    copy of the run dir, the frames' diffusion noise from the host,
+    ``noise_draws``): per frame the fused heads (``heads``, recorded by
+    tool label) within CPU_TOL x max(1, max|cpu|) and the kept boxes and
+    scores (``match_dets``, at least one a frame at every level) card
+    against CPU, every level's APs within AP_TOL. The refreshed copy's
+    score threshold comes from a probe of every level on the card at
+    threshold 0 (``score_gap``). The anchor-box copy
+    at level 0 (AP30 > 0 on both, the same APs). The thetas K3 took on the
+    card at noise 0.4 differ from level 0's, and K3 and K3b are held against
+    their plain versions on them. Returns the numbers and the K3 / K3b
+    rows."""
+    import shutil
+
+    import torch
+    import yaml
+    from gencomm_tpu_torch.config.yaml_utils import save_yaml
+    from gencomm_tpu_torch.models import create_model
+    from gencomm_tpu_torch.models.fuse import fusion
+    from gencomm_tpu_torch.tools import inference_w_delay, inference_w_noise
+    from gencomm_tpu_torch.train import checkpoint, trainer
+
+    t_phase = time.perf_counter()
+    hypes = load_yaml(None, m1_run)
+    final = checkpoint.load_checkpoint(
+        checkpoint.latest_checkpoint(m1_run))["state_dict"]
+    model = create_model(hypes, device="cuda")
+    model.load_state_dict(final)
+    trainer.refresh_batch_stats(model, [m1_batch], generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    refreshed = {k: v.cpu() for k, v in model.state_dict().items()}
+    del model
+    anchor_state = {k: v.clone() for k, v in final.items()}
+    for head in ("cls_head", "reg_head", "dir_head"):
+        anchor_state[f"heads.{head}.weight"].zero_()
+        anchor_state[f"heads.{head}.bias"].zero_()
+    anchor_state["heads.cls_head.bias"].copy_(torch.tensor(ANCHOR_LOGITS))
+    dirs = {}
+    for name, state, hyp in (
+            ("refreshed", refreshed, hypes),
+            ("anchor_boxes", anchor_state, {**hypes, "postprocess": {
+                **hypes["postprocess"], "nms_topk": ANCHOR_TOPK}})):
+        for side in ("card", "cpu"):
+            d = dirs[name, side] = os.path.join(root, f"robust_{name}_{side}")
+            shutil.rmtree(d, ignore_errors=True)
+            os.makedirs(d)
+            save_yaml(hyp, os.path.join(d, "config.yaml"))
+            checkpoint.save_checkpoint(d, state, 0, epoch=0)
+    frames = ["--frames", str(ROBUST_FRAMES)]
+
+    def refreshed_threshold(threshold):
+        pp = hypes["postprocess"]
+        hyp = {**hypes, "postprocess": {**pp, "target_args": {
+            **pp["target_args"], "score_threshold": threshold}}}
+        for side in ("card", "cpu"):
+            save_yaml(hyp, os.path.join(dirs["refreshed", side],
+                                        "config.yaml"))
+    sweeps = (("noise", inference_w_noise.main,
+               ["--levels", NOISE_LEVELS], [f"noise_{float(x)}" for x in
+                                            NOISE_LEVELS.split(",")]),
+              ("laplace", inference_w_noise.main,
+               ["--levels", LAPLACE_LEVEL, "--laplace"],
+               [f"noise_{float(LAPLACE_LEVEL)}_laplace"]),
+              ("delay", inference_w_delay.main, ["--delays", DELAYS],
+               [f"delay_{int(x)}ms" for x in DELAYS.split(",")]))
+    thetas = {}
+    with noise_draws():
+        refreshed_threshold(0.0)
+        for sweep, main_fn, extra, _ in sweeps:
+            tool(f"robustness {sweep}, probe", main_fn, [
+                "--model_dir", dirs["refreshed", "card"], "--dataset",
+                "synthetic", *frames, "--device", "cuda", *extra])
+        probe = [f"robustness {sweep}, probe" for sweep, *_ in sweeps]
+        probs = [torch.sigmoid(h["cls_preds"]) for k in probe
+                 for h in heads[k]]
+        kept_probe = [d.scores.cpu()[d.valid.cpu()] for k in probe
+                      for d in dets[k]]
+        threshold, gap = score_gap(probs, kept_probe)
+        above = [int((k > threshold).sum()) for k in kept_probe]
+        log(f"robustness: the refreshed copy's score threshold {threshold:.6f} "
+            f"(a gap of {gap:.3e} between its scores; the yaml's "
+            f"{hypes['postprocess']['target_args']['score_threshold']}); the "
+            f"probe's kept boxes above it, a frame: {above}")
+        refreshed_threshold(threshold)
+        for sweep, main_fn, extra, infos in sweeps:
+            for side, device in (("card", "cuda"), ("cpu", "cpu")):
+                label = f"robustness {sweep}, {side}"
+                argv = ["--model_dir", dirs["refreshed", side], "--dataset",
+                        "synthetic", *frames, "--device", device, *extra]
+                if side == "card" and sweep == "noise":
+                    calls = record_all([(fusion, "warp_affine")],
+                                       lambda: tool(label, main_fn, argv))
+                    thetas = [a for _, a, _ in calls]
+                else:
+                    tool(label, main_fn, argv)
+            for f, (a, b) in enumerate(zip(dets[f"robustness {sweep}, card"],
+                                           dets[f"robustness {sweep}, cpu"])):
+                match_dets(f"robustness {sweep}, frame {f} of the levels, card "
+                           "vs CPU", a, b)
+                if not int(a.valid.sum()) > 0:
+                    raise AssertionError(f"robustness {sweep}, frame {f} of "
+                                         "the levels: no box kept")
+            worst = 0.0
+            for a, b in zip(heads[f"robustness {sweep}, card"],
+                            heads[f"robustness {sweep}, cpu"]):
+                for key in a:
+                    worst = max(worst, float((a[key] - b[key]).abs().max())
+                                / max(1.0, float(b[key].abs().max())))
+            log(f"robustness {sweep}: heads card vs CPU, max |d| / max(1, "
+                f"max|cpu|) {worst:.3e} (tol {CPU_TOL:.0e})")
+            if not worst <= CPU_TOL:
+                raise AssertionError(f"robustness {sweep}: heads differ "
+                                     f"({worst})")
+            frames_seen = len(heads[f"robustness {sweep}, card"])
+            if frames_seen != ROBUST_FRAMES * len(infos):
+                raise AssertionError(f"robustness {sweep}: {frames_seen} "
+                                     "frames' heads recorded")
+        for side, device in (("card", "cuda"), ("cpu", "cpu")):
+            tool(f"robustness anchor boxes, {side}", inference_w_noise.main, [
+                "--model_dir", dirs["anchor_boxes", side], "--dataset",
+                "synthetic", "--frames", str(ROBUST_ANCHOR_FRAMES),
+                "--levels", "0", "--device", device])
+    aps = {}
+    for name, infos in (("refreshed", [i for _, _, _, inf in sweeps
+                                       for i in inf]),
+                        ("anchor_boxes", ["noise_0.0"])):
+        for info in infos:
+            for tag in (f"eval_{info}", f"eval_global_sort_{info}"):
+                got = []
+                for side in ("card", "cpu"):
+                    with open(os.path.join(dirs[name, side],
+                                           f"{tag}.yaml")) as f:
+                        got.append(yaml.safe_load(f))
+                aps[f"{name} {tag}"] = {"card": got[0], "cpu": got[1]}
+                if set(got[0]) != set(got[1]) or any(
+                        not abs(got[0][k] - got[1][k]) <= AP_TOL
+                        for k in got[0]):
+                    raise AssertionError(f"robustness {name} {tag}: card "
+                                         f"{got[0]} and CPU {got[1]} differ")
+    log(f"robustness: APs card and CPU {aps}")
+    if not aps["anchor_boxes eval_noise_0.0"]["card"]["ap30"] > 0:
+        raise AssertionError("robustness: the anchor boxes matched no GT at "
+                             "IoU 0.3 at level 0, so the APs held are zeros")
+    # K3 at level 0 then 0.4, one launch a frame: the noisy thetas differ
+    n = len(thetas) // 2
+    if n != ROBUST_FRAMES or len(thetas) != 2 * n:
+        raise AssertionError(f"robustness: {len(thetas)} K3 calls recorded")
+    moved = [float((b[1] - a[1]).abs().max())
+             for a, b in zip(thetas[:n], thetas[n:])]
+    log(f"robustness: the noisy thetas' largest change from the clean ones, "
+        f"a frame: {moved}")
+    if not all(m > 0 for m in moved):
+        raise AssertionError("robustness: the noise did not reach K3's thetas")
+    src, theta = thetas[-1]
+    g = torch.randn(src.shape, device=src.device,
+                    generator=torch.Generator(src.device).manual_seed(16))
+    rows = [check_warp({"warp_affine": (src, theta)}, "noisy eval"),
+            check_warp_bwd({"warp_affine_bwd": (g, theta)}, "noisy eval")]
+    for row in rows:
+        row["launches"] = None
+    phase_done("robustness sweeps (phase 16 (a), (b))", t_phase)
+    return {"aps": aps, "theta_moved": moved,
+            "refreshed_threshold": threshold, "threshold_gap": gap,
+            "probe_kept_above": above,
+            "kept_per_frame": {k: [int(d.valid.sum()) for d in v]
+                               for k, v in dets.items()
+                               if k.startswith("robustness")}}, rows
+
+
+def late_early_training(root, tool, starts):
+    """Phase 16 (c): single/m1_pretrain.yaml (late fusion, the ego slot) and
+    point_pillar_early_fusion.yaml (the clouds merged into the ego frame)
+    through the train CLI, one epoch of LATE_EARLY_STEPS steps on the card;
+    then each from its run's starting state: 4 steps on the CLI's first
+    batch (the loss must fall) and one step card against CPU on it as in
+    phase 6 (hold_step, the decorated points jittered)."""
+    from types import SimpleNamespace
+
+    import torch
+    from gencomm_tpu_torch.loss import create_loss
+    from gencomm_tpu_torch.models import create_model
+    from gencomm_tpu_torch.pipeline import batch_to_device
+    from gencomm_tpu_torch.tools import train
+    from gencomm_tpu_torch.train import trainer
+
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    for name, rel in LATE_EARLY_YAMLS.items():
+        run_dir = os.path.join(root, f"train_{name}")
+        index = len(starts)
+        tool(f"late/early fusion: train {name}", train.main, [
+            "-y", os.path.join(repo, rel), "--model_dir", run_dir,
+            "--dataset", "synthetic", "--device", "cuda", "--epochs", "1",
+            "--steps_per_epoch", str(LATE_EARLY_STEPS), "--val_steps", "1"])
+        hypes = load_yaml(None, run_dir)
+        host = train.Adapt(hypes)(next(train.batches(
+            train.build_dataset(hypes, True, "synthetic"),
+            hypes["train_params"]["batch_size"], 0, "synthetic")))
+        start = starts[index]
+        single = bool(hypes["model"]["args"].get("supervise_single"))
+
+        def fresh(device, hypes=hypes, start=start, single=single):
+            model = create_model(hypes, device=device)
+            model.load_state_dict(start)
+            model.train()
+            opt, sched = trainer.make_optimizer(hypes,
+                                                model.named_parameters(), 1)
+            return model, trainer.make_train_step(
+                model, create_loss(hypes), opt, sched,
+                supervise_single=single)
+
+        cell = SimpleNamespace(label=name, dev=torch.device("cuda"),
+                               hosts=[host], batches=[batch_to_device(
+                                   host, "cuda")], jitter_key="decorated_m1",
+                               noises=None, noises_dev=None, fresh=fresh)
+        log(f"{name}: the CLI's first batch, agent slots "
+            f"{host['agent_mask'].shape}, points "
+            f"{host['decorated_m1'].shape}")
+        model, step = fresh(cell.dev)
+        totals = [float(step(cell.batches[0])["total_loss"])
+                  for _ in range(4)]
+        log(f"{name}: 4 steps on one batch: total_loss {totals}")
+        if not totals[-1] < totals[0]:
+            raise AssertionError(f"{name}: the loss did not fall: {totals}")
+        del model, step
+        card, cpu = hold_step(cell)
+        out[name] = {"losses_one_batch": totals,
+                     "card_vs_cpu": {k: [float(card[k]), float(v)]
+                                     for k, v in cpu.items()}}
+    phase_done("late and early fusion training (phase 16 (c))", t_phase)
+    return out
+
+
+def coalign_card(root):
+    """Phase 16 (d): CoAlign on the card against the CPU. Three agents in a
+    chain (the ego shares boxes with agent 1, agent 1 with agent 2, which
+    the ego never sees), agent 2 given a pose error: the refined poses card
+    and CPU within COALIGN_TOL, the error recovered; then the
+    pose-graph tool (precalc, evaluate on the card) must lower the
+    position error at every noise level."""
+    import numpy as np
+    import torch
+    from gencomm_tpu_torch.models.coalign import box_align_relative
+    from gencomm_tpu_torch.tools import pose_graph
+
+    # tests/test_coalign.py's chain (make_chain_scene, seed 3): 4 boxes
+    # shared by the ego and agent 1, 4 by agents 1 and 2
+    rng = np.random.RandomState(3)
+    true = np.array([[0.0, 0.0, 0.0], [12.0, 1.0, 0.2], [24.0, -1.0, -0.1]])
+    groups = [np.stack([rng.uniform(a, b, 4), rng.uniform(-6, 6, 4)], 1)
+              for a, b in ((3, 9), (15, 21))]
+    yaws = [rng.uniform(-np.pi, np.pi, 4) for _ in groups]
+    seen = ((0,), (0, 1), (1,))
+    k = 8
+    centers = np.zeros((3, k, 2), np.float32)
+    yaw = np.zeros((3, k), np.float32)
+    mask = np.zeros((3, k), bool)
+    for i, grp in enumerate(seen):
+        xy = np.concatenate([groups[g] for g in grp])
+        yw = np.concatenate([yaws[g] for g in grp])
+        c, s = np.cos(true[i, 2]), np.sin(true[i, 2])
+        centers[i, :len(xy)] = (xy - true[i, :2]) @ np.array([[c, s],
+                                                               [-s, c]]).T
+        yaw[i, :len(xy)] = yw - true[i, 2]
+        mask[i, :len(xy)] = True
+    noisy = true.copy()
+    noisy[2] += [0.9, -0.6, 0.06]
+    got = {}
+    for dev in ("cuda", "cpu"):
+        args = [torch.as_tensor(a, device=dev) for a in (centers, yaw, mask)]
+        got[dev] = box_align_relative(
+            *args, torch.as_tensor(noisy, dtype=torch.float32, device=dev),
+            thres=3.0).cpu().numpy()
+    gap = float(np.abs(got["cuda"] - got["cpu"]).max())
+    before = np.abs(noisy - true)[1:].max(0)
+    after = np.abs(got["cuda"] - true)[1:].max(0)
+    log(f"CoAlign: refined poses card vs CPU max |d| {gap:.3e} (tol "
+        f"{COALIGN_TOL:.0e}); the non-ego error x, y, yaw {before} -> "
+        f"{after}")
+    if not gap <= COALIGN_TOL:
+        raise AssertionError(f"CoAlign: card and CPU differ by {gap}")
+    if not (after[:2] < 0.1).all() or not after[2] < 0.02:
+        raise AssertionError(f"CoAlign did not recover the error: {after}")
+    out_dir = os.path.join(root, "pose_graph")
+    pose_graph.main(["precalc", "--out", out_dir, "--frames", "3"])
+    report = pose_graph.main(["evaluate", "--out", out_dir, "--device",
+                              "cuda"])
+    if not all(v["pos_err_refined_m"] < v["pos_err_noisy_m"]
+               for v in report.values()):
+        raise AssertionError(f"pose_graph: no level improved {report}")
+    return {"card_vs_cpu": gap, "error_before": before.tolist(),
+            "error_after": after.tolist(), "pose_graph": report}
 
 
 def baseline_workflow(root: str) -> dict:
@@ -4281,9 +4723,9 @@ def baseline_workflow(root: str) -> dict:
 
 
 def run_workflow():
-    """Phases 11, 12 (c), 13 (c) and 14 (c) in their own process
-    (``chip_smoke.py --workflow DIR``); its last line is the phases' JSON,
-    echoed here."""
+    """Phases 11, 12 (c), 13 (c), 14 (c), 15 (b) and 16 in their own
+    process (``chip_smoke.py --workflow DIR``); its last line is the
+    phases' JSON, echoed here and returned."""
     t_phase = time.perf_counter()
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         "workflow")
@@ -4411,8 +4853,8 @@ def main() -> int:
     lidar_train = time_train(
         smi, dev, "lidar", FLAGSHIP, TRAIN_HYPES, FEATURE_SHAPE, hosts,
         ("deform_conv3x3", "pillar_canvas", "warp_affine",
-         "deform_conv3x3_bwd", "pillar_canvas_bwd", "warp_affine_bwd"),
-        "decorated_m1")
+         "deform_conv3x3_bwd", "deform_conv3x3_bwd_dx", "pillar_canvas_bwd",
+         "warp_affine_bwd"), "decorated_m1")
     camera = setup_eval(dev, CAMERA, CAMERA_FEATURE_SHAPE, cam_scenes,
                         cam_host)
     time_eval(smi, camera, "camera", camera_kernels)
@@ -4423,7 +4865,8 @@ def main() -> int:
         smi, dev, "camera", CAMERA, CAMERA_TRAIN_HYPES, CAMERA_FEATURE_SHAPE,
         cam_hosts,
         ("deform_conv3x3", "warp_affine", "splat_topk", "deform_conv3x3_bwd",
-         "warp_affine_bwd", "splat_topk_bwd"), "imgs_m1")
+         "deform_conv3x3_bwd_dx", "warp_affine_bwd", "splat_topk_bwd"),
+        "imgs_m1")
     # phases 12 and 13: the fusion family and the HEAL pyramid, timed with
     # the paths above
     fam = fusion_timed(smi, dev, scenes, host, hosts)
@@ -4479,6 +4922,9 @@ def main() -> int:
                         check_deform_bwd(inputs, "lidar train step"),
                         check_pillar_bwd(inputs, "lidar train step"),
                         check_warp_bwd(inputs, "lidar train step")]))
+    # p8: the whole step the same bits twice, K1b's row carrying the counts
+    k1b_row = next(r for r in kernel_rows if r["name"] == "deform_conv3x3_bwd")
+    k1b_row["repeat_step"] = {"lidar": hold_repeat_step(lidar_train)}
     del lidar_train
 
     # K1 and K3 get (A, 64, 64, 128) maps here, not the lidar path's
@@ -4514,6 +4960,8 @@ def main() -> int:
          (lss, "splat_topk"), (deform_conv, "deform_conv3x3_bwd"),
          (warp, "warp_affine_bwd"), (splat, "splat_topk_bwd")],
         check_camera_train))
+    k1b_row["repeat_step"]["camera"] = hold_repeat_step(camera_train)
+    del camera_train
 
     fusion_checks(smi, fam, kernel_rows)
     del fam, hosts
@@ -4534,7 +4982,10 @@ def main() -> int:
                         "max_abs_err": general_errs[row["name"]]}
     run_bench()
     torch.cuda.empty_cache()
-    run_workflow()
+    # phase 16's K3 and K3b on noisy thetas come back from the workflow
+    # process
+    add_rows(kernel_rows, "noisy eval (phase 16)",
+             run_workflow()["robustness_rows"])
     return finish(smi, t_all, kernel_rows)
 
 

@@ -20,56 +20,64 @@
 // The offsets are used as given (pre-clamped by the caller, not re-clipped):
 // a corner may lie anywhere in the map, and every in-map corner is added.
 //
-// What bounds it on Hopper: operations. At the flagship training step
-// (4 x 64 x 128 pixels, 128 -> 64 channels) the two products (u and dW) are
-// 2 x 2 x 32768 x 1152 x 64 = 9.7 GFLOP, the sampling and the offset dot
-// products another ~0.8 GFLOP, over ~47 MB: ~220 FLOP per byte, above the
-// fp32 ridge point, so the products are the limit (~0.16 ms at 67 TFLOP/s).
-// The first version (route 0 below) took 9.5x that: 61% in its weight pass
-// (8 accumulators a thread, 3 shared loads per 8 FMAs, one buffer, every
-// corner sampled a second time), 38% in its input pass (u at the
-// shared-memory rate, all nine weight taps restaged by every block, one
-// float4 atomic per lane and corner).
+// The input gradient is a sum over the (pixel, tap, corner) terms that land
+// on each input pixel, which the first two versions added by float4 atomics
+// in an order that changed from run to run. Here no sum is taken by atomics:
+// the pass writes each term's factors, and K4's kernels (csrc/splat_topk.cu,
+// ops/splat.py) take the sum in one fixed order. With record r = p * 9 + k,
+//   rows[r]      = u_k(p)                                     (Cin wide)
+//   ids[r][q]    = the flat pixel of corner q, -1 outside the map
+//   weights[r][q] = w_q(p, k)
+// dx = splat_topk(weights, rows, ids, B H W) is exactly the scatter above:
+// K4 sorts the 4 x 9 x B H W records by corner pixel (a counting sort, each
+// pixel's records in ascending flat record order) and sums each pixel's
+// weighted rows in that order, so dx has the same bits on every run. It
+// holds for any offsets, since a corner anywhere in the map is one more
+// record and a corner outside it a dropped one.
+//
+// What bounds it on Hopper: operations in this pass, bytes in the sum. At the
+// flagship training step (4 x 64 x 128 pixels, 128 -> 64 channels) the two
+// products (u and dW) are 2 x 2 x 32768 x 1152 x 64 = 9.7 GFLOP, the sampling
+// and the offset dot products another ~0.8 GFLOP, over ~47 MB of inputs and
+// outputs: ~0.16 ms at 67 TFLOP/s. The records add 151 MB of rows written
+// here and read by the sum (each row once for each of its in-map corners),
+// ~0.2 ms of memory traffic that the atomic versions did not have: the
+// price of a fixed order.
 //
 // Design, two routes chosen by the caller from the channel counts:
 //  * route 1, Cin a multiple of 32 and Cout = 64 (every model of the repo):
-//    one fused pass after the memset of dx, then one small reduction.
-//    Both products run on the tensor cores as 3xTF32 (deform_common.cuh;
-//    fp32-level results, fp32 accumulators). A block of 8 warps owns one
-//    32-channel slice of Cin and one row of three taps, whose W_k slices it
-//    keeps in shared memory, and walks 64-pixel tiles in a fixed stride (a
-//    persistent grid, three blocks an SM: 80 registers, 64 KB of shared
-//    memory). Per tile it stages g once, and per tap it forms
-//    u (64 x 32) = g W_k^T with mma.sync into shared memory, and then
-//    reads every corner exactly once: 8 lanes hold a pixel's 32 channels as
-//    float4, so a warp handles four pixels and reads whole 128-byte lines;
-//    from the one read come the two offset dot products (reduced over the 8
-//    lanes by shuffles and stored per channel slice), the dx scatter (one
-//    float4 atomic per lane and in-map corner, onto L2: the order of those
-//    sums varies between runs, as it did), and the bilinear sample, which
-//    goes to shared memory as the 64 x 32 operand of dW_k += sample^T g. The
-//    next tap's offsets are fetched while the corners are read and its
-//    corner records are written behind the barrier, so two barriers a tap
-//    suffice. The dW accumulators of the block's three taps (24 registers a
-//    thread) stay in registers across all its tiles, so one partial per
-//    block is written; the reduction kernel adds the partials, and the
-//    channel slices of doff, in a fixed order: dW and doff are the same
-//    from run to run. Splitting the taps over blocks is what keeps the
-//    accumulators small: one block for all nine taps needed 72 and spilled.
-//    A shared-memory halo tile for dx was weighed and not built: fp32
-//    atomicAdd on shared memory is a compare-and-swap loop on this card, 16
-//    dependent loops per four pixels and tap, and the global atomics cost
-//    about an eighth of the kernel's time. Rows in shared memory are padded,
-//    and the pixel order inside the dW product's depth is permuted, so that
-//    all fragment loads are free of bank conflicts. What holds it now is
-//    instruction dispatch (per mma 1.3 shared loads and 2.7 split
-//    operations at 16 x 16 warp tiles) and the barriers between phases.
+//    one fused pass, then one small reduction. Both products run on the
+//    tensor cores as 3xTF32 (deform_common.cuh; fp32-level results, fp32
+//    accumulators). A block of 8 warps owns one 32-channel slice of Cin
+//    and one row of three taps, whose W_k slices it keeps in shared
+//    memory, and walks 64-pixel tiles in a fixed stride (a persistent
+//    grid, three blocks an SM: 80 registers, 64 KB of shared memory). Per
+//    tile it stages g once, and per tap it forms u (64 x 32) = g W_k^T with
+//    mma.sync into shared memory, and then reads every corner exactly once:
+//    8 lanes hold a pixel's 32 channels as float4, so a warp handles four
+//    pixels and reads whole 128-byte lines; from the one read come the two
+//    offset dot products (reduced over the 8 lanes by shuffles and stored
+//    per channel slice) and the bilinear sample, which goes to shared
+//    memory as the 64 x 32 operand of dW_k += sample^T g; the same lanes
+//    store the u row's slice, and the blocks of the first channel slice
+//    store the corner records. The next tap's offsets are fetched while the
+//    corners are read and its corner records are written behind the
+//    barrier, so two barriers a tap suffice. The dW accumulators of the
+//    block's three taps (24 registers a thread) stay in registers across
+//    all its tiles, so one partial per block is written; the reduction
+//    kernel adds the partials, and the channel slices of doff, in a fixed
+//    order. Splitting the taps over blocks is what keeps the accumulators
+//    small: one block for all nine taps needed 72 and spilled. Rows in
+//    shared memory are padded, and the pixel order inside the dW product's
+//    depth is permuted, so that all fragment loads are free of bank
+//    conflicts.
 //  * route 0, any other channel counts (scalar loads where Cin % 4 != 0):
-//    the first version, three launches after the memset: an input pass
-//    (32 pixels a block, u by fp32 FMAs, one warp per pixel for the offset
-//    gradients and the dx atomics), a weight pass (a block per tap, 32 x 64
-//    slice of dW and pixel range, sampling as K1's general route does) and
-//    a fixed-order sum of the weight pass's partials.
+//    the first version, three launches: an input pass (32 pixels a block,
+//    u by fp32 FMAs and stored as rows padded with zeros to a multiple of 4
+//    channels, the corner records, one warp per pixel for the offset
+//    gradients), a weight pass (a block per tap, 32 x 64 slice of dW and
+//    pixel range, sampling as K1's general route does) and a fixed-order
+//    sum of the weight pass's partials.
 
 #include "deform_common.cuh"
 
@@ -94,18 +102,11 @@ struct Vec<4> {
     static __device__ __forceinline__ float dot(float4 a, float4 b) {
         return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
     }
-    static __device__ __forceinline__ void add_scaled(float* dst, float s, float4 u) {
-        atomicAdd(reinterpret_cast<float4*>(dst),
-                  make_float4(s * u.x, s * u.y, s * u.z, s * u.w));
-    }
 };
 template <>
 struct Vec<1> {
     using T = float;
     static __device__ __forceinline__ float dot(float a, float b) { return a * b; }
-    static __device__ __forceinline__ void add_scaled(float* dst, float s, float u) {
-        atomicAdd(dst, s * u);
-    }
 };
 
 __host__ __device__ constexpr size_t input_pass_smem(int cin, int cout) {
@@ -113,12 +114,26 @@ __host__ __device__ constexpr size_t input_pass_smem(int cin, int cout) {
            (size_t)9 * TP * 4 * (sizeof(int) + sizeof(float));
 }
 
+// the corner records of (pixel pg, tap k): flat corner pixels (-1 outside
+// the map) and their bilinear weights
+__device__ __forceinline__ void store_records(const TapGeom& t, int64_t pg, int k,
+                                              int* __restrict__ corner_ids,
+                                              float* __restrict__ corner_w) {
+    const int64_t r = pg * 9 + k;
+    *reinterpret_cast<int4*>(corner_ids + r * 4) =
+        make_int4(t.idx[0], t.idx[1], t.idx[2], t.idx[3]);
+    *reinterpret_cast<float4*>(corner_w + r * 4) =
+        make_float4(deform::corner_weight(t, 0), deform::corner_weight(t, 1),
+                    deform::corner_weight(t, 2), deform::corner_weight(t, 3));
+}
+
 template <int VEC>
 __global__ void __launch_bounds__(THREADS)
 deform_bwd_input_kernel(const float* __restrict__ x, const float* __restrict__ offsets,
                         const float* __restrict__ weight, const float* __restrict__ g,
-                        float* __restrict__ dx, float* __restrict__ doff, int b,
-                        int h, int w, int cin, int cout) {
+                        float* __restrict__ u_rows, int* __restrict__ corner_ids,
+                        float* __restrict__ corner_w, float* __restrict__ doff, int b,
+                        int h, int w, int cin, int cout, int cpad) {
     using V = Vec<VEC>;
     using T = typename V::T;
     extern __shared__ __align__(16) float smem[];
@@ -139,6 +154,7 @@ deform_bwd_input_kernel(const float* __restrict__ x, const float* __restrict__ o
         TapGeom t;
         if (pg < npix) {
             t = tap_geometry(offsets, pg, k, h, w);
+            store_records(t, pg, k, corner_ids, corner_w);
         } else {
             t.idx[0] = t.idx[1] = t.idx[2] = t.idx[3] = -1;
             t.wy0 = t.wy1 = t.wx0 = t.wx1 = 0.f;
@@ -179,7 +195,13 @@ deform_bwd_input_kernel(const float* __restrict__ x, const float* __restrict__ o
             for (int i = 0; i < PG; ++i) sU[(grp * PG + i) * cin + c] = acc[i];
         }
         __syncthreads();
-        // one warp per pixel: offset gradients and the dx scatter
+        // the tap's u rows, padded with zeros to cpad channels
+        for (int e = tid; e < TP * cpad; e += THREADS) {
+            const int p = e / cpad, c = e % cpad;
+            const int64_t pg = p0 + p;
+            if (pg < npix) u_rows[(pg * 9 + k) * cpad + c] = c < cin ? sU[p * cin + c] : 0.f;
+        }
+        // one warp per pixel: the offset gradients
         for (int p = warp; p < TP; p += THREADS / 32) {
             const int64_t pg = p0 + p;
             if (pg >= npix) continue;
@@ -197,8 +219,6 @@ deform_bwd_input_kernel(const float* __restrict__ x, const float* __restrict__ o
                     const float d = V::dot(u, v);
                     py += (qy ? wx[qx] : -wx[qx]) * d;
                     px += (qx ? wy[qy] : -wy[qy]) * d;
-                    V::add_scaled(dx + (int64_t)id[q] * cin + cv * VEC,
-                                  __fmul_rn(wy[qy], wx[qx]), u);
                 }
             }
 #pragma unroll
@@ -323,8 +343,9 @@ __global__ void sum_splits_kernel(const float* __restrict__ partial,
 
 template <int VEC>
 cudaError_t launch_input_pass(const float* x, const float* off, const float* wt,
-                              const float* g, float* dx, float* doff, int b,
-                              int h, int w, int cin, int cout, cudaStream_t s) {
+                              const float* g, float* u_rows, int* corner_ids,
+                              float* corner_w, float* doff, int b, int h, int w,
+                              int cin, int cout, int cpad, cudaStream_t s) {
     const size_t smem = input_pass_smem(cin, cout);
     cudaError_t err = cudaFuncSetAttribute(deform_bwd_input_kernel<VEC>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -332,7 +353,7 @@ cudaError_t launch_input_pass(const float* x, const float* off, const float* wt,
     if (err != cudaSuccess) return err;
     const long long npix = (long long)b * h * w;
     deform_bwd_input_kernel<VEC><<<(unsigned)((npix + TP - 1) / TP), THREADS, smem, s>>>(
-        x, off, wt, g, dx, doff, b, h, w, cin, cout);
+        x, off, wt, g, u_rows, corner_ids, corner_w, doff, b, h, w, cin, cout, cpad);
     return cudaGetLastError();
 }
 
@@ -359,10 +380,14 @@ __device__ __forceinline__ void load_tap_offset(const float* __restrict__ offset
     }
 }
 
-// ... and its corner record (flat corner pixels, -1 outside; wy0 wy1 wx0 wx1)
+// ... and its corner record (flat corner pixels, -1 outside; wy0 wy1 wx0 wx1),
+// which the blocks of the first channel slice also store for the input
+// gradient's sum
 __device__ __forceinline__ void store_tap_geometry(float dy, float dxo, int64_t p0,
                                                    int64_t npix, int k, int h, int w,
-                                                   int* sIdx, float* sF) {
+                                                   int* sIdx, float* sF, bool records,
+                                                   int* __restrict__ corner_ids,
+                                                   float* __restrict__ corner_w) {
     if (threadIdx.x >= F_P) return;
     const int64_t pg = p0 + threadIdx.x;
     int4 id = make_int4(-1, -1, -1, -1);
@@ -371,6 +396,7 @@ __device__ __forceinline__ void store_tap_geometry(float dy, float dxo, int64_t 
         const TapGeom tg = deform::tap_geometry_at(dy, dxo, pg, k, h, w);
         id = make_int4(tg.idx[0], tg.idx[1], tg.idx[2], tg.idx[3]);
         f = make_float4(tg.wy0, tg.wy1, tg.wx0, tg.wx1);
+        if (records) store_records(tg, pg, k, corner_ids, corner_w);
     }
     *reinterpret_cast<int4*>(sIdx + threadIdx.x * 4) = id;
     *reinterpret_cast<float4*>(sF + threadIdx.x * 4) = f;
@@ -398,7 +424,8 @@ __device__ __forceinline__ void warp_step(float (&d)[1][2][4], const float* a, i
 __global__ void __launch_bounds__(THREADS, 3)
 deform_bwd_fused_kernel(const float* __restrict__ x, const float* __restrict__ offsets,
                         const float* __restrict__ weight, const float* __restrict__ g,
-                        float* __restrict__ dx, float* __restrict__ doff_part,
+                        float* __restrict__ u_rows, int* __restrict__ corner_ids,
+                        float* __restrict__ corner_w, float* __restrict__ doff_part,
                         float* __restrict__ dw_part, int b, int h, int w, int cin,
                         int ngroups) {
     extern __shared__ __align__(16) float fsm[];
@@ -417,6 +444,7 @@ deform_bwd_fused_kernel(const float* __restrict__ x, const float* __restrict__ o
     const int k0 = (blockIdx.x / cchunks) % 3 * F_TAPS;
     const int group = blockIdx.x / (cchunks * 3);
     const int cbase = chunk * F_CC;
+    const bool records = chunk == 0;
     const int64_t npix = (int64_t)b * h * w;
     const int64_t ntiles = (npix + F_P - 1) / F_P;
     // u product: warp tile 16 pixels x 16 channels; dW product: 16 channels x 16 outputs
@@ -456,7 +484,8 @@ deform_bwd_fused_kernel(const float* __restrict__ x, const float* __restrict__ o
         {
             float dy = 0.f, dxo = 0.f;
             load_tap_offset(offsets, p0, npix, k0, dy, dxo);
-            store_tap_geometry(dy, dxo, p0, npix, k0, h, w, sIdx, sF);
+            store_tap_geometry(dy, dxo, p0, npix, k0, h, w, sIdx, sF, records,
+                               corner_ids, corner_w);
         }
         __syncthreads();
 #pragma unroll
@@ -492,7 +521,7 @@ deform_bwd_fused_kernel(const float* __restrict__ x, const float* __restrict__ o
             float dyn = 0.f, dxn = 0.f;
             if (j + 1 < F_TAPS) load_tap_offset(offsets, p0, npix, k + 1, dyn, dxn);
 
-            // every corner once: offset gradients, the dx scatter, the sample
+            // every corner once: offset gradients and the sample; the u row
 #pragma unroll
             for (int r = 0; r < 2; ++r) {
                 const int p = r * 32 + warp * 4 + cp;
@@ -523,24 +552,26 @@ deform_bwd_fused_kernel(const float* __restrict__ x, const float* __restrict__ o
                     smp.y = fmaf(wt, v[q].y, smp.y);
                     smp.z = fmaf(wt, v[q].z, smp.z);
                     smp.w = fmaf(wt, v[q].w, smp.w);
-                    atomicAdd(reinterpret_cast<float4*>(dx + (int64_t)ids[q] * cin + cbase + cc),
-                              make_float4(wt * u4.x, wt * u4.y, wt * u4.z, wt * u4.w));
                 }
 #pragma unroll
                 for (int s = 4; s > 0; s >>= 1) {
                     py += __shfl_xor_sync(0xffffffffu, py, s);
                     px += __shfl_xor_sync(0xffffffffu, px, s);
                 }
-                if ((lane & 7) == 0 && pg < npix) {
-                    float* dst = doff_part + ((int64_t)chunk * npix + pg) * 18 + 2 * k;
-                    dst[0] = py;
-                    dst[1] = px;
+                if (pg < npix) {
+                    *reinterpret_cast<float4*>(u_rows + (pg * 9 + k) * cin + cbase + cc) = u4;
+                    if ((lane & 7) == 0) {
+                        float* dst = doff_part + ((int64_t)chunk * npix + pg) * 18 + 2 * k;
+                        dst[0] = py;
+                        dst[1] = px;
+                    }
                 }
                 *reinterpret_cast<float4*>(sS + p * F_US + cc) = smp;
             }
             __syncthreads();  // sS is whole; sIdx, sF and sU are free
             if (j + 1 < F_TAPS)
-                store_tap_geometry(dyn, dxn, p0, npix, k + 1, h, w, sIdx, sF);
+                store_tap_geometry(dyn, dxn, p0, npix, k + 1, h, w, sIdx, sF, records,
+                                   corner_ids, corner_w);
 
             // dW_k (32 x 64) += samples^T (32 x 64 pixels) g (64 pixels x 64);
             // depth slot t of a step is pixel 2t, slot t + 4 pixel 2t + 1. The
@@ -601,22 +632,31 @@ __global__ void fused_reduce_kernel(const float* __restrict__ dw_part,
 
 }  // namespace
 
+// Writes the input gradient's records (u_rows: B H W 9 x cpad floats, cpad
+// = Cin on route 1 and Cin rounded up to a multiple of 4 on route 0, the pad
+// zeros; corner_ids and corner_w: B H W 9 x 4), doff and dweight; dx is
+// splat_topk(corner_w, u_rows, corner_ids, B H W), taken by the caller.
 // route 0: `scratch` holds nsplit x 9 Cin Cout floats (the weight pass's
 // partials). route 1 (Cin % 32 == 0, Cout == 64): nsplit is the number of
-// pixel-tile groups (blocks = groups x Cin / 32 x 3 tap rows) and `scratch` holds
-// nsplit x 9 Cin Cout + (Cin / 32) x B H W x 18 floats.
+// pixel-tile groups (blocks = groups x Cin / 32 x 3 tap rows) and `scratch`
+// holds nsplit x 9 Cin Cout + (Cin / 32) x B H W x 18 floats.
 extern "C" int deform_conv3x3_bwd_f32(const void* x, const void* offsets,
                                       const void* weight, const void* g,
-                                      void* dx, void* doff, void* dweight,
-                                      void* scratch, int b, int h, int w,
-                                      int cin, int cout, int nsplit, int route,
-                                      void* stream) {
+                                      void* u_rows, void* corner_w, void* corner_ids,
+                                      void* doff, void* dweight, void* scratch, int b,
+                                      int h, int w, int cin, int cout, int cpad,
+                                      int nsplit, int route, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const long long npix = (long long)b * h * w;
     const long long nw = 9LL * cin * cout;
-    cudaError_t err = cudaMemsetAsync(dx, 0, (size_t)npix * cin * sizeof(float), s);
-    if (err != cudaSuccess) return (int)err;
+    cudaError_t err;
     if (npix == 0 || nw == 0) {
+        err = cudaMemsetAsync(doff, 0, (size_t)npix * 18 * sizeof(float), s);
+        if (err != cudaSuccess) return (int)err;
+        err = cudaMemsetAsync(u_rows, 0, (size_t)npix * 9 * cpad * sizeof(float), s);
+        if (err != cudaSuccess) return (int)err;
+        err = cudaMemsetAsync(corner_ids, 0xff, (size_t)npix * 36 * sizeof(int), s);
+        if (err != cudaSuccess) return (int)err;
         return (int)cudaMemsetAsync(dweight, 0, (size_t)nw * sizeof(float), s);
     }
     if (nsplit < 1) return (int)cudaErrorInvalidValue;
@@ -624,8 +664,11 @@ extern "C" int deform_conv3x3_bwd_f32(const void* x, const void* offsets,
     const auto* of = static_cast<const float*>(offsets);
     const auto* wf = static_cast<const float*>(weight);
     const auto* gf = static_cast<const float*>(g);
+    auto* uf = static_cast<float*>(u_rows);
+    auto* cw = static_cast<float*>(corner_w);
+    auto* ci = static_cast<int*>(corner_ids);
     if (route == 1) {
-        if (cin % F_CC != 0 || cout != F_N) return (int)cudaErrorInvalidValue;
+        if (cin % F_CC != 0 || cout != F_N || cpad != cin) return (int)cudaErrorInvalidValue;
         const int cchunks = cin / F_CC;
         float* dw_part = static_cast<float*>(scratch);
         float* doff_part = dw_part + (long long)nsplit * nw;
@@ -638,8 +681,7 @@ extern "C" int deform_conv3x3_bwd_f32(const void* x, const void* offsets,
             configured = true;
         }
         deform_bwd_fused_kernel<<<(unsigned)(nsplit * cchunks * 3), THREADS, F_SMEM, s>>>(
-            xf, of, wf, gf, static_cast<float*>(dx), doff_part, dw_part, b, h, w, cin,
-            nsplit);
+            xf, of, wf, gf, uf, ci, cw, doff_part, dw_part, b, h, w, cin, nsplit);
         err = cudaGetLastError();
         if (err != cudaSuccess) return (int)err;
         const long long noff = npix * 18, n = nw + noff;
@@ -648,14 +690,15 @@ extern "C" int deform_conv3x3_bwd_f32(const void* x, const void* offsets,
             static_cast<float*>(doff), noff, cchunks);
         return (int)cudaGetLastError();
     }
-    if (route != 0 || input_pass_smem(cin, cout) > 227 * 1024) {
+    if (route != 0 || cpad < cin || cpad % 4 != 0 ||
+        input_pass_smem(cin, cout) > 227 * 1024) {
         return (int)cudaErrorInvalidValue;
     }
     err = cin % 4 == 0
-              ? launch_input_pass<4>(xf, of, wf, gf, static_cast<float*>(dx),
-                                     static_cast<float*>(doff), b, h, w, cin, cout, s)
-              : launch_input_pass<1>(xf, of, wf, gf, static_cast<float*>(dx),
-                                     static_cast<float*>(doff), b, h, w, cin, cout, s);
+              ? launch_input_pass<4>(xf, of, wf, gf, uf, ci, cw, static_cast<float*>(doff),
+                                     b, h, w, cin, cout, cpad, s)
+              : launch_input_pass<1>(xf, of, wf, gf, uf, ci, cw, static_cast<float*>(doff),
+                                     b, h, w, cin, cout, cpad, s);
     if (err != cudaSuccess) return (int)err;
 
     const long long per_split = (npix + nsplit - 1) / nsplit;

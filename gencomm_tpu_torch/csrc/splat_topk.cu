@@ -29,16 +29,22 @@
 //      its cell's offset plus its arrival number. Dropped rows are counted
 //      into no cell and are not read again.
 //   2. Arrival numbers come from atomics, so the rows of a cell stand in an
-//      order that changes from launch to launch. `splat_order_kernel` puts
-//      each cell's segment into ascending flat row: one thread per placed
-//      row counts the rows of its segment that are smaller (the lanes of a
-//      warp mostly share a segment, so these loads are broadcasts) and
-//      writes the row to that rank. The result is the order of a stable sort
-//      by cell, so the sum order within a cell is fixed: the same bits on
-//      every launch. The work is the sum of the squared segment lengths,
-//      which at the camera model's shapes is a few million loads; two radix
-//      passes with in-block ranks would be more launches and more code for
-//      the same order.
+//      order that changes from launch to launch. Each cell's segment is put
+//      into ascending flat row, the order of a stable sort by cell, so the
+//      sum order within a cell is fixed: the same bits on every launch.
+//      A segment of at most LONG_SEGMENT rows is ranked by
+//      `splat_order_kernel`: one thread per placed row counts the rows of
+//      its segment that are smaller (the lanes of a warp mostly share a
+//      segment, so these loads are broadcasts) and writes the row to that
+//      rank. That is quadratic in the segment's length, which is a few
+//      dozen rows at the camera model's shapes but has no bound in general:
+//      K1b's input gradient (csrc/deform_conv_bwd.cu) sums its records
+//      here, and offsets that pull every tap towards one pixel give that
+//      pixel thousands of records, or all of them. So the order kernel
+//      lists the longer segments, and `splat_long_sort_kernel` sorts each
+//      with one block: a bitonic network of O(n log^2 n) comparators, in
+//      shared memory up to SORT_SHARED rows and in place in the order array
+//      beyond.
 //   3. The canvas is written once. Zeros go only to the cells whose counter
 //      is 0, as 16-byte streaming stores, and occupied cells are stored by
 //      the sum alone; there is no memset of the canvas. The zeros are the
@@ -73,13 +79,19 @@ constexpr int TILE = 1024;   // counters per block of the scan
 constexpr int THREADS = 256;
 constexpr int ZERO_VECS = 4 * THREADS;  // float4 slots a zeroing block covers
 constexpr int IN_FLIGHT = 2;  // independent 16-byte loads a lane of the sum keeps in flight
+constexpr int LONG_SEGMENT = 256;     // longer segments are sorted by a block
+constexpr int SORT_SHARED = 8192;     // rows a block sorts in shared memory
+constexpr int SORT_THREADS = 512;     // threads a block of the long-segment sort
+constexpr unsigned SORT_BLOCKS = 1024;  // the long-segment sort's largest grid
 constexpr unsigned FULL = 0xffffffffu;
 
 // The int scratch, in ints (ops/splat.py:forward_scratch sizes it alike):
-// counts (num_cells + 1), ticket (1), local offsets (num_cells + 1), tile
-// offsets (tiles + 1), arrival (m), placed (m), order (m), sorted ids (m).
+// counts (num_cells + 1), ticket (1), the number of long segments (1), local
+// offsets (num_cells + 1), tile offsets (tiles + 1), arrival (m; after the
+// placement, the list of long segments), placed (m), order (m), sorted ids
+// (m).
 struct Scratch {
-    int* counts; int* ticket; int* local; int* tiles; int* arrival;
+    int* counts; int* ticket; int* nlong; int* local; int* tiles; int* arrival;
     int* placed; int* order; int* sids;
     int n_tiles;
 };
@@ -90,7 +102,8 @@ inline Scratch carve(int* base, long long m, int num_cells) {
     s.n_tiles = (int)((n + TILE - 1) / TILE);
     s.counts = base;
     s.ticket = s.counts + n;
-    s.local = s.ticket + 1;
+    s.nlong = s.ticket + 1;
+    s.local = s.nlong + 1;
     s.tiles = s.local + n;
     s.arrival = s.tiles + s.n_tiles + 1;
     s.placed = s.arrival + m;
@@ -247,12 +260,16 @@ __global__ void splat_place_kernel(const int32_t* __restrict__ ids,
 }
 
 // ---- 2. each cell's segment into ascending flat row -------------------------
+// a segment of at most LONG_SEGMENT rows by rank counts; a longer one is put
+// on the list `longs` (its id, once) for splat_long_sort_kernel
 __global__ void splat_order_kernel(const int32_t* __restrict__ sids,
                                    const int* __restrict__ counts,
                                    const int* __restrict__ local,
                                    const int* __restrict__ tiles,
                                    const int* __restrict__ placed,
-                                   int* __restrict__ order, int n_tiles,
+                                   int* __restrict__ order,
+                                   int* __restrict__ nlong,
+                                   int* __restrict__ longs, int n_tiles,
                                    unsigned row_blocks, ZeroJob zeros) {
     if (blockIdx.x >= row_blocks) return zeros.run(blockIdx.x - row_blocks);
     const int64_t q = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
@@ -261,9 +278,63 @@ __global__ void splat_order_kernel(const int32_t* __restrict__ sids,
     const int id = sids[q];
     const int start = cell_offset(local, tiles, id);
     const int n = counts[id];
+    if (n > LONG_SEGMENT) {
+        if (q == start) longs[atomicAdd(nlong, 1)] = id;
+        return;
+    }
     int rank = 0;
     for (int j = 0; j < n; ++j) rank += placed[start + j] < row;
     order[start + rank] = row;
+}
+
+// sorts a[0, n) ascending in place with the block's threads: the bitonic
+// network in its all-ascending form (each merge starts by comparing mirrored
+// halves), where a comparator always puts the smaller value first. Padded to
+// a power of two with +inf at n and beyond, such a network never moves the
+// padding, so the comparators that reach past n are skipped. The keys (flat
+// rows) are distinct. Ends with the block synchronised.
+__device__ void block_bitonic_sort(int* a, unsigned n) {
+    unsigned long long p2 = 1;
+    while (p2 < n) p2 <<= 1;
+    for (unsigned long long k = 2; k <= p2; k <<= 1) {
+        for (unsigned j = (unsigned)(k >> 1); j > 0; j >>= 1) {
+            for (unsigned t = threadIdx.x; t < p2 / 2; t += blockDim.x) {
+                const unsigned i = ((t & ~(j - 1)) << 1) | (t & (j - 1));
+                const unsigned o =
+                    2 * (unsigned long long)j == k ? i ^ (unsigned)(k - 1) : i + j;
+                if (o < n) {
+                    const int x = a[i], y = a[o];
+                    if (y < x) { a[i] = y; a[o] = x; }
+                }
+            }
+            __syncthreads();
+        }
+    }
+}
+
+// the segments longer than LONG_SEGMENT, one block each (grid-stride over the
+// list): the placed rows into ascending order
+__global__ void splat_long_sort_kernel(const int* __restrict__ counts,
+                                       const int* __restrict__ local,
+                                       const int* __restrict__ tiles,
+                                       const int* __restrict__ placed,
+                                       int* __restrict__ order,
+                                       const int* __restrict__ nlong,
+                                       const int* __restrict__ longs) {
+    __shared__ int rows[SORT_SHARED];
+    const int count = *nlong;
+    for (int s = blockIdx.x; s < count; s += gridDim.x) {
+        const int id = longs[s];
+        const int start = cell_offset(local, tiles, id);
+        const int n = counts[id];
+        int* a = n <= SORT_SHARED ? rows : order + start;
+        for (int t = threadIdx.x; t < n; t += blockDim.x) a[t] = placed[start + t];
+        __syncthreads();
+        block_bitonic_sort(a, (unsigned)n);
+        if (n <= SORT_SHARED)
+            for (int t = threadIdx.x; t < n; t += blockDim.x) order[start + t] = rows[t];
+        __syncthreads();
+    }
 }
 
 // ---- 4. the sum --------------------------------------------------------------
@@ -431,8 +502,8 @@ extern "C" int splat_topk_f32(const void* dvals, const void* feats,
         job_blocks[i] = (unsigned)(b1 - b0);
     }
 
-    // counts and the ticket start at 0
-    cudaError_t err = cudaMemsetAsync(sc.counts, 0, (size_t)(n + 1) * sizeof(int), s);
+    // counts, the ticket and the number of long segments start at 0
+    cudaError_t err = cudaMemsetAsync(sc.counts, 0, (size_t)(n + 2) * sizeof(int), s);
     if (err != cudaSuccess) return (int)err;
     if (row_blocks) {
         splat_count_kernel<<<row_blocks, THREADS, 0, s>>>(id, sc.counts, sc.arrival,
@@ -450,10 +521,19 @@ extern "C" int splat_topk_f32(const void* dvals, const void* feats,
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     splat_order_kernel<<<row_blocks + job_blocks[2], THREADS, 0, s>>>(
-        sc.sids, sc.counts, sc.local, sc.tiles, sc.placed, sc.order, sc.n_tiles,
-        row_blocks, jobs[2]);
+        sc.sids, sc.counts, sc.local, sc.tiles, sc.placed, sc.order, sc.nlong,
+        sc.arrival, sc.n_tiles, row_blocks, jobs[2]);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
+    const long long most_long = m / (LONG_SEGMENT + 1);  // long segments at most
+    if (most_long > 0) {
+        const unsigned sort_blocks =
+            most_long < SORT_BLOCKS ? (unsigned)most_long : SORT_BLOCKS;
+        splat_long_sort_kernel<<<sort_blocks, SORT_THREADS, 0, s>>>(
+            sc.counts, sc.local, sc.tiles, sc.placed, sc.order, sc.nlong, sc.arrival);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+    }
 
     const long long chunks = (m + CHUNK - 1) / CHUNK;
     const unsigned blocks = (unsigned)((chunks * 32 + THREADS - 1) / THREADS);

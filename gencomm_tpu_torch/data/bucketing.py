@@ -1,8 +1,9 @@
-"""Agent-slot bucketing: trim padded (B, L, ...) arrays to a bucket size.
+"""Agent-slot bucketing: trim padded (B, L, ...) arrays to a bucket size,
+or to the ego slot for late and no-fusion training.
 
-Counterpart of ``gencomm_tpu/data/bucketing.py:trim_agent_slots``. The
-padded layout holds ``max_cav`` agent slots; trimming to the smallest
-bucket that holds every valid agent skips the empty slots' compute.
+Counterpart of ``gencomm_tpu/data/bucketing.py``. The padded layout holds
+``max_cav`` agent slots; trimming to the smallest bucket that holds every
+valid agent skips the empty slots' compute.
 """
 
 from __future__ import annotations
@@ -34,7 +35,12 @@ def trim_agent_slots(batch: Dict[str, np.ndarray],
     target = min(target, l)
     if target == l:
         return batch
+    return _slice_agents(batch, l, target)
 
+
+def _slice_agents(batch: Dict[str, np.ndarray], l: int,
+                  target: int) -> Dict[str, np.ndarray]:
+    b = np.asarray(batch["agent_mask"]).shape[0]
     out = {}
     for k, v in batch.items():
         a = np.asarray(v)
@@ -45,4 +51,25 @@ def trim_agent_slots(batch: Dict[str, np.ndarray],
             out[k] = a
         else:
             out[k] = v
+    return out
+
+
+def ego_only_batch(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """The batch restricted to the ego slot (L = 1): late and no-fusion
+    training takes each sample as one agent with labels in its own frame,
+    so per-slot predictions line up with the (B, ...) labels."""
+    return _slice_agents(batch, np.asarray(batch["agent_mask"]).shape[1], 1)
+
+
+def per_agent_label_batch(batch: Dict[str, np.ndarray]
+                          ) -> Dict[str, np.ndarray]:
+    """Every agent slot a training sample: the ego-frame labels replaced by
+    the per-agent ones, flattened to (B L, ...); the ego slot alone when the
+    sampler made no per-agent labels."""
+    if "pos_equal_one_single" not in batch:
+        return ego_only_batch(batch)
+    out = dict(batch)
+    for k in ("pos_equal_one", "neg_equal_one", "targets"):
+        s = np.asarray(batch[f"{k}_single"])
+        out[k] = s.reshape((-1,) + s.shape[2:])
     return out

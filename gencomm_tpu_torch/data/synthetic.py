@@ -11,8 +11,16 @@ same anchors in its own frame (``pos_equal_one_single``,
 ``neg_equal_one_single``, ``targets_single`` of shape (B, L, ...), the GT
 projected through world -> agent), which the ``supervise_single`` and HEAL
 pyramid losses read; those draw no random numbers, so the other arrays do
-not change. The robustness knobs (pose noise, delay) belong to a later
-slice.
+not change.
+
+The robustness knobs, as in the JAX package: ``pos_std`` / ``rot_std``
+(``laplace_noise`` for Laplace draws) perturb every agent's pose estimate,
+from which the pairwise transforms are built, while points, images and GT
+stay on the true poses; ``delay_ms`` makes the non-ego agents observe the
+vehicles stale, each moved back along its heading by a speed drawn up to
+``vehicle_speed_max`` times the delay. Both draw from a stream of their own
+(seeded ``((seed * 131 + b) ^ 0x5EED) % 2**32``), so the scenes are the
+same bits at every setting.
 """
 
 from __future__ import annotations
@@ -59,6 +67,14 @@ class SyntheticConfig:
     modalities: dict = field(
         default_factory=lambda: {"m1": {"sensor": "lidar"}}
     )
+    # the robustness knobs (the hypes' noise_setting and wild_setting): the
+    # pose estimates' noise, x and y in m, yaw in degrees, and the
+    # communication delay in ms with the vehicles' top speed in m/s
+    pos_std: float = 0.0
+    rot_std: float = 0.0
+    laplace_noise: bool = False
+    delay_ms: float = 0.0
+    vehicle_speed_max: float = 8.0
     # cap the vehicles' spawn distance from the ego (0 = anywhere in
     # lidar_range); camera-labelled configs set it to the depth
     # discretization's d_max - 2 so that every GT box is visible
@@ -201,8 +217,19 @@ class SyntheticScenes:
                 poses[i, 0] = rng.uniform(-c.comm_range / 2, c.comm_range / 2)
                 poses[i, 1] = rng.uniform(-20, 20)
                 poses[i, 4] = rng.uniform(-180, 180)
+            # the pose estimates of the warp: the true poses plus noise drawn
+            # from a stream of its own (a seed may exceed 2**32)
+            nrng = np.random.RandomState(((seed * 131 + b) ^ 0x5EED)
+                                         % (2 ** 32))
+            est_poses = poses.copy()
+            if c.pos_std > 0 or c.rot_std > 0:
+                draw = nrng.laplace if c.laplace_noise else nrng.normal
+                for i in range(na):
+                    est_poses[i, 0] += draw(0.0, c.pos_std or 1e-12)
+                    est_poses[i, 1] += draw(0.0, c.pos_std or 1e-12)
+                    est_poses[i, 4] += draw(0.0, c.rot_std or 1e-12)
             pairwise[b, :, :] = get_pairwise_transformation(
-                poses, L, na).astype(np.float32)
+                est_poses, L, na).astype(np.float32)
 
             nv = c.num_vehicles
             boxes = np.zeros((nv, 7), np.float32)
@@ -228,13 +255,23 @@ class SyntheticScenes:
             boxes[:, 6] = rng.uniform(-np.pi, np.pi, nv)
             gt_boxes[b, :nv] = boxes
             gt_mask[b, :nv] = 1.0
+            # the delay: the non-ego agents see the vehicles moved back
+            # along their heading
+            stale_boxes = boxes
+            if c.delay_ms > 0:
+                spd = nrng.uniform(0.0, c.vehicle_speed_max, nv)
+                dt = c.delay_ms / 1000.0
+                stale_boxes = boxes.copy()
+                stale_boxes[:, 0] -= spd * np.cos(boxes[:, 6]) * dt
+                stale_boxes[:, 1] -= spd * np.sin(boxes[:, 6]) * dt
 
             for i in range(na):
                 mk = mod_names[i % len(mod_names)]
                 modality_mask[mk][b, i] = True
                 world_to_agent = np.linalg.inv(x_to_world(poses[i]))
+                obs_boxes = boxes if i == 0 else stale_boxes
                 veh = np.concatenate([
-                    self._sample_vehicle_points(rng, boxes[v])
+                    self._sample_vehicle_points(rng, obs_boxes[v])
                     for v in range(nv)], 0)
                 if mk in cam_mods:
                     veh_color = np.repeat(

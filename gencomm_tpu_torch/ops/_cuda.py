@@ -42,8 +42,8 @@ SIGNATURES = {
                          [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
                          "warp_affine"),
     "deform_conv_bwd": ("deform_conv3x3_bwd_f32",
-                        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _I, _I, _P]),
+                        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                         _I, _I, _I, _I, _I, _P]),
     "pillar_canvas_bwd": ("pillar_canvas_bwd_bf16",
                           [_P, _P, _P, _P, _P, _P, _L, _L, _I, _I, _I, _P]),
     "warp_affine_bwd": ("warp_affine_bwd_f32",
@@ -58,9 +58,11 @@ SIGNATURES = {
 _loaded: dict = {}
 build_log: dict = {}  # name -> nvcc's output (ptxas register/smem report)
 # kernel launches per wrapper, counted where each wrapper launches its kernel
+# (``deform_conv3x3_bwd_dx``: K1b's input-gradient sum, run by K4's kernels)
 LAUNCHES = {"deform_conv3x3": 0, "deform_conv3x3_bf16": 0,
             "pillar_canvas": 0, "warp_affine": 0, "warp_affine_bf16": 0,
-            "deform_conv3x3_bwd": 0, "pillar_canvas_bwd": 0,
+            "deform_conv3x3_bwd": 0, "deform_conv3x3_bwd_dx": 0,
+            "pillar_canvas_bwd": 0,
             "warp_affine_bwd": 0, "splat_topk": 0, "splat_topk_bwd": 0,
             "nms_closure": 0}
 

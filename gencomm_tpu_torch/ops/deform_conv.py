@@ -11,6 +11,12 @@ The backward follows the TPU kernel's conventions: the offset gradient is
 the two-corner floor difference (-1 at floor(y), +1 at floor(y) + 1, the
 latter counted wherever that corner lies inside the map, even at weight 0),
 one-sided at exact integers; the offsets are not clipped again inside it.
+On the card K1b sums nothing by atomics, so its three gradients have the
+same bits on every run: its pass writes the input gradient's records
+(``input_grad_records_plain`` is their plain version: per pixel and tap the
+row u_k = g W_k^T and the four corners' pixels and bilinear weights), and
+K4's kernels (``ops/splat.py:segment_sum``) sum each input pixel's weighted
+rows in one fixed order, for any offsets.
 
 Each kernel has two routes, chosen here from the channel counts
 (``kernel_route``): ``"mma"``, for Cin a multiple of 32 and Cout = 64 (every
@@ -37,7 +43,7 @@ from __future__ import annotations
 
 import torch
 
-from gencomm_tpu_torch.ops import _cuda
+from gencomm_tpu_torch.ops import _cuda, splat
 
 MAX_OFFSET = 4  # px, the clamp of gencomm_tpu/ops/deform_pallas.py
 ROUTES = {"general": 0, "mma": 1}  # the `route` argument of the C entry points
@@ -175,6 +181,28 @@ def deform_conv3x3_bwd_plain(x: torch.Tensor, offsets: torch.Tensor,
             dweight.reshape(3, 3, cin, cout))
 
 
+def input_grad_records_plain(offsets: torch.Tensor, weight: torch.Tensor,
+                             g: torch.Tensor):
+    """The records K1b writes for the input gradient, for offsets (B, H, W,
+    18), weight (3, 3, Cin, Cout) and the cotangent g (B, H, W, Cout): with
+    record r = pixel * 9 + tap, (weights (B H W 9, 4) fp32, rows (B H W 9,
+    Cin) = u_tap(pixel) = g(pixel) W_tap^T, ids (B H W 9, 4) int32: the flat
+    pixel of each corner, -1 outside the map). ``splat.splat_topk_plain(
+    weights, rows, ids, B H W)`` is then dx, flattened to (B H W, Cin)."""
+    b, h, w, _ = offsets.shape
+    cin, cout = weight.shape[2:]
+    y0, x0, wy0, wy1, wx0, wx1 = _geometry(offsets, b, h, w)
+    rows = torch.einsum("bhwo,kco->bhwkc", g, weight.reshape(9, cin, cout))
+    wts, ids = [], []
+    # _corners reads only the (B, H, W) map and the device, as offsets has
+    for q, (idx, inb) in enumerate(_corners(offsets, y0, x0)):
+        wy, wx = (wy1 if q >> 1 else wy0), (wx1 if q & 1 else wx0)
+        wts.append((wy * wx) * inb)
+        ids.append(torch.where(inb, idx, torch.full_like(idx, -1)))
+    return (torch.stack(wts, -1).reshape(-1, 4), rows.reshape(-1, cin),
+            torch.stack(ids, -1).reshape(-1, 4).to(torch.int32))
+
+
 def _check_args(x, offsets, weight, x_dtypes=(torch.float32,)):
     b, h, w, cin = x.shape
     cout = weight.shape[-1]
@@ -212,25 +240,39 @@ def deform_conv3x3_fwd(x: torch.Tensor, offsets: torch.Tensor,
 def deform_conv3x3_bwd(x: torch.Tensor, offsets: torch.Tensor,
                        weight: torch.Tensor, g: torch.Tensor):
     """(dx, doffsets, dweight) for the cotangent g (B, H, W, Cout): the
-    plain version for a CPU tensor, kernel K1b for a CUDA tensor."""
+    plain version for a CPU tensor, kernel K1b for a CUDA tensor, whose
+    input-gradient records K4's kernels then sum (counted under
+    ``deform_conv3x3_bwd_dx``). The rows are padded with zeros to a
+    multiple of 4 channels, which K4 reads as 16-byte vectors."""
     if not x.is_cuda:
         return deform_conv3x3_bwd_plain(x, offsets, weight, g)
     b, h, w, cin, cout = _check_args(x, offsets, weight)
     _cuda.check_cuda_tensor(g, "g", torch.float32, (b, h, w, cout))
     route = kernel_route(cin, cout, backward=True)
+    npix = b * h * w
     sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
-    nsplit, nscratch = backward_scratch(route, b * h * w, cin, cout, sm_count)
-    dx = torch.empty_like(x)
+    nsplit, nscratch = backward_scratch(route, npix, cin, cout, sm_count)
+    cpad = -(-cin // 4) * 4
+    rows = torch.empty(npix * 9, cpad, dtype=torch.float32, device=x.device)
+    weights = torch.empty(npix * 9, 4, dtype=torch.float32, device=x.device)
+    ids = torch.empty(npix * 9, 4, dtype=torch.int32, device=x.device)
     doff = torch.empty_like(offsets)
     dweight = torch.empty_like(weight)
     scratch = torch.empty(nscratch, dtype=torch.float32, device=x.device)
     _cuda.launch("deform_conv_bwd", x.data_ptr(), offsets.data_ptr(),
-                 weight.data_ptr(), g.data_ptr(), dx.data_ptr(),
-                 doff.data_ptr(), dweight.data_ptr(), scratch.data_ptr(),
-                 b, h, w, cin, cout, nsplit, ROUTES[route])
+                 weight.data_ptr(), g.data_ptr(), rows.data_ptr(),
+                 weights.data_ptr(), ids.data_ptr(), doff.data_ptr(),
+                 dweight.data_ptr(), scratch.data_ptr(), b, h, w, cin, cout,
+                 cpad, nsplit, ROUTES[route])
     _cuda.LAUNCHES["deform_conv3x3_bwd"] += 1
     ROUTE_LAUNCHES["deform_conv3x3_bwd"][route] += 1
-    return dx, doff, dweight
+    if npix == 0 or cin == 0:
+        return torch.zeros_like(x), doff, dweight
+    dx = splat.segment_sum(weights, rows, ids, npix,
+                           count="deform_conv3x3_bwd_dx")
+    if cpad != cin:
+        dx = dx[:, :cin].contiguous()
+    return dx.view(b, h, w, cin), doff, dweight
 
 
 class _DeformConv3x3(torch.autograd.Function):

@@ -8,7 +8,8 @@ row. The port carries over neither the stripe padding nor the one-hot
 matmul of the TPU kernel, nor a library sort: ``csrc/splat_topk.cu`` takes
 the raw ids, sorts the rows by cell itself (a counting sort, since ids are
 bounded by ``num_cells``, with each cell's rows put into ascending flat row,
-the order of a stable sort), stores zeros to the empty cells only, gathers
+the order of a stable sort: by rank counts in a short cell, by a block's
+bitonic sort in a long one), stores zeros to the empty cells only, gathers
 the feature rows, forms the products and sums each run of equal ids, so the
 canvas is written once and no PyTorch call prepares indices. What bounds it
 is the bytes of the canvas. The backward is a gather, one warp per pixel
@@ -103,15 +104,16 @@ def sort_ids(ids: torch.Tensor, num_cells: int):
 
 def _int_layout(m: int, num_cells: int) -> dict:
     """Where each part of K4's int scratch starts, in ints, as
-    ``csrc/splat_topk.cu`` carves it: the cells' counters and the scan's
-    ticket (zeroed by the kernel's entry point), the counters' offsets
-    inside their scan tile, the tiles' offsets with the number of kept rows
-    last, and per flat row its arrival number in its cell, its place, the
+    ``csrc/splat_topk.cu`` carves it: the cells' counters, the scan's
+    ticket and the number of long segments (zeroed by the kernel's entry
+    point), the counters' offsets inside their scan tile, the tiles'
+    offsets with the number of kept rows last, and per flat row its arrival
+    number in its cell (then the list of long segments), its place, the
     final order and the sorted ids."""
     n = num_cells + 1
     tiles = -(-n // _SCAN_TILE)
     starts, at = {}, 0
-    for name, size in (("counts", n), ("ticket", 1), ("local", n),
+    for name, size in (("counts", n), ("ticket", 1), ("nlong", 1), ("local", n),
                        ("tiles", tiles), ("kept", 1), ("arrival", m),
                        ("placed", m), ("order", m), ("sids", m)):
         starts[name] = at
@@ -128,9 +130,11 @@ def forward_scratch(m: int, num_cells: int, channels: int):
             2 * -(-m // _CHUNK) * channels)
 
 
-def _launch_forward(dvals, feats, ids, num_cells, bf16_rows):
-    """Kernel K4 on checked CUDA tensors; returns the canvas and the int
-    scratch, which holds the kernel's order afterwards."""
+def _launch_forward(dvals, feats, ids, num_cells, bf16_rows,
+                    count="splat_topk"):
+    """Kernel K4 on CUDA tensors, its launch counted under ``count``;
+    returns the canvas and the int scratch, which holds the kernel's order
+    afterwards."""
     p, k, c = _check(dvals, feats, ids, num_cells)
     n_ints, n_floats = forward_scratch(p * k, num_cells, c)
     canvas = torch.empty(num_cells, c, dtype=torch.float32,
@@ -141,7 +145,7 @@ def _launch_forward(dvals, feats, ids, num_cells, bf16_rows):
                  ids.data_ptr(), canvas.data_ptr(), ints.data_ptr(),
                  pieces.data_ptr(), p * k, k, c, num_cells,
                  int(bool(bf16_rows)))
-    _cuda.LAUNCHES["splat_topk"] += 1
+    _cuda.LAUNCHES[count] += 1
     return canvas, ints
 
 
@@ -166,6 +170,20 @@ def splat_topk_fwd(dvals: torch.Tensor, feats: torch.Tensor,
     if not dvals.is_cuda:
         return splat_topk_plain(dvals, feats, ids, num_cells, bf16_rows)
     return _launch_forward(dvals, feats, ids, num_cells, bf16_rows)[0]
+
+
+def segment_sum(weights: torch.Tensor, rows: torch.Tensor,
+                ids: torch.Tensor, num_cells: int, count: str) -> torch.Tensor:
+    """``out[c] = sum over (r, q) with ids[r, q] == c of weights[r, q] *
+    rows[r]``, (num_cells, C) fp32, for another kernel's records: weights
+    (R, Q) fp32, rows (R, C) fp32 with C a multiple of 4, ids (R, Q) int32;
+    an id outside ``[0, num_cells)`` drops its term. A CUDA tensor runs K4's
+    kernels, which sum every cell in one fixed order (ascending ``r * Q +
+    q``), counted under ``_cuda.LAUNCHES[count]``; a CPU tensor takes the
+    plain version. No autograd."""
+    if not weights.is_cuda:
+        return splat_topk_plain(weights, rows, ids, num_cells)
+    return _launch_forward(weights, rows, ids, num_cells, False, count)[0]
 
 
 def splat_topk_bwd(dvals: torch.Tensor, feats: torch.Tensor,

@@ -6,6 +6,7 @@ Counterpart of ``gencomm_tpu/tools/inference.py``:
     python -m gencomm_tpu_torch.tools.inference --model_dir <run> \
         --dataset synthetic [--frames N] [--ckpt <dir>] [--use_cav K] \
         [--range xmin,ymin,zmin,xmax,ymax,zmax] [--score_threshold T] \
+        [--pos_std S --rot_std S [--laplace]] [--delay MS] \
         [--half] [--report_comm] [--device cuda|cpu]
 
 The run's ``config.yaml`` builds the model; the checkpoint is ``--ckpt``,
@@ -16,8 +17,12 @@ SECOND modality's raw points go to the device), then
 ``InferencePipeline.run`` with diffusion seed f. Writes ``eval.yaml`` and
 ``eval_global_sort.yaml`` (suffixed ``_<infer_info>``) into the run dir.
 ``--report_comm`` prints the GenComm message's payload of the last frame.
-Runs on ``cuda`` unless ``--device cpu``. Pose noise, delay and the BEV
-snapshots raise (ROADMAP item 21), as do multi-class configs (item 19).
+The robustness flags write the hypes' ``noise_setting`` (``--pos_std`` m,
+``--rot_std`` degrees, ``--laplace``) and ``wild_setting`` (``--delay``
+ms), which the sampler reads (``tools/train.py:build_dataset``); the
+sweeps ``inference_w_noise`` and ``inference_w_delay`` call this tool once
+a level. Runs on ``cuda`` unless ``--device cpu``. The BEV snapshots raise
+(ROADMAP item 21), as do multi-class configs (item 19).
 """
 
 from __future__ import annotations
@@ -156,12 +161,22 @@ def comm_report(model, batch: dict, hypes: dict | None = None) -> dict:
     return report
 
 
+def robustness_settings(hypes: dict, args) -> dict:
+    """The hypes with the robustness flags written as the JAX tool writes
+    them: ``noise_setting`` where ``--pos_std`` or ``--rot_std`` is set,
+    ``wild_setting`` where ``--delay`` is."""
+    if args.pos_std or args.rot_std:
+        hypes["noise_setting"] = {
+            "add_noise": True, "add_pose_noise": True,
+            "args": {"pos_std": args.pos_std, "rot_std": args.rot_std,
+                     "laplace": args.laplace}}
+    if args.delay:
+        hypes["wild_setting"] = {"async": True, "async_overhead": args.delay}
+    return hypes
+
+
 def main(argv=None):
     args = parse_args(argv)
-    if args.pos_std or args.rot_std or args.laplace or args.delay:
-        raise NotImplementedError(
-            "pose noise and communication delay are not ported yet (ROADMAP "
-            "item 21)")
     if args.save_vis_interval:
         raise NotImplementedError(
             "--save_vis_interval is not ported yet (ROADMAP item 21)")
@@ -172,6 +187,7 @@ def main(argv=None):
         hypes["model"]["args"]["half"] = True
     if args.det_range:
         hypes = override_range(hypes, args.det_range.split(","))
+    hypes = robustness_settings(hypes, args)
     if args.score_threshold is not None:
         hypes["postprocess"]["target_args"]["score_threshold"] = \
             args.score_threshold

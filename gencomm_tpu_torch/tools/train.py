@@ -22,9 +22,12 @@ pyramid model) the sampler also labels every agent in its own frame and the
 train step runs the criterion's "_single" pass. ``--trainer kd`` distils
 (DiscoNet): a teacher of the same architecture with the weights of
 ``--teacher_ckpt`` runs frozen beside the student, and a plain detection
-criterion is upgraded to ``point_pillar_disconet_loss``. Each epoch: the host
-pipeline (sampling, labels, agent-slot trimming, the C++ pillar
-decoration; a SECOND modality keeps its raw points) on a producer thread
+criterion is upgraded to ``point_pillar_disconet_loss``. The hypes'
+``noise_setting`` and ``wild_setting`` put pose noise and delay into the
+sampled scenes. Each epoch: the host pipeline (sampling, labels, the fusion
+mode's adaptation (``Adapt``: early fusion's merged cloud, late and no
+fusion's ego slot, intermediate fusion's agent-slot trimming), the C++
+pillar decoration; a SECOND modality keeps its raw points) on a producer thread
 or ``--workers`` processes, the steps on
 the device, ``step_<epoch>`` every ``save_freq`` epochs, and the
 validation loss on held-out scenes with one rolling ``bestval_at_<epoch>``
@@ -45,14 +48,18 @@ import torch
 
 from gencomm_tpu_torch import resolve_device
 from gencomm_tpu_torch.config.yaml_utils import load_yaml, save_yaml
-from gencomm_tpu_torch.data.bucketing import AGENT_BUCKETS, trim_agent_slots
+from gencomm_tpu_torch.data.bucketing import (
+    AGENT_BUCKETS, ego_only_batch, per_agent_label_batch, trim_agent_slots,
+)
 from gencomm_tpu_torch.data.decorate import HostDecoration
+from gencomm_tpu_torch.data.early_fusion import merge_points_to_ego
 from gencomm_tpu_torch.data.prefetch import multi_worker_iter, prefetch_iter
 from gencomm_tpu_torch.loss import create_loss
 from gencomm_tpu_torch.models import create_model
 from gencomm_tpu_torch.pipeline import batch_to_device
 from gencomm_tpu_torch.train import checkpoint, trainer
 from gencomm_tpu_torch.train.metrics import MetricsLogger
+from gencomm_tpu_torch.utils.pose_utils import pose_noise_enabled
 
 DATASETS = ["opv2v", "v2xset", "dairv2x", "v2xsim", "v2xreal", "synthetic"]
 
@@ -60,7 +67,12 @@ DATASETS = ["opv2v", "v2xset", "dairv2x", "v2xsim", "v2xreal", "synthetic"]
 def build_dataset(hypes: dict, train: bool, dataset: str):
     """The dataset of a run. Only ``synthetic`` is ported: the scenes'
     modalities, range, anchors and, for a camera-labelled config, the spawn
-    radius come from the hypes, as the JAX package derives them."""
+    radius come from the hypes, as the JAX package derives them, and so do
+    the robustness knobs: pose noise from ``noise_setting`` (where
+    ``pose_noise_enabled``), the delay from ``wild_setting``
+    (``async_overhead`` ms where ``async``). The agents a scene holds are
+    capped at ``max_cav``: the single-agent yamls (``max_cav: 1``) give one
+    (the JAX package samples 2 into 1 slot and fails, ROADMAP fault q)."""
     from gencomm_tpu_torch.data.synthetic import (
         SyntheticConfig, SyntheticScenes,
     )
@@ -70,11 +82,8 @@ def build_dataset(hypes: dict, train: bool, dataset: str):
             f"dataset {dataset!r} is not ported yet (ROADMAP item 20); "
             "use --dataset synthetic")
     ns = hypes.get("noise_setting", {}) or {}
-    if (ns.get("add_noise", False) and ns.get("add_pose_noise", False)) \
-            or (hypes.get("wild_setting", {}) or {}).get("async"):
-        raise NotImplementedError(
-            "pose noise and communication delay are not ported yet "
-            "(ROADMAP item 21)")
+    nargs = ns.get("args", {}) if pose_noise_enabled(ns) else {}
+    ws = hypes.get("wild_setting", {}) or {}
     margs = hypes.get("model", {}).get("args", {})
     core = hypes.get("model", {}).get("core_method", "").lower()
     # per-agent labels: the supervise_single pass and the single pyramid
@@ -101,9 +110,16 @@ def build_dataset(hypes: dict, train: bool, dataset: str):
     aa = hypes.get("postprocess", {}).get("anchor_args", {})
     vs = hypes.get("preprocess", {}).get("args", {}).get(
         "voxel_size", (0.4, 0.4, 4.0))
+    max_cav = hypes["train_params"]["max_cav"]
     cfg = SyntheticConfig(
         lidar_range=tuple(hypes["preprocess"]["cav_lidar_range"]),
-        max_cav=hypes["train_params"]["max_cav"],
+        pos_std=float(nargs.get("pos_std", 0.0)),
+        rot_std=float(nargs.get("rot_std", 0.0)),
+        laplace_noise=bool(nargs.get("laplace", False)),
+        delay_ms=float(ws.get("async_overhead", 0.0)) if ws.get("async")
+        else 0.0,
+        max_cav=max_cav,
+        num_agents=min(SyntheticConfig.num_agents, max_cav),
         per_agent_labels=needs_single,
         modalities=modalities,
         max_spawn_radius=spawn_radius,
@@ -128,28 +144,50 @@ def batches(dataset, batch_size: int, seed: int, dataset_kind: str):
         step += 1
 
 
+# the per-slot legacy detectors, which train every agent as a sample on
+# its own-frame labels (the JAX CLI's list; ROADMAP item 19 ports them)
+PER_SLOT_CORES = ("ciassd", "second", "second_ssfa", "fpvrcnn",
+                  "second_ssfa_uncertainty", "point_pillar_uncertainty")
+
+
 class Adapt:
-    """The host adaptation of a sampled batch for intermediate fusion:
-    ``trim_agent_slots`` to the smallest of the model's ``agent_buckets``
-    (a CoBEVT model's batches keep the agent count it was built for), then
-    the C++ pillar decoration of the lidar modalities. Sent to worker
-    processes whole."""
+    """The host adaptation of a sampled batch, by fusion mode as the JAX CLI
+    adapts it: early fusion merges the clouds into the ego frame
+    (``merge_points_to_ego``, masked to the lidar range; the per-agent
+    labels cut to the ego's, fault r); a per-slot core
+    trains each agent on its own labels (``per_agent_label_batch``); late
+    and no fusion take the ego slot (``ego_only_batch``); intermediate
+    fusion trims to the smallest of the model's ``agent_buckets``
+    (``trim_agent_slots``; a CoBEVT model's batches keep the agent count it
+    was built for). Then the C++ pillar decoration of the lidar modalities.
+    Sent to worker processes whole."""
 
     def __init__(self, hypes: dict, buckets=AGENT_BUCKETS):
         fusion_mode = hypes.get("fusion", {}).get("core_method", "").lower()
-        if fusion_mode == "early":
-            raise NotImplementedError(
-                "early fusion (merging the clouds into the ego frame) is "
-                "not ported yet (ROADMAP item 20)")
-        if fusion_mode in ("late", "no"):
-            raise NotImplementedError(
-                f"{fusion_mode} fusion training (ego-only batches) is not "
-                "ported yet (ROADMAP item 21)")
+        core = hypes["model"]["core_method"].lower()
+        self.lidar_range = hypes["preprocess"]["cav_lidar_range"]
+        self.mode = ("early" if fusion_mode == "early"
+                     else "per_slot" if core in PER_SLOT_CORES
+                     else "ego" if fusion_mode in ("late", "no")
+                     else "trim")
         self.decorate = HostDecoration(hypes)
         self.buckets = buckets
 
     def __call__(self, batch):
-        return self.decorate(trim_agent_slots(batch, buckets=self.buckets))
+        if self.mode == "early":
+            # the one merged agent is the ego, whose own-frame labels are
+            # its slot's: the JAX CLI keeps every slot's, and a
+            # supervise_single step then fails (ROADMAP fault r)
+            batch = {k: v[:, :1] if k.endswith("_single") else v
+                     for k, v in merge_points_to_ego(
+                         batch, self.lidar_range).items()}
+        elif self.mode == "per_slot":
+            batch = per_agent_label_batch(batch)
+        elif self.mode == "ego":
+            batch = ego_only_batch(batch)
+        else:
+            batch = trim_agent_slots(batch, buckets=self.buckets)
+        return self.decorate(batch)
 
 
 def epoch_batches(dataset, batch_size: int, dataset_kind: str, adapt,

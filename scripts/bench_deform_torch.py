@@ -28,13 +28,24 @@ kernel as above and gives its device time from torch.profiler.
 (the sampling only: no products), and times both in the same turns: the
 split of the tensor-core route's time.
 
+``--dtype fp32`` also times K1b on concentrated offsets: every tap of every
+pixel pulled to one point of its pixel's block (9 x 9 pixels with the
+offsets clamped to +-4, as the message extractor clamps them; 32 x 32 and
+one point an image unclamped, as route ``general`` takes them), where the
+input gradient's records pile onto a few pixels and K4's order pass sorts
+long segments. Each case is held against the plain version and itself
+twice, and reports the most records a pixel receives.
+
 ``--old-csrc DIR`` (a directory that holds another version of
-``deform_conv.cu``, ``deform_conv_bwd.cu`` and ``deform_common.cuh`` with
-the package's C interface, e.g. ``git archive <commit>
-gencomm_tpu_torch/csrc`` unpacked; PR 4's and later trees have it) builds
-that version beside the package's and times the two in turns in this one
-process: old, new, (parts,) new, old. It also confirms that K1 fp32 gives
-the old version's bits at its four shapes.
+``deform_conv.cu``, ``deform_conv_bwd.cu`` and ``deform_common.cuh``, e.g.
+``git archive <commit> gencomm_tpu_torch/csrc`` unpacked; K1 must take the
+route argument, PR 4's and later trees) builds that version beside the
+package's and times the two in turns in this one process: old, new,
+(parts,) new, old. A K1b that adds its input gradient by atomics (trees
+before the fixed-order sum, e.g. 6b6c033) is bound through its own C
+interface (``OLD_K1B_ARGTYPES``), and its dx is also checked against the
+plain version and against itself on a second launch. It also confirms
+that K1 fp32 gives the old version's bits at its four shapes.
 
 ``--variant NAME=DIR`` (repeatable, with ``--dtype bf16``) builds another
 ``deform_conv.cu`` with the package's C interface and times it in the same
@@ -66,6 +77,15 @@ L2_FLUSH_BYTES = 128 << 20
 # the C entries of each source
 ENTRIES = {"deform_conv": ("deform_conv", "deform_conv_bf16"),
            "deform_conv_bwd": ("deform_conv_bwd",)}
+# the C interface of a K1b that adds dx by atomics: x, offsets, weight, g,
+# dx, doffsets, dweight, scratch, b, h, w, cin, cout, nsplit, route, stream
+OLD_K1B_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+# K1b on concentrated offsets: (label, (b, h, w, cin, cout), the block whose
+# taps meet at one point (None: one point an image), the clamp or None)
+CONCENTRATED = (("lidar step, 9 x 9 blocks, clamped", (4, 64, 128, CIN, COUT), 9, 4.0),
+                ("lidar step, 32 x 32 blocks", (4, 64, 128, CIN, COUT), 32, None),
+                ("lidar step, one point an image", (4, 64, 128, CIN, COUT), None, None),
+                ("general route, one point an image", (2, 20, 36, 40, 70), None, None))
 
 
 def make_inputs(torch, b, h, w, seed, dev, cin=CIN, cout=COUT, clamp=4.0):
@@ -75,6 +95,53 @@ def make_inputs(torch, b, h, w, seed, dev, cin=CIN, cout=COUT, clamp=4.0):
     wt = torch.randn(3, 3, cin, cout, generator=gen) * 0.05
     g = torch.randn(b, h, w, cout, generator=gen)
     return tuple(t.to(dev).contiguous() for t in (x, off, wt, g))
+
+
+def concentrated_offsets(torch, b, h, w, window, clamp, seed, dev):
+    """Offsets (B, H, W, 18) that pull every tap of a pixel to one point of
+    the pixel's ``window`` x ``window`` block (0.4 px below and right of its
+    middle pixel, with a 0.03 px jitter; ``window`` None: one point an
+    image), clipped to +-``clamp`` unless it is None."""
+    gen = torch.Generator().manual_seed(seed)
+    win = window or max(h, w)
+    ys = torch.arange(h, dtype=torch.float32)[:, None].expand(h, w)
+    xs = torch.arange(w, dtype=torch.float32)[None, :].expand(h, w)
+    point = torch.stack([((ys // win) * win + win // 2).clamp(max=h - 1),
+                         ((xs // win) * win + win // 2).clamp(max=w - 1)],
+                        -1) + 0.4
+    k = torch.arange(9)
+    tap = torch.stack([k // 3 - 1, k % 3 - 1], -1).float()
+    off = point[:, :, None] - (torch.stack([ys, xs], -1)[:, :, None] + tap)
+    off = off + 0.03 * torch.randn(b, h, w, 9, 2, generator=gen)
+    if clamp is not None:
+        off = off.clamp(-clamp, clamp)
+    return off.reshape(b, h, w, 18).to(dev).contiguous()
+
+
+def old_k1b(torch, fn):
+    """(x, offsets, weight, g) -> (dx, doffsets, dweight) through ``fn``, a
+    K1b entry with ``OLD_K1B_ARGTYPES`` (dx added by atomics), its scratch
+    sized as the package sizes it."""
+    from gencomm_tpu_torch.ops.deform_conv import (
+        ROUTES, backward_scratch, kernel_route,
+    )
+
+    def run(x, off, wt, g):
+        b, h, w, cin = x.shape
+        cout = wt.shape[-1]
+        route = kernel_route(cin, cout, backward=True)
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        nsplit, nscratch = backward_scratch(route, b * h * w, cin, cout, sms)
+        dx, doff, dw = (torch.empty_like(t) for t in (x, off, wt))
+        scratch = torch.empty(nscratch, device=x.device)
+        err = fn(x.data_ptr(), off.data_ptr(), wt.data_ptr(), g.data_ptr(),
+                 dx.data_ptr(), doff.data_ptr(), dw.data_ptr(),
+                 scratch.data_ptr(), b, h, w, cin, cout, nsplit, ROUTES[route],
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"the old K1b failed to launch: error {err}")
+        return dx, doff, dw
+    return run
 
 
 def time_ms(torch, fn, iters=50, warmup=5, flush=None):
@@ -110,7 +177,8 @@ def build(_cuda, csrc, tag, defines=(), sources=tuple(ENTRIES)):
     """Builds the ``sources`` of ``ENTRIES`` found in ``csrc`` into
     build/kernels_<tag> with the extra ``-D`` ``defines``; returns
     ({entry: ctypes function with the package's C interface},
-    {source: nvcc's output})."""
+    {source: nvcc's output}). A K1b that adds by atomics is bound with
+    ``OLD_K1B_ARGTYPES`` under ``deform_conv_bwd_atomic`` instead."""
     out_dir = os.path.join(os.path.dirname(_cuda.BUILD_DIR), f"kernels_{tag}")
     os.makedirs(out_dir, exist_ok=True)
     fns, logs = {}, {}
@@ -125,8 +193,12 @@ def build(_cuda, csrc, tag, defines=(), sources=tuple(ENTRIES)):
              "-o", so, path], check=True, capture_output=True, text=True)
         logs[src] = done.stdout + done.stderr
         lib = ctypes.CDLL(so)
+        with open(path) as f:
+            atomic = src == "deform_conv_bwd" and "atomicAdd" in f.read()
         for entry in entries:
             sym, argtypes = _cuda.SIGNATURES[entry][:2]
+            if atomic:
+                entry, argtypes = "deform_conv_bwd_atomic", OLD_K1B_ARGTYPES
             fn = getattr(lib, sym)
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
             fns[entry] = fn
@@ -230,6 +302,43 @@ def bench_bf16(torch, dev, label, b, h, w, wrappers, old, parts, variants,
     return row
 
 
+def bench_concentrated(torch, dev, dims, window, clamp, old_bwd, wrappers,
+                       iters=3):
+    """K1b on ``concentrated_offsets``: the most records an input pixel
+    receives, each gradient against the plain version (1e-3 x max|plain|)
+    and the same bits twice, ms by events in turns (old, new, new, old with
+    ``old_bwd``) and the device split by launch."""
+    from gencomm_tpu_torch.ops.deform_conv import input_grad_records_plain
+
+    bwd, plain = wrappers
+    b, h, w, cin, cout = dims
+    x, _, wt, g = make_inputs(torch, b, h, w, 2, dev, cin, cout)
+    off = concentrated_offsets(torch, b, h, w, window, clamp, 3, dev)
+    ids = input_grad_records_plain(off, wt, g)[2]
+    ids = ids[ids >= 0].long()
+    most = int(torch.bincount(ids, minlength=b * h * w).max())
+    gots, again, wants = bwd(x, off, wt, g), bwd(x, off, wt, g), plain(x, off, wt, g)
+    errs = {n: (float((a - c).abs().max()), float(c.abs().max()))
+            for n, a, c in zip(("dx", "doff", "dweight"), gots, wants)}
+    row = {"x": [b, h, w, cin], "cout": cout, "window": window, "clamp": clamp,
+           "most_records_a_pixel": most, "k1b_err_scale": errs,
+           "bit_equal_twice": {n: bool(torch.equal(a, c)) for n, a, c in zip(
+               ("dx", "doff", "dweight"), gots, again)}}
+    runs = {"new": lambda: bwd(x, off, wt, g)}
+    order = ["new", "new"]
+    if old_bwd:
+        runs["old"] = lambda: old_bwd(x, off, wt, g)
+        order = ["old", "new", "new", "old"]
+    for which in order:
+        row.setdefault(f"k1b_{which}_warm_ms", []).append(
+            time_ms(torch, runs[which], iters, warmup=1))
+    for which in runs:
+        row[f"k1b_{which}_split_ms"] = split_by_launch(torch, runs[which], n=2)
+    row["ok"] = bool(all(e <= 1e-3 * s for e, s in errs.values())
+                     and all(row["bit_equal_twice"].values()))
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dtype", choices=("fp32", "bf16"), default="fp32")
@@ -257,12 +366,16 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
     print(f"card: {smi}", flush=True)
-    _cuda.build_all(["deform_conv", "deform_conv_bwd"])
+    _cuda.build_all(["deform_conv", "deform_conv_bwd", "splat_topk"])
     logs = {n: _cuda.build_log.get(n, "") for n in ENTRIES}
-    old = parts = None
+    old = parts = old_bwd = None
     if args.old_csrc:
         old, old_logs = build(_cuda, args.old_csrc, "old")
         logs.update({f"{n} (old)": t for n, t in old_logs.items()})
+        if "deform_conv_bwd_atomic" in old:
+            old_bwd = old_k1b(torch, old.pop("deform_conv_bwd_atomic"))
+        elif "deform_conv_bwd" in old:
+            old_bwd = through(_cuda, old, deform_conv3x3_bwd)
     if args.parts:
         parts = {}
         for tag, part in (("product", 1), ("gather", 2)):
@@ -336,18 +449,24 @@ def main() -> int:
                    for n, a, c in zip(("dx", "doff", "dweight"), gots, wants)}
             row = {"x": [b, h, w, CIN], "k1_err": k1_err, "k1_tol": k1_tol,
                    "k1b_err_scale": k1b,
-                   "dweight_bit_equal": bool(torch.equal(gots[2], again[2])),
-                   "doff_bit_equal": bool(torch.equal(gots[1], again[1]))}
+                   "bit_equal_twice": {n: bool(torch.equal(a, c)) for n, a, c
+                                       in zip(("dx", "doff", "dweight"), gots,
+                                              again)}}
             runs = {"k1_new": lambda: deform_conv3x3_fwd(x, off, wt),
                     "k1b_new": lambda: deform_conv3x3_bwd(x, off, wt, g)}
-            order = ["new", "new"]
+            orders = {"k1": ["new", "new"], "k1b": ["new", "new"]}
             if old:
                 runs["k1_old"] = lambda: through(
                     _cuda, old, deform_conv3x3_fwd)(x, off, wt)
-                runs["k1b_old"] = lambda: through(
-                    _cuda, old, deform_conv3x3_bwd)(x, off, wt, g)
-                order = ["old", "new", "new", "old"]
-            for kern in ("k1", "k1b"):
+                orders["k1"] = ["old", "new", "new", "old"]
+            if old_bwd:
+                olds = [old_bwd(x, off, wt, g) for _ in range(2)]
+                row["old_dx_err"] = float((olds[0][0] - wants[0]).abs().max())
+                row["old_dx_bit_equal_twice"] = bool(torch.equal(olds[0][0],
+                                                                 olds[1][0]))
+                runs["k1b_old"] = lambda: old_bwd(x, off, wt, g)
+                orders["k1b"] = ["old", "new", "new", "old"]
+            for kern, order in orders.items():
                 for mode, fl in (("warm", None), ("cold", flush)):
                     for which in order:
                         row.setdefault(f"{kern}_{which}_{mode}_ms", []).append(
@@ -356,9 +475,15 @@ def main() -> int:
             for name in runs:
                 row[f"{name}_split_ms"] = split_by_launch(torch, runs[name])
             ok = k1_err <= k1_tol and all(e <= 1e-3 * s for e, s in k1b.values())
-            row["ok"] = bool(ok and row["dweight_bit_equal"])
+            row["ok"] = bool(ok and all(row["bit_equal_twice"].values()))
             print(label, json.dumps(row), flush=True)
             result["shapes"][label] = row
+            checks.append(row["ok"])
+        for label, dims, window, clamp in CONCENTRATED:
+            row = bench_concentrated(torch, dev, dims, window, clamp, old_bwd,
+                                     (deform_conv3x3_bwd, deform_conv3x3_bwd_plain))
+            print(f"K1b, {label}", json.dumps(row), flush=True)
+            result.setdefault("concentrated", {})[label] = row
             checks.append(row["ok"])
     text = json.dumps(result)
     if args.out:

@@ -369,7 +369,8 @@ def narrowed(config, **extra):
                               "padding": [1], "dim": [32], "input_dim": 32}
     args["att"] = {"feat_dim": 32}
     args["in_head"] = 32
-    args["gencomm"]["model"]["ch"] = 4
+    if "gencomm" in args:
+        args["gencomm"]["model"]["ch"] = 4
     h.update(extra)
     return h
 

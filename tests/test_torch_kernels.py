@@ -28,7 +28,8 @@ from gencomm_tpu_torch.ops._cuda import LAUNCHES
 from gencomm_tpu_torch.ops.deform_conv import (
     HALF_ROUTE_LAUNCHES, MAX_OFFSET, ROUTE_LAUNCHES, backward_scratch,
     deform_conv3x3, deform_conv3x3_bwd, deform_conv3x3_bwd_plain,
-    deform_conv3x3_clamped, deform_conv3x3_plain, kernel_route,
+    deform_conv3x3_clamped, deform_conv3x3_plain, input_grad_records_plain,
+    kernel_route,
 )
 from gencomm_tpu_torch.ops import pillar_canvas as pillar_canvas_ops
 from gencomm_tpu_torch.ops.pillar_canvas import (
@@ -859,6 +860,95 @@ def test_deform_bwd_kernel_far_offsets_at_path_shapes_on_card(cuda, shape):
         _close(gv.cpu().numpy(), wv.cpu().numpy(), 1e-4, name)
 
 
+@pytest.mark.parametrize("kind,shape,far", [
+    ("fractional", (2, 12, 16, 8, 4), False),
+    ("integer", (1, 9, 7, 5, 3), False),      # Cin % 4 != 0, on-pixel samples
+    ("fractional", (2, 10, 13, 32, 64), True),  # offsets to +-9
+])
+def test_deform_bwd_input_gradient_records_sum_to_dx(kind, shape, far):
+    """K1b's decomposition of dx, through the plain versions: the records
+    (u rows, corner pixels and weights) summed by K4's plain version equal
+    the plain backward's dx within fp32 sum order."""
+    b, h, w, cin, cout = shape
+    x, off, wt, g = deform_case(kind, 11, b, h, w, cin, cout)
+    if far:
+        off = np.clip(np.random.RandomState(12).randn(b, h, w, 18) * 3.0,
+                      -9, 9).astype(np.float32)
+    weights, rows, ids = input_grad_records_plain(_t(off), _t(wt), _t(g))
+    assert weights.shape == ids.shape == (b * h * w * 9, 4)
+    assert rows.shape == (b * h * w * 9, cin) and ids.dtype == torch.int32
+    assert bool((weights[ids < 0] == 0).all())
+    got = splat_topk_plain(weights, rows, ids, b * h * w)
+    want = deform_conv3x3_bwd_plain(_t(x), _t(off), _t(wt), _t(g))[0]
+    _close(got.reshape(want.shape).numpy(), want.numpy(), 1e-6, "dx")
+
+
+def concentrated_offsets(b, h, w, window, clamp, seed):
+    """(B, H, W, 18) offsets that pull every tap of a pixel to one point of
+    the pixel's ``window`` x ``window`` block (0.4 px past its middle pixel,
+    a 0.03 px jitter; ``window`` None: one point an image), clipped to
+    +-``clamp`` unless it is None: the input gradient's records pile onto
+    the few pixels around each point."""
+    win = window or max(h, w)
+    ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    point = np.stack([np.minimum((ys // win) * win + win // 2, h - 1),
+                      np.minimum((xs // win) * win + win // 2, w - 1)],
+                     -1) + 0.4
+    k = np.arange(9)
+    tap = np.stack([k // 3 - 1, k % 3 - 1], -1)
+    off = point[:, :, None] - (np.stack([ys, xs], -1)[:, :, None] + tap)
+    off = off + 0.03 * np.random.RandomState(seed).randn(b, h, w, 9, 2)
+    if clamp is not None:
+        off = np.clip(off, -clamp, clamp)
+    return off.reshape(b, h, w, 18).astype(np.float32)
+
+
+@pytest.mark.parametrize("window,clamp", [(9, MAX_OFFSET), (None, None)])
+def test_deform_bwd_input_gradient_records_sum_to_dx_concentrated(window,
+                                                                  clamp):
+    """The dx decomposition on offsets that pile hundreds or thousands of
+    records onto one input pixel (clamped to +-4, as the message extractor
+    clamps them, and unclamped, as route general takes them), through the
+    plain versions: equal to the plain backward's dx within fp32 sum
+    order."""
+    b, h, w, cin, cout = 1, 20, 24, 8, 4
+    x, _, wt, g = deform_case("fractional", 15, b, h, w, cin, cout)
+    off = concentrated_offsets(b, h, w, window, clamp, 16)
+    weights, rows, ids = input_grad_records_plain(_t(off), _t(wt), _t(g))
+    most = int(np.bincount(ids[ids >= 0].numpy()).max())
+    assert most > (256 if window else 4000)  # K4 sorts such cells by a block
+    got = splat_topk_plain(weights, rows, ids, b * h * w)
+    want = deform_conv3x3_bwd_plain(_t(x), _t(off), _t(wt), _t(g))[0]
+    _close(got.reshape(want.shape).numpy(), want.numpy(), 1e-6, "dx")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,window,clamp", [
+    ((4, 64, 128, 128, 64), 9, MAX_OFFSET),
+    ((4, 64, 128, 128, 64), 32, None),
+    ((4, 64, 128, 128, 64), None, None),
+    ((1, 13, 21, 24, 10), None, None),
+])
+def test_deform_bwd_concentrated_offsets_on_card(cuda, shape, window, clamp):
+    """K1b where the offsets pull every tap to a few points, so that K4's
+    order pass meets segments of hundreds to ~74,000 records (sorted by a
+    block, in shared memory or in place): dx, doffsets and dweight the
+    same bits on two launches and within the plain version's tolerance."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, h, w, cin, cout = shape
+    x, _, wt, g = deform_case("fractional", 17, b, h, w, cin, cout)
+    off = concentrated_offsets(b, h, w, window, clamp, 18)
+    x, off, wt, g = (_t(a).to(cuda) for a in (x, off, wt, g))
+    first = deform_conv3x3_bwd(x, off, wt, g)
+    second = deform_conv3x3_bwd(x, off, wt, g)
+    torch.cuda.synchronize()
+    want = deform_conv3x3_bwd_plain(x, off, wt, g)
+    for name, a, c, ref in zip(("dx", "doff", "dweight"), first, second,
+                               want):
+        assert torch.equal(a, c), name
+        _close(a.cpu().numpy(), ref.cpu().numpy(), 1e-4, name)
+
+
 @pytest.mark.cuda
 def test_deform_bwd_dweight_and_doffsets_repeat_bit_for_bit_on_card(cuda):
     x, off, wt, g = (_t(a).to(cuda) for a in deform_case(
@@ -868,6 +958,35 @@ def test_deform_bwd_dweight_and_doffsets_repeat_bit_for_bit_on_card(cuda):
     torch.cuda.synchronize()
     assert torch.equal(first[2], second[2])  # partials added in a fixed order
     assert torch.equal(first[1], second[1])  # plain stores, then a fixed order
+    assert torch.equal(first[0], second[0])  # K4's fixed-order sum
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", DEFORM_CARD_SHAPES)
+@pytest.mark.parametrize("far", [False, True])
+def test_deform_bwd_repeats_bit_for_bit_at_path_shapes_on_card(cuda, shape,
+                                                               far):
+    """dx, doffsets and dweight the same bits on two launches at the four
+    path shapes and a ragged general-route shape (clamped offsets and
+    offsets to +-9), each within the plain version's tolerance; dx is summed
+    by K4's kernels, one launch a call."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, h, w, cin, cout = shape
+    x, off, wt, g = deform_case("fractional", 13, b, h, w, cin, cout)
+    if far:
+        off = np.clip(np.random.RandomState(14).randn(b, h, w, 18) * 3.0,
+                      -9, 9).astype(np.float32)
+    x, off, wt, g = (_t(a).to(cuda) for a in (x, off, wt, g))
+    before = LAUNCHES["deform_conv3x3_bwd_dx"]
+    first = deform_conv3x3_bwd(x, off, wt, g)
+    second = deform_conv3x3_bwd(x, off, wt, g)
+    torch.cuda.synchronize()
+    assert LAUNCHES["deform_conv3x3_bwd_dx"] == before + 2
+    want = deform_conv3x3_bwd_plain(x, off, wt, g)
+    for name, a, c, ref in zip(("dx", "doff", "dweight"), first, second,
+                               want):
+        assert torch.equal(a, c), name
+        _close(a.cpu().numpy(), ref.cpu().numpy(), 1e-4, name)
 
 
 @pytest.mark.cuda
@@ -1224,6 +1343,29 @@ def test_splat_kernel_edge_layouts_on_card(cuda, kind):
                             (dvals, feats, ids.astype(np.int32))), s)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("lengths", [(256, 257, 3), (8192, 8193, 5),
+                                     (40000,), (300,) * 1500])
+def test_splat_kernel_long_segments_on_card(cuda, lengths):
+    """Cells on both sides of the order pass's limit (256 rows: ranked by
+    counting below, sorted by a block above), of the shared-memory sort's
+    (8,192) and far beyond it, and more long cells than the sort's grid
+    (1,024 blocks): the canvas, its bits on a second launch and the row
+    order of a stable sort, among short cells."""
+    rng = np.random.default_rng(len(lengths))
+    k, c, s = 4, 8, 20000
+    cells = rng.choice(s, size=len(lengths), replace=False)
+    ids = np.repeat(cells, lengths)
+    fill = (-ids.size) % k + 4 * k
+    others = np.setdiff1d(np.arange(s), cells)
+    ids = rng.permutation(np.concatenate([ids, rng.choice(others, fill)]))
+    ids = ids.reshape(-1, k)
+    dvals = rng.random(ids.shape, dtype=np.float32)
+    feats = rng.standard_normal((ids.shape[0], c), dtype=np.float32)
+    _splat_checks_on_card(*(_t(a).to(cuda) for a in
+                            (dvals, feats, ids.astype(np.int32))), s)
+
+
 # the plain reference of the order K4 sums in
 @pytest.mark.parametrize("ids,num_cells,sids,order", [
     # equal ids keep their row order (stable)
@@ -1242,14 +1384,15 @@ def test_splat_order_reference(ids, num_cells, sids, order):
 
 
 @pytest.mark.parametrize("m,cells,c,ints,floats", [
-    # counters and local offsets (cells + 1 each), ticket, tile offsets
-    # (tiles + 1), four ints a row; two piece sums a chunk of 32 rows
-    (196608, 131072, 128, 2 * 131073 + 1 + 129 + 1 + 4 * 196608,
+    # counters and local offsets (cells + 1 each), ticket, the number of
+    # long segments, tile offsets (tiles + 1), four ints a row; two piece
+    # sums a chunk of 32 rows
+    (196608, 131072, 128, 2 * 131073 + 2 + 129 + 1 + 4 * 196608,
      2 * 6144 * 128),
-    (393216, 262144, 128, 2 * 262145 + 1 + 257 + 1 + 4 * 393216,
+    (393216, 262144, 128, 2 * 262145 + 2 + 257 + 1 + 4 * 393216,
      2 * 12288 * 128),
-    (33, 1023, 4, 2 * 1024 + 1 + 1 + 1 + 4 * 33, 2 * 2 * 4),
-    (0, 5, 8, 2 * 6 + 1 + 1 + 1, 0),
+    (33, 1023, 4, 2 * 1024 + 2 + 1 + 1 + 4 * 33, 2 * 2 * 4),
+    (0, 5, 8, 2 * 6 + 2 + 1 + 1, 0),
 ])
 def test_splat_forward_scratch_sizes(m, cells, c, ints, floats):
     assert forward_scratch(m, cells, c) == (ints, floats)

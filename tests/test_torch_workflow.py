@@ -151,7 +151,10 @@ def test_new_modules_import_without_jax():
         "for n in ('registry', 'config.yaml_utils', 'train.checkpoint', "
         "'train.metrics', 'data.prefetch', 'tools.train', "
         "'tools.heal_tools', 'tools.inference', "
-        "'tools.inference_heter_in_order', 'utils.misc_utils', 'models', "
+        "'tools.inference_heter_in_order', 'tools.inference_w_noise', "
+        "'tools.inference_w_delay', 'tools.pose_graph', 'models.coalign', "
+        "'utils.pose_utils', 'data.early_fusion', 'utils.misc_utils', "
+        "'models', "
         "'loss', 'models.fuse.fusion', 'models.fuse.v2xvit', "
         "'models.fuse.cobevt', 'models.fuse.where2comm', "
         "'models.fuse.v2vnet', 'train.trainer'):\n"
@@ -195,11 +198,18 @@ def test_unported_flags_and_cores_raise(runs, tmp_path):
     with pytest.raises(NotImplementedError, match="item 20"):
         train_cli.main(base[:2] + ["--dataset", "opv2v", "--device", "cpu",
                                    "--model_dir", str(tmp_path / "run")])
-    for extra in (["--pos_std", "0.2"], ["--delay", "100"],
-                  ["--save_vis_interval", "2"]):
-        with pytest.raises(NotImplementedError, match="item 21"):
-            inference.main(["--model_dir", runs.m1.pdir, "--dataset",
-                            "synthetic", "--device", "cpu"] + extra)
+    with pytest.raises(NotImplementedError, match="item 21"):
+        inference.main(["--model_dir", runs.m1.pdir, "--dataset",
+                        "synthetic", "--device", "cpu",
+                        "--save_vis_interval", "2"])
+    # pose noise and delay are ported (tests/test_torch_robustness.py)
+    for tag, extra in (("noise", ["--pos_std", "0.2"]),
+                       ("delay", ["--delay", "100"])):
+        aps = inference.main(["--model_dir", runs.m1.pdir, "--dataset",
+                              "synthetic", "--device", "cpu", "--frames", "1",
+                              "--infer_info", tag] + extra)
+        assert set(aps) == {"ap30", "ap50", "ap70"}
+        assert os.path.exists(os.path.join(runs.m1.pdir, f"eval_{tag}.yaml"))
     # STAMP's merge-final and BackAlign's freeze are ported
     # (tests/test_torch_baselines.py): the merge of one run is its newest
     # checkpoint
@@ -212,16 +222,17 @@ def test_unported_flags_and_cores_raise(runs, tmp_path):
                                         for k in own)
     assert trainer.backalign_frozen_modules(runs.m1.ph) == [
         "fusion_net", "heads", "branch_m1"]
+    # late-fusion training takes the ego slot (tests/test_torch_robustness.py)
     late = copy.deepcopy(runs.m1.ph)
     late["fusion"] = {"core_method": "late"}
-    with pytest.raises(NotImplementedError, match="item 21"):
-        train_cli.Adapt(late)
+    assert train_cli.Adapt(late).mode == "ego"
     # supervise_single's per-agent labels are ported
-    # (tests/test_torch_pyramid.py); pose noise is not
+    # (tests/test_torch_pyramid.py), and so is pose noise
     noisy = copy.deepcopy(runs.m1.ph)
-    noisy["noise_setting"] = {"add_noise": True, "add_pose_noise": True}
-    with pytest.raises(NotImplementedError, match="item 21"):
-        train_cli.build_dataset(noisy, True, "synthetic")
+    noisy["noise_setting"] = {"add_noise": True, "add_pose_noise": True,
+                              "args": {"pos_std": 0.2, "rot_std": 0.1}}
+    ds = train_cli.build_dataset(noisy, True, "synthetic")
+    assert (ds.cfg.pos_std, ds.cfg.rot_std) == (0.2, 0.1)
     multi = copy.deepcopy(runs.m1.ph)
     multi["model"]["args"]["num_class"] = 3
     with pytest.raises(NotImplementedError, match="item 19"):
