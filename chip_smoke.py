@@ -40,11 +40,11 @@ Phases, each of which raises on failure:
      and bf16 and training; every other fusion's frames and steps, which
      take no profiler session), phase 13's (the HEAL pyramid's eval and
      training), phase 14's (SECOND's) and phase 15 (the baselines). An eval
-     path runs 1 warm-up + 6 frames looped (InferencePipeline.run) and the
-     same 6 frames and seeds
+     path runs 1 warm-up + 4 frames looped (InferencePipeline.run) and the
+     same 4 frames and seeds
      streamed (InferencePipeline.run_stream: one frame captured in a CUDA
      graph, replayed per frame), each streamed frame bit for bit equal to
-     its looped frame; a training path 1 warm-up + 5 steps (CUDA events).
+     its looped frame; a training path 1 warm-up + 3 steps (CUDA events).
      Every launch count is set to 0 just before a run and read just after
      (each of the path's kernels must be > 0; a graph's kernels count as
      captured launches x replays): frames/s looped and streamed, detections,
@@ -67,7 +67,7 @@ Phases, each of which raises on failure:
      row whose records fall short of the wrappers' counted launches says so
      ("records_short", ROADMAP p3); K2 and K3b log the
      profiler's split by launch (K3b: one kernel a call, no memset). Then a
-     3-frame device profile, looped and streamed, and the same frame,
+     one-frame device profile (PROFILE_CALLS), looped and streamed, and the same frame,
      weights and noise through the port on the CPU (plain versions):
      cls/reg/dir must agree. The late and no-fusion modes on the flagship
      built with supervise_single (each mode's per-agent heads and
@@ -99,7 +99,7 @@ Phases, each of which raises on failure:
      (K1b deformable conv, K2b pillar canvas, K3b affine warp) on the
      arguments the train step gives them, held against their plain versions
      (K2 and K2b bit-exact; K3b also twice for the same bits) and timed; a
-     2-step profile; 4 steps on one repeated batch, whose loss must fall;
+     one-step profile; 4 steps on one repeated batch, whose loss must fall;
      one step on the card and on the port's CPU (the first batch), whose
      losses must agree and whose gradients must differ no
      more than the CPU's own under a 1e-7 input jitter;
@@ -143,7 +143,7 @@ Phases, each of which raises on failure:
      fused heads within 1e-3 of the CPU's on every frame, and the same kept
      boxes) and for a copy whose heads put every box on its anchor (the
      same kept boxes, and an AP at IoU 0.3 above 0, so the APs held are not
-     all zeros). Then each training run's step, 2 more on its last batch,
+     all zeros). Then each training run's step, once more on its last batch,
      under torch.profiler: device busy ms/step. One JSON line: each
      training run's ms/step as the CLI prints it at it = 10 and by CUDA
      events over the same steps, its device busy ms/step, each tool's wall
@@ -155,7 +155,7 @@ Phases, each of which raises on failure:
      random weights from seed 0, the same frames and batches): (a) the
      V2X-ViT GenComm model (stage1/m1_v2xvit.yaml's fusion block and, for
      its step, optimizer and loss) timed as the lidar paths are, eval fp32
-     and bf16 looped and streamed (bit for bit) and 1 + 5 train steps, then
+     and bf16 looped and streamed (bit for bit) and 1 + 3 train steps, then
      K3 (fp32 and bf16) and K3b held on its arguments, its profiles, card
      against CPU (heads; bf16 by phase 5's statistics; the step's losses
      and gradients as phase 6, gradients of cancellation noise logged, not
@@ -173,7 +173,7 @@ Phases, each of which raises on failure:
  13. the HEAL pyramid (configs/opv2v/heal/stage1/m1_pyramid.yaml at full
      width on the train CLI's sampler and host adaptation, fp32, random
      weights from seed 0): (a) eval timed with the other paths in phase 3,
-     1 + 6 frames looped and streamed (bit for bit), then K3 on each map
+     1 + 4 frames looped and streamed (bit for bit), then K3 on each map
      the path warps (each level's feature at 64 / 128 / 256 channels on the
      rows route and its 1-channel score on the pixel route, warped together
      in one pair launch a level, which must give the bits of the two maps'
@@ -181,7 +181,7 @@ Phases, each of which raises on failure:
      concatenated, the JAX package's form, and is timed against both; each
      map's device time also over a CUDA graph of 200 launches, beside
      grid_sample's), K2 and N1 held and timed, the
-     profiles, heads card against CPU (max and relative L2); (b) 1 + 5
+     profiles, heads card against CPU (max and relative L2); (b) 1 + 3
      train steps (batch 2, its Adam and point_pillar_pyramid_loss with the
      occupancy pass; K3b's pixel route launched for every 1-channel score,
      its warp route for every feature), K3b on each map twice for the same
@@ -207,7 +207,7 @@ Phases, each of which raises on failure:
      flagship's scenes with raw points on the card and anchors and labels
      at feature_stride 8, the heads' grid (reference fault n): (a) eval fp32
      and bf16 (the encoder stays fp32) timed with the other paths in phase
-     3, 1 + 6 frames looped and streamed (bit for bit), and 1 + 5 train
+     3, 1 + 4 frames looped and streamed (bit for bit), and 1 + 3 train
      steps at batch 2 x 2 agents with its Adam, multistep schedule and
      point_pillar_gencomm_loss (K1, K3, N1 and, in training, K1b and K3b
      launched, peak memory logged); (b) each sparse op the encoder calls,
@@ -266,7 +266,7 @@ Phases, each of which raises on failure:
      the workflow process after phase 13 (c): (a) the m1_att run's copy
      with its running statistics refreshed on its last batch through
      inference_w_noise (levels 0 and 0.4, and 0.4 Laplace) and
-     inference_w_delay (0 and 200 ms), 2 frames a level, on the card and
+     inference_w_delay (0 and 200 ms), 1 frame a level, on the card and
      with --device cpu (the frames' diffusion noise from the host): every
      frame's kept boxes and scores card against CPU within 1e-3, every
      level's APs within 1e-6, and the anchor-box copy at level 0 on one
@@ -280,13 +280,39 @@ Phases, each of which raises on failure:
      as in phase 6; (d) CoAlign's pose refinement card against CPU on a
      chain of three agents with injected pose errors (within 1e-4, each
      error recovered) and tools/pose_graph.py evaluated on the card (the
-     refinement must lower the position error at every noise level).
+     refinement must lower the position error at every noise level);
+ 17. the remaining encoders and the tools, in their own process after the
+     workflow's (``chip_smoke.py --phase17 DIR``), fp32 with TF32 off, random
+     weights from seed 0, each config on the train CLI's sampler with raw
+     points on the card: (a) VoxelNet (voxel_net.yaml), PIXOR (pixor.yaml),
+     the legacy second.yaml and second_intermediate.yaml and the raw-point
+     path of stage1/m1_att.yaml at full width, each an eval cell as in
+     phase 3 (1 + 3 frames looped and streamed, bit for bit; K3 and N1
+     launched as each model fuses, K2 never: the raw points are
+     max-reduced in plain PyTorch; the device profile; heads card against
+     CPU); (b) each through the train CLI for one epoch of 1 + 2 steps
+     (--no_host_decorate for the raw path), then a training cell as in
+     phase 6 on the CLI's batches, its card-vs-CPU step on the yaml cut to
+     25.6 x 12.8 m and one sample a batch (each point jittered within its cell; both steps take
+     the CPU step's segment maxima and ReLU gates, the differing ones held
+     to near-ties); (c) HEAL's stage1/m3_pyramid.yaml and
+     stage2/m3_single_pyramid.yaml through the train and inference CLIs,
+     the anchors' stride taken from the heads' grid (fault n); (d) the
+     profiler on m1_att.yaml (eval and --train, --trace, --by_module:
+     FLOPs in both parts, MFU in (0, 1]; an unknown card raises),
+     inference_time, sustained_fps and bench_matrix (its default and
+     --added_cost rows; none may err; K4 held against its plain version on
+     the last camera row's arguments); K3 and N1 held on the eval paths'
+     arguments, K3b on the steps'.
 K1b's row counts the launches of its dx sum ("dx_sum_launches") and
 carries the repeat-step counts ("repeat_step").
 A profile's device busy time is the union of its kernels' intervals, the
 sum logged beside it (ROADMAP p7).
-Each phase prints its wall time, and each profile the convolution operators
-by the shapes of their arguments. The last line is {"ok": true, "device":
+Each phase prints its wall time, every line the seconds since its process
+started. A profile traces the device alone, but the flagship's lidar eval
+and step profiles and SECOND's encoder profiles also trace the host's
+operators and list the convolution operators by the shapes of their
+arguments. The last line is {"ok": true, "device":
 {...}}; before it come the card's nvidia-smi line and one JSON line with
 every kernel's numbers on the path that ran it first and, under
 "other_paths", on later paths' arguments where those differ (N1's other
@@ -297,6 +323,7 @@ Exits non-zero, printing no result, without a CUDA device.
 from __future__ import annotations
 
 import contextlib
+import functools
 import itertools
 import json
 import math
@@ -311,6 +338,7 @@ from gencomm_tpu_torch.bench import (
 from gencomm_tpu_torch.config.yaml_utils import load_yaml
 from gencomm_tpu_torch.models.heter_baseline import model_kwargs
 from gencomm_tpu_torch.models.heter_pyramid import pyramid_kwargs
+from gencomm_tpu_torch.tools.profiler import kernel_ops
 
 # fp32 peak outside the tensor cores, bf16 tensor-core peak and memory rate
 # of one H100 SXM (NVIDIA data sheet, dense, at the 700 W limit)
@@ -339,7 +367,7 @@ CAMERA_DIM = tuple(_CAMERA_ENC["data_aug_conf"]["final_dim"])
 CAMERA_NCAM = _CAMERA_ENC["data_aug_conf"]["Ncams"]
 CAMERA_GRID = _CAMERA_ENC["grid_conf"]
 CAMERA_FEATURE_SHAPE = (64, 64, 128)
-TIMED_FRAMES = 6  # eval frames, looped and streamed, after one warm-up
+TIMED_FRAMES = 4  # eval frames, looped and streamed, after one warm-up
 # N1's sizes: nms_topk (intermediate and no-fusion modes), the late union
 # over 2 and 5 agent slots, and over 5 slots at an nms_topk of 1,024; and a
 # K past the parent kernel's 4,096 boxes whose pairwise IoU would cost too
@@ -349,7 +377,11 @@ NMS_DENSE_K = 8192
 # device times of one-channel maps and of N1: CUDA events over replays of a
 # CUDA graph of this many captured launches (graph_ms)
 GRAPH_LAUNCHES = 200
-EVAL_FRAMES = 4  # evaluate(): AP over these frames, card against CPU
+# the frames or steps of a path's device profile (torch.profiler, CPU and
+# CUDA activity with shapes): the session's cost on the host grows with
+# them, what it reads per frame or step does not
+PROFILE_CALLS = 1
+EVAL_FRAMES = 2  # evaluate(): AP over these frames, card against CPU
 AP_TOL = 1e-6
 # bf16 eval (half=True): the card's bf16 run against its fp32 run keeps at
 # least TOP100_MIN of the fp32 top-100 cells (scripts/bf16_parity.py's
@@ -377,7 +409,7 @@ CPU_TOL = 1e-3
 
 TRAIN_BATCH = 2
 TRAIN_SEED = 0  # tools/train.py batches(): sample(seed * 10000 + step, 2)
-TIMED_STEPS = 5
+TIMED_STEPS = 3
 # K1b vs its plain version: fp32 sums of up to 32,768 random-sign terms
 # (dW over the pixels, dx over each pixel's records) taken in other orders;
 # each term rounds at ~6e-8 relative, and the cancellation between terms is
@@ -398,6 +430,12 @@ GRAD_FLOOR = 1e-4
 # saw the top-K picks part at 1-8 entries a camera slot, and a batch of 2
 # holds 2 camera slots
 CHOICE_FLIPS = 16
+# the largest share of a segment max's (segment, channel) pairs whose own
+# max row may differ from the CPU step's where a step takes the CPU's rows
+# (cpu_choices; each a near-tie besides)
+SEGMENT_FLIPS = 1e-3
+# and of a ReLU's entries whose gate may differ (cpu_choices with gates)
+GATE_FLIPS = 1e-4
 # CodeFilling's eval codes, card against CPU: at most CODE_FLIPS differ, each
 # where the two codes' CPU distances lie within CODE_TIE x max(1, d), a
 # rounding-level gap (the card has read one flip, at an exact tie)
@@ -498,8 +536,12 @@ SPARSE_TOL = 1e-5
 SPARSE_KERNEL_SHARE = 0.02
 
 
+_T0 = time.perf_counter()
+
+
 def log(*a):
-    print(*a, flush=True)
+    """Prints a line, led by the seconds since the process started."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s]", *a, flush=True)
 
 
 _L2_FLUSH = []  # one buffer larger than the card's 50 MB L2, made at first use
@@ -825,13 +867,19 @@ def profile_device(run, period_ms, n, unit, operators=False):
     it); the idle share is against the CUDA-event time ``period_ms`` per
     unit, where one is given. Returns the busy ms and the launches per unit
     and {operator: the device ms per unit of the kernels it launched
-    itself}, which ``operators`` logs."""
+    itself}. The session traces the device alone unless ``operators`` is
+    set: then it also traces the host's operators with their argument
+    shapes, logs the operators and the convolution operators by shape (a
+    cuDNN kernel's layer), and fills the dict. Host tracing costs the
+    session 5-9 s on the host for a training step's ~10,000 kernels; the
+    device's alone 1-3 s."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
+    activities = ([ProfilerActivity.CPU, ProfilerActivity.CUDA] if operators
+                  else [ProfilerActivity.CUDA])
+    with profile(activities=activities, record_shapes=operators) as prof:
         for i in range(n):
             run(i)
         torch.cuda.synchronize()
@@ -885,17 +933,17 @@ def profile_device(run, period_ms, n, unit, operators=False):
             f"(ms/{unit}):")
         for key, v in sorted(ops.items(), key=lambda kv: -kv[1])[:12]:
             log(f"  {v:8.4f}  {key}")
-    # which layers the convolution kernels belong to: the operators that
-    # launch them, by the shapes of their arguments
-    convs = [(ev.self_device_time_total / n / 1e3, ev.count / n, ev.key,
-              [s for s in (getattr(ev, "input_shapes", None) or []) if s])
-             for ev in prof.key_averages(group_by_input_shape=True)
-             if ev.device_type == DeviceType.CPU and "conv" in ev.key
-             and ev.self_device_time_total > 0]
-    log(f"profile: convolution operators by argument shapes (device "
-        f"ms/{unit}, calls/{unit}):")
-    for dev_ms, calls, key, shapes in sorted(convs, reverse=True)[:8]:
-        log(f"  {dev_ms:8.4f} {calls:6.0f}  {key} {shapes}")
+        # which layers the convolution kernels belong to: the operators
+        # that launch them, by the shapes of their arguments
+        convs = [(ev.self_device_time_total / n / 1e3, ev.count / n, ev.key,
+                  [s for s in (getattr(ev, "input_shapes", None) or []) if s])
+                 for ev in prof.key_averages(group_by_input_shape=True)
+                 if ev.device_type == DeviceType.CPU and "conv" in ev.key
+                 and ev.self_device_time_total > 0]
+        log(f"profile: convolution operators by argument shapes (device "
+            f"ms/{unit}, calls/{unit}):")
+        for dev_ms, calls, key, shapes in sorted(convs, reverse=True)[:8]:
+            log(f"  {dev_ms:8.4f} {calls:6.0f}  {key} {shapes}")
     # cuDNN's FFT convolutions (PERF.md section 5: which dtypes pick them):
     # the transforms and the product in the frequency domain
     fft = [r for r in rows if "fft" in r[2].lower() or "complex" in r[2]]
@@ -904,13 +952,15 @@ def profile_device(run, period_ms, n, unit, operators=False):
     return busy, launches, ops
 
 
-def check_deform(inputs, where):
+def check_deform(inputs, where, graph=False):
     """K1 (deformable 3x3 conv) against its plain version on the arguments
     the path ``where`` gives it; returns its row of the kernels JSON line
     (launches filled in later). On a bf16 map (``half``) the row is K1's
     bf16 instantiation's, which must also give the same bits on two
     launches and lie within one bf16 step of the fp32 kernel's output on the
-    widened map, rounded once (the outputs that differ are counted)."""
+    widened map, rounded once (the outputs that differ are counted). With
+    ``graph`` the row also has the device time over a CUDA graph
+    (``graph_ms``)."""
     import torch
     from gencomm_tpu_torch.ops.deform_conv import (
         deform_conv3x3, deform_conv3x3_plain, kernel_route,
@@ -952,7 +1002,7 @@ def check_deform(inputs, where):
         if beyond:
             raise AssertionError(f"K1 bf16: {beyond} outputs more than one "
                                  f"bf16 step from the fp32 kernel's")
-    bound_ms, bound_by = bound(2.0 * b * h * w * 9 * cin * cout,
+    bound_ms, bound_by = bound(kernel_ops("deform_conv3x3", x, off, wt),
                                nbytes(x, off, wt, got),
                                PEAK_BF16_FLOPS if half else PEAK_FP32_FLOPS)
     row = dict(
@@ -968,6 +1018,10 @@ def check_deform(inputs, where):
         plain_ms=time_ms(lambda: deform_conv3x3_plain(x, off, wt), iters=5),
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
         library_device_ms=None)
+    if graph:
+        row["graph_ms"] = graph_ms(lambda: deform_conv3x3(x, off, wt))
+        log(f"  K1 over a graph of {GRAPH_LAUNCHES} launches: "
+            f"{row['graph_ms']:.4f} ms")
     log_rows([row])
     return row
 
@@ -1186,7 +1240,7 @@ def check_deform_bwd(inputs, where):
         err = max(err, e)
     npix = b * h * w
     bound_ms, bound_by = bound(
-        4.0 * npix * 9 * cin * cout + 24.0 * npix * 9 * cin,
+        kernel_ops("deform_conv3x3_bwd", x, off, wt, g),
         nbytes(x, off, wt, g, *got))
     row = dict(
         name="deform_conv3x3_bwd", route="cuda",
@@ -1532,7 +1586,7 @@ def check_splat(inputs, where):
     rows = (dvals[..., None] * feats[:, None, :]).reshape(-1, c)
     zeros = torch.zeros(num_cells + 1, c, device=dvals.device)
     flat_long = flat.long()
-    bound_ms, bound_by = bound(2.0 * p * k * c,
+    bound_ms, bound_by = bound(kernel_ops("splat_topk", dvals, feats),
                                nbytes(dvals, feats, ids) + num_cells * c * 4)
 
     def kernel():
@@ -1590,7 +1644,7 @@ def check_splat_bwd(inputs):
         torch.zeros(num_cells + 1, c, device=dvals.device), 0, flat, rows_req)
     g_pad = torch.cat([gout, torch.zeros(1, c, device=gout.device)])
     bound_ms, bound_by = bound(
-        4.0 * p * k * c,
+        kernel_ops("splat_topk_bwd", dvals, feats),
         2 * nbytes(dvals, feats) + nbytes(ids) + touched * c * 4)
 
     def library():
@@ -1632,12 +1686,14 @@ def sigmoid_closeness(cls, ref):
 
 
 def setup_eval(dev, model_kw, feature_shape, scenes, host, half=False,
-               state=None, build=None, postprocess=None):
+               state=None, build=None, postprocess=None, samples=1):
     """One eval cell: the model (``build``, default ``HeterModel``; bf16
     activations with ``half``) with seeded random weights (``state``, to
     give a bf16 cell its fp32 cell's), the frame on the card, the pipeline
-    (``postprocess``, default the bench's on the model's range) and the
-    diffusion noise (fp32, from one seed for every cell)."""
+    (``postprocess``, default the bench's on the model's range), the
+    diffusion noise (fp32, from one seed for every cell) and the samples a
+    frame decodes into (``samples``: each agent its own for the legacy
+    ``second`` core)."""
     import torch
     from types import SimpleNamespace
     from gencomm_tpu_torch.models.heter_baseline import HeterModel
@@ -1656,6 +1712,7 @@ def setup_eval(dev, model_kw, feature_shape, scenes, host, half=False,
     return SimpleNamespace(
         model_kw=kw, half=half, model=model, build=build, state=state,
         host=host, batch=batch_to_device(host, dev), n=n, noises=noises,
+        samples=samples,
         noises_dev=[t.to(dev) for t in noises],
         pipe=InferencePipeline(model, scenes.anchors, postprocess or
                                postprocess_cfg(model_kw["lidar_range"]),
@@ -1697,7 +1754,9 @@ def time_eval(smi, cell, label, expected, frames=None):
         f"{cell.ms:.3f} ms/frame, {1000.0 / cell.ms:.2f} frames/s (batch 1, "
         f"{cell.n} agents) on {smi}; {int(dets.valid.sum())} detections "
         f"kept in the last frame; launches {cell.launches}")
-    if dets.corners3d.shape != (1, NMS_TOPK, 8, 3):
+    shape = tuple(dets.corners3d.shape)
+    if (shape[0], shape[2:]) != (cell.samples, (8, 3)) or not (
+            0 < shape[1] <= cell.pipe.topk):
         raise AssertionError(f"detections shape {tuple(dets.corners3d.shape)}")
     if not (torch.isfinite(dets.corners3d[dets.valid]).all()
             and torch.isfinite(dets.scores).all()):
@@ -1744,7 +1803,7 @@ def time_eval(smi, cell, label, expected, frames=None):
 
 
 def check_eval(smi, cell, label, targets, check, fp32_cell=None,
-               top100_min=TOP100_MIN):
+               top100_min=TOP100_MIN, operators=False):
     """An eval path's checks, after every path is timed: the kernels named
     by ``targets`` on the arguments the path gives them (``check``), the
     device profile, and the same frame, weights and noise on the CPU (fp32:
@@ -1755,7 +1814,8 @@ def check_eval(smi, cell, label, targets, check, fp32_cell=None,
     its frame and against the CPU's bf16 run: each keeps at least
     ``top100_min`` of the other's top-100 cells, and the relative L2 against
     the CPU's run is within HALF_SPREAD x the CPU's own against the card's
-    fp32 run. Returns the kernels' rows."""
+    fp32 run. ``operators``: the looped frame's profile also traces the
+    host's operators (``profile_device``). Returns the kernels' rows."""
     import torch
     from gencomm_tpu_torch.pipeline import batch_to_device
 
@@ -1769,8 +1829,8 @@ def check_eval(smi, cell, label, targets, check, fp32_cell=None,
     rows = check(record_calls(targets, forward))
     fill_launches(rows, cell.launches, cell.routes, f"{label} eval {dtype}")
     cell.busy = profile_device(
-        lambda i: cell.pipe.run(cell.batch, seed=100 + i), cell.ms, 3,
-        "frame")[0]
+        lambda i: cell.pipe.run(cell.batch, seed=100 + i), cell.ms,
+        PROFILE_CALLS, "frame", operators=operators)[0]
     # the captured frame's replays, one frame a call, against the streamed
     # frame time; then the graph and its memory pool go. The frame is
     # captured anew first, outside the profiler: replaying SECOND bf16's
@@ -1780,19 +1840,23 @@ def check_eval(smi, cell, label, targets, check, fp32_cell=None,
     cell.pipe.graphs.clear()
     cell.pipe.run_stream(first, [99])
     profile_device(lambda i: cell.pipe.run_stream(first, [100 + i]),
-                   cell.stream_ms, 3, "streamed frame")
+                   cell.stream_ms, PROFILE_CALLS, "streamed frame")
     cell.pipe.graphs.clear()
 
     with torch.inference_mode():
         out_dev = cell.model(cell.batch, noises=cell.noises_dev)
     cell.cls = out_dev["cls_preds"]
-    for key in ("cls_preds", "reg_preds", "dir_preds"):
+    # the legacy SECOND and PIXOR models have no direction head
+    heads = [k for k in ("cls_preds", "reg_preds", "dir_preds")
+             if k in out_dev]
+    for key in heads:
         if out_dev[key].dtype != torch.float32:
             raise AssertionError(f"{key} is {out_dev[key].dtype}, not fp32")
         if not torch.isfinite(out_dev[key]).all():
             raise AssertionError(f"{key} on the card is not finite")
     want_pred = torch.bfloat16 if cell.half else torch.float32
-    if cell.model.use_gencomm and out_dev["pred_feature"].dtype != want_pred:
+    if (getattr(cell.model, "use_gencomm", False)
+            and out_dev["pred_feature"].dtype != want_pred):
         raise AssertionError(f"pred_feature is {out_dev['pred_feature'].dtype}")
 
     # the same frame, weights and noise through the port on the CPU
@@ -1830,7 +1894,7 @@ def check_eval(smi, cell, label, targets, check, fp32_cell=None,
             raise AssertionError(f"card and CPU bf16 runs disagree "
                                  f"({rel_c} > {tol} or {top100_c})")
     else:
-        for key in ("cls_preds", "reg_preds", "dir_preds"):
+        for key in heads:
             a, b = out_dev[key].float().cpu(), out_cpu[key]
             err = float((a - b).abs().max())
             scale = max(1.0, float(b.abs().max()))
@@ -1937,13 +2001,17 @@ def time_train(smi, dev, label, model_kw, hypes, feature_shape, hosts,
 
 
 def check_train(cell, targets, check, exact_zero=(), jitter=scale_jitter,
-                explain_offsets=False):
+                explain_offsets=False, step_cell=None, same_choices=False,
+                operators=False):
     """A training path's checks, after every path is timed: the kernels
     named by ``targets`` on the arguments the train step gives them
     (``check``), the step's profile (its busy ms in ``cell.busy``), the
     loss falling on one batch, and one step on the card against the CPU
-    (``hold_step``, with ``exact_zero``, ``jitter`` and
-    ``explain_offsets``). Returns the kernels' rows."""
+    (``hold_step`` on ``step_cell``, default ``cell``, with
+    ``exact_zero``, ``jitter`` and ``explain_offsets``; with
+    ``same_choices`` both steps take the CPU step's discrete choices and
+    ReLU gates; ``operators``: the profile also traces the host's
+    operators). Returns the kernels' rows."""
     t_phase = time.perf_counter()
     model, batches, noises_dev = cell.model, cell.batches, cell.noises_dev
 
@@ -1958,8 +2026,8 @@ def check_train(cell, targets, check, exact_zero=(), jitter=scale_jitter,
     rows = check(inputs)
     fill_launches(rows, cell.launches, cell.routes, f"{cell.label} training")
     cell.busy = profile_device(
-        lambda i: cell.step(batches[i], generator=cell.dgen), cell.ms, 2,
-        "step")[0]
+        lambda i: cell.step(batches[i], generator=cell.dgen), cell.ms,
+        PROFILE_CALLS, "step", operators=operators)[0]
 
     # the loss falls over 4 steps on one repeated batch
     model, step = cell.fresh(cell.dev)
@@ -1968,7 +2036,8 @@ def check_train(cell, targets, check, exact_zero=(), jitter=scale_jitter,
     log(f"4 steps on one batch: total_loss {totals}")
     if not totals[-1] < totals[0]:
         raise AssertionError(f"the loss did not fall: {totals}")
-    hold_step(cell, exact_zero, jitter, explain_offsets)
+    hold_step(step_cell or cell, exact_zero, jitter, explain_offsets,
+              same_choices=same_choices, same_gates=same_choices)
     phase_done(f"{cell.label} training, checks", t_phase)
     return rows
 
@@ -1978,29 +2047,40 @@ class cpu_choices:
     ``store`` call by call, with the values each was made from
     (``replay=False``), or taken from it in the same order
     (``replay=True``): the LSS encoders' top-K depth picks
-    (``LSSEncoder.topk_picks``, from the depth probabilities) and the
+    (``LSSEncoder.topk_picks``, from the depth probabilities), the
     codebook's straight-through codes (``codebook.hard_index``, from the
-    soft sample). In replay, ``flips`` counts call by call the pixels (or
-    vectors) whose own choice differs from the one taken, and ``loose``
-    those of them that are not a near-tie: at each rank where the two
-    choices part, the side's own values at its choice and at the taken
-    one must lie within twice the largest gap between the side's values
-    and the recorded ones (an order statistic moves no further than the
-    values do), so a flip is one that the values' own deviation explains.
-    ``hold`` fails the run when a call flips more than CHOICE_FLIPS or any
-    flip is loose."""
+    soft sample) and the row that holds each segment's max in each channel
+    (``ops/voxel.py:segment_max``: the pillar canvas of the raw-point path,
+    VoxelNet's voxel maxima). In replay, ``flips`` counts call by call the
+    pixels (or vectors, or segment channels) whose own choice differs from
+    the one taken, and ``loose`` those of them that are not a near-tie: at
+    each place where the two choices part, the side's own values at its
+    choice and at the taken one must lie within twice the largest gap
+    between the side's values and the recorded ones (an order statistic
+    moves no further than the values do), so a flip is one that the
+    values' own deviation explains. A segment's max replayed is the value
+    of the taken row, its gradient shared by the rows that tie with it
+    (as ``segment_max`` shares it). ``hold`` fails the run when a call of
+    the picks or codes flips more than CHOICE_FLIPS, one of the segment
+    max flips more than SEGMENT_FLIPS of its segment channels, or any flip
+    is loose."""
 
-    def __init__(self, store, replay=False):
-        self.store, self.replay = store, replay
+    def __init__(self, store, replay=False, gates=False):
+        self.store, self.replay, self.gates = store, replay, gates
         self.flips, self.loose, self.worst = [], 0, 0.0
+        self.max_flips, self.max_share = [], 0.0
+        self.gate_flips, self.gate_share = [], 0.0
+
+    def _next(self, device):
+        return (t.to(device) for t in self.store[
+            len(self.flips) + len(self.max_flips) + len(self.gate_flips)])
 
     def take(self, own, values):
         values = values.detach()
         if not self.replay:
             self.store.append((own.cpu(), values.cpu()))
             return own
-        chosen, ref = (t.to(own.device)
-                       for t in self.store[len(self.flips)])
+        chosen, ref = self._next(own.device)
         differ = (chosen != own).any(-1)
         self.flips.append(int(differ.sum()))
         if self.flips[-1]:
@@ -2011,38 +2091,127 @@ class cpu_choices:
             self.worst = max(self.worst, float(gap.max()))
         return chosen
 
+    def take_max(self, segment_max, feats, seg, valid, num_segments):
+        import torch
+
+        x = feats.detach()
+        c = x.shape[-1]
+        idx = torch.where(valid, seg, torch.full_like(seg, num_segments))
+        idx = idx[:, None].expand(-1, c)
+
+        def seg_max(v):
+            return v.new_full((num_segments + 1, c), float("-inf")
+                              ).scatter_reduce(0, idx, v, "amax",
+                                               include_self=True)
+
+        own = seg_max(x)
+        if not self.replay:
+            # the first row at each segment channel's max
+            rows = torch.arange(x.shape[0], device=x.device)[:, None]
+            at = (x == own.gather(0, idx)) & valid[:, None]
+            first = torch.full_like(own, x.shape[0], dtype=torch.long
+                                    ).scatter_reduce(
+                0, idx, torch.where(at, rows, x.shape[0]).expand(-1, c),
+                "amin", include_self=True)
+            self.store.append((((rows == first.gather(0, idx)) & at).cpu(),
+                               x.cpu()))
+            return segment_max(feats, seg, valid, num_segments)
+        chosen, ref = self._next(x.device)
+        neg = torch.full_like(x, float("-inf"))
+        taken = seg_max(torch.where(chosen, x, neg))
+        held = torch.isfinite(own[:num_segments])
+        if not torch.equal(held, torch.isfinite(taken[:num_segments])):
+            raise AssertionError("segment max: the recorded rows do not "
+                                 "cover this step's segments")
+        differ = (own > taken)[:num_segments] & held
+        self.max_flips.append(int(differ.sum()))
+        self.max_share = max(self.max_share, self.max_flips[-1]
+                             / max(int(held.sum()), 1))
+        if self.max_flips[-1]:
+            gap = (own - taken)[:num_segments][differ]
+            moved = seg_max(torch.where(valid[:, None], (x - ref).abs(),
+                                        neg))[:num_segments][differ]
+            self.loose += int((gap > 2 * (1 + 1e-6) * moved).sum())
+            self.worst = max(self.worst, float(gap.max()))
+        # the taken row's value; the rows that tie with it share its
+        # gradient
+        tie = (x == taken.gather(0, idx)) & valid[:, None]
+        out = feats.new_full((num_segments + 1, c), float("-inf")
+                             ).scatter_reduce(
+            0, idx, torch.where(tie, feats, neg), "amax",
+            include_self=True)[:num_segments]
+        return torch.where(torch.isneginf(out), torch.zeros_like(out), out)
+
+    def take_gate(self, relu, x):
+        import torch
+
+        own = x.detach() > 0
+        if not self.replay:
+            self.store.append((own.cpu(), x.detach().cpu()))
+            return relu(x)
+        chosen, ref = self._next(x.device)
+        differ = chosen != own
+        self.gate_flips.append(int(differ.sum()))
+        self.gate_share = max(self.gate_share,
+                              self.gate_flips[-1] / max(x.numel(), 1))
+        if self.gate_flips[-1]:
+            gap = x.detach()[differ].abs()
+            moved = float((x.detach() - ref).abs().max())
+            self.loose += int((gap > 2 * (1 + 1e-6) * moved).sum())
+            self.worst = max(self.worst, float(gap.max()))
+        return torch.where(chosen, x, torch.zeros_like(x))
+
     def hold(self, label):
-        log(f"{label} on the CPU step's discrete choices: {len(self.flips)} "
-            f"calls taken, pixels or vectors whose own choice differs "
-            f"{self.flips} (at most {CHOICE_FLIPS} a call), {self.loose} of "
-            f"them not a near-tie, the widest own-value gap {self.worst:.3e}")
-        if max(self.flips, default=0) > CHOICE_FLIPS or self.loose:
-            raise AssertionError(f"{label}: discrete choices differ from the "
-                                 f"CPU step's beyond near-ties: {self.flips}, "
-                                 f"{self.loose} not near-ties")
+        log(f"{label} on the CPU step's discrete choices: "
+            f"{len(self.flips)} calls of the picks and codes taken, pixels "
+            f"or vectors whose own choice differs {self.flips} (at most "
+            f"{CHOICE_FLIPS} a call); {len(self.max_flips)} segment maxima "
+            f"taken, segment channels whose own max row differs "
+            f"{self.max_flips} (at most {SEGMENT_FLIPS:.0e} of a call's, "
+            f"the most {self.max_share:.2e}); {len(self.gate_flips)} ReLU "
+            f"gates taken, {sum(self.gate_flips)} entries open on one side "
+            f"only (at most {GATE_FLIPS:.0e} of a call's, the most "
+            f"{self.gate_share:.2e}); {self.loose} of them not a near-tie, "
+            f"the widest own-value gap {self.worst:.3e}")
+        if (max(self.flips, default=0) > CHOICE_FLIPS
+                or self.max_share > SEGMENT_FLIPS
+                or self.gate_share > GATE_FLIPS or self.loose):
+            raise AssertionError(
+                f"{label}: discrete choices differ from the CPU step's "
+                f"beyond near-ties: {self.flips}, {self.max_flips}, "
+                f"{self.gate_flips}, {self.loose} not near-ties")
 
     def __enter__(self):
+        import torch
         from gencomm_tpu_torch.models import codebook
         from gencomm_tpu_torch.models.encoders import lss
+        from gencomm_tpu_torch.ops import voxel
 
-        self.real = lss.LSSEncoder.topk_picks, codebook.hard_index
-        picks, index = self.real
+        self.real = (lss.LSSEncoder.topk_picks, codebook.hard_index,
+                     voxel.segment_max, torch.relu)
+        picks, index, segment_max, relu = self.real
         lss.LSSEncoder.topk_picks = (
             lambda enc, depth: self.take(picks(enc, depth), depth))
         codebook.hard_index = (
             lambda soft: self.take(index(soft)[..., None], soft)[..., 0])
+        voxel.segment_max = functools.partial(self.take_max, segment_max)
+        if self.gates:
+            torch.relu = functools.partial(self.take_gate, relu)
         return self
 
     def __exit__(self, *exc):
+        import torch
         from gencomm_tpu_torch.models import codebook
         from gencomm_tpu_torch.models.encoders import lss
+        from gencomm_tpu_torch.ops import voxel
 
-        lss.LSSEncoder.topk_picks, codebook.hard_index = self.real
+        (lss.LSSEncoder.topk_picks, codebook.hard_index,
+         voxel.segment_max, torch.relu) = self.real
         return False
 
 
 def hold_step(cell, exact_zero=(), jitter=scale_jitter,
-              explain_offsets=False, same_choices=False):
+              explain_offsets=False, same_choices=False, same_gates=False):
     """One step on the card and on the port's CPU from ``cell.fresh``, on
     the path's first batch: the losses within LOSS_TOL, the gradients
     within GRAD_FACTOR x the CPU's own spread, the CPU step once more with
@@ -2063,7 +2232,8 @@ def hold_step(cell, exact_zero=(), jitter=scale_jitter,
     CHOICE_FLIPS a call): a choice at a near-tie is one that the card's
     fp32 sums in another order (cuDNN's) can flip, as can a 1e-7 input
     jitter, and a flipped choice moves the gradients by more than rounding
-    does, on either side of the comparison."""
+    does, on either side of the comparison. ``same_gates`` takes the CPU
+    step's ReLU gates as well."""
     import contextlib
     import torch
     from gencomm_tpu_torch.ops import deform_conv
@@ -2076,7 +2246,7 @@ def hold_step(cell, exact_zero=(), jitter=scale_jitter,
         out[side] = step(batch, noises=noises)
 
     def choices(replay):
-        return (cpu_choices(store, replay) if same_choices
+        return (cpu_choices(store, replay, same_gates) if same_choices
                 else contextlib.nullcontext())
 
     store = []
@@ -2304,8 +2474,10 @@ def check_nms(overlap, valid, where, cases):
             ms=time_ms(lambda: nms_closure(over, val)),
             **device_time(lambda: nms_closure(over, val)),
             graph_ms=graph_ms(lambda: nms_closure(over, val)),
-            plain_ms=time_ms(lambda: nms_closure_plain(over, val), iters=5,
-                             warmup=1),
+            # once: hold_nms ran it just before (a chain of 8,192 boxes
+            # takes ~2 s a call)
+            plain_ms=time_ms(lambda: nms_closure_plain(over, val), iters=1,
+                             warmup=0),
             bound_ms=bound_ms, bound_by=bound_by)
 
     row = dict(name="nms_closure", route="cuda",
@@ -2499,12 +2671,15 @@ def fusion_kwargs(method, num_agents):
 
 
 def hold_heads(label, out_dev, out_cpu):
-    """cls / reg / dir, card against CPU, within CPU_TOL x max(1,
-    max|cpu|); returns the worst of max|d| / max(1, max|cpu|)."""
+    """cls / reg / dir (those the model has), card against CPU, within
+    CPU_TOL x max(1, max|cpu|); returns the worst of max|d| / max(1,
+    max|cpu|)."""
     import torch
 
     worst = 0.0
     for key in ("cls_preds", "reg_preds", "dir_preds"):
+        if key not in out_cpu:
+            continue
         a, b = out_dev[key].float().cpu(), out_cpu[key]
         if not torch.isfinite(a).all():
             raise AssertionError(f"{label}: {key} on the card is not finite")
@@ -2986,6 +3161,22 @@ def second_timed(smi, dev):
     return sec
 
 
+def jitter_in_grid(points, noise, lidar_range, voxel_size):
+    """Points times (1 + noise), each point whose jitter would take it to
+    another cell of the grid (``lidar_range``, ``voxel_size``) left where
+    it was."""
+    import torch
+    from gencomm_tpu_torch.ops.sparse import voxel_index
+
+    moved = points * (1.0 + noise)
+    same = torch.ones(points.shape[:-1], dtype=torch.bool)
+    for ax in range(3):
+        lo, size = lidar_range[ax], voxel_size[ax]
+        same &= (voxel_index(moved[..., ax], lo, size)
+                 == voxel_index(points[..., ax], lo, size))
+    return torch.where(same[..., None], moved, points)
+
+
 def jitter_within_voxels(points, noise):
     """SECOND's points times (1 + noise), each point whose jitter would take
     it to another voxel left where it was. hold_step's yardstick is the
@@ -2993,17 +3184,8 @@ def jitter_within_voxels(points, noise):
     decorated fields' jitter is for the pillar paths; a point that changes
     voxel changes the sparse lists themselves, which moved the CPU's own
     gradients of the full-width step by up to 1.12 of their norm."""
-    import torch
-    from gencomm_tpu_torch.ops.sparse import voxel_index
-
     enc = SECOND["modality_args"]["m1"]["encoder_args"]
-    moved = points * (1.0 + noise)
-    same = torch.ones(points.shape[:-1], dtype=torch.bool)
-    for ax in range(3):
-        lo, size = enc["lidar_range"][ax], enc["voxel_size"][ax]
-        same &= (voxel_index(moved[..., ax], lo, size)
-                 == voxel_index(points[..., ax], lo, size))
-    return torch.where(same[..., None], moved, points)
+    return jitter_in_grid(points, noise, enc["lidar_range"], enc["voxel_size"])
 
 
 def hold_sparse_ops(calls):
@@ -3256,17 +3438,18 @@ def second_checks(smi, sec, kernel_rows):
     if tuple(bev.shape[2:]) != enc.bev_grid[1:] + (enc.out_channels,):
         raise AssertionError(f"the SECOND BEV is {tuple(bev.shape)}")
 
-    # K1 and K3 on this path's (2, 32, 64, 128) maps, fp32 and bf16
+    # K1 and K3 on this path's (2, 32, 64, 128) maps, fp32 and bf16; device
+    # times also over CUDA graphs, where the profiler keeps no record
     add_rows(kernel_rows, "second eval", check_eval(
         smi, cell, "second",
         [(deform_conv, "deform_conv3x3"), (fusion, "warp_affine")],
-        lambda inputs: [check_deform(inputs, "second eval"),
-                        check_warp(inputs, "second eval")]))
+        lambda inputs: [check_deform(inputs, "second eval", graph=True),
+                        check_warp(inputs, "second eval", graph=True)]))
     add_rows(kernel_rows, "second eval bf16", check_eval(
         smi, sec.eval16, "second",
         [(deform_conv, "deform_conv3x3"), (fusion, "warp_affine")],
-        lambda inputs: [check_deform(inputs, "second eval bf16"),
-                        check_warp(inputs, "second eval bf16")],
+        lambda inputs: [check_deform(inputs, "second eval bf16", graph=True),
+                        check_warp(inputs, "second eval bf16", graph=True)],
         fp32_cell=cell))
     seen = record_calls([(nms, "nms_closure")],
                         lambda: cell.pipe.run(cell.batch, seed=0))
@@ -3276,8 +3459,9 @@ def second_checks(smi, sec, kernel_rows):
 
     # the encoder's share of the looped frame's device time (check_eval's
     # profile), and its operators
-    enc_busy, _, enc_ops = profile_device(lambda i: encode(), enc_ms, 3,
-                                          "call", operators=True)
+    enc_busy, _, enc_ops = profile_device(lambda i: encode(), enc_ms,
+                                          PROFILE_CALLS, "call",
+                                          operators=True)
     share = enc_busy / cell.busy if cell.busy else float("nan")
     big = {k: round(v / cell.stream_ms, 4) for k, v in enc_ops.items()
            if v > SPARSE_KERNEL_SHARE * cell.stream_ms}
@@ -3305,8 +3489,8 @@ def second_checks(smi, sec, kernel_rows):
         lambda inputs: [check_deform_bwd(inputs, "second train step"),
                         check_warp_bwd(inputs, "second train step")],
         jitter=jitter_within_voxels, explain_offsets=True))
-    enc_step_busy, _, _ = profile_device(enc_step, None, 2, "step",
-                                         operators=True)
+    enc_step_busy, _, _ = profile_device(enc_step, None, PROFILE_CALLS,
+                                         "step", operators=True)
     tmodel.zero_grad(set_to_none=True)
     p6 = hold_repeat_step(train, sparse=True)
     next(r for r in kernel_rows if r["name"] == "deform_conv3x3_bwd").setdefault(
@@ -3354,8 +3538,8 @@ BASELINE_YAMLS = {
                     m, cfg + ".yaml")
     for m, cfg in (("backalign", "m1m2_att"), ("codefilling", "m1m2_att"),
                    ("mpda", "m1m2_att"), ("stamp", "m0m2_att"))}
-BASELINE_FRAMES = 3  # eval frames after one warm-up, looped and streamed
-BASELINE_STEPS = 2   # train steps after one warm-up
+BASELINE_FRAMES = 2  # eval frames after one warm-up, looped and streamed
+BASELINE_STEPS = 1   # train steps after one warm-up
 # the kernels each path must launch, and those it must not: K2b in none,
 # since each schedule freezes the pillar branch; K4b where the camera
 # branch trains, BackAlign; K3b where the loss reaches the fusion
@@ -4143,7 +4327,7 @@ def workflow(root: str) -> dict:
     t16 = time.perf_counter()
     m1_index = [k for k in texts if k.startswith("train")].index(
         "train stage1 m1_att, resumed")
-    result["robustness"], result["robustness_rows"] = robustness_sweeps(
+    result["robustness"], noisy = robustness_sweeps(
         root, tool, dets, heads, run["stage1_m1"],
         last_calls[m1_index][1][0][0], host_noise)
     InferencePipeline._detect = real_detect
@@ -4151,6 +4335,14 @@ def workflow(root: str) -> dict:
     result["late_early"] = late_early_training(root, tool, starts)
     result["coalign"] = coalign_card(root)
     phase_done("phase 16, all", t16)
+
+    # K3 and K3b on the noisy eval's last theta (phase 16's rows)
+    src, theta, g = noisy
+    result["robustness_rows"] = [
+        check_warp({"warp_affine": (src, theta)}, "noisy eval"),
+        check_warp_bwd({"warp_affine_bwd": (g, theta)}, "noisy eval")]
+    for row in result["robustness_rows"]:
+        row["launches"] = None
 
     # device time per step of each training run, from torch.profiler over 2
     # more steps on its last batch, after every timing of the phase: what
@@ -4162,11 +4354,11 @@ def workflow(root: str) -> dict:
         if "resumed" in label:
             continue
         sa, skw = call
-        log(f"workflow: {label}, 2 steps on its last batch under the "
-            "profiler")
+        log(f"workflow: {label}, {PROFILE_CALLS} step(s) on its last batch "
+            "under the profiler")
         busy, n_launches, _ = profile_device(
-            lambda i: step(*sa, **skw), ms_per_step_events[label][-1], 2,
-            "step")
+            lambda i: step(*sa, **skw), ms_per_step_events[label][-1],
+            PROFILE_CALLS, "step")
         device_ms_per_step[label] = {"busy_ms": round(busy, 3),
                                      "launches": round(n_launches)}
     log(f"workflow: device time per step {device_ms_per_step}")
@@ -4182,7 +4374,7 @@ def workflow(root: str) -> dict:
 # a level (the anchor-box copy's first frame reaches 2 GT at IoU 0.3 on the
 # CPU, as above, so it takes one), their levels, and the configs the train
 # CLI now trains in late, no and early fusion
-ROBUST_FRAMES = 2
+ROBUST_FRAMES = 1
 ROBUST_ANCHOR_FRAMES = 1
 NOISE_LEVELS, LAPLACE_LEVEL, DELAYS = "0,0.4", "0.4", "0,200"
 # the refreshed m1_att copy keeps no box at the yaml's score threshold (0.2),
@@ -4385,17 +4577,13 @@ def robustness_sweeps(root, tool, dets, heads, m1_run, m1_batch,
     src, theta = thetas[-1]
     g = torch.randn(src.shape, device=src.device,
                     generator=torch.Generator(src.device).manual_seed(16))
-    rows = [check_warp({"warp_affine": (src, theta)}, "noisy eval"),
-            check_warp_bwd({"warp_affine_bwd": (g, theta)}, "noisy eval")]
-    for row in rows:
-        row["launches"] = None
     phase_done("robustness sweeps (phase 16 (a), (b))", t_phase)
     return {"aps": aps, "theta_moved": moved,
             "refreshed_threshold": threshold, "threshold_gap": gap,
             "probe_kept_above": above,
             "kept_per_frame": {k: [int(d.valid.sum()) for d in v]
                                for k, v in dets.items()
-                               if k.startswith("robustness")}}, rows
+                               if k.startswith("robustness")}}, (src, theta, g)
 
 
 def late_early_training(root, tool, starts):
@@ -4722,6 +4910,490 @@ def baseline_workflow(root: str) -> dict:
             "launches": by_tool}
 
 
+# phase 17 (ROADMAP items 21 (d) and 18), in its own process after the
+# workflow's (``chip_smoke.py --phase17 DIR``): the raw-point pillar path and the
+# legacy encoders and detectors at full width, fp32 with TF32 off, random
+# weights from seed 0, on the train CLI's sampler; HEAL's SECOND stages
+# through the CLIs; every tool on configs/opv2v/gencomm/stage1/m1_att.yaml
+LEGACY_YAMLS = {
+    "voxel_net": "configs/opv2v/voxel_net.yaml",
+    "pixor": "configs/opv2v/pixor.yaml",
+    "second": "configs/opv2v/second.yaml",
+    "second_intermediate": "configs/opv2v/second_intermediate.yaml",
+    "m1_att_raw": "configs/opv2v/gencomm/stage1/m1_att.yaml"}
+LEGACY_FRAMES = 3  # eval frames after one warm-up, looped and streamed
+LEGACY_STEPS = 3   # the train CLI's one epoch: 1 + 2 steps
+# the kernels each eval path must launch; K2 and K2b on none of them (the
+# raw points are max-reduced in plain PyTorch, ops/voxel.py)
+LEGACY_EVAL_KERNELS = {
+    "voxel_net": ("warp_affine", "nms_closure"),
+    "pixor": ("warp_affine", "nms_closure"),
+    "second": ("nms_closure",),
+    "second_intermediate": ("warp_affine", "nms_closure"),
+    "m1_att_raw": ("deform_conv3x3", "warp_affine", "nms_closure")}
+LEGACY_TRAIN_KERNELS = {
+    "voxel_net": ("warp_affine", "warp_affine_bwd"),
+    "pixor": ("warp_affine", "warp_affine_bwd"),
+    "second": (),
+    "second_intermediate": ("warp_affine", "warp_affine_bwd"),
+    "m1_att_raw": ("deform_conv3x3", "deform_conv3x3_bwd", "warp_affine",
+                   "warp_affine_bwd")}
+LEGACY_NOT_LAUNCHED = ("pillar_canvas", "pillar_canvas_bwd")
+# the grid within whose cells a card-vs-CPU step's jitter keeps each point:
+# the encoder's voxels (PIXOR's raster slices)
+LEGACY_JITTER_GRID = {
+    "voxel_net": (0.4, 0.4, 0.4), "pixor": (0.4, 0.4, 0.1),
+    "second": (0.1, 0.1, 0.1), "second_intermediate": (0.1, 0.1, 0.1),
+    "m1_att_raw": (0.4, 0.4, 4.0)}
+# the card-vs-CPU step runs on the yaml cut to this range, 1/64 of the
+# area: on the card machine's CPU the full-width VoxelNet step's backward
+# did not end within 14 minutes, and the full-width legacy SECOND step
+# took 49 s (its CPU forward and backward, once). Both steps take the CPU
+# step's segment maxima and ReLU gates (cpu_choices): a gate whose input
+# lies within rounding of zero, opening on one side only, moved a CPU
+# step's own gradients by up to 1.8e-2 under a 1e-7 jitter of the points,
+# and by 7e-5 with the gates taken
+LEGACY_STEP_RANGE = [-12.8, -6.4, -3.0, 12.8, 6.4, 1.0]
+# and one sample of the cut yaml's sampler (the yamls' batch holds 2): the
+# legacy SECOND step's CPU forward and backward took 16-26 s at 2, the cut
+# area barely shortening it (its sparse lists keep JAX's fixed capacities)
+LEGACY_STEP_BATCH = 1
+HEAL_M3 = ("stage1/m3_pyramid", "stage2/m3_single_pyramid")
+HEAL_M3_STEPS = 3
+HEAL_M3_KERNELS = {"m3_pyramid": ("warp_affine", "nms_closure"),
+                   "m3_single_pyramid": ("nms_closure",)}
+TOOL_ITERS = 3
+
+
+class _Tool:
+    """Runs a tool's ``main(argv)`` on the card: its output echoed, its
+    wall time and kernel launches logged and kept."""
+
+    def __init__(self):
+        self.walls, self.launches, self.texts = {}, {}, {}
+
+    def __call__(self, label, main_fn, argv):
+        import contextlib
+        import io
+
+        import torch
+        from gencomm_tpu_torch.ops import _cuda
+
+        log(f"phase 17: {label}: {' '.join(argv)}")
+        buf = io.StringIO()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(_Tee(buf, sys.stdout)):
+            result = main_fn(argv)
+        torch.cuda.synchronize()
+        self.walls[label] = round(time.perf_counter() - t0, 3)
+        self.texts[label] = buf.getvalue()
+        self.launches[label] = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+        log(f"phase 17: {label} took {self.walls[label]} s; launches "
+            f"{self.launches[label]}")
+        return result
+
+
+def _hypes_model(hypes, device):
+    """``setup_eval``'s and ``time_train``'s ``build`` for a yaml's model."""
+    from gencomm_tpu_torch.models import create_model
+
+    return create_model(hypes, device=device)
+
+
+def _heads_grid_shape(hypes):
+    """The diffusion noise's shape for a yaml: its anchors' grid and the
+    fused map's channels."""
+    from gencomm_tpu_torch.data.postprocessor import generate_anchor_box
+
+    h, w = generate_anchor_box(hypes["postprocess"]["anchor_args"]).shape[:2]
+    return (h, w, FEATURE_SHAPE[-1])
+
+
+def legacy_eval_cell(smi, dev, name, hypes):
+    """Phase 17 (a), one config's eval cell (``setup_eval`` on the yaml's
+    model, seeded weights, one frame of its sampler with the raw points on
+    the card), timed by ``time_eval``: 1 + LEGACY_FRAMES frames looped and
+    streamed, bit for bit, the kernels of LEGACY_EVAL_KERNELS launched and
+    K2 not."""
+    from types import SimpleNamespace
+
+    from gencomm_tpu_torch.data.bucketing import trim_agent_slots
+    from gencomm_tpu_torch.data.postprocessor import generate_anchor_box
+    from gencomm_tpu_torch.models import create_model
+    from gencomm_tpu_torch.tools import train
+
+    buckets = create_model(hypes, device="cpu").agent_buckets
+    ds = train.build_dataset(hypes, False, "synthetic")
+    host = trim_agent_slots(ds.sample(1000, 1), buckets=buckets)
+    if "decorated_m1" in host or "points_m1" not in host:
+        raise AssertionError(f"{name}: the frame does not hold raw points")
+    pp = hypes["postprocess"]
+    anchors = generate_anchor_box(pp["anchor_args"], pp.get("order", "hwl"))
+    cell = setup_eval(dev, {"hypes": hypes}, _heads_grid_shape(hypes),
+                      SimpleNamespace(anchors=anchors), host,
+                      build=_hypes_model, postprocess=pp,
+                      samples=host["agent_mask"].size if name == "second"
+                      else 1)
+    time_eval(smi, cell, name, LEGACY_EVAL_KERNELS[name],
+              frames=LEGACY_FRAMES)
+    extra = [k for k in LEGACY_NOT_LAUNCHED if cell.launches[k]]
+    if extra:
+        raise AssertionError(f"{name} eval launched {extra}")
+    cell.pipe.graphs.clear()  # check_eval captures the frame anew
+    return cell
+
+
+def legacy_eval_checks(smi, name, cell):
+    """Phase 17 (a), one config's eval checks (``check_eval``): the
+    profile, the heads card against the port's CPU, K3 on the path's maps
+    (VoxelNet's and the raw-point m1_att's are the flagship's shapes) and
+    N1 on its overlap matrix. Returns the kernels' rows as [path, row]
+    pairs."""
+    from gencomm_tpu_torch.models.fuse import fusion
+    from gencomm_tpu_torch.ops import nms
+
+    warp = ("warp_affine" in LEGACY_EVAL_KERNELS[name]
+            and name not in ("voxel_net", "m1_att_raw"))
+    path = f"{name} eval (phase 17)"
+    rows = check_eval(smi, cell, name, [(fusion, "warp_affine")] if warp else [],
+                      lambda inputs: [check_warp(inputs, f"{name} eval",
+                                                 graph=True)] if warp else [])
+    if name in ("second", "pixor"):
+        seen = record_calls([(nms, "nms_closure")],
+                            lambda: cell.pipe.run(cell.batch, seed=0))
+        nms_rows = [check_nms(*seen["nms_closure"], f"{name} eval", {})]
+        fill_launches(nms_rows, cell.launches, cell.routes, path)
+        rows += nms_rows
+    return [(path, row) for row in rows]
+
+
+def legacy_train_cell(smi, dev, name, path, root, tool):
+    """Phase 17 (b), one config's training: one epoch of LEGACY_STEPS steps
+    through the train CLI on the card (``--no_host_decorate`` for the
+    raw-point pillar path; the kernels of LEGACY_TRAIN_KERNELS launched, K2
+    and K2b not), then the path timed by ``time_train`` on the CLI's first
+    LEGACY_STEPS batches and seeded weights; with the cell, the card-vs-CPU
+    step's cell on the yaml cut to LEGACY_STEP_RANGE and LEGACY_STEP_BATCH
+    samples a batch (its sampler's first batch, seeded weights)."""
+    import copy
+    from types import SimpleNamespace
+
+    import torch
+    from gencomm_tpu_torch.loss import create_loss
+    from gencomm_tpu_torch.models import create_model
+    from gencomm_tpu_torch.pipeline import batch_to_device
+    from gencomm_tpu_torch.tools import inference, train
+    from gencomm_tpu_torch.train import trainer
+    from gencomm_tpu_torch.weights import random_state_dict
+
+    raw = name == "m1_att_raw"
+    run_dir = os.path.join(root, f"train_{name}")
+    label = f"train {name}"
+    tool(label, train.main, [
+        "-y", path, "--model_dir", run_dir, "--dataset", "synthetic",
+        "--device", "cuda", "--epochs", "1", "--steps_per_epoch",
+        str(LEGACY_STEPS), "--val_steps", "1"]
+        + (["--no_host_decorate"] if raw else []))
+    launches = tool.launches[label]
+    missing = [k for k in LEGACY_TRAIN_KERNELS[name] if not launches.get(k)]
+    extra = [k for k in LEGACY_NOT_LAUNCHED if launches.get(k)]
+    if missing or extra:
+        raise AssertionError(f"{label} launched none of {missing}, or "
+                             f"{extra}")
+
+    def host_batches(hypes, n):
+        adapt = train.Adapt(hypes, host_decorate=not raw)
+        it = train.batches(train.build_dataset(hypes, True, "synthetic"),
+                           hypes["train_params"]["batch_size"], 0,
+                           "synthetic")
+        return [adapt(next(it)) for _ in range(n)]
+
+    run_hypes = load_yaml(None, run_dir)
+    hosts = host_batches(run_hypes, LEGACY_STEPS)
+    log(f"{name}: the CLI's first batch, agent slots "
+        f"{hosts[0]['agent_mask'].shape}, points "
+        f"{hosts[0]['points_m1'].shape}, "
+        f"{int(hosts[0]['pos_equal_one'].sum())} positive anchors")
+    cell = time_train(smi, dev, name, {"hypes": run_hypes}, run_hypes,
+                      _heads_grid_shape(run_hypes), hosts,
+                      LEGACY_TRAIN_KERNELS[name], "points_m1",
+                      build=_hypes_model)
+    extra = [k for k in LEGACY_NOT_LAUNCHED if cell.launches[k]]
+    if extra:
+        raise AssertionError(f"{name} training launched {extra}")
+
+    cut = inference.override_range(copy.deepcopy(run_hypes),
+                                   LEGACY_STEP_RANGE)
+    cut["train_params"]["batch_size"] = LEGACY_STEP_BATCH
+    cut_host = host_batches(cut, 1)[0]
+    state = random_state_dict(create_model(cut, device="cpu"), seed=0)
+
+    def fresh(device):
+        model = create_model(cut, device=device)
+        model.load_state_dict(state)
+        model.train()
+        opt, sched = trainer.make_optimizer(cut, model.named_parameters(), 1)
+        return model, trainer.make_train_step(model, create_loss(cut), opt,
+                                              sched)
+
+    gen = torch.Generator().manual_seed(3)
+    noises = [torch.randn((cut_host["agent_mask"].size,)
+                          + _heads_grid_shape(cut), generator=gen)
+              for _ in range(3)]
+    cell.cut = SimpleNamespace(
+        label=name, dev=dev, hosts=[cut_host],
+        batches=[batch_to_device(cut_host, dev)], jitter_key="points_m1",
+        noises=noises, noises_dev=[z.to(dev) for z in noises], fresh=fresh)
+    log(f"{name}: the card-vs-CPU step on the yaml cut to "
+        f"{LEGACY_STEP_RANGE}: agent slots {cut_host['agent_mask'].shape}, "
+        f"{int(cut_host['pos_equal_one'].sum())} positive anchors")
+    return cell
+
+
+def legacy_train_checks(name, cell):
+    """Phase 17 (b), one config's training checks (``check_train``): K3b on
+    the step's arguments, the profile, the loss falling over 4 steps on one
+    batch, and the card-vs-CPU step on the cut yaml, both steps taking the
+    CPU step's segment maxima and ReLU gates, each point jittered within its
+    cell of LEGACY_JITTER_GRID. Returns the kernels' rows as [path, row]
+    pairs."""
+    from gencomm_tpu_torch.ops import warp
+
+    bwd = "warp_affine_bwd" in LEGACY_TRAIN_KERNELS[name]
+    rows = check_train(
+        cell, [(warp, "warp_affine_bwd")] if bwd else [],
+        lambda inputs: [check_warp_bwd(inputs, f"{name} train step")]
+        if bwd else [],
+        jitter=functools.partial(jitter_in_grid,
+                                 lidar_range=LEGACY_STEP_RANGE,
+                                 voxel_size=LEGACY_JITTER_GRID[name]),
+        step_cell=cell.cut, same_choices=True)
+    return [(f"{name} train step (phase 17)", row) for row in rows]
+
+
+def heal_m3(root, tool):
+    """Phase 17 (c): HEAL's SECOND stages through the CLIs on the card:
+    stage1/m3_pyramid.yaml (collab) one epoch of HEAL_M3_STEPS steps, then
+    stage2/m3_single_pyramid.yaml from it (``--init_from``), each evaluated
+    by the inference CLI (1 frame). Each runs on a copy of its yaml whose
+    anchors' feature_stride puts the anchors on the heads' grid (fault n:
+    the yaml's stride puts them on twice it), found from one frame of the
+    model. K3 and N1 must be launched (the single model's N1 alone), and
+    K3b in the collab model's training."""
+    import copy
+
+    import torch
+    import yaml
+    from gencomm_tpu_torch.config.yaml_utils import update_yaml
+    from gencomm_tpu_torch.data.bucketing import trim_agent_slots
+    from gencomm_tpu_torch.models import create_model
+    from gencomm_tpu_torch.pipeline import batch_to_device
+    from gencomm_tpu_torch.tools import inference, train
+
+    t_phase = time.perf_counter()
+    out, prev = {}, None
+    for rel in HEAL_M3:
+        key = rel.split("/")[1]
+        run_dir = os.path.join(root, f"heal_{key}")
+        os.makedirs(run_dir, exist_ok=True)
+        with open(os.path.join(HEAL_CONFIGS, rel + ".yaml")) as f:
+            raw = yaml.safe_load(f)
+        hypes = update_yaml(copy.deepcopy(raw))
+        model = create_model(hypes, device="cuda")
+        host = trim_agent_slots(train.build_dataset(hypes, False, "synthetic")
+                                .sample(0, 1), buckets=model.agent_buckets)
+        with torch.inference_mode():
+            heads_h = model(batch_to_device(host, "cuda"))["cls_preds"].shape[1]
+        del model
+        lr = raw["postprocess"]["anchor_args"]["cav_lidar_range"]
+        vy = raw["preprocess"]["args"]["voxel_size"][1]
+        stride = int(round((lr[4] - lr[1]) / vy / heads_h))
+        log(f"heal {key}: heads {heads_h} rows, the yaml's feature_stride "
+            f"{raw['postprocess']['anchor_args']['feature_stride']}, the "
+            f"copy's {stride}")
+        raw["postprocess"]["anchor_args"]["feature_stride"] = stride
+        ypath = os.path.join(run_dir, f"{key}.yaml")
+        with open(ypath, "w") as f:
+            yaml.safe_dump(raw, f)
+        argv = ["-y", ypath, "--model_dir", run_dir, "--dataset", "synthetic",
+                "--device", "cuda", "--epochs", "1", "--steps_per_epoch",
+                str(HEAL_M3_STEPS), "--val_steps", "1"]
+        if prev is not None:
+            argv += ["--init_from", prev]
+        tool(f"train heal {key}", train.main, argv)
+        aps = tool(f"inference heal {key}", inference.main, [
+            "--model_dir", run_dir, "--dataset", "synthetic", "--frames", "1",
+            "--device", "cuda"])
+        # the collab model warps and fuses the agents' levels; the single
+        # model (one agent's heads) warps nothing
+        launched = {k: tool.launches[f"train heal {key}"].get(k, 0)
+                    + tool.launches[f"inference heal {key}"].get(k, 0)
+                    for k in HEAL_M3_KERNELS[key]}
+        if key == "m3_pyramid":
+            launched["warp_affine_bwd"] = tool.launches[
+                f"train heal {key}"].get("warp_affine_bwd", 0)
+        log(f"heal {key}: launches {launched}, APs {aps}")
+        if not all(launched.values()):
+            raise AssertionError(f"heal {key} launched {launched}")
+        out[key] = {"feature_stride": stride, "launches": launched,
+                    "aps": aps}
+        prev = run_dir
+    phase_done("HEAL's SECOND stages (phase 17)", t_phase)
+    return out
+
+
+def tools_card(tool):
+    """Phase 17 (d), every tool on the card: the profiler on m1_att.yaml
+    (the eval frame and ``--train``, with ``--trace`` and ``--by_module``:
+    params, FLOPs in both parts, latencies, MFU in (0, 1] against the
+    card's fp32 peak; an unknown card raises), ``inference_time``,
+    ``sustained_fps`` on m1_att.yaml, and ``bench_matrix``'s default rows
+    and ``--added_cost`` rows (none may err; K4 held against its plain
+    version on the last camera row's arguments). Returns the numbers and
+    K4's row as a [path, row] pair."""
+    from gencomm_tpu_torch.models.encoders import lss
+    from gencomm_tpu_torch.tools import (
+        bench_matrix, inference_time, profiler, sustained_fps,
+    )
+
+    t_phase = time.perf_counter()
+    yaml_path = os.path.join(GENCOMM_CONFIGS, "stage1", "m1_att.yaml")
+    prof = tool("profiler m1_att", profiler.main, [
+        "--hypes_yaml", yaml_path, "--iters", str(TOOL_ITERS), "--train",
+        "--trace", "--by_module"])
+    mfus = [prof["looped"]["mfu"], prof["streamed"]["mfu"],
+            prof["train"]["mfu"]]
+    if not (prof["flops"]["library"] > 0 and prof["flops"]["hand_kernels"] > 0
+            and prof["params"] > 0 and all(m is not None and 0 < m <= 1
+                                           for m in mfus)):
+        raise AssertionError(f"the profiler's numbers: {prof['flops']}, "
+                             f"MFU {mfus}")
+    try:
+        profiler.peak_flops_per_s("fp32", "an unknown card")
+    except ValueError as exc:
+        log(f"profiler: an unknown card raises: {exc}")
+    else:
+        raise AssertionError("the profiler took an unknown card's peak")
+    times = tool("inference_time", inference_time.main,
+                 ["--iters", str(2 * TOOL_ITERS)])
+    if not all(r["ms"] > 0 for r in times.values()):
+        raise AssertionError(f"inference_time: {times}")
+    fps = tool("sustained_fps m1_att", sustained_fps.main,
+               ["-y", yaml_path, "--frames", str(2 * TOOL_ITERS)])
+    rows = []
+    bench = record_all([(lss, "splat_topk")], lambda: rows.extend(
+        tool("bench_matrix", bench_matrix.main, ["--iters", "2"])
+        + tool("bench_matrix --added_cost", bench_matrix.main,
+               ["--iters", "2", "--added_cost"])))
+    errs = [r for r in rows if "error" in r]
+    if errs or len(rows) != len(bench_matrix.DEFAULT_CONFIGS) + 1 + len(
+            bench_matrix.HETERO_METHODS):
+        raise AssertionError(f"bench_matrix rows erred: {errs}")
+    if not bench:
+        raise AssertionError("no bench_matrix row launched K4")
+    k4_launches = sum(tool.launches[label].get("splat_topk", 0) for label
+                      in ("bench_matrix", "bench_matrix --added_cost"))
+    k4_row = check_splat({"splat_topk": bench[-1][1]},
+                         "bench_matrix camera row")
+    fill_launches([k4_row], {"splat_topk": k4_launches}, {},
+                  "bench_matrix camera row (phase 17)")
+    phase_done("tools (phase 17)", t_phase)
+    summary = {
+        "profiler": {k: prof[k] for k in ("params", "dtype",
+                                          "peak_flops_per_s")}
+        | {"flops": prof["flops"], "looped": prof["looped"],
+           "streamed": prof["streamed"],
+           "train": {k: prof["train"][k] for k in ("flops", "step", "mfu",
+                                                   "peak_bytes")},
+           "by_module_top": prof.get("by_module", [])[:8]},
+        "inference_time": times, "sustained_fps": fps, "bench_matrix": rows}
+    return summary, ("bench_matrix camera row (phase 17)", k4_row)
+
+
+def phase17(root: str) -> dict:
+    """Phase 17 in its own process, after the workflow's; raises on any
+    failed check and returns the numbers and the kernel rows (as [path,
+    row] pairs). Every eval and training path is timed before the
+    process's first profiler session (ROADMAP p1), then checked, its
+    kernels held against their plain versions on the path's arguments."""
+    import shutil
+
+    import torch
+    from gencomm_tpu_torch.ops import _cuda
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("phase 17 needs a CUDA device")
+    t_all = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda")
+    tool, rows = _Tool(), []
+    repo = os.path.dirname(os.path.abspath(__file__))
+    paths = {name: os.path.join(repo, rel)
+             for name, rel in LEGACY_YAMLS.items()}
+    out = {"legacy": {}}
+    _cuda.build_all()
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    evals = {name: legacy_eval_cell(smi, dev, name, load_yaml(path))
+             for name, path in paths.items()}
+    trains = {name: legacy_train_cell(smi, dev, name, path, root, tool)
+              for name, path in paths.items()}
+    out["heal_m3"] = heal_m3(root, tool)
+    for name in paths:
+        rows += legacy_eval_checks(smi, name, evals[name])
+        rows += legacy_train_checks(name, trains[name])
+        ev, tr = evals.pop(name), trains.pop(name)
+        out["legacy"][name] = {
+            "looped_ms": round(ev.ms, 3),
+            "streamed_ms": round(ev.stream_ms, 3),
+            "eval_busy_ms": round(ev.busy, 3),
+            "eval_launches": {k: v for k, v in ev.launches.items() if v},
+            "graph_launches": ev.stream_launches,
+            "ms_per_step": round(tr.ms, 3),
+            "step_busy_ms": round(tr.busy, 3),
+            "step_launches": {k: v for k, v in tr.launches.items() if v},
+            "cli_train_s": tool.walls[f"train {name}"]}
+        del ev, tr
+        torch.cuda.empty_cache()
+    out["tools"], k4 = tools_card(tool)
+    rows.append(k4)
+    out["walls"] = tool.walls
+    out["rows"] = rows
+    for name, r in out["legacy"].items():
+        log(f"phase 17 {name}: looped {r['looped_ms']} ms/frame, streamed "
+            f"{r['streamed_ms']} ms/frame (device busy {r['eval_busy_ms']} "
+            f"ms), {r['ms_per_step']} ms/step (busy {r['step_busy_ms']} ms) "
+            f"on {smi}")
+    phase_done("phase 17", t_all)
+    return out
+
+
+def run_phase17():
+    """Phase 17 in its own process (``chip_smoke.py --phase17 DIR``), after
+    the workflow's has ended; its output echoed, its last line (the phase's
+    JSON) returned."""
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "phase17")
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--phase17", root],
+                          capture_output=True, text=True, timeout=600)
+    for line in proc.stdout.splitlines()[:-1]:
+        log(f"  17| {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 17 failed:\n{proc.stderr[-6000:]}")
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"phase 17: {json.dumps({k: v for k, v in result.items() if k != 'rows'})}")
+    phase_done("phase 17 (its process)", t_phase)
+    return result
+
+
 def run_workflow():
     """Phases 11, 12 (c), 13 (c), 14 (c), 15 (b) and 16 in their own
     process (``chip_smoke.py --workflow DIR``); its last line is the
@@ -4768,7 +5440,8 @@ def main() -> int:
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
     log(f"card: {smi}")
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
-        f"CUDA {torch.version.cuda}")
+        f"CUDA {torch.version.cuda}; host: {len(os.sched_getaffinity(0))} "
+        f"cores, torch's CPU threads {torch.get_num_threads()}")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -4893,7 +5566,7 @@ def main() -> int:
          (fusion, "warp_affine")],
         lambda inputs: [check_deform(inputs, "lidar eval"),
                         check_pillar(inputs, "lidar eval"),
-                        check_warp(inputs, "lidar eval")])
+                        check_warp(inputs, "lidar eval")], operators=True)
     # K1 and K3 take bf16 maps here: rows of their bf16 instantiations; K2
     # is held again on the bf16 PFN's rows (its canvas is bf16 at both
     # dtypes)
@@ -4921,7 +5594,8 @@ def main() -> int:
         lambda inputs: [check_pillar(inputs, "lidar train step"),
                         check_deform_bwd(inputs, "lidar train step"),
                         check_pillar_bwd(inputs, "lidar train step"),
-                        check_warp_bwd(inputs, "lidar train step")]))
+                        check_warp_bwd(inputs, "lidar train step")],
+        operators=True))
     # p8: the whole step the same bits twice, K1b's row carrying the counts
     k1b_row = next(r for r in kernel_rows if r["name"] == "deform_conv3x3_bwd")
     k1b_row["repeat_step"] = {"lidar": hold_repeat_step(lidar_train)}
@@ -4982,10 +5656,13 @@ def main() -> int:
                         "max_abs_err": general_errs[row["name"]]}
     run_bench()
     torch.cuda.empty_cache()
-    # phase 16's K3 and K3b on noisy thetas come back from the workflow
-    # process
+    # phase 16's K3 and K3b on noisy thetas come back from the workflow's
+    # process, phase 17's kernel rows from its own, which starts after the
+    # workflow's has ended
     add_rows(kernel_rows, "noisy eval (phase 16)",
              run_workflow()["robustness_rows"])
+    for path, row in run_phase17()["rows"]:
+        add_rows(kernel_rows, path, [row])
     return finish(smi, t_all, kernel_rows)
 
 
@@ -5010,6 +5687,9 @@ if __name__ == "__main__":
     faulthandler.enable()
     if sys.argv[1:2] == ["--workflow"]:
         print(json.dumps(workflow(sys.argv[2])), flush=True)
+        sys.exit(0)
+    if sys.argv[1:2] == ["--phase17"]:
+        print(json.dumps(phase17(sys.argv[2])), flush=True)
         sys.exit(0)
     if sys.argv[1:2] == ["--baseline-workflow"]:
         # phase 15 (b) alone

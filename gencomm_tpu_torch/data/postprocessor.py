@@ -353,16 +353,20 @@ def decode_and_nms(cls_preds, reg_preds, dir_preds, anchors,
                    num_bins: int = 2, order: str = "hwl") -> Detections:
     """Single-sample decode of (H', W', A), (H', W', A*7), (H', W', A*nb)
     head outputs: sigmoid, anchor decode, direction fix, top-K, sanity
-    filters, rotated NMS."""
+    filters, rotated NMS. A model without a direction head (``dir_preds``
+    None: the legacy SECOND detectors) keeps the decoded yaw, as the
+    reference's postprocessor does without ``dir_preds``."""
     prob = torch.sigmoid(cls_preds.reshape(-1))
     boxes = delta_to_boxes3d(reg_preds, anchors)
 
-    dir_labels = torch.argmax(dir_preds.reshape(-1, num_bins), dim=-1)
-    period = 2 * np.pi / num_bins
-    dir_rot = box_utils.limit_period(boxes[:, 6] - dir_offset, 0.0, period)
-    yaw = dir_rot + dir_offset + period * dir_labels.to(boxes.dtype)
-    yaw = box_utils.limit_period(yaw, 0.5, 2 * np.pi)
-    boxes = torch.cat([boxes[:, :6], yaw[:, None]], dim=1)
+    if dir_preds is not None:
+        dir_labels = torch.argmax(dir_preds.reshape(-1, num_bins), dim=-1)
+        period = 2 * np.pi / num_bins
+        dir_rot = box_utils.limit_period(boxes[:, 6] - dir_offset, 0.0,
+                                         period)
+        yaw = dir_rot + dir_offset + period * dir_labels.to(boxes.dtype)
+        yaw = box_utils.limit_period(yaw, 0.5, 2 * np.pi)
+        boxes = torch.cat([boxes[:, :6], yaw[:, None]], dim=1)
 
     masked = torch.where(prob > score_threshold, prob, torch.zeros_like(prob))
     k = min(topk, masked.shape[0])
@@ -370,9 +374,36 @@ def decode_and_nms(cls_preds, reg_preds, dir_preds, anchors,
     # jax.lax.top_k does
     top_scores, top_idx = torch.sort(masked, descending=True, stable=True)
     top_scores, top_idx = top_scores[:k], top_idx[:k]
-    top_boxes = boxes[top_idx]
-    top_valid = top_scores > score_threshold
+    return _filter_and_nms(boxes[top_idx], top_scores,
+                           top_scores > score_threshold,
+                           transformation_matrix, gt_range, nms_thresh, order)
 
+
+def decode_pixor_and_nms(cls_map, reg_map, anchors, transformation_matrix,
+                         gt_range, lidar_range, cell: float, *,
+                         score_threshold: float = 0.2,
+                         nms_thresh: float = 0.15, topk: int = 512,
+                         order: str = "hwl") -> Detections:
+    """Single-sample decode of PIXOR's (H, W, 1) and (H, W, 6) maps on
+    cells of ``cell`` metres (``models/encoders/pixor.py:decode_pixor``),
+    then the filters and the rotated NMS of ``decode_and_nms``. PIXOR
+    regresses no z or height: the boxes take the anchors' (the postprocess
+    ``anchor_args``)."""
+    from gencomm_tpu_torch.models.encoders.pixor import decode_pixor
+
+    k = min(topk, cls_map.shape[0] * cls_map.shape[1])
+    sel, scores, valid = decode_pixor(cls_map, reg_map, lidar_range, cell,
+                                      score_threshold, k)
+    zh = anchors.reshape(-1, 7)[0, 2:4].expand(sel.shape[0], 2)
+    boxes7 = torch.cat([sel[:, :2], zh, sel[:, 3:5], sel[:, 2:3]], dim=1)
+    return _filter_and_nms(boxes7, scores, valid, transformation_matrix,
+                           gt_range, nms_thresh, order)
+
+
+def _filter_and_nms(top_boxes, top_scores, top_valid, transformation_matrix,
+                    gt_range, nms_thresh: float, order: str) -> Detections:
+    """The decoded top-K boxes -> corners in the target frame, the sanity
+    filters, the rotated NMS."""
     corners = box_utils.boxes_to_corners_3d(top_boxes, order)
     corners = box_utils.project_box3d(corners, transformation_matrix)
     keep = box_utils.remove_large_pred_bbx(corners)

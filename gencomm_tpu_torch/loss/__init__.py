@@ -14,6 +14,7 @@ from gencomm_tpu_torch.loss.pyramid_loss import (
     PointPillarDepthLoss,
     PointPillarPyramidLoss,
 )
+from gencomm_tpu_torch.models.encoders.pixor import PixorLoss
 from gencomm_tpu_torch.registry import LOSSES
 
 LOSSES.register("point_pillar_loss", PointPillarLoss)
@@ -24,6 +25,7 @@ LOSSES.register("point_pillar_pyramid_loss", PointPillarPyramidLoss)
 LOSSES.register("point_pillar_codebook_loss", PointPillarCodebookLoss)
 LOSSES.register("point_pillar_mpda_loss", PointPillarMPDALoss)
 LOSSES.register("adapter_loss", AdapterLoss)
+LOSSES.register("pixor_loss", PixorLoss)
 
 
 def build_loss(loss_hypes: dict):

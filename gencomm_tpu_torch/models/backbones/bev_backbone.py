@@ -3,7 +3,9 @@
 Counterpart of ``gencomm_tpu/models/backbones/bev_backbone.py``: N levels of
 strided conv stacks (stems padded (1, 1) as in the reference's
 ZeroPad2d(1)), per-level deconv heads, concatenated after cropping to the
-smallest map. ``dtype`` is every layer's (``models/layers.py``).
+smallest map. ``dtype`` is every layer's (``models/layers.py``). The
+optional ``level_fuse(i, feat)`` hook runs on each level's map between the
+encode and the decode (the legacy SECOND model's per-level fusion).
 """
 
 from __future__ import annotations
@@ -44,15 +46,25 @@ class BEVBackbone(nn.Module):
             num_filters[self.n_deblocks:])
         self.out_channels = sum(widths) if len(widths) > 1 else widths[0]
 
-    def forward(self, x):
-        ups = []
+    def encode_multiscale(self, x):
+        feats = []
         for i, n_layers in enumerate(self.layer_nums):
             for k in range(n_layers + 1):
                 x = getattr(self, f"block{i}_{k}")(x)
-            ups.append(getattr(self, f"deblock{i}")(x)
-                       if i < self.n_deblocks else x)
+            feats.append(x)
+        return feats
+
+    def decode_multiscale(self, feats):
+        ups = [getattr(self, f"deblock{i}")(x) if i < self.n_deblocks else x
+               for i, x in enumerate(feats)]
         if len(ups) > 1:
             h = min(u.shape[1] for u in ups)
             w = min(u.shape[2] for u in ups)
             return torch.cat([u[:, :h, :w] for u in ups], dim=-1)
         return ups[0]
+
+    def forward(self, x, level_fuse=None):
+        feats = self.encode_multiscale(x)
+        if level_fuse is not None:
+            feats = [level_fuse(i, f) for i, f in enumerate(feats)]
+        return self.decode_multiscale(feats)

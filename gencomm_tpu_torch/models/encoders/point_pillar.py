@@ -1,13 +1,16 @@
-"""PointPillars BEV encoder, host-decorated path.
+"""PointPillars BEV encoder, host-decorated and raw-point paths.
 
 Counterpart of ``gencomm_tpu/models/encoders/point_pillar.py``
-(``PFNLayer``, ``MaskedBatchNorm``, ``_from_decorated``): the 10-dim
-decorated points go through the PFN (Linear without bias, masked batch
-norm, ReLU), are masked and cast to bf16, and kernel K2 builds the
-per-agent canvas (K2b its gradient in training). With ``dtype=bfloat16``
-(``half``) the PFN's Linear runs in bf16 and its norm in fp32, returning
-bf16; the canvas is bf16 either way. The raw-point and voxel-list paths are
-not ported.
+(``PFNLayer``, ``MaskedBatchNorm``, ``_from_decorated`` and the raw-point
+``__call__``). Host-decorated (``forward``): the 10-dim decorated points go
+through the PFN (Linear without bias, masked batch norm, ReLU), are masked
+and cast to bf16, and kernel K2 builds the per-agent canvas (K2b its
+gradient in training); the canvas is bf16. Raw points (``from_points``):
+the points are decorated on the device (``ops/voxel.py``), go through the
+same PFN and are max-reduced onto a canvas of the PFN's dtype, as the JAX
+raw path does. With ``dtype=bfloat16`` (``half``) the PFN's Linear runs in
+bf16 and its norm in fp32, returning bf16. The voxel-list path is not
+ported.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch
 from torch import nn
 
 from gencomm_tpu_torch.models.layers import Dense, update_running_stats
+from gencomm_tpu_torch.ops import voxel as vox
 from gencomm_tpu_torch.ops.pillar_canvas import pillar_canvas
 
 
@@ -68,7 +72,8 @@ class PFNLayer(nn.Module):
 
 
 class PointPillarEncoder(nn.Module):
-    # it takes the host decoration's fields, not raw points
+    # the pipeline decorates its points on the host (``from_points`` is the
+    # raw path of a batch without the decorated fields)
     takes_raw_points = False
 
     def __init__(self, voxel_size: Tuple[float, float, float],
@@ -101,4 +106,17 @@ class PointPillarEncoder(nn.Module):
         flat_gids = gids.reshape(-1).clamp_max(ncell - 1).to(torch.int32)
         canvas = pillar_canvas(rows.contiguous(), flat_gids.contiguous(),
                                b * l, ncell)
+        return canvas.reshape(b, l, self.ny, self.nx, x.shape[-1])
+
+    def from_points(self, points, point_mask):
+        """points (B, L, P, 4), point_mask (B, L, P) -> canvas (B, L, ny,
+        nx, C) of the PFN's dtype: the JAX encoder's raw-point path."""
+        b, l, p, d = points.shape
+        x, gids, valid, _ = vox.pillar_decorate_flat(
+            points.reshape(b * l, p, d), point_mask.reshape(b * l, p),
+            self.lidar_range, self.voxel_size, self.nx, self.ny)
+        for layer in self.children():
+            x = layer(x, valid)
+        canvas = vox.scatter_pillar_max_flat(x, gids, valid, b * l, self.nx,
+                                             self.ny)
         return canvas.reshape(b, l, self.ny, self.nx, x.shape[-1])

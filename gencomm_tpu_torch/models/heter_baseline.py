@@ -1,8 +1,9 @@
 """Heterogeneous collaboration model, GenComm stage 1, eval and training.
 
 Counterpart of ``gencomm_tpu/models/heter_baseline.py`` (``ModalityBranch``,
-``HeterModel.__call__``) restricted to: host-decorated point_pillar,
-SECOND (raw points) and lift_splat_shoot camera modalities, ``use_gencomm``
+``HeterModel.__call__``) restricted to: point_pillar (host-decorated or
+raw points), SECOND and VoxelNet (raw points) and lift_splat_shoot camera
+modalities, ``use_gencomm``
 (message extractor + conditional DDPM), ``use_enhancer``,
 ``supervise_single`` (per-agent heads),
 the two stage-2 switches ``missing_message_rate`` and ``gencomm_trick``,
@@ -27,7 +28,8 @@ drop's) come from the caller's ``generator``. Every other branch raises
 541, 547, 562``): parameters stay fp32, so one ``state_dict`` serves both
 graphs. Each modality's PFN, neck and shrinker run in bf16 (a camera
 encoder also takes ``trunk_bf16`` and ``splat_bf16`` unless its arguments
-set them; SECOND's encoder stays fp32, as the JAX one has no dtype), the
+set them; SECOND's and VoxelNet's encoders stay fp32, as the JAX ones have
+no dtype), the
 feature leaves the branch in bf16 and stays so through the
 message extractor's deformable conv (its other layers promote to fp32, as
 flax's do), generation and the Enhancer; the fusion returns fp32 and the
@@ -58,6 +60,7 @@ from gencomm_tpu_torch.models.encoders.lss import (
 )
 from gencomm_tpu_torch.models.encoders.point_pillar import PointPillarEncoder
 from gencomm_tpu_torch.models.encoders.second import SECONDEncoder
+from gencomm_tpu_torch.models.encoders.voxelnet import VoxelNetEncoder
 from gencomm_tpu_torch.models.fuse.fusion import build_fusion
 from gencomm_tpu_torch.models.fuse.where2comm import Communication
 from gencomm_tpu_torch.models.gencomm.diffusion import GenCommDiffusion
@@ -84,8 +87,8 @@ def normal(shape, generator: torch.Generator, device) -> torch.Tensor:
 
 class ModalityBranch(nn.Module):
     """encoder -> backbone -> shrinker for one modality; ``core_method``
-    selects the encoder, ``point_pillar``, ``second`` or
-    ``lift_splat_shoot``. With ``encode_only`` (the HEAL pyramid models)
+    selects the encoder, ``point_pillar``, ``second``, ``voxelnet`` (or
+    ``voxel_net``) or ``lift_splat_shoot``. With ``encode_only`` (the HEAL pyramid models)
     the branch is the encoder alone and returns its canvas."""
 
     def __init__(self, encoder_args: Dict[str, Any],
@@ -123,9 +126,14 @@ class ModalityBranch(nn.Module):
                 voxel_capacity_per_agent=encoder_args.get("max_voxels", 32000),
                 out_ch=encoder_args.get("spconv", {}).get(
                     "num_features_out", 128))
+        elif core_method in ("voxelnet", "voxel_net"):
+            # fp32 whatever ``dtype``, as SECOND
+            self.encoder = VoxelNetEncoder(
+                voxel_size=tuple(encoder_args["voxel_size"]),
+                lidar_range=tuple(encoder_args["lidar_range"]),
+                vfe_filters=tuple(encoder_args.get("vfe_filters", (32, 128))))
         else:
-            raise NotImplementedError(
-                f"encoder {core_method!r} is not ported yet (ROADMAP item 18)")
+            raise ValueError(f"unknown encoder core_method {core_method!r}")
         if encode_only:
             self.out_channels = self.encoder.out_channels
             return
@@ -149,11 +157,14 @@ class ModalityBranch(nn.Module):
         depth_logits = None
         if self.core_method == "lift_splat_shoot":
             canvas, depth_logits = self.encoder(inputs)  # fp32
-        elif self.core_method == "second":
-            canvas = self.encoder(inputs["points"], inputs["point_mask"])
-        else:
+        elif "decorated" in inputs:
             canvas = self.encoder(inputs["decorated"], inputs["gids"],
                                   inputs["dvalid"])  # (B, L, ny, nx, C) bf16
+        elif self.core_method == "point_pillar":
+            canvas = self.encoder.from_points(inputs["points"],
+                                              inputs["point_mask"])
+        else:
+            canvas = self.encoder(inputs["points"], inputs["point_mask"])
         if self.encode_only:
             return canvas, depth_logits
         b, l = canvas.shape[:2]
@@ -167,17 +178,13 @@ class ModalityBranch(nn.Module):
 
 
 def lidar_inputs(branch: ModalityBranch, batch, mname: str):
-    """A lidar branch's inputs from the batch: raw points and their mask
-    for an encoder that ``takes_raw_points`` (SECOND), else the decorated
-    fields (PointPillars; its raw-point path raises)."""
-    if branch.encoder.takes_raw_points:
+    """A lidar branch's inputs from the batch: the decorated fields where
+    the batch holds them (PointPillars after the host decoration), else raw
+    points and their mask (SECOND, VoxelNet, and PointPillars' raw-point
+    path)."""
+    if branch.encoder.takes_raw_points or f"decorated_{mname}" not in batch:
         return {"points": batch[f"points_{mname}"],
                 "point_mask": batch[f"point_mask_{mname}"]}
-    if f"decorated_{mname}" not in batch:
-        raise NotImplementedError(
-            "raw-point input to a point_pillar encoder is not ported yet "
-            "(ROADMAP item 18); decorate the points on the host "
-            "(gencomm_tpu_torch.data.decorate)")
     return {"decorated": batch[f"decorated_{mname}"],
             "gids": batch[f"gids_{mname}"],
             "dvalid": batch[f"dvalid_{mname}"].bool()}
@@ -316,8 +323,8 @@ class HeterModel(nn.Module):
 
     def lidar_encoder(self, mname: str):
         """The encoder of lidar modality ``mname``: a ``PointPillarEncoder``,
-        whose grid the host decoration takes, or a ``SECONDEncoder``, which
-        takes the raw points."""
+        whose grid the host decoration takes, or a ``SECONDEncoder`` or
+        ``VoxelNetEncoder``, which take the raw points."""
         return getattr(self, f"branch_{mname}").encoder
 
     def camera_bev_shape(self, mname: str, h: int, w: int) -> Tuple[int, int]:
@@ -379,8 +386,8 @@ class HeterModel(nn.Module):
         """batch: tensors on the model's device (``agent_mask``,
         ``pairwise_t_matrix``, ``modality_mask_<m>`` and, for a pillar
         modality, the decorated fields ``decorated_<m>``, ``gids_<m>``,
-        ``dvalid_<m>``; for a SECOND modality the raw ``points_<m>`` and
-        ``point_mask_<m>``; for a camera modality ``imgs_<m>``, ``rots_<m>``,
+        ``dvalid_<m>`` or else its raw points; for a SECOND or VoxelNet
+        modality the raw ``points_<m>`` and ``point_mask_<m>``; for a camera modality ``imgs_<m>``, ``rots_<m>``,
         ``trans_<m>``, ``intrins_<m>``, ``post_rots_<m>``,
         ``post_trans_<m>`` and optionally ``depths_<m>``). ``noises`` or
         ``generator`` feed the diffusion (see GenCommDiffusion); with a

@@ -32,7 +32,9 @@ import torch
 
 from gencomm_tpu_torch import resolve_device
 from gencomm_tpu_torch.data.decorate import decorate_modality
-from gencomm_tpu_torch.data.postprocessor import Detections, decode_and_nms
+from gencomm_tpu_torch.data.postprocessor import (
+    Detections, decode_and_nms, decode_pixor_and_nms,
+)
 from gencomm_tpu_torch.native import PillarVoxelizer
 from gencomm_tpu_torch.ops import _cuda
 from gencomm_tpu_torch.ops.nms import rotated_nms
@@ -96,6 +98,13 @@ class InferencePipeline:
                               dir_offset=self.dir_offset,
                               num_bins=self.num_bins)
 
+    def _decode_pixor(self, c, r) -> Detections:
+        return decode_pixor_and_nms(
+            c, r, self.anchors, self._eye, self.gt_range,
+            self.model.lidar_range, self.model.decode_cell,
+            score_threshold=self.score_threshold, nms_thresh=self.nms_thresh,
+            topk=self.topk)
+
     def _late(self, cls_a, reg_a, dir_a, pairwise, amask) -> Detections:
         """One sample's late fusion: each agent j decoded through
         T[j -> 0], absent agents masked, one NMS over the union."""
@@ -114,9 +123,15 @@ class InferencePipeline:
 
     def _detect(self, out, batch) -> Detections:
         """The model's output -> detections stacked over the batch."""
-        if self.mode == "intermediate":
+        if self.mode == "intermediate" and hasattr(self.model, "decode_cell"):
+            dets = [self._decode_pixor(c, r) for c, r in zip(
+                out["cls_preds"], out["reg_preds"])]
+        elif self.mode == "intermediate":
+            # the legacy SECOND detectors have no direction head
+            dirs = out.get("dir_preds")
             dets = [self._decode(c, r, d, self._eye) for c, r, d in zip(
-                out["cls_preds"], out["reg_preds"], out["dir_preds"])]
+                out["cls_preds"], out["reg_preds"],
+                dirs if dirs is not None else [None] * len(out["cls_preds"]))]
         else:
             b, l = batch["agent_mask"].shape
             single = [out[f"{k}_preds_single"].reshape(

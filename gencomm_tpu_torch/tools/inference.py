@@ -7,7 +7,8 @@ Counterpart of ``gencomm_tpu/tools/inference.py``:
         --dataset synthetic [--frames N] [--ckpt <dir>] [--use_cav K] \
         [--range xmin,ymin,zmin,xmax,ymax,zmax] [--score_threshold T] \
         [--pos_std S --rot_std S [--laplace]] [--delay MS] \
-        [--half] [--report_comm] [--device cuda|cpu]
+        [--half] [--report_comm] [--save_vis_interval N] \
+        [--device cuda|cpu]
 
 The run's ``config.yaml`` builds the model; the checkpoint is ``--ckpt``,
 else the run's bestval, else its latest. Frame f is
@@ -21,8 +22,10 @@ The robustness flags write the hypes' ``noise_setting`` (``--pos_std`` m,
 ``--rot_std`` degrees, ``--laplace``) and ``wild_setting`` (``--delay``
 ms), which the sampler reads (``tools/train.py:build_dataset``); the
 sweeps ``inference_w_noise`` and ``inference_w_delay`` call this tool once
-a level. Runs on ``cuda`` unless ``--device cpu``. The BEV snapshots raise
-(ROADMAP item 21), as do multi-class configs (item 19).
+a level. ``--save_vis_interval N`` writes every N-th frame's BEV snapshot
+(``visualization/simple_vis.py``, matplotlib) into ``<run>/vis``. Runs on
+``cuda`` unless ``--device cpu``. Multi-class configs raise (ROADMAP item
+19).
 """
 
 from __future__ import annotations
@@ -178,8 +181,9 @@ def robustness_settings(hypes: dict, args) -> dict:
 def main(argv=None):
     args = parse_args(argv)
     if args.save_vis_interval:
-        raise NotImplementedError(
-            "--save_vis_interval is not ported yet (ROADMAP item 21)")
+        # the snapshots draw with matplotlib: fail before any frame runs
+        # where it is missing
+        import matplotlib  # noqa: F401
     device = resolve_device(args.device)
 
     hypes = load_yaml(None, args.model_dir)
@@ -227,6 +231,19 @@ def main(argv=None):
         gt = box_utils.boxes_to_corners_3d(gt_boxes, "hwl")
         for t in (0.3, 0.5, 0.7):
             eval_utils.calculate_tp_fp(corners, scores, gt, stat, t)
+        if args.save_vis_interval and f % args.save_vis_interval == 0:
+            from gencomm_tpu_torch.visualization import simple_vis
+
+            vis_dir = os.path.join(args.model_dir, "vis")
+            os.makedirs(vis_dir, exist_ok=True)
+            # a decorated pillar modality has no raw points left
+            pts_key = next((k for k in host if k.startswith("points_")),
+                           None)
+            pts = (host[pts_key][0].reshape(-1, host[pts_key].shape[-1])
+                   if pts_key else None)
+            simple_vis.visualize(corners, gt, pts,
+                                 hypes["postprocess"]["gt_range"],
+                                 os.path.join(vis_dir, f"bev_{f:05d}.png"))
 
     if args.report_comm and host is not None:
         print("comm report:", comm_report(model, batch_to_device(host, device),

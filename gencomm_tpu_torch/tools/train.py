@@ -27,7 +27,9 @@ criterion is upgraded to ``point_pillar_disconet_loss``. The hypes'
 sampled scenes. Each epoch: the host pipeline (sampling, labels, the fusion
 mode's adaptation (``Adapt``: early fusion's merged cloud, late and no
 fusion's ego slot, intermediate fusion's agent-slot trimming), the C++
-pillar decoration; a SECOND modality keeps its raw points) on a producer thread
+pillar decoration (none with ``--no_host_decorate``: a pillar encoder then
+decorates the raw points on the device, ``ops/voxel.py``); a SECOND,
+VoxelNet or PIXOR modality keeps its raw points) on a producer thread
 or ``--workers`` processes, the steps on
 the device, ``step_<epoch>`` every ``save_freq`` epochs, and the
 validation loss on held-out scenes with one rolling ``bestval_at_<epoch>``
@@ -86,10 +88,10 @@ def build_dataset(hypes: dict, train: bool, dataset: str):
     ws = hypes.get("wild_setting", {}) or {}
     margs = hypes.get("model", {}).get("args", {})
     core = hypes.get("model", {}).get("core_method", "").lower()
-    # per-agent labels: the supervise_single pass and the single pyramid
-    # model's heads over every agent
-    needs_single = bool(margs.get("supervise_single")) or \
-        core.startswith("heter_pyramid_single")
+    # per-agent labels: the supervise_single pass, the single pyramid
+    # model's heads over every agent and the per-slot legacy detectors
+    needs_single = bool(margs.get("supervise_single")) or any(
+        core.startswith(c) for c in PER_SLOT_PREFIXES)
     modalities = {}
     spawn_radius = 0.0
     for name, m in margs.items():
@@ -145,9 +147,15 @@ def batches(dataset, batch_size: int, seed: int, dataset_kind: str):
 
 
 # the per-slot legacy detectors, which train every agent as a sample on
-# its own-frame labels (the JAX CLI's list; ROADMAP item 19 ports them)
+# its own-frame labels (the JAX CLI's list; ``second`` is ported, ROADMAP
+# item 19 ports the others)
 PER_SLOT_CORES = ("ciassd", "second", "second_ssfa", "fpvrcnn",
                   "second_ssfa_uncertainty", "point_pillar_uncertainty")
+# the cores whose sampler draws per-agent labels (the JAX CLI's
+# build_dataset: the legacy detectors by prefix, so second_intermediate
+# too, and the single pyramid model)
+PER_SLOT_PREFIXES = ("ciassd", "second", "fpvrcnn",
+                     "point_pillar_uncertainty", "heter_pyramid_single")
 
 
 class Adapt:
@@ -159,10 +167,12 @@ class Adapt:
     and no fusion take the ego slot (``ego_only_batch``); intermediate
     fusion trims to the smallest of the model's ``agent_buckets``
     (``trim_agent_slots``; a CoBEVT model's batches keep the agent count it
-    was built for). Then the C++ pillar decoration of the lidar modalities.
-    Sent to worker processes whole."""
+    was built for). Then the C++ pillar decoration of the lidar modalities,
+    unless ``host_decorate`` is false (the raw-point pillar path). Sent to
+    worker processes whole."""
 
-    def __init__(self, hypes: dict, buckets=AGENT_BUCKETS):
+    def __init__(self, hypes: dict, buckets=AGENT_BUCKETS,
+                 host_decorate: bool = True):
         fusion_mode = hypes.get("fusion", {}).get("core_method", "").lower()
         core = hypes["model"]["core_method"].lower()
         self.lidar_range = hypes["preprocess"]["cav_lidar_range"]
@@ -170,7 +180,7 @@ class Adapt:
                      else "per_slot" if core in PER_SLOT_CORES
                      else "ego" if fusion_mode in ("late", "no")
                      else "trim")
-        self.decorate = HostDecoration(hypes)
+        self.decorate = HostDecoration(hypes) if host_decorate else None
         self.buckets = buckets
 
     def __call__(self, batch):
@@ -187,7 +197,7 @@ class Adapt:
             batch = ego_only_batch(batch)
         else:
             batch = trim_agent_slots(batch, buckets=self.buckets)
-        return self.decorate(batch)
+        return batch if self.decorate is None else self.decorate(batch)
 
 
 def epoch_batches(dataset, batch_size: int, dataset_kind: str, adapt,
@@ -263,9 +273,9 @@ def parse_args(argv=None):
     parser.add_argument("--half", action="store_true",
                         help="bf16 training: not ported")
     parser.add_argument("--no_host_decorate", action="store_true",
-                        help="raw points to a pillar encoder: not ported "
-                             "(a SECOND modality takes its raw points "
-                             "without it)")
+                        help="no C++ pillar decoration on the host: a "
+                             "pillar encoder decorates the raw points on "
+                             "the device")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
     return parser.parse_args(argv)
@@ -282,10 +292,6 @@ def main(argv=None):
         raise NotImplementedError(
             "bf16 training (--half) is not ported yet (ROADMAP section 2: "
             "bf16 K1b and K3b)")
-    if args.no_host_decorate:
-        raise NotImplementedError(
-            "raw-point input to a point_pillar encoder (ops/voxel.py) is not "
-            "ported yet (ROADMAP item 18)")
     device = resolve_device(args.device)
 
     hypes = load_yaml(args.hypes_yaml, args.model_dir)
@@ -299,7 +305,8 @@ def main(argv=None):
         torch.manual_seed(0)
         model = create_model(hypes, device=device)
     criterion = create_loss(hypes)
-    adapt = Adapt(hypes, model.agent_buckets)
+    adapt = Adapt(hypes, model.agent_buckets,
+                  host_decorate=not args.no_host_decorate)
     frozen = frozen_predicate(args, hypes)
     opt, sched = trainer.make_optimizer(hypes, model.named_parameters(),
                                         args.steps_per_epoch, frozen)

@@ -425,21 +425,33 @@ def test_models_have_the_interface_the_tools_use():
 
 def test_second_modality_still_raises_item_18():
     """The final four-modality model builds, its m3 branch SECOND (ported
-    with tests/test_torch_second.py); what item 18 still owes, the
-    raw-point input of a pillar encoder, raises naming it."""
+    with tests/test_torch_second.py). The raw-point input of a pillar
+    encoder, which raised naming item 18, is ported too: the narrowed
+    m1_pyramid on the JAX sampler's raw points (no host decoration) gives
+    the JAX model's raw-path heads."""
     hypes = yaml_utils.load_yaml(os.path.join(HEAL, "final_infer",
                                               "m1m2m3m4.yaml"))
     with torch.device("meta"):
         model = create_model(hypes, device="meta")
     assert isinstance(model.lidar_encoder("m3"), SECONDEncoder)
-    model = create_model(hypes_pair(narrowed_pyramid(M1_PYRAMID))[1],
-                         device="cpu")
-    with pytest.raises(NotImplementedError, match="item 18"):
-        model({"agent_mask": torch.ones(1, 2, dtype=torch.bool),
-               "pairwise_t_matrix": torch.eye(4).expand(1, 2, 2, 4, 4),
-               "modality_mask_m1": torch.ones(1, 2, dtype=torch.bool),
-               "points_m1": torch.zeros(1, 2, 10, 4),
-               "point_mask_m1": torch.ones(1, 2, 10, dtype=torch.bool)})
+    jh, ph = hypes_pair(narrowed_pyramid(M1_PYRAMID))
+    batch = trim_agent_slots(JaxScenes(scenes_config(
+        jh, jax_side=True)).sample(3, 1))
+    assert "points_m1" in batch and "decorated_m1" not in batch
+    jmodel = jax_create_model(jh)
+    jb = _jnp(batch)
+    variables = _random_variables(jax.eval_shape(lambda b: jmodel.init(
+        {"params": jax.random.PRNGKey(0)}, b, train=False), jb), 5)
+    jout = jax.jit(lambda v, b: jmodel.apply(v, b, train=False))(variables,
+                                                                 jb)
+    model = create_model(ph, device="cpu")
+    model.load_state_dict(flax_to_state_dict(model, variables))
+    with torch.inference_mode():
+        out = model(_torch(batch))
+    for key in ("cls_preds", "reg_preds", "dir_preds"):
+        want = np.asarray(jout[key])
+        assert np.abs(want).max() > 0
+        _close(out[key].numpy(), want, SLICE_TOL, key)
 
 
 # ---------------------------------------------------------------- labels

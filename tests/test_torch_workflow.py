@@ -186,11 +186,16 @@ def test_unported_flags_and_cores_raise(runs, tmp_path):
     y.write_text(yaml.safe_dump(runs.m1.raw))
     base = ["-y", str(y), "--dataset", "synthetic", "--device", "cpu",
             "--model_dir", str(tmp_path / "run")]
-    for extra, item in ((["--trainer", "gmatch"], 16),
-                        (["--no_host_decorate"], 18), (["--half"], None)):
+    for extra, item in ((["--trainer", "gmatch"], 16), (["--half"], None)):
         with pytest.raises(NotImplementedError) as exc:
             train_cli.main(base + extra)
         assert item is None or f"item {item}" in str(exc.value)
+    # the raw-point pillar path is ported (tests/test_torch_encoders.py):
+    # the run trains on raw points
+    train_cli.main(base[:-1] + [str(tmp_path / "raw"), "--no_host_decorate",
+                                "--epochs", "1", "--steps_per_epoch", "1",
+                                "--val_steps", "0"])
+    assert os.listdir(tmp_path / "raw")
     # distillation is ported (tests/test_torch_fusion.py); as the JAX CLI,
     # it needs a teacher
     with pytest.raises(SystemExit, match="teacher_ckpt"):
@@ -198,10 +203,11 @@ def test_unported_flags_and_cores_raise(runs, tmp_path):
     with pytest.raises(NotImplementedError, match="item 20"):
         train_cli.main(base[:2] + ["--dataset", "opv2v", "--device", "cpu",
                                    "--model_dir", str(tmp_path / "run")])
-    with pytest.raises(NotImplementedError, match="item 21"):
-        inference.main(["--model_dir", runs.m1.pdir, "--dataset",
-                        "synthetic", "--device", "cpu",
-                        "--save_vis_interval", "2"])
+    # the BEV snapshots are ported (tests/test_torch_tools.py)
+    inference.main(["--model_dir", runs.m1.pdir, "--dataset", "synthetic",
+                    "--device", "cpu", "--frames", "1", "--infer_info", "vis",
+                    "--save_vis_interval", "2"])
+    assert os.listdir(os.path.join(runs.m1.pdir, "vis")) == ["bev_00000.png"]
     # pose noise and delay are ported (tests/test_torch_robustness.py)
     for tag, extra in (("noise", ["--pos_std", "0.2"]),
                        ("delay", ["--delay", "100"])):
