@@ -304,6 +304,41 @@ Phases, each of which raises on failure:
      --added_cost rows; none may err; K4 held against its plain version on
      the last camera row's arguments); K3 and N1 held on the eval paths'
      arguments, K3b on the steps'.
+ 18. the real-data loaders, in their own process after phase 17's
+     (``chip_smoke.py --phase18 DIR``), fp32 with TF32 off, random weights
+     from seed 0: (a) an OPV2V-layout tree (binary .pcd, per-CAV yamls) and
+     a V2X-Real-layout tree (KITTI .bin, CAV ids 1, 2 and -1, objects of
+     every class name and two unknown ones, a validation scenario of
+     2023-04-07 that eval mode vc leaves out) written from seeds: a
+     training and a validation scenario, 3 CAVs, 12 and 2 timestamps, 80,000
+     points a cloud, 40 objects a scene; every sample of both loaders
+     timed (s/sample, the host data layer); (b) V2X-Real's multi-class
+     GenComm stage 1 (configs/v2xreal/gencomm/stage1/m1_att.yaml, a copy
+     pointed at the tree) through the train CLI (--dataset v2xreal, 2
+     epochs of 6 steps: K1, K1b, K2, K2b, K3, K3b launched, every logged
+     loss finite), a training cell on the CLI's first 1 + 2 batches and an
+     eval cell on the first validation frame (1 + 2 frames looped and
+     streamed, bit for bit, through the multi-class decode); K1, K2 (bit
+     for bit, twice) and K3 on the path's arguments and N1 on its
+     multi-class top-512 overlap matrix, against their plain versions and
+     timed; the profiles; heads card against CPU; K2, K1b, K2b and K3b on
+     the training cell's step against their plain versions; the loss
+     falling over 4 steps; one card-vs-CPU step on one loader sample of
+     the yaml cut to 25.6 x 12.8 m on the training path (host decoration,
+     K2, K2b), both steps on the CPU step's K2 rows (so its pillar maxima)
+     and ReLU gates, the jittered CPU step's canvas jittered where the
+     backbone takes it in fp32 besides its points (the rows' bf16 rounding
+     swallows a points-only jitter); the direction head, which the
+     multi-class loss does not reach, without a gradient on either side,
+     every other parameter held; the train CLI's own ms/step an epoch
+     (loading included) reported beside the cell's; the inference CLI on the
+     trained run, and on a copy with seeded weights (the regression scaled
+     down, each slot's own class raised, 2,048 boxes into N1) on the card
+     and with --device cpu (an AP at IoU 0.3 above 0):
+     per-class APs and mAPs within 1e-6, heads within 1e-3, the same kept
+     boxes; (c) OPV2V's stage1/m1_att.yaml the same way through the CLIs
+     (--dataset opv2v; its cells timed, not checked again: the flagship's
+     model).
 K1b's row counts the launches of its dx sum ("dx_sum_launches") and
 carries the repeat-step counts ("repeat_step").
 A profile's device busy time is the union of its kernels' intervals, the
@@ -436,6 +471,11 @@ CHOICE_FLIPS = 16
 SEGMENT_FLIPS = 1e-3
 # and of a ReLU's entries whose gate may differ (cpu_choices with gates)
 GATE_FLIPS = 1e-4
+# and of K2's bf16 rows' entries (the host decoration's path) that may
+# differ where a step takes the CPU step's rows (cpu_choices with rows),
+# each by one bf16 step besides: the rounding of fp32 values that lie near
+# the midpoint of two bf16 numbers, which the fp32 sums' order moves
+ROW_FLIPS = 1e-3
 # CodeFilling's eval codes, card against CPU: at most CODE_FLIPS differ, each
 # where the two codes' CPU distances lie within CODE_TIE x max(1, d), a
 # rounding-level gap (the card has read one flip, at an exact tie)
@@ -636,6 +676,18 @@ def device_launches(fn, n=20):
             and ev.self_device_time_total > 0}, counted
 
 
+def cold_device_ms(fn):
+    """Device ms per call of ``fn``'s own launches with the L2 evicted
+    before each call (``time_ms``'s buffer rewritten, its kernel left out
+    of the sum), or None if the profiler saw none of them."""
+    import torch
+
+    if not _L2_FLUSH:
+        _L2_FLUSH.append(torch.zeros(32 << 20, device="cuda"))
+    split, _ = device_launches(lambda: (_L2_FLUSH[0].add_(1.0), fn()))
+    return per_call({k: v for k, v in split.items() if "at::" not in k}) or None
+
+
 def per_call(split):
     """Device ms per call of a ``device_launches`` split: each launch's mean
     time times its launches a call, rounded and at least one."""
@@ -737,8 +789,10 @@ def bound(flops, moved, peak=PEAK_FP32_FLOPS):
 
 def log_rows(rows):
     for row in rows:
-        cold = (f" (cold L2 {row['cold_ms']:.4f} ms, route "
-                f"{row['path_route']})" if "cold_ms" in row else "")
+        cold = (f" (cold L2 {row['cold_ms']:.4f} ms"
+                + (f", {row['cold_device_ms']} on the device"
+                   if "cold_device_ms" in row else "")
+                + f", route {row['path_route']})" if "cold_ms" in row else "")
         short = (" (profiler records short of the launches)"
                  if row.get("records_short") else "")
         log(f"  {row['name']}: kernel {row['ms']:.4f} ms by events, "
@@ -797,7 +851,8 @@ def add_rows(kernel_rows, path, rows):
             first.setdefault("other_paths", {})[path] = {
                 k: row[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms",
-                                    "cold_ms", "path_route", "route_launches",
+                                    "cold_ms", "cold_device_ms",
+                                    "path_route", "route_launches",
                                     "turns_ms", "device_ms", "dtype",
                                     "library_device_ms", "records_short",
                                     "differ_from_fp32_kernel", "graph_ms",
@@ -1189,6 +1244,8 @@ def check_warp(inputs, where, graph=False):
         replaces="gencomm_tpu/ops/warp_pallas.py:43",
         max_abs_err=err,
         ms=sum(k3_ms) / len(k3_ms),
+        cold_ms=time_ms(lambda: warp_affine(src, theta), cold=True),
+        cold_device_ms=cold_device_ms(lambda: warp_affine(src, theta)),
         plain_ms=time_ms(lambda: warp_affine_plain(src, theta)),
         bound_ms=k3_bytes / PEAK_BYTES * 1e3, bound_by="bytes",
         library_ms=sum(lib_ms) / len(lib_ms),
@@ -2002,16 +2059,16 @@ def time_train(smi, dev, label, model_kw, hypes, feature_shape, hosts,
 
 def check_train(cell, targets, check, exact_zero=(), jitter=scale_jitter,
                 explain_offsets=False, step_cell=None, same_choices=False,
-                operators=False):
+                operators=False, same_rows=False, no_grad=()):
     """A training path's checks, after every path is timed: the kernels
     named by ``targets`` on the arguments the train step gives them
     (``check``), the step's profile (its busy ms in ``cell.busy``), the
     loss falling on one batch, and one step on the card against the CPU
     (``hold_step`` on ``step_cell``, default ``cell``, with
-    ``exact_zero``, ``jitter`` and ``explain_offsets``; with
-    ``same_choices`` both steps take the CPU step's discrete choices and
-    ReLU gates; ``operators``: the profile also traces the host's
-    operators). Returns the kernels' rows."""
+    ``exact_zero``, ``jitter``, ``explain_offsets``, ``same_rows`` and
+    ``no_grad``; with ``same_choices`` both steps take the CPU step's
+    discrete choices and ReLU gates; ``operators``: the profile also traces
+    the host's operators). Returns the kernels' rows."""
     t_phase = time.perf_counter()
     model, batches, noises_dev = cell.model, cell.batches, cell.noises_dev
 
@@ -2037,7 +2094,8 @@ def check_train(cell, targets, check, exact_zero=(), jitter=scale_jitter,
     if not totals[-1] < totals[0]:
         raise AssertionError(f"the loss did not fall: {totals}")
     hold_step(step_cell or cell, exact_zero, jitter, explain_offsets,
-              same_choices=same_choices, same_gates=same_choices)
+              same_choices=same_choices, same_gates=same_choices,
+              same_rows=same_rows, no_grad=no_grad)
     phase_done(f"{cell.label} training, checks", t_phase)
     return rows
 
@@ -2063,17 +2121,27 @@ class cpu_choices:
     (as ``segment_max`` shares it). ``hold`` fails the run when a call of
     the picks or codes flips more than CHOICE_FLIPS, one of the segment
     max flips more than SEGMENT_FLIPS of its segment channels, or any flip
-    is loose."""
+    is loose. With ``rows`` the host decoration's path takes the CPU step's
+    bf16 rows into K2 (``point_pillar.pillar_canvas``), so that K2's maxima
+    are the CPU step's: each entry whose own rounding differs must lie one
+    bf16 step from the taken one, or within 2^-8 of the call's largest row
+    value (a step floored there, as K1 bf16's checks floor it: a value near
+    zero that the norm's cancellation leaves with few bits moves by more
+    steps), else it is loose; at most ROW_FLIPS of a call's entries may
+    differ."""
 
-    def __init__(self, store, replay=False, gates=False):
-        self.store, self.replay, self.gates = store, replay, gates
+    def __init__(self, store, replay=False, gates=False, rows=False):
+        self.store, self.replay = store, replay
+        self.gates, self.rows = gates, rows
         self.flips, self.loose, self.worst = [], 0, 0.0
         self.max_flips, self.max_share = [], 0.0
         self.gate_flips, self.gate_share = [], 0.0
+        self.row_flips, self.row_share = [], 0.0
 
     def _next(self, device):
         return (t.to(device) for t in self.store[
-            len(self.flips) + len(self.max_flips) + len(self.gate_flips)])
+            len(self.flips) + len(self.max_flips) + len(self.gate_flips)
+            + len(self.row_flips)])
 
     def take(self, own, values):
         values = values.detach()
@@ -2161,6 +2229,33 @@ class cpu_choices:
             self.worst = max(self.worst, float(gap.max()))
         return torch.where(chosen, x, torch.zeros_like(x))
 
+    def take_rows(self, canvas, rows, gids, n_agents, ncell):
+        import torch
+
+        if not self.replay:
+            own = rows.detach().cpu()
+            self.store.append((own, own))
+            return canvas(rows, gids, n_agents, ncell)
+        chosen, _ = self._next(rows.device)
+        own = rows.detach()
+        differ = own != chosen
+        self.row_flips.append(int(differ.sum()))
+        self.row_share = max(self.row_share,
+                             self.row_flips[-1] / max(own.numel(), 1))
+        if self.row_flips[-1]:
+            # bf16 steps between the two roundings (same sign: the bit
+            # patterns' distance)
+            steps = (own.view(torch.int16).int()
+                     - chosen.view(torch.int16).int()).abs()[differ]
+            gap = (own.float() - chosen.float()).abs()[differ]
+            floor = 2.0 ** -8 * float(chosen.float().abs().max())
+            self.loose += int(((steps > 1) & (gap > floor)).sum())
+            self.worst = max(self.worst, float(gap.max()))
+        # the taken values (exact: two bf16 numbers differ by an fp32 one),
+        # the gradient of the own rows
+        return canvas((rows.float() + (chosen.float() - own.float())).to(
+            rows.dtype), gids, n_agents, ncell)
+
     def hold(self, label):
         log(f"{label} on the CPU step's discrete choices: "
             f"{len(self.flips)} calls of the picks and codes taken, pixels "
@@ -2171,25 +2266,31 @@ class cpu_choices:
             f"the most {self.max_share:.2e}); {len(self.gate_flips)} ReLU "
             f"gates taken, {sum(self.gate_flips)} entries open on one side "
             f"only (at most {GATE_FLIPS:.0e} of a call's, the most "
-            f"{self.gate_share:.2e}); {self.loose} of them not a near-tie, "
+            f"{self.gate_share:.2e}); {len(self.row_flips)} calls of K2's "
+            f"bf16 rows taken, entries rounded otherwise {self.row_flips} "
+            f"(at most {ROW_FLIPS:.0e} of a call's, the most "
+            f"{self.row_share:.2e}); {self.loose} of them not a near-tie, "
             f"the widest own-value gap {self.worst:.3e}")
         if (max(self.flips, default=0) > CHOICE_FLIPS
                 or self.max_share > SEGMENT_FLIPS
-                or self.gate_share > GATE_FLIPS or self.loose):
+                or self.gate_share > GATE_FLIPS
+                or self.row_share > ROW_FLIPS or self.loose):
             raise AssertionError(
                 f"{label}: discrete choices differ from the CPU step's "
                 f"beyond near-ties: {self.flips}, {self.max_flips}, "
-                f"{self.gate_flips}, {self.loose} not near-ties")
+                f"{self.gate_flips}, {self.row_flips}, {self.loose} not "
+                "near-ties")
 
     def __enter__(self):
         import torch
         from gencomm_tpu_torch.models import codebook
-        from gencomm_tpu_torch.models.encoders import lss
+        from gencomm_tpu_torch.models.encoders import lss, point_pillar
         from gencomm_tpu_torch.ops import voxel
 
         self.real = (lss.LSSEncoder.topk_picks, codebook.hard_index,
-                     voxel.segment_max, torch.relu)
-        picks, index, segment_max, relu = self.real
+                     voxel.segment_max, torch.relu,
+                     point_pillar.pillar_canvas)
+        picks, index, segment_max, relu, canvas = self.real
         lss.LSSEncoder.topk_picks = (
             lambda enc, depth: self.take(picks(enc, depth), depth))
         codebook.hard_index = (
@@ -2197,30 +2298,40 @@ class cpu_choices:
         voxel.segment_max = functools.partial(self.take_max, segment_max)
         if self.gates:
             torch.relu = functools.partial(self.take_gate, relu)
+        if self.rows:
+            point_pillar.pillar_canvas = functools.partial(self.take_rows,
+                                                           canvas)
         return self
 
     def __exit__(self, *exc):
         import torch
         from gencomm_tpu_torch.models import codebook
-        from gencomm_tpu_torch.models.encoders import lss
+        from gencomm_tpu_torch.models.encoders import lss, point_pillar
         from gencomm_tpu_torch.ops import voxel
 
-        (lss.LSSEncoder.topk_picks, codebook.hard_index,
-         voxel.segment_max, torch.relu) = self.real
+        (lss.LSSEncoder.topk_picks, codebook.hard_index, voxel.segment_max,
+         torch.relu, point_pillar.pillar_canvas) = self.real
         return False
 
 
 def hold_step(cell, exact_zero=(), jitter=scale_jitter,
-              explain_offsets=False, same_choices=False, same_gates=False):
+              explain_offsets=False, same_choices=False, same_gates=False,
+              same_rows=False, no_grad=()):
     """One step on the card and on the port's CPU from ``cell.fresh``, on
     the path's first batch: the losses within LOSS_TOL, the gradients
     within GRAD_FACTOR x the CPU's own spread, the CPU step once more with
     its input (``jitter_key``, a key or a tuple of keys, each jittered)
     jittered by ``jitter(x, noise)``, noise JITTER (relative) normal draws,
     which measures how far the gradients move with the last bits of the
-    inputs. Each parameter's gap against its own spread is logged, the
-    worst first. Only the trainable parameters are held (a freeze
-    schedule's have no gradient). The parameters named by a suffix in
+    inputs; where the cell names a ``jitter_module`` (a submodule's dotted
+    name), that module's first input is jittered too (``scale_jitter``), for
+    an input whose jitter does not survive a rounding before it. Each
+    parameter's gap against its own spread is logged, the worst first.
+    Only the trainable parameters are held (a freeze schedule's have no
+    gradient); those named by a prefix in ``no_grad`` are reached by no
+    loss term and must have no gradient on either side, and any other
+    trainable parameter without a gradient fails. The numbers held are
+    left in ``cell.step_gap``. The parameters named by a suffix in
     ``exact_zero`` (``EXACT_ZERO_GRADS``) are logged, not held: their
     gradients are zero in exact arithmetic and what is left is the noise
     of cancelling terms. With ``explain_offsets``, the step's K1b arguments
@@ -2233,7 +2344,7 @@ def hold_step(cell, exact_zero=(), jitter=scale_jitter,
     fp32 sums in another order (cuDNN's) can flip, as can a 1e-7 input
     jitter, and a flipped choice moves the gradients by more than rounding
     does, on either side of the comparison. ``same_gates`` takes the CPU
-    step's ReLU gates as well."""
+    step's ReLU gates as well, ``same_rows`` its K2 rows (``cpu_choices``)."""
     import contextlib
     import torch
     from gencomm_tpu_torch.ops import deform_conv
@@ -2246,8 +2357,8 @@ def hold_step(cell, exact_zero=(), jitter=scale_jitter,
         out[side] = step(batch, noises=noises)
 
     def choices(replay):
-        return (cpu_choices(store, replay, same_gates) if same_choices
-                else contextlib.nullcontext())
+        return (cpu_choices(store, replay, same_gates, same_rows)
+                if same_choices else contextlib.nullcontext())
 
     store = []
     cpu_batch = batch_to_device(cell.hosts[0], "cpu")
@@ -2277,19 +2388,48 @@ def hold_step(cell, exact_zero=(), jitter=scale_jitter,
     for key in keys:
         noise = JITTER * torch.randn(cpu_batch[key].shape, generator=jgen)
         jittered[key] = jitter(cpu_batch[key], noise)
+
+    def jitter_input(module, args):
+        noise = JITTER * torch.randn(args[0].shape, generator=jgen)
+        return (scale_jitter(args[0], noise),) + args[1:]
+
+    module = getattr(cell, "jitter_module", None)
+    hook = (jit_model.get_submodule(module).register_forward_pre_hook(
+        jitter_input) if module else None)
     with choices(True) as replay:
         jit_k1b = record_calls(k1b, lambda: jit_step(jittered,
                                                      noises=cell.noises))
+    if hook is not None:
+        hook.remove()
     if same_choices:
         replay.hold("jittered CPU step")
     log(f"CPU step took {cpu_s:.1f} s")
     # the trainable parameters (a freeze schedule leaves the others without
-    # a gradient)
+    # a gradient), less those named in no_grad, which no loss term reaches
+    unreached = sorted(n for n, p in cpu_model.named_parameters()
+                       if p.requires_grad and n.startswith(tuple(no_grad)))
+    if no_grad:
+        log(f"parameters no loss term reaches: {unreached}")
+        card_grads = dict(model.named_parameters())
+        cpu_grads = dict(cpu_model.named_parameters())
+        given = [n for n in unreached if card_grads[n].grad is not None
+                 or cpu_grads[n].grad is not None]
+        if not unreached or given:
+            raise AssertionError(f"of {no_grad}, {unreached} were found and "
+                                 f"{given} got a gradient")
     names = {n for n, p in cpu_model.named_parameters() if p.requires_grad
-             and not n.endswith(tuple(exact_zero))}
+             and n not in unreached and not n.endswith(tuple(exact_zero))}
+    card_params = dict(model.named_parameters())
+    missing = sorted(n for n, p in cpu_model.named_parameters()
+                     if p.requires_grad and n not in unreached
+                     and (p.grad is None or card_params[n].grad is None))
+    if missing:
+        raise AssertionError(f"trainable parameters without a gradient: "
+                             f"{missing}")
     if exact_zero:
         noise = [n for n, p in cpu_model.named_parameters()
-                 if p.requires_grad and n not in names]
+                 if p.requires_grad and n not in names
+                 and n not in unreached]
         log_grad_errors("zero in exact arithmetic (logged, not held): CPU "
                         f"vs CPU with a {JITTER:.0e} input jitter",
                         grad_errors(jit_model, cpu_model, set(noise)))
@@ -2310,6 +2450,9 @@ def hold_step(cell, exact_zero=(), jitter=scale_jitter,
     tol = GRAD_FACTOR * sensitivity + GRAD_FLOOR
     log(f"card vs CPU gradients: worst |card-cpu|/|cpu| (L2) {worst:.3e}, "
         f"tol {GRAD_FACTOR} x {sensitivity:.3e} + {GRAD_FLOOR:.0e}")
+    cell.step_gap = dict(worst=worst, sensitivity=sensitivity, tol=tol,
+                         worst_ratios=[(n, gap[n][0], spread[n][0])
+                                       for _, n in ratios[:5]])
     if explain_offsets:
         for label, args, errs in (("card", card_k1b, gap),
                                   ("jittered CPU", jit_k1b, spread)):
@@ -3818,6 +3961,18 @@ BASELINE_WORKFLOW_STEPS = 4
 BASELINE_WORKFLOW_FRAMES = 2
 
 
+def host_noise_draw(real_draw):
+    """``GenCommDiffusion.draw_noises`` (``real_draw``) drawing a frame's
+    diffusion noise from the host generator seeded with the frame's seed, so
+    that the card's and the CPU's evaluations of a frame share it."""
+    import torch
+
+    def draw(self, shape, generator, device):
+        g = torch.Generator().manual_seed(generator.initial_seed())
+        return [z.to(device) for z in real_draw(self, shape, g, "cpu")]
+    return draw
+
+
 class _Tee:
     """Writes to a buffer and to the process's stdout."""
 
@@ -3940,10 +4095,7 @@ def workflow(root: str) -> dict:
     # a frame's diffusion noise from the host generator, seeded with the
     # frame's seed, for the card's and the CPU's evaluation alike
     real_draw = GenCommDiffusion.draw_noises
-
-    def host_drawn(self, shape, generator, device):
-        g = torch.Generator().manual_seed(generator.initial_seed())
-        return [z.to(device) for z in real_draw(self, shape, g, "cpu")]
+    host_drawn = host_noise_draw(real_draw)
 
     # the heads of every frame an inference run decodes, by tool
     heads, real_detect = {}, InferencePipeline._detect
@@ -4967,9 +5119,10 @@ TOOL_ITERS = 3
 
 class _Tool:
     """Runs a tool's ``main(argv)`` on the card: its output echoed, its
-    wall time and kernel launches logged and kept."""
+    wall time and kernel launches logged (under ``phase``) and kept."""
 
-    def __init__(self):
+    def __init__(self, phase="phase 17"):
+        self.phase = phase
         self.walls, self.launches, self.texts = {}, {}, {}
 
     def __call__(self, label, main_fn, argv):
@@ -4979,7 +5132,7 @@ class _Tool:
         import torch
         from gencomm_tpu_torch.ops import _cuda
 
-        log(f"phase 17: {label}: {' '.join(argv)}")
+        log(f"{self.phase}: {label}: {' '.join(argv)}")
         buf = io.StringIO()
         reset_launch_counts()
         t0 = time.perf_counter()
@@ -4989,7 +5142,7 @@ class _Tool:
         self.walls[label] = round(time.perf_counter() - t0, 3)
         self.texts[label] = buf.getvalue()
         self.launches[label] = {k: v for k, v in _cuda.LAUNCHES.items() if v}
-        log(f"phase 17: {label} took {self.walls[label]} s; launches "
+        log(f"{self.phase}: {label} took {self.walls[label]} s; launches "
             f"{self.launches[label]}")
         return result
 
@@ -5394,6 +5547,554 @@ def run_phase17():
     return result
 
 
+# ---------------------------------------------------------------- phase 18
+P18_YAMLS = {"v2xreal": "configs/v2xreal/gencomm/stage1/m1_att.yaml",
+             "opv2v": "configs/opv2v/gencomm/stage1/m1_att.yaml"}
+# the trees' size: 3 CAVs a scenario, 12 training and 2 validation
+# timestamps, 80,000 points a cloud (over the loaders' 40,000 cap) and 40
+# objects a scene within the 204.8 x 102.4 m range
+P18_CAVS, P18_POINTS, P18_OBJECTS = 3, 80000, 40
+P18_TIMESTAMPS = {"train": 12, "validate": 2}
+# the train CLI: 2 epochs of 6 steps (the 12 training frames at the yamls'
+# batch of 2: an epoch long enough that its loader still runs beside the
+# steps whose rate the CLI reports), the first 1 + 2 timed again by
+# time_train
+P18_EPOCHS, P18_STEPS = 2, 6
+P18_FRAMES = 2  # timed eval frames after one warm-up, looped and streamed
+# the card-vs-CPU step on the V2X-Real yaml cut to 1/64 of its area, one
+# loader sample, on the training path (the host decoration, K2 and K2b):
+# both steps take the CPU step's K2 rows and ReLU gates. A 1e-7 jitter of
+# the decorated points does not survive the rows' bf16 rounding (its
+# jittered CPU step moved no gradient past the encoder), so the jittered
+# CPU step also jitters the canvas where the backbone takes it in fp32
+P18_STEP_RANGE = [-12.8, -6.4, -15.0, 12.8, 6.4, 15.0]
+P18_JITTER_MODULE = "branch_m1.backbone"
+# the multi-class loss has no direction term: no loss term reaches the
+# direction head
+P18_NO_GRAD = ("heads.dir_head.",)
+# the evaluated copies: the regression scaled down (boxes near their
+# anchors, off the anchor grid, ROADMAP fault u), each anchor-class slot's
+# own class score raised and the first ANCHOR_TOPK boxes into N1, so that
+# the APs held are not all zeros (at 512 every V2X-Real AP was 0 at random
+# weights; at 2,048, on the CPU, vehicles' AP30 2e-4 and OPV2V's 0.0165)
+P18_REG_SCALE, P18_OWN_LOGIT = 0.02, 2.0
+P18_EVAL_KERNELS = ("deform_conv3x3", "pillar_canvas", "warp_affine",
+                    "nms_closure")
+P18_TRAIN_KERNELS = ("deform_conv3x3", "pillar_canvas", "warp_affine",
+                     "deform_conv3x3_bwd", "deform_conv3x3_bwd_dx",
+                     "pillar_canvas_bwd", "warp_affine_bwd")
+# V2X-Real's scenarios: a training one, a validation one and one of
+# 2023-04-07, which eval mode vc leaves out
+P18_V2XREAL_SCENES = {"train": ["2023-03-17-15-53-02_1_0"],
+                      "validate": ["2023-03-23-16-37-20_1_0",
+                                   "2023-04-07-15-01-07_1_0"]}
+# every raw class name of the vocabulary and two that no class takes
+P18_UNKNOWN = ("Tree", "TrafficCone")
+
+
+def _write_binary_pcd(path, pts):
+    """(N, 4) float32 points as a binary PCD (x y z intensity)."""
+    n = len(pts)
+    header = ("VERSION 0.7\nFIELDS x y z intensity\nSIZE 4 4 4 4\n"
+              "TYPE F F F F\nCOUNT 1 1 1 1\n"
+              f"WIDTH {n}\nHEIGHT 1\nVIEWPOINT 0 0 0 1 0 0 0\n"
+              f"POINTS {n}\nDATA binary\n")
+    with open(path, "wb") as f:
+        f.write(header.encode("ascii"))
+        f.write(pts.astype("<f4").tobytes())
+
+
+def write_tree(root, layout, seed):
+    """A scenario tree in a dataset's own layout (``layout``: "opv2v",
+    binary .pcd; "v2xreal", KITTI .bin, CAV ids 1, 2 and -1 and objects of
+    every class name plus unknown ones), from ``seed``: per split its
+    scenarios (V2X-Real: P18_V2XREAL_SCENES), P18_CAVS CAVs within 30 m of
+    the first, P18_TIMESTAMPS[split] timestamps, P18_OBJECTS objects within
+    the range around the first CAV, moving 1 m a timestamp, and per CAV and
+    timestamp a yaml (lidar_pose, vehicles) and P18_POINTS points in the
+    CAV's frame, half on the objects, half on the ground within 100 m.
+    Returns the number of files written."""
+    import numpy as np
+    import yaml
+    from gencomm_tpu_torch.data.v2xreal import SUPER_CLASS_MAP
+    from gencomm_tpu_torch.utils.transformation_utils import x_to_world
+
+    rng = np.random.RandomState(seed)
+    names = [n for ns in SUPER_CLASS_MAP.values() for n in ns] \
+        + list(P18_UNKNOWN)
+    sizes = {sup: s for sup, s in (("vehicle", (4.2, 1.8, 1.5)),
+                                   ("pedestrian", (0.8, 0.6, 1.7)),
+                                   ("truck", (8.0, 2.8, 3.0)))}
+    sup_of = {n: sup for sup, ns in SUPER_CLASS_MAP.items() for n in ns}
+    cav_ids = (["1", "2", "-1"] if layout == "v2xreal"
+               else ["641", "650", "659"])[:P18_CAVS]
+    files = 0
+    for split, n_ts in P18_TIMESTAMPS.items():
+        scenes = (P18_V2XREAL_SCENES[split] if layout == "v2xreal"
+                  else [f"2021_08_2{3 if split == 'train' else 4}_scene"])
+        for sc in scenes:
+            ego = np.array([rng.uniform(-50, 50), rng.uniform(-50, 50), 1.9,
+                            0.0, rng.uniform(-180, 180), 0.0])
+            poses = [ego]
+            for c in range(1, P18_CAVS):
+                p = ego.copy()
+                p[:2] += rng.uniform(-30, 30, 2) / np.sqrt(2)
+                p[2] = 4.5 if cav_ids[c].startswith("-") else 1.9
+                p[4] = rng.uniform(-180, 180)
+                poses.append(p)
+            # objects in the first CAV's frame, then in the world
+            e2w = x_to_world(ego)
+            loc = np.stack([rng.uniform(-95, 95, P18_OBJECTS),
+                            rng.uniform(-48, 48, P18_OBJECTS),
+                            np.zeros(P18_OBJECTS), np.ones(P18_OBJECTS)], 1)
+            loc = (loc @ e2w.T)[:, :3]
+            loc[:, 2] = 0.0
+            yaw = rng.uniform(-180, 180, P18_OBJECTS)
+            kinds = [names[i % len(names)] for i in range(P18_OBJECTS)]
+            if layout == "opv2v":
+                kinds = ["Car"] * P18_OBJECTS
+            dims = np.array([sizes.get(sup_of.get(k), (0.6, 0.6, 1.2))
+                             for k in kinds]) * rng.uniform(0.9, 1.1,
+                                                            (P18_OBJECTS, 3))
+            for t in range(n_ts):
+                ts = f"{2 * t:06d}"
+                heading = np.radians(yaw)
+                at = loc + t * np.stack([np.cos(heading), np.sin(heading),
+                                         np.zeros_like(heading)], 1)
+                vehicles = {}
+                for k in range(P18_OBJECTS):
+                    obj = {"location": [float(v) for v in at[k]],
+                           "angle": [0.0, float(yaw[k]), 0.0],
+                           "center": [0.0, 0.0, float(dims[k, 2] / 2)],
+                           "extent": [float(v) for v in dims[k] / 2]}
+                    if layout == "v2xreal":
+                        obj["obj_type"] = kinds[k]
+                    vehicles[1000 + k] = obj
+                for cav, pose in zip(cav_ids, poses):
+                    pose_t = pose + np.array([0.5 * t, 0, 0, 0, 0, 0])
+                    cav_dir = os.path.join(root, split, sc, cav)
+                    os.makedirs(cav_dir, exist_ok=True)
+                    with open(os.path.join(cav_dir, f"{ts}.yaml"), "w") as f:
+                        yaml.safe_dump({"lidar_pose": [float(v)
+                                                       for v in pose_t],
+                                        "vehicles": vehicles}, f)
+                    half = P18_POINTS // 2
+                    which = rng.randint(0, P18_OBJECTS, half)
+                    c, s = np.cos(heading[which]), np.sin(heading[which])
+                    u = rng.uniform(-0.5, 0.5, (half, 3)) * dims[which]
+                    on_obj = at[which] + np.stack(
+                        [c * u[:, 0] - s * u[:, 1], s * u[:, 0] + c * u[:, 1],
+                         u[:, 2] + dims[which, 2] / 2], 1)
+                    r = 100 * np.sqrt(rng.uniform(0, 1, P18_POINTS - half))
+                    a = rng.uniform(0, 2 * np.pi, P18_POINTS - half)
+                    ground = np.stack([pose_t[0] + r * np.cos(a),
+                                       pose_t[1] + r * np.sin(a),
+                                       rng.normal(0, 0.05, len(r))], 1)
+                    world = np.concatenate([on_obj, ground])
+                    hom = np.concatenate([world, np.ones((len(world), 1))], 1)
+                    local = (hom @ np.linalg.inv(x_to_world(pose_t)).T)[:, :3]
+                    pts = np.concatenate(
+                        [local, rng.uniform(0, 1, (len(local), 1))],
+                        1).astype(np.float32)
+                    if layout == "v2xreal":
+                        pts.tofile(os.path.join(cav_dir, f"{ts}.bin"))
+                    else:
+                        _write_binary_pcd(os.path.join(cav_dir, f"{ts}.pcd"),
+                                          pts)
+                    files += 2
+    return files
+
+
+def p18_yaml(root, name, tree):
+    """A copy of P18_YAMLS[name] with root_dir and validate_dir pointed at
+    ``tree``; returns its path."""
+    import yaml
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(repo, P18_YAMLS[name])) as f:
+        raw = yaml.safe_load(f)
+    raw["root_dir"] = os.path.join(tree, "train")
+    raw["validate_dir"] = os.path.join(tree, "validate")
+    os.makedirs(os.path.join(root, name), exist_ok=True)
+    path = os.path.join(root, name, f"{name}_m1_att.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f)
+    return path
+
+
+def loader_seconds(name, hypes):
+    """Phase 18 (a)-(c): every sample of a dataset's training and
+    validation loaders, timed (the host data layer): s/sample, the points
+    each keeps, the GT boxes and classes. V2X-Real's validation set must
+    leave 2023-04-07 out, its GT hold every class and no unknown name."""
+    import numpy as np
+    from gencomm_tpu_torch.tools import train
+
+    out = {}
+    for split, is_train in (("train", True), ("validate", False)):
+        ds = train.build_dataset(hypes, is_train, name)
+        t0 = time.perf_counter()
+        samples = [ds[i] for i in range(len(ds))]
+        batch = ds.collate(samples)
+        s = (time.perf_counter() - t0) / len(samples)
+        kept = batch["point_mask_m1"].sum(-1)
+        n_gt = batch["gt_mask"].sum(-1)
+        log(f"phase 18: {name} {split} loader: {len(samples)} samples, "
+            f"{s:.4f} s/sample (reading, labels, collate), points kept an "
+            f"agent {kept.tolist()} (of {P18_POINTS}), GT boxes {n_gt.tolist()}"
+            f", scenarios {list(ds.scenario_database)}")
+        if not (kept.max() == min(P18_POINTS, ds.max_points)
+                and n_gt.min() > 0):
+            raise AssertionError(f"{name} {split}: points {kept}, GT {n_gt}")
+        if name == "v2xreal":
+            classes = set(batch["gt_classes"][batch["gt_mask"] > 0].tolist())
+            log(f"phase 18: v2xreal {split} GT classes {sorted(classes)}, "
+                f"labels {sorted(set(np.unique(batch['pos_equal_one']).tolist()))}")
+            if classes != {1, 2, 3}:
+                raise AssertionError(f"v2xreal {split}: GT classes {classes}")
+            if not is_train and (len(ds) != P18_TIMESTAMPS["validate"] or any(
+                    "2023-04-07" in sc for sc in ds.scenario_database)):
+                raise AssertionError("v2xreal eval kept the 2023-04-07 "
+                                     "scenario")
+        out[split] = round(s, 4)
+    return out
+
+
+def p18_train_cli(root, name, path, tool):
+    """Phase 18 (b), (c): the train CLI on a dataset's tree, P18_EPOCHS
+    epochs of P18_STEPS steps on the card: every kernel of
+    P18_TRAIN_KERNELS launched, every logged loss finite, the detection
+    and generation terms among them. Returns the run dir and the CLI's own
+    ms/step an epoch (its steps after the first, loading included)."""
+    from gencomm_tpu_torch.tools import train
+
+    run = os.path.join(root, name, "run")
+    label = f"train {name}"
+    tool(label, train.main, [
+        "-y", path, "--model_dir", run, "--dataset", name, "--device",
+        "cuda", "--epochs", str(P18_EPOCHS), "--steps_per_epoch",
+        str(P18_STEPS), "--val_steps", "1"])
+    missing = [k for k in P18_TRAIN_KERNELS if not tool.launches[label].get(k)]
+    if missing:
+        raise AssertionError(f"{label} launched none of {missing}")
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    terms = {k for r in recs for k in r}
+    log(f"phase 18: {label}: logged {recs}")
+    if not all(math.isfinite(v) for r in recs for v in r.values()) or not {
+            "train/cls_loss", "train/reg_loss", "train/gen_loss",
+            "val/total_loss"} <= terms:
+        raise AssertionError(f"{label}: logged losses {recs}")
+    return run, [r["train/ms_per_step"] for r in recs
+                 if "train/ms_per_step" in r]
+
+
+def p18_eval_copy(root, name, run):
+    """A run dir of the trained run's config with seeded weights (seed 0),
+    the heads' regression scaled by P18_REG_SCALE, each anchor-class slot's
+    own class logit raised by P18_OWN_LOGIT and ANCHOR_TOPK boxes into N1:
+    boxes near anchors of their class, so that APs are not all zeros at
+    random weights."""
+    from gencomm_tpu_torch.config.yaml_utils import save_yaml
+    from gencomm_tpu_torch.models import create_model
+    from gencomm_tpu_torch.train import checkpoint
+    from gencomm_tpu_torch.weights import random_state_dict
+
+    hypes = load_yaml(None, run)
+    hypes["postprocess"]["nms_topk"] = ANCHOR_TOPK
+    state = random_state_dict(create_model(hypes, device="cpu"), seed=0)
+    state["heads.reg_head.weight"].mul_(P18_REG_SCALE)
+    state["heads.reg_head.bias"].zero_()
+    c = int(hypes["postprocess"].get("num_class", 1))
+    bias = state["heads.cls_head.bias"].view(c, -1, c)
+    for k in range(c):
+        bias[k, :, k] += P18_OWN_LOGIT
+    out = os.path.join(root, name, "eval_copy")
+    os.makedirs(out, exist_ok=True)
+    save_yaml(hypes, os.path.join(out, "config.yaml"))
+    checkpoint.save_checkpoint(out, state, 0, epoch=0)
+    return out
+
+
+def p18_cli_eval(name, run, copy_dir, tool):
+    """Phase 18 (b), (c): the inference CLI on the trained run (the card)
+    and on the evaluated copy on the card and with --device cpu over the
+    validation frames, each frame's diffusion noise drawn from the host
+    generator with its seed: the copy's APs card = CPU within AP_TOL, its
+    heads of every frame within CPU_TOL x max(1, max|cpu|), the same number
+    of kept boxes. Returns the APs and the heads' error."""
+    from gencomm_tpu_torch.models.gencomm.diffusion import GenCommDiffusion
+    from gencomm_tpu_torch.pipeline import InferencePipeline
+    from gencomm_tpu_torch.tools import inference
+
+    real_draw, real_detect = GenCommDiffusion.draw_noises, \
+        InferencePipeline._detect
+    heads, dets, current = {}, {}, [None]
+
+    def recorded_detect(self, out, batch):
+        heads.setdefault(current[0], []).append(
+            {k: out[k].float().cpu() for k in ("cls_preds", "reg_preds",
+                                               "dir_preds")})
+        d = real_detect(self, out, batch)
+        dets.setdefault(current[0], []).append(d)
+        return d
+
+    GenCommDiffusion.draw_noises = host_noise_draw(real_draw)
+    InferencePipeline._detect = recorded_detect
+    aps = {}
+    try:
+        for label, d, dev in (("trained", run, "cuda"), ("copy", copy_dir,
+                                                         "cuda"),
+                              ("copy cpu", copy_dir, "cpu")):
+            current[0] = label
+            aps[label] = tool(f"inference {name} {label}", inference.main, [
+                "--model_dir", d, "--dataset", name, "--frames",
+                str(P18_TIMESTAMPS["validate"]), "--device", dev,
+                "--infer_info", label.replace(" ", "_")])
+    finally:
+        GenCommDiffusion.draw_noises = real_draw
+        InferencePipeline._detect = real_detect
+    if not all(math.isfinite(v) for a in aps.values() for v in a.values()):
+        raise AssertionError(f"{name}: APs {aps}")
+    worst = 0.0
+    for a, b in zip(heads["copy"], heads["copy cpu"]):
+        for key in a:
+            worst = max(worst, float((a[key] - b[key]).abs().max())
+                        / max(1.0, float(b[key].abs().max())))
+    kept = [(int(a.valid.sum()), int(b.valid.sum()))
+            for a, b in zip(dets["copy"], dets["copy cpu"])]
+    gaps = {k: abs(aps["copy"][k] - aps["copy cpu"][k]) for k in aps["copy"]}
+    log(f"phase 18: {name} inference, the copy card vs CPU over "
+        f"{len(heads['copy'])} frames: heads max |d| / max(1, max|cpu|) "
+        f"{worst:.3e} (tol {CPU_TOL:.0e}), kept boxes a frame {kept}, APs "
+        f"{aps['copy']} (CPU {aps['copy cpu']}; the trained run's "
+        f"{aps['trained']}), the largest AP gap {max(gaps.values()):.2e} "
+        f"(tol {AP_TOL:.0e})")
+    if len(heads["copy"]) != P18_TIMESTAMPS["validate"] or not \
+            worst <= CPU_TOL:
+        raise AssertionError(f"{name}: card and CPU heads disagree ({worst})")
+    if any(a != b for a, b in kept) or max(gaps.values()) > AP_TOL:
+        raise AssertionError(f"{name}: card and CPU detections disagree "
+                             f"({kept}, {gaps})")
+    ap30 = [v for k, v in aps["copy"].items() if k.endswith("ap30")]
+    if not max(ap30) > 0:
+        raise AssertionError(f"{name}: every AP at IoU 0.3 is 0: {aps}")
+    return {"aps": aps, "heads_err": worst, "kept": kept}
+
+
+def phase18(root: str) -> dict:
+    """Phase 18 in its own process, after phase 17's: the real-data loaders
+    (OPV2V and V2X-Real) on trees written in their own layouts, V2X-Real's
+    multi-class GenComm stage 1 and OPV2V's through the train and
+    inference CLIs on the card; raises on any failed check and returns the
+    numbers and the kernel rows (as [path, row] pairs). Every path is timed
+    before the process's first profiler session (ROADMAP p1)."""
+    import copy
+    import shutil
+    from types import SimpleNamespace
+
+    import torch
+    from gencomm_tpu_torch.data.postprocessor import (
+        generate_anchor_box, generate_anchor_box_multiclass,
+    )
+    from gencomm_tpu_torch.loss import create_loss
+    from gencomm_tpu_torch.models import create_model
+    from gencomm_tpu_torch.models.encoders import point_pillar
+    from gencomm_tpu_torch.models.fuse import fusion
+    from gencomm_tpu_torch.ops import (
+        _cuda, deform_conv, nms, pillar_canvas, warp,
+    )
+    from gencomm_tpu_torch.pipeline import batch_to_device
+    from gencomm_tpu_torch.tools import inference, train
+    from gencomm_tpu_torch.train import trainer
+    from gencomm_tpu_torch.weights import random_state_dict
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("phase 18 needs a CUDA device")
+    t_all = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda")
+    tool, rows, out = _Tool("phase 18"), [], {}
+    _cuda.build_all()
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+
+    # (a) the trees
+    t0 = time.perf_counter()
+    paths, hypes = {}, {}
+    for seed, name in enumerate(P18_YAMLS):
+        tree = os.path.join(root, f"{name}_tree")
+        n = write_tree(tree, name, seed=18 + seed)
+        paths[name] = p18_yaml(root, name, tree)
+        hypes[name] = load_yaml(paths[name])
+        log(f"phase 18: wrote the {name} tree ({n} files) in {tree}")
+    phase_done("phase 18 trees", t0)
+    out["loader_s_per_sample"] = {name: loader_seconds(name, hypes[name])
+                                  for name in P18_YAMLS}
+
+    # (b), (c): the train CLI on each tree
+    runs, cli_ms = {}, {}
+    for name in P18_YAMLS:
+        runs[name], cli_ms[name] = p18_train_cli(root, name, paths[name],
+                                                 tool)
+
+    # each dataset's training cell on the CLI's first 1 + 2 batches and
+    # eval cell on the first validation frame, as the inference CLI
+    # prepares it (V2X-Real's with its multi-class anchors and decode),
+    # timed; OPV2V's cells are the flagship's model on the loader's frames
+    cells = {}
+    for name in P18_YAMLS:
+        run_hypes = load_yaml(None, runs[name])
+        adapt = train.Adapt(run_hypes)
+        ds = train.build_dataset(run_hypes, True, name)
+        bs = run_hypes["train_params"]["batch_size"]
+        hosts = [adapt(b) for b in itertools.islice(
+            train.batches(ds, bs, 0, name), 3)]
+        log(f"phase 18: {name}'s CLI batches: agent slots "
+            f"{hosts[0]['agent_mask'].shape}, positive anchor slots "
+            f"{[int((h['pos_equal_one'] > 0).sum()) for h in hosts]}")
+        grid = _heads_grid_shape(run_hypes)
+        tr = time_train(smi, dev, name, {"hypes": run_hypes}, run_hypes,
+                        grid, hosts, P18_TRAIN_KERNELS, "decorated_m1",
+                        build=_hypes_model)
+        val = train.build_dataset(run_hypes, False, name)
+        pp = run_hypes["postprocess"]
+        anchors = (generate_anchor_box_multiclass(pp["anchor_args"],
+                                                  pp.get("order", "hwl"))[0]
+                   if name == "v2xreal" else generate_anchor_box(
+                       pp["anchor_args"], pp.get("order", "hwl")))
+        ev = setup_eval(dev, {"hypes": run_hypes}, grid,
+                        SimpleNamespace(anchors=anchors),
+                        adapt(val.collate([val[0]])), build=_hypes_model,
+                        postprocess=pp)
+        time_eval(smi, ev, name, P18_EVAL_KERNELS, frames=P18_FRAMES)
+        ev.pipe.graphs.clear()  # check_eval captures the frame anew (p9)
+        out[name] = {
+            "looped_ms": round(ev.ms, 3),
+            "streamed_ms": round(ev.stream_ms, 3),
+            "eval_launches": {k: v for k, v in ev.launches.items() if v},
+            "graph_launches": ev.stream_launches,
+            "ms_per_step": round(tr.ms, 3),
+            "cli_ms_per_step": cli_ms[name],
+            "step_launches": {k: v for k, v in tr.launches.items() if v}}
+        cells[name] = (run_hypes, grid, tr, ev)
+    run_hypes, grid, tr, ev = cells.pop("v2xreal")
+    del cells
+    torch.cuda.empty_cache()
+    # its card-vs-CPU step on the yaml cut to P18_STEP_RANGE, one sample
+    cut = inference.override_range(copy.deepcopy(run_hypes), P18_STEP_RANGE)
+    cut["train_params"]["batch_size"] = 1
+    cut_ds = train.build_dataset(cut, True, "v2xreal")
+    cut_host = train.Adapt(cut)(cut_ds.collate([cut_ds[0]]))
+    cut_state = random_state_dict(create_model(cut, device="cpu"), seed=0)
+
+    def fresh(device):
+        model = create_model(cut, device=device)
+        model.load_state_dict(cut_state)
+        model.train()
+        opt, sched = trainer.make_optimizer(cut, model.named_parameters(), 1)
+        return model, trainer.make_train_step(model, create_loss(cut), opt,
+                                              sched)
+
+    gen = torch.Generator().manual_seed(3)
+    noises = [torch.randn((cut_host["agent_mask"].size,)
+                          + _heads_grid_shape(cut), generator=gen)
+              for _ in range(3)]
+    tr.cut = SimpleNamespace(
+        label="v2xreal", dev=dev, hosts=[cut_host],
+        batches=[batch_to_device(cut_host, dev)], jitter_key="decorated_m1",
+        jitter_module=P18_JITTER_MODULE, noises=noises,
+        noises_dev=[z.to(dev) for z in noises], fresh=fresh)
+    log(f"phase 18: the card-vs-CPU step on the yaml cut to "
+        f"{P18_STEP_RANGE}: agent slots {cut_host['agent_mask'].shape}, "
+        f"{int((cut_host['pos_equal_one'] > 0).sum())} positive slots")
+
+    # (d) the kernels on this path's arguments, N1 on the multi-class
+    # top-512 overlap matrix; the profiles; card against CPU
+    path = "v2xreal eval (phase 18)"
+    ev_rows = check_eval(
+        smi, ev, "v2xreal",
+        [(point_pillar, "pillar_canvas"), (deform_conv, "deform_conv3x3"),
+         (fusion, "warp_affine")],
+        lambda inputs: [check_deform(inputs, "v2xreal eval"),
+                        check_pillar(inputs, "v2xreal eval"),
+                        check_warp(inputs, "v2xreal eval")])
+    seen = record_calls([(nms, "nms_closure")],
+                        lambda: ev.pipe.run(ev.batch, seed=0))
+    overlap, valid = seen["nms_closure"]
+    nms_row = check_nms(overlap, valid, "v2xreal eval", {})
+    fill_launches([nms_row], ev.launches, ev.routes, path)
+    rows += [(path, r) for r in ev_rows + [nms_row]]
+    # ROADMAP p2's limits on this path's arguments
+    vfe = run_hypes["model"]["args"]["m1"]["encoder_args"]["pillar_vfe"]
+    limits = {"K2 channels (even)": int(vfe["num_filters"][-1]),
+              "N1 K (<= 262,112)": int(valid.numel()),
+              "K3 N and H (<= 65,535)": [int(ev.n), grid[0]]}
+    log(f"phase 18: p2's limits on this path: {limits}")
+    # (e) the training checks: K2, K1b, K2b and K3b on the train step's
+    # arguments, the profile, the loss falling, the card-vs-CPU step on the
+    # cut yaml taking the CPU step's K2 rows (so its pillar maxima) and
+    # ReLU gates
+    where = "v2xreal train step (phase 18)"
+    train_rows = check_train(
+        tr, [(point_pillar, "pillar_canvas"),
+             (deform_conv, "deform_conv3x3_bwd"),
+             (pillar_canvas, "pillar_canvas_bwd"), (warp, "warp_affine_bwd")],
+        lambda inputs: [check_pillar(inputs, where),
+                        check_deform_bwd(inputs, where),
+                        check_pillar_bwd(inputs, where),
+                        check_warp_bwd(inputs, where)],
+        step_cell=tr.cut, same_choices=True, same_rows=True,
+        no_grad=P18_NO_GRAD)
+    rows += [(where, r) for r in train_rows]
+    out["v2xreal"]["cut_step"] = tr.cut.step_gap
+    out["v2xreal"].update(eval_busy_ms=round(ev.busy, 3),
+                          step_busy_ms=round(tr.busy, 3), p2_limits=limits)
+    del ev, tr
+    torch.cuda.empty_cache()
+
+    # (b), (c): the inference CLI, card against CPU
+    for name in P18_YAMLS:
+        out[name] = dict(out.get(name, {}), cli=p18_cli_eval(
+            name, runs[name], p18_eval_copy(root, name, runs[name]), tool))
+    out["walls"] = tool.walls
+    out["rows"] = rows
+    for name in P18_YAMLS:
+        r = out[name]
+        log(f"phase 18 {name}: looped {r['looped_ms']} ms/frame, streamed "
+            f"{r['streamed_ms']} ms/frame, {r['ms_per_step']} ms/step on "
+            f"loaded batches, the train CLI's {r['cli_ms_per_step']} ms/step "
+            f"an epoch (loading included), loader "
+            f"{out['loader_s_per_sample'][name]} s/sample on {smi}")
+    phase_done("phase 18", t_all)
+    return out
+
+
+def run_phase18():
+    """Phase 18 in its own process (``chip_smoke.py --phase18 DIR``), after
+    phase 17's has ended; its output echoed, its last line (the phase's
+    JSON) returned."""
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "phase18")
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--phase18", root],
+                          capture_output=True, text=True, timeout=600)
+    for line in proc.stdout.splitlines()[:-1]:
+        log(f"  18| {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 18 failed:\n{proc.stderr[-6000:]}")
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"phase 18: {json.dumps({k: v for k, v in result.items() if k != 'rows'})}")
+    phase_done("phase 18 (its process)", t_phase)
+    return result
+
+
 def run_workflow():
     """Phases 11, 12 (c), 13 (c), 14 (c), 15 (b) and 16 in their own
     process (``chip_smoke.py --workflow DIR``); its last line is the
@@ -5663,6 +6364,9 @@ def main() -> int:
              run_workflow()["robustness_rows"])
     for path, row in run_phase17()["rows"]:
         add_rows(kernel_rows, path, [row])
+    # phase 18's rows from its own process, after phase 17's
+    for path, row in run_phase18()["rows"]:
+        add_rows(kernel_rows, path, [row])
     return finish(smi, t_all, kernel_rows)
 
 
@@ -5690,6 +6394,9 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--phase17"]:
         print(json.dumps(phase17(sys.argv[2])), flush=True)
+        sys.exit(0)
+    if sys.argv[1:2] == ["--phase18"]:
+        print(json.dumps(phase18(sys.argv[2])), flush=True)
         sys.exit(0)
     if sys.argv[1:2] == ["--baseline-workflow"]:
         # phase 15 (b) alone

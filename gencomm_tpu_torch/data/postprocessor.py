@@ -11,7 +11,7 @@ head outputs).
 from __future__ import annotations
 
 import hashlib
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -344,6 +344,29 @@ class Detections(NamedTuple):
     boxes7: torch.Tensor     # (K, 7)
     scores: torch.Tensor     # (K,)
     valid: torch.Tensor      # (K,) bool
+    labels: torch.Tensor     # (K,) 1-indexed class ids (1 when single-class)
+
+
+def stack_detections(dets: Sequence[Detections]) -> Detections:
+    """Detections stacked on a new leading axis, field by field."""
+    return Detections(*(torch.stack(f) for f in zip(*dets)))
+
+
+# the sanity filters' bounds (largest x / y extent, lowest and highest z):
+# the reference's, and V2X-Real's relaxed ones (trucks exceed the 6 m cap
+# and roads span heights)
+SANITY = (6.0, -3.0, 1.0)
+SANITY_V2XREAL = (100.0, -100.0, 100.0)
+
+
+def _top_k(prob, score_threshold: float, topk: int):
+    """The top-K scores above the threshold (the rest zeroed) and their
+    indices; a stable sort keeps the lower index first among equal scores,
+    as jax.lax.top_k does."""
+    masked = torch.where(prob > score_threshold, prob, torch.zeros_like(prob))
+    k = min(topk, masked.shape[0])
+    top_scores, top_idx = torch.sort(masked, descending=True, stable=True)
+    return top_scores[:k], top_idx[:k]
 
 
 def decode_and_nms(cls_preds, reg_preds, dir_preds, anchors,
@@ -368,12 +391,7 @@ def decode_and_nms(cls_preds, reg_preds, dir_preds, anchors,
         yaw = box_utils.limit_period(yaw, 0.5, 2 * np.pi)
         boxes = torch.cat([boxes[:, :6], yaw[:, None]], dim=1)
 
-    masked = torch.where(prob > score_threshold, prob, torch.zeros_like(prob))
-    k = min(topk, masked.shape[0])
-    # a stable sort keeps the lower index first among equal scores, as
-    # jax.lax.top_k does
-    top_scores, top_idx = torch.sort(masked, descending=True, stable=True)
-    top_scores, top_idx = top_scores[:k], top_idx[:k]
+    top_scores, top_idx = _top_k(prob, score_threshold, topk)
     return _filter_and_nms(boxes[top_idx], top_scores,
                            top_scores > score_threshold,
                            transformation_matrix, gt_range, nms_thresh, order)
@@ -401,17 +419,172 @@ def decode_pixor_and_nms(cls_map, reg_map, anchors, transformation_matrix,
 
 
 def _filter_and_nms(top_boxes, top_scores, top_valid, transformation_matrix,
-                    gt_range, nms_thresh: float, order: str) -> Detections:
-    """The decoded top-K boxes -> corners in the target frame, the sanity
-    filters, the rotated NMS."""
+                    gt_range, nms_thresh: float, order: str,
+                    sanity=SANITY, top_labels=None) -> Detections:
+    """The decoded top-K boxes (and their labels, else class 1) -> corners
+    in the target frame, the sanity filters at ``sanity``'s bounds, the
+    rotated NMS."""
+    max_len, z_min, z_max = sanity
     corners = box_utils.boxes_to_corners_3d(top_boxes, order)
     corners = box_utils.project_box3d(corners, transformation_matrix)
-    keep = box_utils.remove_large_pred_bbx(corners)
-    keep &= box_utils.remove_bbx_abnormal_z(corners)
+    keep = box_utils.remove_large_pred_bbx(corners, max_len)
+    keep &= box_utils.remove_bbx_abnormal_z(corners, z_min, z_max)
     keep &= box_utils.mask_boxes_outside_range(corners, gt_range)
     top_valid &= keep
 
     ordr, kept = rotated_nms(corners[:, :4, :2], top_scores, top_valid,
                              nms_thresh)
     return Detections(corners3d=corners[ordr], boxes7=top_boxes[ordr],
-                      scores=top_scores[ordr], valid=kept)
+                      scores=top_scores[ordr], valid=kept,
+                      labels=(torch.ones_like(kept, dtype=torch.long)
+                              if top_labels is None else top_labels[ordr]))
+
+
+# ----------------------------------------------------------------------
+# V2X-Real's multi-class anchors, labels and decode
+# ----------------------------------------------------------------------
+
+def generate_anchor_box_multiclass(anchor_args: dict, order: str = "hwl"):
+    """Per-class anchor grids from ``anchor_generator_config`` (numpy):
+    (anchors (C, H', W', A, 7), matched thresholds (C,), unmatched
+    thresholds (C,), class names). Each class has its own sizes (l, w, h),
+    rotations, bottom height and IoU thresholds; ``align_center`` puts the
+    centres at cell midpoints. Every class must share one
+    ``feature_map_stride``, so that the classes' maps stack on one grid."""
+    cfgs = anchor_args["anchor_generator_config"]
+    rng_ = anchor_args["cav_lidar_range"]
+    vw, vh = anchor_args.get("vw", 0.4), anchor_args.get("vh", 0.4)
+    W = anchor_args.get("W", int(round((rng_[3] - rng_[0]) / vw)))
+    H = anchor_args.get("H", int(round((rng_[4] - rng_[1]) / vh)))
+    strides = {int(c.get("feature_map_stride", 4)) for c in cfgs}
+    if len(strides) != 1:
+        raise ValueError(f"the classes' feature_map_stride differ: {strides}")
+    stride = strides.pop()
+    gw, gh = W // stride, H // stride
+
+    out, matched, unmatched, names = [], [], [], []
+    for cfg in cfgs:
+        l, w, h = cfg["anchor_sizes"][0]
+        rots = cfg["anchor_rotations"]
+        z = float(cfg["anchor_bottom_heights"][0])
+        if cfg.get("align_center", True):
+            xs = (rng_[3] - rng_[0]) / gw
+            ys = (rng_[4] - rng_[1]) / gh
+            x = np.arange(rng_[0] + xs / 2, rng_[3], xs)[:gw]
+            y = np.arange(rng_[1] + ys / 2, rng_[4], ys)[:gh]
+        else:
+            x = np.linspace(rng_[0], rng_[3], gw)
+            y = np.linspace(rng_[1], rng_[4], gh)
+        cx, cy = np.meshgrid(x, y)  # (gh, gw)
+        anch = np.zeros((gh, gw, len(rots), 7), np.float32)
+        anch[..., 0] = cx[..., None]
+        anch[..., 1] = cy[..., None]
+        anch[..., 2] = z
+        if order == "hwl":
+            anch[..., 3:6] = (h, w, l)
+        elif order == "lhw":
+            anch[..., 3:6] = (l, h, w)
+        else:
+            raise ValueError(f"unknown box order {order}")
+        anch[..., 6] = np.asarray(rots, np.float32)
+        out.append(anch)
+        matched.append(float(cfg.get("matched_threshold", 0.6)))
+        unmatched.append(float(cfg.get("unmatched_threshold", 0.45)))
+        names.append(cfg.get("class_name", f"class{len(names)}"))
+    return (np.stack(out), np.asarray(matched, np.float32),
+            np.asarray(unmatched, np.float32), names)
+
+
+def generate_label_multiclass(gt_box_center, gt_classes, gt_mask,
+                              anchors_mc, matched, unmatched,
+                              order: str = "hwl") -> dict:
+    """Multi-class anchor targets (numpy). gt_box_center (max_num, 7),
+    gt_classes (max_num,) in 1..C, gt_mask (max_num,), anchors_mc (C, H',
+    W', A, 7). Class c's anchors are matched with class c's GT by standup
+    IoU: above ``matched[c]`` or the best anchor of a GT box positive, below
+    ``unmatched[c]`` for every box negative, else ignored. Returns
+    ``pos_equal_one`` (H', W', C*A) holding -1 (ignore), 0 (negative) or the
+    class id (positive), and ``targets`` (H', W', C*A*7), class-major on the
+    anchor axis."""
+    if order != "hwl":
+        raise ValueError(f"labels are generated for 'hwl' boxes, got {order!r}")
+    C = anchors_mc.shape[0]
+    fm_shape = anchors_mc.shape[1:3]
+    A = anchors_mc.shape[3]
+    labels_all, targets_all = [], []
+    valid = gt_mask == 1
+    for c in range(C):
+        gt_c = gt_box_center[valid & (gt_classes - 1 == c)]
+        labels = -np.ones((*fm_shape, A), np.float32)
+        targets = np.zeros((*fm_shape, A, 7), np.float32)
+        anchors_flat = anchors_mc[c].reshape(-1, 7)
+        anchors_d = np.sqrt(anchors_flat[:, 4] ** 2 + anchors_flat[:, 5] ** 2)
+        if gt_c.shape[0] == 0:
+            labels[...] = 0.0
+            labels_all.append(labels)
+            targets_all.append(targets)
+            continue
+        anchor_corners = box_utils.boxes_to_corners_3d(anchors_flat, order)
+        gt_corners = box_utils.boxes_to_corners_3d(gt_c, order)
+        iou = box_utils.aligned_iou_2d(
+            box_utils.corners_to_standup_2d(anchor_corners[:, :4]),
+            box_utils.corners_to_standup_2d(gt_corners[:, :4]))
+
+        id_highest = np.argmax(iou, axis=0)
+        id_highest_gt = np.arange(iou.shape[1])
+        has = iou[id_highest, id_highest_gt] > 0
+        id_highest, id_highest_gt = id_highest[has], id_highest_gt[has]
+        id_pos, id_pos_gt = np.where(iou > matched[c])
+        id_neg = np.where((iou < unmatched[c]).sum(axis=1) == iou.shape[1])[0]
+        id_pos = np.concatenate([id_pos, id_highest])
+        id_pos_gt = np.concatenate([id_pos_gt, id_highest_gt])
+        id_pos, index = np.unique(id_pos, return_index=True)
+        id_pos_gt = id_pos_gt[index]
+
+        ix, iy, iz = np.unravel_index(id_neg, (*fm_shape, A))
+        labels[ix, iy, iz] = 0.0
+        a = anchors_flat[id_pos]
+        d = anchors_d[id_pos]
+        g = gt_c[id_pos_gt]
+        ix, iy, iz = np.unravel_index(id_pos, (*fm_shape, A))
+        labels[ix, iy, iz] = float(c + 1)
+        targets[ix, iy, iz, 0] = (g[:, 0] - a[:, 0]) / d
+        targets[ix, iy, iz, 1] = (g[:, 1] - a[:, 1]) / d
+        targets[ix, iy, iz, 2] = (g[:, 2] - a[:, 2]) / a[:, 3]
+        targets[ix, iy, iz, 3] = np.log(g[:, 3] / a[:, 3])
+        targets[ix, iy, iz, 4] = np.log(g[:, 4] / a[:, 4])
+        targets[ix, iy, iz, 5] = np.log(g[:, 5] / a[:, 5])
+        targets[ix, iy, iz, 6] = g[:, 6] - a[:, 6]
+        labels_all.append(labels)
+        targets_all.append(targets)
+    return {
+        "pos_equal_one": np.concatenate(labels_all, axis=-1),
+        "targets": np.concatenate(targets_all, axis=-2).reshape(
+            (*fm_shape, C * A * 7)),
+    }
+
+
+def decode_and_nms_multiclass(cls_preds, reg_preds, anchors_mc,
+                              transformation_matrix, gt_range, *,
+                              score_threshold: float = 0.2,
+                              nms_thresh: float = 0.15, topk: int = 512,
+                              order: str = "hwl") -> Detections:
+    """Single-sample multi-class decode of (H', W', C*A*C) and (H', W',
+    C*A*7) head outputs with anchors (C, H', W', A, 7) on their device:
+    per anchor-class slot the sigmoid of its C class scores, their max (the
+    score) and argmax (the 1-indexed label); the anchor decode, without a
+    direction head; the top-K; V2X-Real's 100 m sanity filters and the
+    range mask; one rotated NMS over every class (N1 on the card). Reads
+    nothing back to the host, so ``run_stream`` captures it."""
+    C = anchors_mc.shape[0]
+    # (C, H', W', A, 7) -> (H' W' C A, 7): class-major in each cell, the
+    # heads' channel order
+    anchors = anchors_mc.permute(1, 2, 0, 3, 4).reshape(1, 1, -1, 7)
+    prob = torch.sigmoid(cls_preds.reshape(-1, C))
+    scores, labels = prob.max(dim=-1)
+    boxes = delta_to_boxes3d(reg_preds.reshape(1, 1, -1), anchors)
+    top_scores, top_idx = _top_k(scores, score_threshold, topk)
+    return _filter_and_nms(boxes[top_idx], top_scores,
+                           top_scores > score_threshold,
+                           transformation_matrix, gt_range, nms_thresh, order,
+                           SANITY_V2XREAL, labels[top_idx] + 1)

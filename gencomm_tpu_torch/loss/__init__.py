@@ -14,6 +14,12 @@ from gencomm_tpu_torch.loss.pyramid_loss import (
     PointPillarDepthLoss,
     PointPillarPyramidLoss,
 )
+from gencomm_tpu_torch.loss.v2xreal_loss import (
+    PointPillarV2XRealCodebookLoss,
+    PointPillarV2XRealGenCommLoss,
+    PointPillarV2XRealLoss,
+    PointPillarV2XRealMPDALoss,
+)
 from gencomm_tpu_torch.models.encoders.pixor import PixorLoss
 from gencomm_tpu_torch.registry import LOSSES
 
@@ -26,6 +32,12 @@ LOSSES.register("point_pillar_codebook_loss", PointPillarCodebookLoss)
 LOSSES.register("point_pillar_mpda_loss", PointPillarMPDALoss)
 LOSSES.register("adapter_loss", AdapterLoss)
 LOSSES.register("pixor_loss", PixorLoss)
+LOSSES.register("point_pillar_v2xreal_loss", PointPillarV2XRealLoss)
+LOSSES.register("point_pillar_v2xreal_gencomm_loss",
+                PointPillarV2XRealGenCommLoss)
+LOSSES.register("point_pillar_v2xreal_codebook_loss",
+                PointPillarV2XRealCodebookLoss)
+LOSSES.register("point_pillar_v2xreal_mpda_loss", PointPillarV2XRealMPDALoss)
 
 
 def build_loss(loss_hypes: dict):

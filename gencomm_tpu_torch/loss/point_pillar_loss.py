@@ -138,11 +138,8 @@ class PointPillarLoss:
 
 
 class PointPillarGenCommLoss(PointPillarLoss):
-    """Detection loss plus ``generate_weight`` x the generation MSE between
-    the encoder's feature and the generated one. ``gt_feature`` is not
-    detached (the reference's gradients reach the encoder through it too);
-    with ``feature_mask`` (valid agent slots) the MSE is normalized by the
-    valid slots times H * W * C."""
+    """Detection loss plus ``generate_weight`` x the generation MSE
+    (``add_generation_loss``)."""
 
     def __init__(self, args: dict):
         super().__init__(args)
@@ -150,24 +147,8 @@ class PointPillarGenCommLoss(PointPillarLoss):
 
     def __call__(self, output: dict, target: dict,
                  suffix: str = "") -> Dict[str, torch.Tensor]:
-        losses = super().__call__(output, target, suffix)
-        if "pred_feature" in output and "gt_feature" in output:
-            pred = output["pred_feature"].to(torch.float32)
-            gt = output["gt_feature"].to(torch.float32)
-            err = (pred - gt) ** 2
-            mask = output.get("feature_mask")
-            if mask is not None:
-                m = mask.reshape(mask.shape + (1,) * (err.dim() - mask.dim()))
-                err = err * m.to(err.dtype)
-                per_slot = int(np.prod(err.shape[mask.dim():]))
-                denom = (m.to(err.dtype).sum() * per_slot).clamp_min(1.0)
-                gen_loss = err.sum() / denom
-            else:
-                gen_loss = err.mean()
-            gen_loss = gen_loss * self.generate_weight
-            losses["gen_loss"] = gen_loss
-            losses["total_loss"] = losses["total_loss"] + gen_loss
-        return losses
+        return add_generation_loss(super().__call__(output, target, suffix),
+                                   output, self.generate_weight)
 
 
 class PointPillarDiscoNetLoss(PointPillarLoss):
@@ -204,40 +185,79 @@ class PointPillarCodebookLoss(PointPillarLoss):
 
     def __call__(self, output: dict, target: dict,
                  suffix: str = "") -> Dict[str, torch.Tensor]:
-        losses = super().__call__(output, target, suffix)
-        if "codebook_loss" in output:
-            losses["codebook_loss"] = output["codebook_loss"]
-            losses["total_loss"] = losses["total_loss"] + output["codebook_loss"]
-        return losses
+        return add_codebook_loss(super().__call__(output, target, suffix),
+                                 output)
 
 
 class PointPillarMPDALoss(PointPillarLoss):
-    """Detection loss plus MPDA's domain BCE on the per-pixel logits
-    ``da_feature`` (B, L, H, W, 1): target 1 on the ego's slot, 0 on the
-    collaborators', averaged over the valid slots (``agent_mask`` of the
-    target) times H * W, else over every entry. The gradient reversal in
-    ``DAImgHead`` makes it adversarial for the features."""
+    """Detection loss plus MPDA's domain BCE (``add_domain_loss``)."""
 
     def __call__(self, output: dict, target: dict,
                  suffix: str = "") -> Dict[str, torch.Tensor]:
-        losses = super().__call__(output, target, suffix)
-        if "da_feature" in output:
-            logits = output["da_feature"]
-            l = logits.shape[1]
-            labels = (torch.arange(l, device=logits.device) == 0).to(
-                logits.dtype)[None, :, None, None, None].expand(logits.shape)
-            bce = (logits.clamp_min(0) - logits * labels
-                   + torch.log1p(torch.exp(-logits.abs())))
-            mask = target.get("agent_mask")
-            if mask is not None:
-                m = mask[:, :, None, None, None].to(logits.dtype)
-                per_slot = int(np.prod(logits.shape[2:]))
-                da = (bce * m).sum() / (m.sum() * per_slot).clamp_min(1.0)
-            else:
-                da = bce.mean()
-            losses["da_loss"] = da
-            losses["total_loss"] = losses["total_loss"] + da
+        return add_domain_loss(super().__call__(output, target, suffix),
+                               output, target)
+
+
+def add_generation_loss(losses: dict, output: dict, weight: float) -> dict:
+    """``losses`` with ``weight`` x the generation MSE between the encoder's
+    feature and the generated one added as ``gen_loss``, where the output
+    has both. ``gt_feature`` is not detached (the reference's gradients
+    reach the encoder through it too); with ``feature_mask`` (valid agent
+    slots) the MSE is normalized by the valid slots times H * W * C."""
+    if "pred_feature" not in output or "gt_feature" not in output:
         return losses
+    pred = output["pred_feature"].to(torch.float32)
+    gt = output["gt_feature"].to(torch.float32)
+    err = (pred - gt) ** 2
+    mask = output.get("feature_mask")
+    if mask is not None:
+        m = mask.reshape(mask.shape + (1,) * (err.dim() - mask.dim()))
+        err = err * m.to(err.dtype)
+        per_slot = int(np.prod(err.shape[mask.dim():]))
+        denom = (m.to(err.dtype).sum() * per_slot).clamp_min(1.0)
+        gen_loss = err.sum() / denom
+    else:
+        gen_loss = err.mean()
+    gen_loss = gen_loss * weight
+    losses["gen_loss"] = gen_loss
+    losses["total_loss"] = losses["total_loss"] + gen_loss
+    return losses
+
+
+def add_codebook_loss(losses: dict, output: dict) -> dict:
+    """``losses`` with the output's ``codebook_loss`` added, where it has
+    one."""
+    if "codebook_loss" in output:
+        losses["codebook_loss"] = output["codebook_loss"]
+        losses["total_loss"] = losses["total_loss"] + output["codebook_loss"]
+    return losses
+
+
+def add_domain_loss(losses: dict, output: dict, target: dict) -> dict:
+    """``losses`` with MPDA's domain BCE on the per-pixel logits
+    ``da_feature`` (B, L, H, W, 1) added as ``da_loss``, where the output has
+    them: target 1 on the ego's slot, 0 on the collaborators', averaged over
+    the valid slots (``agent_mask`` of the target) times H * W, else over
+    every entry. The gradient reversal in ``DAImgHead`` makes it
+    adversarial for the features."""
+    if "da_feature" not in output:
+        return losses
+    logits = output["da_feature"]
+    l = logits.shape[1]
+    labels = (torch.arange(l, device=logits.device) == 0).to(
+        logits.dtype)[None, :, None, None, None].expand(logits.shape)
+    bce = (logits.clamp_min(0) - logits * labels
+           + torch.log1p(torch.exp(-logits.abs())))
+    mask = target.get("agent_mask")
+    if mask is not None:
+        m = mask[:, :, None, None, None].to(logits.dtype)
+        per_slot = int(np.prod(logits.shape[2:]))
+        da = (bce * m).sum() / (m.sum() * per_slot).clamp_min(1.0)
+    else:
+        da = bce.mean()
+    losses["da_loss"] = da
+    losses["total_loss"] = losses["total_loss"] + da
+    return losses
 
 
 class AdapterLoss:

@@ -217,9 +217,6 @@ class HeterModel(nn.Module):
                  stamp_args: Dict[str, Dict[str, Any]] | None = None,
                  device=None):
         super().__init__()
-        if num_class != 1:
-            raise NotImplementedError(
-                "multi-class heads are not ported yet (ROADMAP item 19)")
         if use_enhancer and not use_gencomm:
             raise NotImplementedError("the Enhancer runs only after GenComm")
         device = resolve_device(device)
@@ -301,11 +298,13 @@ class HeterModel(nn.Module):
         # agent-slot count (CoBEVT) takes that count alone
         slots = getattr(self.fusion_net, "fixed_agent_slots", None)
         self.agent_buckets = (slots,) if slots else AGENT_BUCKETS
-        self.heads = DetectionHeads(feat_ch, anchor_number, dir_bins)
+        self.heads = DetectionHeads(feat_ch, anchor_number, dir_bins,
+                                    num_class)
         # per-agent heads on the combined pre-generation feature, fp32
         # (gencomm_tpu/models/heter_baseline.py:403-413): late and no-fusion
         # inference decode them
-        self.heads_single = (DetectionHeads(feat_ch, anchor_number, dir_bins)
+        self.heads_single = (DetectionHeads(feat_ch, anchor_number, dir_bins,
+                                            num_class)
                              if supervise_single else None)
         self.eval()
         self.to(device)

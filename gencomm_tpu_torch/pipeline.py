@@ -7,7 +7,11 @@ heads in its frame, projects the boxes into the ego frame through
 ``pairwise_t_matrix[:, j, 0]``, masks the absent agents and runs one rotated
 NMS over the union, keeping the first ``min(topk, L * K)``. ``run`` takes
 one batch, ``run_stream`` a stack of frames, ``evaluate`` gives AP on
-synthetic scenes. Everything runs under ``torch.inference_mode()``. A
+synthetic scenes. A multi-class model (the postprocess block's
+``num_class`` > 1, V2X-Real) is decoded in ``intermediate`` mode by
+``decode_and_nms_multiclass`` from per-class anchors (C, H', W', A, 7),
+its detections carrying ``labels``. Everything runs under
+``torch.inference_mode()``. A
 ``half`` model runs unchanged: its heads are fp32, so decode and NMS run in
 fp32 either way.
 
@@ -33,7 +37,8 @@ import torch
 from gencomm_tpu_torch import resolve_device
 from gencomm_tpu_torch.data.decorate import decorate_modality
 from gencomm_tpu_torch.data.postprocessor import (
-    Detections, decode_and_nms, decode_pixor_and_nms,
+    Detections, decode_and_nms, decode_and_nms_multiclass,
+    decode_pixor_and_nms, stack_detections,
 )
 from gencomm_tpu_torch.native import PillarVoxelizer
 from gencomm_tpu_torch.ops import _cuda
@@ -76,10 +81,17 @@ class InferencePipeline:
         if mode != "intermediate" and model.heads_single is None:
             raise ValueError(f"{mode!r} inference decodes each agent's own "
                              "heads: build the model with supervise_single")
+        pp = postprocess_cfg
+        self.num_class = int(pp.get("num_class", 1))
+        if self.num_class > 1 and (mode != "intermediate"
+                                   or np.ndim(anchors) != 5):
+            raise ValueError(
+                "a multi-class model is decoded in 'intermediate' mode from "
+                "per-class anchors (C, H', W', A, 7); got mode "
+                f"{mode!r} and anchors of shape {np.shape(anchors)}")
         self.model, self.mode = model, mode
         self.anchors = torch.as_tensor(anchors, dtype=torch.float32,
                                        device=self.device)
-        pp = postprocess_cfg
         self.gt_range = tuple(pp["gt_range"])
         self.score_threshold = pp["target_args"]["score_threshold"]
         self.nms_thresh = pp["nms_thresh"]
@@ -92,6 +104,11 @@ class InferencePipeline:
         self.graphs: Dict[Any, FrameGraph] = {}  # frame signature -> capture
 
     def _decode(self, c, r, d, tfm) -> Detections:
+        if self.num_class > 1:
+            return decode_and_nms_multiclass(
+                c, r, self.anchors, tfm, self.gt_range,
+                score_threshold=self.score_threshold,
+                nms_thresh=self.nms_thresh, topk=self.topk)
         return decode_and_nms(c, r, d, self.anchors, tfm, self.gt_range,
                               score_threshold=self.score_threshold,
                               nms_thresh=self.nms_thresh, topk=self.topk,
@@ -118,8 +135,10 @@ class InferencePipeline:
                                   self.nms_thresh)
         kq = min(self.topk, corners.shape[0])
         order = order[:kq]
+        # a multi-class model is decoded in intermediate mode only
         return Detections(corners[order], boxes7[order], scores[order],
-                          keep[:kq])
+                          keep[:kq], torch.ones_like(keep[:kq],
+                                                     dtype=torch.long))
 
     def _detect(self, out, batch) -> Detections:
         """The model's output -> detections stacked over the batch."""
@@ -144,7 +163,7 @@ class InferencePipeline:
                 dets = [self._late(*a) for a in zip(
                     *single, batch["pairwise_t_matrix"].to(torch.float32),
                     batch["agent_mask"].bool())]
-        return Detections(*(torch.stack(f) for f in zip(*dets)))
+        return stack_detections(dets)
 
     def _frame(self, batch, noises=None, generator=None) -> Detections:
         return self._detect(self.model(batch, noises=noises,
@@ -208,7 +227,7 @@ class InferencePipeline:
             if self.device.type != "cuda":
                 dets = [self.run({k: v[f] for k, v in frames.items()}, seed=s)
                         for f, s in enumerate(seeds)]
-                return Detections(*(torch.stack(t) for t in zip(*dets)))
+                return stack_detections(dets)
             key = tuple(sorted((k, tuple(v.shape[1:]), v.dtype)
                                for k, v in frames.items()))
             fg = self.graphs.get(key)

@@ -1,10 +1,11 @@
-"""Evaluation entry point of the port: a trained run over synthetic frames,
-VOC AP at IoU 0.3 / 0.5 / 0.7, per-frame and global-sort.
+"""Evaluation entry point of the port: a trained run over a dataset's
+frames, VOC AP at IoU 0.3 / 0.5 / 0.7, per-frame and global-sort.
 
 Counterpart of ``gencomm_tpu/tools/inference.py``:
 
     python -m gencomm_tpu_torch.tools.inference --model_dir <run> \
-        --dataset synthetic [--frames N] [--ckpt <dir>] [--use_cav K] \
+        --dataset opv2v|v2xset|v2xreal|synthetic [--frames N] [--ckpt <dir>] \
+        [--use_cav K] \
         [--range xmin,ymin,zmin,xmax,ymax,zmax] [--score_threshold T] \
         [--pos_std S --rot_std S [--laplace]] [--delay MS] \
         [--half] [--report_comm] [--save_vis_interval N] \
@@ -24,8 +25,10 @@ ms), which the sampler reads (``tools/train.py:build_dataset``); the
 sweeps ``inference_w_noise`` and ``inference_w_delay`` call this tool once
 a level. ``--save_vis_interval N`` writes every N-th frame's BEV snapshot
 (``visualization/simple_vis.py``, matplotlib) into ``<run>/vis``. Runs on
-``cuda`` unless ``--device cpu``. Multi-class configs raise (ROADMAP item
-19).
+``cuda`` unless ``--device cpu``. A multi-class config (V2X-Real,
+``postprocess.num_class`` > 1) is evaluated per class (``multiclass_eval``):
+the pipeline's multi-class decode, VOC AP of each class at 0.3 / 0.5 / 0.7
+and their means (``map30`` ...), written to ``eval_multiclass.yaml``.
 """
 
 from __future__ import annotations
@@ -178,6 +181,78 @@ def robustness_settings(hypes: dict, args) -> dict:
     return hypes
 
 
+def n_frames(args, dataset) -> int:
+    """``--frames``, at most the real dataset's length."""
+    if args.dataset == "synthetic":
+        return args.frames
+    return min(args.frames, len(dataset))
+
+
+def frame(args, dataset, f: int, pipe, model) -> dict:
+    """Frame f on the host: the loader's sample f (synthetic: ``sample(1000
+    + f, 1)``), its agents capped at ``--use_cav``, trimmed to the model's
+    agent buckets and its pillar modalities decorated."""
+    if args.dataset == "synthetic":
+        host = dataset.sample(1000 + f, 1)
+    else:
+        host = dataset.collate([dataset[f]])
+    if args.use_cav:
+        host = cap_agents(host, args.use_cav)
+    return pipe.decorate(trim_agent_slots(host, buckets=model.agent_buckets))
+
+
+def multiclass_eval(args, hypes, dataset, model, num_class: int,
+                    device) -> dict:
+    """Multi-class evaluation (the JAX tool's ``_multiclass_eval``): each
+    frame through the pipeline's multi-class decode (diffusion seed f),
+    each class's detections against its GT boxes at IoU 0.3 / 0.5 / 0.7;
+    per-class VOC AP and the means, flattened (``<class>_ap30``, ...,
+    ``map30``, ...), written to ``eval_multiclass[_<infer_info>].yaml`` and
+    returned."""
+    from gencomm_tpu_torch.data.postprocessor import (
+        generate_anchor_box_multiclass,
+    )
+    from gencomm_tpu_torch.data.v2xreal import CLASS_NAMES
+
+    pp = hypes["postprocess"]
+    order = pp.get("order", "hwl")
+    anchors_mc, _, _, class_names = generate_anchor_box_multiclass(
+        pp["anchor_args"], order)
+    if len(class_names) != num_class:
+        class_names = list(CLASS_NAMES)[:num_class]
+    pipe = InferencePipeline(model, anchors_mc, pp, device=device)
+    stats = eval_utils.new_multiclass_stat(class_names)
+    for f in range(n_frames(args, dataset)):
+        host = frame(args, dataset, f, pipe, model)
+        dets = pipe.run(host, seed=f)
+        valid = dets.valid[0].cpu().numpy()
+        corners = dets.corners3d[0].cpu().numpy()[valid]
+        scores = dets.scores[0].cpu().numpy()[valid]
+        labels = dets.labels[0].cpu().numpy()[valid]
+        gmask = host["gt_mask"][0] == 1
+        gt_cls = (np.asarray(host["gt_classes"][0])[gmask]
+                  if "gt_classes" in host
+                  else np.ones(int(gmask.sum()), np.int32))
+        gtc = box_utils.boxes_to_corners_3d(host["gt_boxes"][0][gmask], order)
+        for ci, cname in enumerate(class_names):
+            csel, gsel = labels == ci + 1, gt_cls == ci + 1
+            for t in (0.3, 0.5, 0.7):
+                eval_utils.calculate_tp_fp(corners[csel], scores[csel],
+                                           gtc[gsel], stats[cname], t)
+    flat = {}
+    for k, v in eval_utils.eval_multiclass_results(stats).items():
+        if isinstance(v, dict):
+            flat.update({f"{k}_{kk}": float(vv) for kk, vv in v.items()})
+        else:
+            flat[k] = float(v)
+    tag = "eval_multiclass"
+    if args.infer_info:
+        tag += f"_{args.infer_info}"
+    save_yaml(flat, os.path.join(args.model_dir, f"{tag}.yaml"))
+    print(tag, {k: round(v, 4) for k, v in flat.items()})
+    return flat
+
+
 def main(argv=None):
     args = parse_args(argv)
     if args.save_vis_interval:
@@ -195,10 +270,6 @@ def main(argv=None):
     if args.score_threshold is not None:
         hypes["postprocess"]["target_args"]["score_threshold"] = \
             args.score_threshold
-    if int(hypes["postprocess"].get("num_class", 1)) > 1:
-        raise NotImplementedError(
-            "multi-class evaluation is not ported yet (ROADMAP item 19)")
-
     np.random.seed(303)
     dataset = build_dataset(hypes, False, args.dataset)
     model = create_model(hypes, device=device)
@@ -210,6 +281,10 @@ def main(argv=None):
     model.load_state_dict(checkpoint.load_into(model.state_dict(),
                                                restored["state_dict"]))
     print(f"loaded {ckpt_path}")
+    num_class = int(hypes["postprocess"].get("num_class", 1))
+    if num_class > 1:
+        return multiclass_eval(args, hypes, dataset, model, num_class,
+                               device)
     anchors = generate_anchor_box(hypes["postprocess"]["anchor_args"],
                                   hypes["postprocess"].get("order", "hwl"))
     pipe = InferencePipeline(model, anchors, hypes["postprocess"],
@@ -217,12 +292,8 @@ def main(argv=None):
 
     stat = eval_utils.new_result_stat()
     host = None
-    for f in range(args.frames):
-        host = dataset.sample(1000 + f, 1)
-        if args.use_cav:
-            host = cap_agents(host, args.use_cav)
-        host = pipe.decorate(trim_agent_slots(host,
-                                              buckets=model.agent_buckets))
+    for f in range(n_frames(args, dataset)):
+        host = frame(args, dataset, f, pipe, model)
         dets = pipe.run(host, seed=f)
         valid = dets.valid[0].cpu().numpy()
         corners = dets.corners3d[0].cpu().numpy()[valid]

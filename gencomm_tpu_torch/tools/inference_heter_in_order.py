@@ -5,7 +5,8 @@ Counterpart of ``gencomm_tpu/tools/inference_heter_in_order.py`` over the
 port's ``inference.main``:
 
     python -m gencomm_tpu_torch.tools.inference_heter_in_order \
-        --model_dir <run> --dataset synthetic [--frames N] [--max_cav K] \
+        --model_dir <run> --dataset opv2v|v2xset|v2xreal|synthetic [--frames N] \
+        [--max_cav K] \
         [--device cuda|cpu]
 
 Each count k writes ``eval_in_order_<k>cav.yaml`` and

@@ -3,7 +3,8 @@
 Counterpart of ``gencomm_tpu/tools/inference_w_delay.py``:
 
     python -m gencomm_tpu_torch.tools.inference_w_delay --model_dir <run> \
-        --dataset synthetic [--frames N] [--delays 0,100,200,300,400,500] \
+        --dataset opv2v|v2xset|v2xreal|synthetic [--frames N] \
+        [--delays 0,100,200,300,400,500] \
         [--device cuda|cpu]
 
 evaluates the run once a delay (ms: the non-ego agents observe the

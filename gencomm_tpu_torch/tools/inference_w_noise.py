@@ -3,7 +3,8 @@
 Counterpart of ``gencomm_tpu/tools/inference_w_noise.py``:
 
     python -m gencomm_tpu_torch.tools.inference_w_noise --model_dir <run> \
-        --dataset synthetic [--frames N] [--levels 0,0.2,0.4,0.6] \
+        --dataset opv2v|v2xset|v2xreal|synthetic [--frames N] \
+        [--levels 0,0.2,0.4,0.6] \
         [--laplace] [--device cuda|cpu]
 
 evaluates the run once a level, sigma_pos = sigma_rot = the level (m and

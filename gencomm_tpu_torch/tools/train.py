@@ -1,9 +1,10 @@
 """Training entry point of the port.
 
-Counterpart of ``gencomm_tpu/tools/train.py`` on the synthetic dataset:
+Counterpart of ``gencomm_tpu/tools/train.py``:
 
     python -m gencomm_tpu_torch.tools.train -y configs/opv2v/xxx.yaml \
-        [--model_dir logs/run1] [--dataset synthetic] [--epochs N] \
+        [--model_dir logs/run1] [--dataset opv2v|v2xset|v2xreal|synthetic] \
+        [--epochs N] \
         [--init_from <checkpoint or model dir>] [--device cuda|cpu] \
         [--trainer kd --teacher_ckpt <checkpoint or model dir>]
 
@@ -24,7 +25,11 @@ train step runs the criterion's "_single" pass. ``--trainer kd`` distils
 ``--teacher_ckpt`` runs frozen beside the student, and a plain detection
 criterion is upgraded to ``point_pillar_disconet_loss``. The hypes'
 ``noise_setting`` and ``wild_setting`` put pose noise and delay into the
-sampled scenes. Each epoch: the host pipeline (sampling, labels, the fusion
+frames. The data: a real dataset's loader over ``root_dir`` (``opv2v`` and
+``v2xset``: ``data/opv2v.py``; ``v2xreal``: ``data/v2xreal.py``, whose
+multi-class labels feed V2X-Real's losses), one pass over a seeded
+permutation an epoch, or the synthetic sampler. Each epoch: the host
+pipeline (loading or sampling, labels, the fusion
 mode's adaptation (``Adapt``: early fusion's merged cloud, late and no
 fusion's ego slot, intermediate fusion's agent-slot trimming), the C++
 pillar decoration (none with ``--no_host_decorate``: a pillar encoder then
@@ -33,8 +38,9 @@ VoxelNet or PIXOR modality keeps its raw points) on a producer thread
 or ``--workers`` processes, the steps on
 the device, ``step_<epoch>`` every ``save_freq`` epochs, and the
 validation loss on held-out scenes with one rolling ``bestval_at_<epoch>``
-whose loss ``bestval.json`` keeps across resumes. Runs on ``cuda`` unless
-``--device cpu``.
+whose loss ``bestval.json`` keeps across resumes; after it a real
+dataset scans its scenarios again, its CAVs shuffled anew. Runs on
+``cuda`` unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ import json
 import os
 import time
 
+import numpy as np
 import torch
 
 from gencomm_tpu_torch import resolve_device
@@ -67,22 +74,34 @@ DATASETS = ["opv2v", "v2xset", "dairv2x", "v2xsim", "v2xreal", "synthetic"]
 
 
 def build_dataset(hypes: dict, train: bool, dataset: str):
-    """The dataset of a run. Only ``synthetic`` is ported: the scenes'
-    modalities, range, anchors and, for a camera-labelled config, the spawn
+    """The dataset of a run: a real-data loader for ``opv2v`` and
+    ``v2xset`` (one directory format: ``data/opv2v.py``) and ``v2xreal``
+    (``data/v2xreal.py``) over the hypes' ``root_dir`` (training) or
+    ``validate_dir``; or the ``synthetic`` sampler, whose scenes'
+    modalities, range, anchors and, for a camera-labelled config, spawn
     radius come from the hypes, as the JAX package derives them, and so do
     the robustness knobs: pose noise from ``noise_setting`` (where
     ``pose_noise_enabled``), the delay from ``wild_setting``
-    (``async_overhead`` ms where ``async``). The agents a scene holds are
+    (``async_overhead`` ms where ``async``). The sampler's agents are
     capped at ``max_cav``: the single-agent yamls (``max_cav: 1``) give one
-    (the JAX package samples 2 into 1 slot and fails, ROADMAP fault q)."""
+    (the JAX package samples 2 into 1 slot and fails, ROADMAP fault q).
+    ``dairv2x`` and ``v2xsim`` raise."""
+    if dataset in ("opv2v", "v2xset"):
+        from gencomm_tpu_torch.data.opv2v import OPV2VDataset
+
+        return OPV2VDataset(hypes, train=train)
+    if dataset == "v2xreal":
+        from gencomm_tpu_torch.data.v2xreal import V2XRealDataset
+
+        return V2XRealDataset(hypes, train=train)
+    if dataset != "synthetic":
+        raise NotImplementedError(
+            f"dataset {dataset!r} is not ported yet (ROADMAP item 20); "
+            "use --dataset synthetic, opv2v, v2xset or v2xreal")
     from gencomm_tpu_torch.data.synthetic import (
         SyntheticConfig, SyntheticScenes,
     )
 
-    if dataset != "synthetic":
-        raise NotImplementedError(
-            f"dataset {dataset!r} is not ported yet (ROADMAP item 20); "
-            "use --dataset synthetic")
     ns = hypes.get("noise_setting", {}) or {}
     nargs = ns.get("args", {}) if pose_noise_enabled(ns) else {}
     ws = hypes.get("wild_setting", {}) or {}
@@ -136,14 +155,18 @@ def build_dataset(hypes: dict, train: bool, dataset: str):
 
 
 def batches(dataset, batch_size: int, seed: int, dataset_kind: str):
-    """Endless synthetic batches: ``sample(seed * 10000 + step, B)``."""
-    if dataset_kind != "synthetic":
-        raise NotImplementedError(
-            f"dataset {dataset_kind!r} is not ported yet (ROADMAP item 20)")
-    step = 0
-    while True:
-        yield dataset.sample(seed * 10000 + step, batch_size)
-        step += 1
+    """Synthetic: endless batches ``sample(seed * 10000 + step, B)``. A
+    real dataset: one pass over a permutation seeded with ``seed``, B
+    samples a batch, collated (a last partial batch dropped)."""
+    if dataset_kind == "synthetic":
+        step = 0
+        while True:
+            yield dataset.sample(seed * 10000 + step, batch_size)
+            step += 1
+    idx = np.random.RandomState(seed % (2 ** 32)).permutation(len(dataset))
+    for start in range(0, len(idx) - batch_size + 1, batch_size):
+        yield dataset.collate([dataset[i]
+                               for i in idx[start: start + batch_size]])
 
 
 # the per-slot legacy detectors, which train every agent as a sample on
@@ -379,7 +402,7 @@ def main(argv=None):
             gen = prefetch_iter(src)
         # the diffusion's noise: one generator an epoch on the model's device
         generator = torch.Generator(device=device).manual_seed(epoch * 100003)
-        tick, tick_it = None, 0
+        tick, tick_it, done = None, 0, 0
         for it in range(args.steps_per_epoch):
             try:
                 host = next(gen)
@@ -387,6 +410,7 @@ def main(argv=None):
                 break
             losses = step_fn(batch_to_device(host, device), generator=generator)
             step += 1
+            done += 1
             if it % 10 == 0:
                 # float() waits for the step, so the clock below measures
                 # the whole step, host work included
@@ -400,7 +424,21 @@ def main(argv=None):
                 print(f"[epoch {epoch}][{it}] {msg}{rate}", flush=True)
                 metrics.log(epoch * args.steps_per_epoch + it, losses,
                             prefix="train/")
+                if it == 0:
+                    first = now
+        if done > 1:
+            # the epoch's steps after its first, loading included: the
+            # rate a user's run reaches
+            float(losses["total_loss"])
+            ms = (time.perf_counter() - first) / (done - 1) * 1e3
+            print(f"[epoch {epoch}] {ms:.1f} ms/step over steps 1-"
+                  f"{done - 1}", flush=True)
+            metrics.log(epoch * args.steps_per_epoch + done - 1,
+                        {"ms_per_step": ms}, prefix="train/")
         gen.close()
+        if hasattr(dataset, "reinitialize"):
+            # the scenario database again, its CAVs shuffled anew
+            dataset.reinitialize()
         if (epoch + 1) % save_freq == 0:
             path = checkpoint.save_checkpoint(model_dir, model.state_dict(),
                                               step, epoch=epoch + 1)
@@ -410,12 +448,17 @@ def main(argv=None):
                            args.dataset)
             vtotal, vn = 0.0, 0
             for vit in range(args.val_steps):
-                vbatch = batch_to_device(adapt(next(vgen)), device)
+                try:
+                    vbatch = batch_to_device(adapt(next(vgen)), device)
+                except StopIteration:
+                    break
                 vgenerator = torch.Generator(device=device).manual_seed(
                     777 + vit)
                 vlosses = eval_fn(vbatch, generator=vgenerator)
                 vtotal += float(vlosses["total_loss"])
                 vn += 1
+            if not vn:
+                continue
             vavg = vtotal / vn
             print(f"[epoch {epoch}] val loss {vavg:.4f} (best {best_val:.4f})",
                   flush=True)

@@ -78,6 +78,19 @@ def project_box3d(corners3d, transformation_matrix):
     return torch.einsum("nkj,ij->nki", hom, tfm)[..., :3]
 
 
+def create_bbx(extent):
+    """(8, 3) corners of a box of half-extents [l/2, w/2, h/2] in its own
+    frame (float64), in the template's corner order."""
+    e = np.asarray(extent, dtype=np.float64)
+    return _CORNER_TEMPLATE.astype(np.float64) * 2.0 * e[None, :]
+
+
+def create_bbx_batch(extents: np.ndarray) -> np.ndarray:
+    """(K, 3) half-extents -> (K, 8, 3) corners (``create_bbx`` of each)."""
+    e = np.asarray(extents, dtype=np.float64)
+    return _CORNER_TEMPLATE.astype(np.float64)[None] * 2.0 * e[:, None, :]
+
+
 def corner_to_center(corner3d: np.ndarray, order: str = "lwh") -> np.ndarray:
     """(N, 8, 3) corners -> (N, 7) float32 boxes (numpy): the centre of the
     four corners 0, 3, 5, 6, the mean height, the four bottom and top edge
@@ -141,12 +154,12 @@ def mask_boxes_outside_range(corners3d, limit_range):
     return inside.any(1)
 
 
-def remove_large_pred_bbx(corners3d):
-    """Drop boxes whose x/y extents exceed 6 m (and those with zero y
-    extent, the reference's z_len quirk)."""
+def remove_large_pred_bbx(corners3d, max_len: float = 6.0):
+    """Drop boxes whose x/y extents exceed ``max_len`` m (and those with
+    zero y extent, the reference's z_len quirk)."""
     x_len = corners3d[..., 0].amax(1) - corners3d[..., 0].amin(1)
     y_len = corners3d[..., 1].amax(1) - corners3d[..., 1].amin(1)
-    return (x_len <= 6) & (y_len <= 6) & (y_len > 0)
+    return (x_len <= max_len) & (y_len <= max_len) & (y_len > 0)
 
 
 def remove_bbx_abnormal_z(corners3d, z_min: float = -3.0, z_max: float = 1.0):

@@ -32,6 +32,40 @@ def x_to_world(pose) -> np.ndarray:
     return matrix
 
 
+def x_to_world_batch(poses: np.ndarray) -> np.ndarray:
+    """(N, 6) poses (deg) -> (N, 4, 4) agent->world transforms
+    (``x_to_world`` of each)."""
+    poses = np.asarray(poses, np.float64)
+    x, y, z = poses[:, 0], poses[:, 1], poses[:, 2]
+    roll, yaw, pitch = (np.radians(poses[:, 3]), np.radians(poses[:, 4]),
+                        np.radians(poses[:, 5]))
+    c_y, s_y = np.cos(yaw), np.sin(yaw)
+    c_r, s_r = np.cos(roll), np.sin(roll)
+    c_p, s_p = np.cos(pitch), np.sin(pitch)
+    m = np.zeros((len(poses), 4, 4))
+    m[:, 0, 0] = c_p * c_y
+    m[:, 0, 1] = c_y * s_p * s_r - s_y * c_r
+    m[:, 0, 2] = -c_y * s_p * c_r - s_y * s_r
+    m[:, 1, 0] = s_y * c_p
+    m[:, 1, 1] = s_y * s_p * s_r + c_y * c_r
+    m[:, 1, 2] = -s_y * s_p * c_r + c_y * s_r
+    m[:, 2, 0] = s_p
+    m[:, 2, 1] = -c_p * s_r
+    m[:, 2, 2] = c_p * c_r
+    m[:, 0, 3], m[:, 1, 3], m[:, 2, 3], m[:, 3, 3] = x, y, z, 1.0
+    return m
+
+
+def x1_to_x2(x1, x2) -> np.ndarray:
+    """The transform from pose ``x1``'s frame into pose ``x2``'s (CARLA
+    poses or 4 x 4 matrices)."""
+    t1 = x1 if isinstance(x1, np.ndarray) and x1.shape == (4, 4) \
+        else x_to_world(x1)
+    t2 = x2 if isinstance(x2, np.ndarray) and x2.shape == (4, 4) \
+        else x_to_world(x2)
+    return np.linalg.solve(t2, t1)
+
+
 def get_pairwise_transformation(poses: np.ndarray, max_cav: int, n_valid: int,
                                 proj_first: bool = False) -> np.ndarray:
     """(L, L, 4, 4) pairwise transforms; [i, j] maps agent-i coords into

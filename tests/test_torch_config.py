@@ -79,6 +79,12 @@ HEAL = [f"configs/opv2v/heal/{p}.yaml" for p in (
 BASELINES = [f"configs/opv2v/baselines/stage2/{p}.yaml" for p in (
     "backalign/m1m2_att", "codefilling/m1m2_att", "mpda/m1m2_att",
     "stamp/m0m2_att")]
+# V2X-Real's multi-class GenComm configs and one of each baseline
+V2XREAL = [f"configs/v2xreal/{p}.yaml" for p in (
+    "gencomm/stage1/m1_att", "gencomm/stage1/m2_att", "gencomm/stage1/m3_att",
+    "gencomm/stage2/m1m2_att", "baselines/stage2/backalign/m1m2_att",
+    "baselines/stage2/codefilling/m1m2_att", "baselines/stage2/mpda/m1m2_att",
+    "baselines/stage2/stamp/m0m2_att")]
 SMALL_RANGE = [-16.0, -8.0, -3.0, 16.0, 8.0, 1.0]
 
 
@@ -179,16 +185,19 @@ def test_build_count_and_the_roadmap_items_named(capsys):
     built = sorted(c for c, o in outcomes.items() if o == "built")
     with capsys.disabled():
         print(f"\n{len(built)} of {len(outcomes)} configs build in the port")
-    assert all(c in built for c in GENCOMM + HEAL + BASELINES)
+    assert all(c in built for c in GENCOMM + HEAL + BASELINES + V2XREAL)
     # 98 before the HEAL pyramid slice, + 22 pyramid cores + 14
     # supervise_single configs = 134, + 43 with a SECOND modality = 177,
-    # + 40 of the heterogeneous baselines (OPV2V's and DAIR-V2X's; V2X-Real's
-    # 13 name item 19, multi-class heads) = 217, + VoxelNet, PIXOR and the
-    # legacy second / second_intermediate cores = 221
-    assert len(built) >= 221
-    # each refusal names the ROADMAP item that ports what is missing
+    # + 40 of the heterogeneous baselines (OPV2V's and DAIR-V2X's) = 217,
+    # + VoxelNet, PIXOR and the legacy second / second_intermediate cores =
+    # 221, + V2X-Real's 32 multi-class configs = 253
+    assert len(built) >= 253
+    # each refusal names the ROADMAP item that ports what is missing: only
+    # item 19's legacy cores are left, no multi-class heads
     for c, o in outcomes.items():
-        assert o == "built" or "ROADMAP item" in o, (c, o)
+        assert o == "built" or "ROADMAP item 19" in o, (c, o)
+        assert "multi-class" not in o, (c, o)
+        assert o == "built" or not c.startswith("configs/v2xreal/"), (c, o)
 
 
 def _shape_batch(hypes, points=1000):
@@ -247,7 +256,7 @@ def _load_both(config):
     return out
 
 
-@pytest.mark.parametrize("config", GENCOMM + HEAL + BASELINES)
+@pytest.mark.parametrize("config", GENCOMM + HEAL + BASELINES + V2XREAL)
 def test_gencomm_config_has_jax_parameter_names_and_shapes(config):
     hypes, jhypes = _load_both(config)
     jmodel = jax_create_model(jhypes)
@@ -266,7 +275,11 @@ def test_gencomm_config_has_jax_parameter_names_and_shapes(config):
     n_flax = sum(int(np.prod(x.shape)) for x in jax.tree_util.tree_leaves(
         shapes["params"]))
     assert n_flax == sum(p.numel() for p in model.parameters())
-
+    # the multi-class heads (A * C * C class scores) come across too
+    c = int(hypes["model"]["args"].get("num_class", 1))
+    a = hypes["model"]["args"].get("anchor_number", 2)
+    assert sd["heads.cls_head.weight"].shape[0] == a * c * c
+    assert sd["heads.reg_head.weight"].shape[0] == 7 * a * c
 
 def test_m1m2_camera_bev_lands_on_the_lidar_grid():
     """At full width: the camera branch's 64 x 64 feature (a 102.4 m

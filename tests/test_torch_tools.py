@@ -303,16 +303,14 @@ def test_bench_matrix_rows_on_the_cpu(tmp_path, capsys):
             hypes=yaml_utils.update_yaml(copy.deepcopy(raw)))
         assert row["ms_per_frame"] > 0 and row["streamed_ms_per_frame"] > 0
         assert row["params_M"] > 0 and row["device"] == "cpu (host clock)"
-    missing = [("v2xreal_multiclass",
-                "configs/v2xreal/point_pillar_att.yaml",
-                "intermediate")]
+    missing = [("ciassd", "configs/opv2v/ciassd.yaml", "intermediate")]
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(bench_matrix, "DEFAULT_CONFIGS", missing)
         rows = bench_matrix.main(["--iters", "1", "--device", "cpu"])
     assert len(rows) == 1 and "error" in rows[0]
     assert "ROADMAP item 19" in rows[0]["error"]
     out = capsys.readouterr().out.strip().splitlines()
-    assert json.loads(out[-1])["config"] == "v2xreal_multiclass"
+    assert json.loads(out[-1])["config"] == "ciassd"
 
 
 # -------------------------------------------------------- visualization

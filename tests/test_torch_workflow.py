@@ -200,8 +200,11 @@ def test_unported_flags_and_cores_raise(runs, tmp_path):
     # it needs a teacher
     with pytest.raises(SystemExit, match="teacher_ckpt"):
         train_cli.main(base + ["--trainer", "kd"])
+    # the OPV2V, V2XSet and V2X-Real loaders are ported
+    # (tests/test_torch_datasets.py, tests/test_torch_v2xreal.py); DAIR-V2X's
+    # is not
     with pytest.raises(NotImplementedError, match="item 20"):
-        train_cli.main(base[:2] + ["--dataset", "opv2v", "--device", "cpu",
+        train_cli.main(base[:2] + ["--dataset", "dairv2x", "--device", "cpu",
                                    "--model_dir", str(tmp_path / "run")])
     # the BEV snapshots are ported (tests/test_torch_tools.py)
     inference.main(["--model_dir", runs.m1.pdir, "--dataset", "synthetic",
@@ -239,10 +242,16 @@ def test_unported_flags_and_cores_raise(runs, tmp_path):
                               "args": {"pos_std": 0.2, "rot_std": 0.1}}
     ds = train_cli.build_dataset(noisy, True, "synthetic")
     assert (ds.cfg.pos_std, ds.cfg.rot_std) == (0.2, 0.1)
+    # multi-class heads are ported (tests/test_torch_v2xreal.py); the
+    # legacy cores are not
     multi = copy.deepcopy(runs.m1.ph)
     multi["model"]["args"]["num_class"] = 3
+    assert create_model(multi, device="cpu").heads.cls_head.weight.shape[0] \
+        == 2 * 3 * 3
+    legacy = copy.deepcopy(runs.m1.ph)
+    legacy["model"]["core_method"] = "ciassd"
     with pytest.raises(NotImplementedError, match="item 19"):
-        create_model(multi, device="cpu")
+        create_model(legacy, device="cpu")
 
 
 # ---------------------------------------------------------------- checkpoints
